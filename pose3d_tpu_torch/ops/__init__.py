@@ -1,0 +1,1 @@
+"""Kernels of the port and their plain PyTorch versions."""
