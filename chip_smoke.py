@@ -1,30 +1,59 @@
 """Chip smoke test of the PyTorch/CUDA port: `python3 chip_smoke.py`.
 
-Drives the port's serving path once on one NVIDIA GPU (Hopper, sm_90a)
-at the full width of the default JointTransformerLifter (the reference
-MyViT: 17 tokens, hidden 256, 2 blocks, 4 heads, bf16, random weights
-from a seed), and fails (non-zero exit, traceback) if any phase fails:
+Drives the port's two serving paths on one NVIDIA GPU (Hopper, sm_90a),
+with random weights from a seed, and fails (non-zero exit, traceback) if
+any phase fails:
 
 1. device: the card's name and power limit;
-2. build: nvcc builds the kernels from ``pose3d_tpu_torch/csrc``;
-3. kernel vs plain: the trunk kernel against ``trunk_reference`` on the
-   card at B=64 and B=8192, on the embedded tokens of seeded keypoints
-   (the main path's trunk input), and frame isolation. Tolerances: the
-   fused forward's (B, 17, 3) outputs within atol 5e-2 (the JAX
-   package's bf16 budget); the trunk's own outputs, which reach |7|
-   where one bf16 step is 2^-5, within 5e-2 + 2^-5 |want|; and the
-   kernel's error against an f32 trunk at most 1.5x the plain version's;
-4. serving: ``LifterService(...).warmup()`` then requests of N = 1, 33,
-   200, 8192, 10000 (the last chunked over the top bucket), each checked
-   against the f32 module (atol 0.1) and the plain path (atol 5e-2); the
-   trunk's launch count over these requests must be the number of
-   batches they make;
-5. times at B=8192 with CUDA events, median of 20 runs after warm-up:
-   kernel trunk, plain trunk, eager bf16 module, and the service's lift.
+2. build: nvcc builds the kernels from ``pose3d_tpu_torch/csrc`` (one
+   process per source, side by side); prints ptxas' register and spill
+   lines.
 
-Prints one JSON line of kernel records, then as the last line
-``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
-prints no result. Imports torch, numpy and ``pose3d_tpu_torch`` only.
+The lifter path, the default JointTransformerLifter (the reference MyViT:
+17 tokens, hidden 256, 2 blocks, 4 heads, bf16):
+
+3. kernel vs plain: the trunk kernel against ``trunk_reference`` at B=64
+   and B=8192 on the embedded tokens of seeded keypoints, and frame
+   isolation. Tolerances: the fused forward's (B, 17, 3) outputs within
+   atol 5e-2 (the JAX package's bf16 budget); the trunk's own outputs,
+   which reach |7| where one bf16 step is 2^-5, within 5e-2 + 2^-5 |want|;
+   and the kernel's error against an f32 trunk at most 1.5x the plain
+   version's;
+4. serving: ``LifterService(...).warmup()`` then requests of N = 1, 33,
+   200, 8192, 10000, each checked against the f32 module (atol 0.1) and
+   the plain path (atol 5e-2); the trunk's launches over these requests
+   must be the number of batches they make;
+5. times at B=8192 with CUDA events, median of 20 runs after warm-up.
+
+The temporal path, the default TemporalLifter (17 joints, hidden 256, 8
+heads x 32, MLP 1024, 5 blocks, clips of 243 frames, bf16):
+
+6. kernel vs plain: the spatial and temporal sub-block kernels against
+   ``spatial_block_reference`` / ``temporal_slab_reference`` at C = 2 and
+   C = 16 clips, on the embedded tokens of seeded clips (rows: 5e-2 +
+   2^-5 |want| and the f32-yardstick ratio 1.5, as for the trunk);
+   clip and frame isolation; the attention kernel through both wrappers
+   (``packed_flat_attention`` at seq 17 and 40, ``seq_attention`` at L =
+   100 and 243, 8 heads x 32 and the other head widths) within 2^-6 +
+   2^-7 |want| and the f32-yardstick ratio 1.5;
+7. ``lift_sequence`` on videos of 600 frames (the fused route: one
+   spatial and one temporal sub-block launch per block), 100 frames (the
+   module route: packed attention for the joints, per-sequence attention
+   for the frames) and 40 frames (packed attention for both), each held
+   to the f32 module (atol 0.1) and to the same route on the plain
+   versions (atol 5e-2), with every launch counted;
+8. times at C = 16 x 243 frames, CUDA events, median of 20 after warm-up:
+   each kernel, its plain version and, for the attention, PyTorch's
+   ``scaled_dot_product_attention`` on the same head-split inputs (a
+   yardstick only; the port never calls it); the fused forward, its plain
+   path and the eager bf16 module.
+
+Prints one JSON line of kernel records (with each kernel's bound: the
+larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
+peak and its bytes, each input read once and each output written once,
+over 3.35 TB/s), then as the last line ``{"ok": true, "device": {...}}``.
+Without CUDA it exits non-zero and prints no result. Imports torch, numpy
+and ``pose3d_tpu_torch`` only.
 """
 
 from __future__ import annotations
@@ -41,8 +70,12 @@ import torch
 
 import pose3d_tpu_torch
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter
+from pose3d_tpu_torch.models.temporal import TemporalLifter
 from pose3d_tpu_torch.ops import _build
+from pose3d_tpu_torch.ops import attention as A
 from pose3d_tpu_torch.ops import lifter as L
+from pose3d_tpu_torch.ops import stblock as S
+from pose3d_tpu_torch.pipeline.lift import lift_sequence
 from pose3d_tpu_torch.serving import LifterService
 
 SEED = 0
@@ -56,6 +89,15 @@ KERNEL_ATOL = 5e-2   # kernel vs plain path, (B, 17, 3) outputs (the JAX package
 TRUNK_RTOL = 2 ** -5
 F32_ERR_RATIO = 1.5  # kernel's error vs an f32 trunk, relative to the plain version's
 F32_ATOL = 0.1       # bf16 path vs the f32 module (test_close_to_f32_flax_apply)
+# attention rows: one bf16 step of |out| (2^-7 relative), plus one flipped
+# bf16 rounding of a dominant softmax numerator, worth 2^-8 |v| with |v| up
+# to ~4 for N(0, 1) inputs; and, as for the trunk, the kernel's error
+# against an f32 attention at most 1.5x the plain version's
+ATTN_ATOL, ATTN_RTOL = 2 ** -6, 2 ** -7
+CLIPS = 16           # the JAX bench's temporal_infer batch (TI_B)
+VIDEOS = (600, 100, 40)  # frames: the fused route, the module route at L > 64, at L <= 64
+PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA's data sheet)
+PEAK_HBM = 3.35e12   # H100 SXM HBM3 bytes/s
 
 
 def log(msg: str) -> None:
@@ -87,7 +129,10 @@ def build_phase() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{_build.library_path().relative_to(here)}")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "Compiling entry" in line:
+            kernel = line.split("'")[1]  # the mangled name ends in its arguments
+            log(f"  ptxas: {kernel[:90]}")
+        elif "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
 
@@ -220,6 +265,219 @@ def timing_phase(model, svc) -> dict:
     return t
 
 
+def seeded_temporal(device, dtype):
+    model = TemporalLifter(device="cpu")
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def seeded_clips(n_clips, model, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.rand(n_clips, model.clip_len, 17, 2, generator=gen).to("cuda")
+
+
+def _rows_check(what, got, want, ref32) -> float:
+    """Sub-block rows: 5e-2 + 2^-5 |want| and the f32-yardstick ratio."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    excess = (diff - (KERNEL_ATOL + TRUNK_RTOL * want.float().abs())).max().item()
+    err32 = (got.float() - ref32).abs().max().item()
+    plain32 = (want.float() - ref32).abs().max().item()
+    log(f"kernel vs plain, {what}: max abs err {err:.6g} (|want| max "
+        f"{want.float().abs().max().item():.4g}, worst excess over 5e-2 + 2^-5|want| "
+        f"{excess:.4g}); vs f32: kernel {err32:.6g}, plain {plain32:.6g}")
+    if not torch.isfinite(got).all() or excess > 0 or err32 > F32_ERR_RATIO * plain32:
+        raise AssertionError(f"kernel disagrees with its plain version: {what}")
+    return err
+
+
+def sub_block_phase(model) -> dict:
+    """The spatial and temporal sub-block kernels vs their plain versions on
+    the embedded tokens of seeded clips; returns max abs errors at C=16."""
+    ws, wt = S.pack_spatial_weights(model.blocks[0]), S.pack_temporal_weights(model.blocks[0])
+    w32 = [S.SubBlockWeights(w.flat.float()) for w in (ws, wt)]
+    errs = {}
+    for n_clips in (2, CLIPS):
+        kp = seeded_clips(n_clips, model, SEED + 4)
+        tokens = S.embed_clips(model, kp)
+        errs["spatial_block"] = _rows_check(
+            f"spatial_block C={n_clips}", S.spatial_block(tokens, ws),
+            S.spatial_block_reference(tokens, ws),
+            S.spatial_block_reference(tokens.float(), w32[0]))
+        slab = tokens.view(n_clips, model.clip_len, -1)
+        errs["temporal_slab"] = _rows_check(
+            f"temporal_slab C={n_clips}", S.temporal_slab(slab, wt),
+            S.temporal_slab_reference(slab, wt),
+            S.temporal_slab_reference(slab.float(), w32[1]))
+    slab = S.embed_clips(model, seeded_clips(3, model, SEED + 5)).view(3, model.clip_len, -1)
+    pert = slab.clone()
+    pert[0] += 1.0
+    base, out = S.temporal_slab(slab, wt), S.temporal_slab(pert, wt)
+    if not torch.equal(base[1:], out[1:]) or torch.equal(base[0], out[0]):
+        raise AssertionError("clip isolation: perturbing clip 0 moved other clips")
+    rows, pert = slab.view(-1, 256), slab.view(-1, 256).clone()
+    pert[:17] += 1.0
+    base, out = S.spatial_block(rows, ws), S.spatial_block(pert, ws)
+    if not torch.equal(base[17:], out[17:]) or torch.equal(base[:17], out[:17]):
+        raise AssertionError("frame isolation: perturbing frame 0 moved other frames")
+    log("sub-block kernels: clip and frame isolation ok")
+    return errs
+
+
+def attention_phase() -> dict:
+    """The attention kernel through both wrappers vs the plain versions."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    frames = CLIPS * 243
+    cases = [  # (wrapper, sequences, length, heads, dh): the main path's shapes
+        ("packed_flat_attention", frames, 17, 8, 32),     # spatial halves
+        ("packed_flat_attention", CLIPS * 17, 40, 8, 32),  # temporal halves, 40 frames
+        ("packed_flat_attention", frames, 17, 4, 64),
+        ("packed_flat_attention", CLIPS * 17, 40, 4, 16),
+        ("packed_flat_attention", CLIPS * 17, 5, 2, 32),
+        ("seq_attention", CLIPS * 17, 100, 8, 32),        # temporal halves, 100 frames
+        ("seq_attention", CLIPS * 17, 243, 8, 32),
+        ("seq_attention", CLIPS * 17, 243, 4, 64),
+        ("seq_attention", CLIPS * 17, 100, 4, 16),
+    ]
+    errs = {"packed_flat_attention": 0.0, "seq_attention": 0.0}
+    for name, n, length, heads, dh in cases:
+        qkv = torch.randn(n, length, 3 * heads * dh, generator=gen).to("cuda", torch.bfloat16)
+        if name == "packed_flat_attention":
+            flat = qkv.view(n * length, -1)
+            got = A.packed_flat_attention(flat, length, heads)
+            want = A.packed_flat_attention_reference(flat, length, heads)
+            ref32 = A.packed_flat_attention_reference(flat.float(), length, heads)
+        else:
+            got = A.seq_attention(qkv, heads)
+            want = A.seq_attention_reference(qkv, heads)
+            ref32 = A.seq_attention_reference(qkv.float(), heads)
+        diff = (got.float() - want.float()).abs()
+        excess = (diff - (ATTN_ATOL + ATTN_RTOL * want.float().abs())).max().item()
+        err32 = (got.float() - ref32.view_as(got)).abs().max().item()
+        plain32 = (want.float() - ref32.view_as(want)).abs().max().item()
+        log(f"kernel vs plain, {name} {n} x {length}, {heads} x {dh}: max abs err "
+            f"{diff.max().item():.6g} (worst excess over 2^-6 + 2^-7|want| {excess:.4g}); "
+            f"vs f32: kernel {err32:.6g}, plain {plain32:.6g}")
+        if not torch.isfinite(got).all() or excess > 0 or err32 > F32_ERR_RATIO * plain32:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        errs[name] = max(errs[name], diff.max().item())
+    return errs
+
+
+TEMPORAL_KERNELS = (S.spatial_block, S.temporal_slab, A.packed_flat_attention,
+                    A.seq_attention)
+
+
+def lift_phase(model, model_f32) -> dict:
+    """lift_sequence on three videos; returns each kernel's launches."""
+    model_cpu = seeded_temporal("cpu", torch.bfloat16)
+    rng = np.random.default_rng(SEED + 7)
+    videos = {n: (rng.random((n, 17, 2)) * 1000).astype(np.float32) for n in VIDEOS}
+    expected = {  # launches per kernel: 5 blocks, one forward per video
+        600: (5, 5, 0, 0), 100: (0, 0, 5, 5), 40: (0, 0, 10, 0)}
+    for f in TEMPORAL_KERNELS:
+        f.launches = 0
+    answers = {}
+    for n, kp in videos.items():
+        before = [f.launches for f in TEMPORAL_KERNELS]
+        answers[n] = lift_sequence(model, kp)
+        made = tuple(f.launches - b for f, b in zip(TEMPORAL_KERNELS, before))
+        log(f"lift_sequence {n} frames: launches spatial {made[0]}, temporal {made[1]}, "
+            f"packed {made[2]}, seq {made[3]} (expected {expected[n]})")
+        if made != expected[n]:
+            raise AssertionError(f"{n} frames: the video did not take its route's kernels")
+    launches = {f.__name__: f.launches for f in TEMPORAL_KERNELS}
+    for n, kp in videos.items():
+        got = answers[n]
+        if got.shape != (n, 17, 3) or not np.isfinite(got).all():
+            raise AssertionError(f"{n} frames: bad answer {got.shape}")
+        e32 = np.abs(got - lift_sequence(model_f32, kp)).max()
+        ep = np.abs(got - lift_sequence(model_cpu, kp, use_kernels=True)).max()
+        log(f"lift_sequence {n} frames: max abs err vs f32 module {e32:.6g} (atol "
+            f"{F32_ATOL}), vs the plain versions {ep:.6g} (atol {KERNEL_ATOL})")
+        if e32 > F32_ATOL or ep > KERNEL_ATOL:
+            raise AssertionError(f"{n} frames: answer out of tolerance")
+    return launches
+
+
+def temporal_timing_phase(model) -> dict:
+    kp = seeded_clips(CLIPS, model, SEED + 8)
+    weights = S.pack_temporal_lifter(model)
+    ws, wt = weights[0]
+    tokens = S.embed_clips(model, kp)
+    slab = tokens.view(CLIPS, model.clip_len, -1)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    frames = CLIPS * model.clip_len
+    packed = torch.randn(frames * 17, 768, generator=gen).to("cuda", torch.bfloat16)
+    seq = torch.randn(CLIPS * 17, model.clip_len, 768, generator=gen).to(
+        "cuda", torch.bfloat16)
+
+    def heads_split(qkv, length):  # (N, L, 3*256) -> 3 x (N, 8, L, 32), contiguous
+        q, k, v = qkv.view(-1, length, 3, 8, 32).permute(2, 0, 3, 1, 4)
+        return q.contiguous(), k.contiguous(), v.contiguous()
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qp, kp_, vp = heads_split(packed, 17)
+    qs, ks, vs = heads_split(seq, model.clip_len)
+
+    def plain_forward():
+        trunk = S.temporal_trunk_reference(S.embed_clips(model, kp), CLIPS, weights)
+        return S.temporal_head(model, trunk, CLIPS)
+
+    t = {
+        "spatial_block": cuda_ms(lambda: S.spatial_block(tokens, ws)),
+        "spatial_block_plain": cuda_ms(lambda: S.spatial_block_reference(tokens, ws)),
+        "temporal_slab": cuda_ms(lambda: S.temporal_slab(slab, wt)),
+        "temporal_slab_plain": cuda_ms(lambda: S.temporal_slab_reference(slab, wt)),
+        "packed_flat_attention": cuda_ms(lambda: A.packed_flat_attention(packed, 17, 8)),
+        "packed_flat_attention_plain": cuda_ms(
+            lambda: A.packed_flat_attention_reference(packed, 17, 8)),
+        "packed_flat_attention_sdpa": cuda_ms(lambda: sdpa(qp, kp_, vp)),
+        "seq_attention": cuda_ms(lambda: A.seq_attention(seq, 8)),
+        "seq_attention_plain": cuda_ms(lambda: A.seq_attention_reference(seq, 8)),
+        "seq_attention_sdpa": cuda_ms(lambda: sdpa(qs, ks, vs)),
+        "fused_forward": cuda_ms(lambda: S.temporal_forward_fused(model, kp, weights=weights)),
+        "plain_forward": cuda_ms(plain_forward),
+        "eager_bf16_module": cuda_ms(lambda: model(kp)),
+    }
+    for k in ("fused_forward", "plain_forward", "eager_bf16_module"):
+        log(f"time C={CLIPS} x {model.clip_len} {k}: {t[k]:.4f} ms = "
+            f"{frames / t[k] * 1e3:.1f} frames/s")
+    for k, ms in t.items():
+        if "forward" not in k and "module" not in k:
+            log(f"time C={CLIPS} x {model.clip_len} {k}: {ms:.4f} ms")
+    return t
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the H100 could take, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_bounds(model_vit, model_t) -> dict:
+    """Each kernel's bound at the shapes it is timed at: its matrix-product
+    flops, and its bytes with each input read once and each output written
+    once (weights included)."""
+    b2 = 2  # bytes of a bf16 element
+    d = 256
+    dense = 2 * d * (3 * d + d + 4 * d + 4 * d)  # qkv, proj, W1, W2 flops per row
+    rows_vit = TOP * 17
+    trunk = bound(
+        model_vit.n_blocks * (rows_vit * dense + TOP * 4 * 17 * 17 * 64 * 4),
+        2 * rows_vit * d * b2 + 17 * d * b2 + model_vit.n_blocks * L.BLOCK_ELEMS * b2)
+    t = model_t.clip_len
+    rows = CLIPS * t * 17
+    spatial = bound(rows * dense + CLIPS * t * 8 * 17 * 17 * 32 * 4,
+                    2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
+    temporal = bound(rows * dense + CLIPS * 17 * 8 * t * t * 32 * 4,
+                     2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
+    packed = bound(CLIPS * t * 8 * 17 * 17 * 32 * 4, rows * 4 * d * b2)
+    seq = bound(CLIPS * 17 * 8 * t * t * 32 * 4, rows * 4 * d * b2)
+    return {"lifter_trunk": trunk, "spatial_block": spatial, "temporal_slab": temporal,
+            "packed_flat_attention": packed, "seq_attention": seq}
+
+
 @torch.inference_mode()
 def main() -> None:
     name = device_phase()
@@ -229,16 +487,42 @@ def main() -> None:
     err = kernel_phase(model)
     svc, launches = serving_phase(model, model_f32)
     t = timing_phase(model, svc)
-    log(json.dumps({"kernels": [{
-        "name": "lifter_trunk",
-        "route": "cuda",
-        "source": "pose3d_tpu_torch/csrc/lifter_trunk.cu",
-        "replaces": "pose3d_tpu/ops/pallas_lifter.py:166",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": t["kernel_trunk"],
-        "plain_ms": t["plain_trunk"],
-    }]}))
+
+    tmodel = seeded_temporal("cuda", torch.bfloat16)
+    errs = {**sub_block_phase(tmodel), **attention_phase()}
+    tlaunches = lift_phase(tmodel, seeded_temporal("cuda", torch.float32))
+    tt = temporal_timing_phase(tmodel)
+    bounds = kernel_bounds(model, tmodel)
+
+    def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n_launches, "max_abs_err": max_err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bounds[kname][0],
+                "bound_by": bounds[kname][1], "library_ms": library_ms}
+
+    csrc = "pose3d_tpu_torch/csrc"
+    kernels = [
+        record("lifter_trunk", f"{csrc}/lifter_trunk.cu", "pose3d_tpu/ops/pallas_lifter.py:166",
+               launches, err, t["kernel_trunk"], t["plain_trunk"], None),
+        record("spatial_block", f"{csrc}/stblock.cu", "pose3d_tpu/ops/pallas_stblock.py:90",
+               tlaunches["spatial_block"], errs["spatial_block"], tt["spatial_block"],
+               tt["spatial_block_plain"], None),
+        record("temporal_slab", f"{csrc}/stblock.cu", "pose3d_tpu/ops/pallas_stblock.py:144",
+               tlaunches["temporal_slab"], errs["temporal_slab"], tt["temporal_slab"],
+               tt["temporal_slab_plain"], None),
+        record("packed_flat_attention", f"{csrc}/attention.cu",
+               "pose3d_tpu/ops/pallas_attention.py:393", tlaunches["packed_flat_attention"],
+               errs["packed_flat_attention"], tt["packed_flat_attention"],
+               tt["packed_flat_attention_plain"], tt["packed_flat_attention_sdpa"]),
+        record("seq_attention", f"{csrc}/attention.cu",
+               "pose3d_tpu/ops/pallas_attention.py:447", tlaunches["seq_attention"],
+               errs["seq_attention"], tt["seq_attention"], tt["seq_attention_plain"],
+               tt["seq_attention_sdpa"]),
+    ]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on its main path")
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -55,3 +55,51 @@ def vit_lifter_from_flax(params) -> dict[str, torch.Tensor]:
     _dense(params["Dense_1"], "mlp.0", sd)
     _dense(params["Dense_2"], "mlp.2", sd)
     return sd
+
+
+# SpatioTemporalBlock_{i} of the flax TemporalLifter -> blocks.{i} of the
+# port's: the spatial half (LayerNorm_0, _MHSA_0, LayerNorm_1, _MLP_0),
+# then the temporal half (LayerNorm_2, _MHSA_1, LayerNorm_3, _MLP_1), the
+# order of pallas_stblock.pack_spatial_weights / pack_temporal_weights.
+_ST_HALVES = (
+    ("spatial", "LayerNorm_0", "_MHSA_0", "LayerNorm_1", "_MLP_0"),
+    ("temporal", "LayerNorm_2", "_MHSA_1", "LayerNorm_3", "_MLP_1"),
+)
+
+
+def temporal_lifter_from_flax(params) -> dict[str, torch.Tensor]:
+    """``TemporalLifter`` flax params (nested dicts of arrays) -> the port's
+    ``models.temporal.TemporalLifter`` state dict.
+
+    | flax | port |
+    | --- | --- |
+    | ``Dense_0`` | ``embed`` |
+    | ``spatial_pe``, ``temporal_pe`` | the same names |
+    | ``SpatioTemporalBlock_{i}.LayerNorm_0`` / ``_2`` | ``blocks.{i}.spatial_norm1`` / ``temporal_norm1`` |
+    | ``.._MHSA_0`` / ``_1`` ``.Dense_0``, ``.Dense_1`` | ``blocks.{i}.spatial_attn`` / ``temporal_attn`` ``.qkv``, ``.proj`` |
+    | ``..LayerNorm_1`` / ``_3`` | ``blocks.{i}.spatial_norm2`` / ``temporal_norm2`` |
+    | ``.._MLP_0`` / ``_1`` ``.Dense_0``, ``.Dense_1`` | ``blocks.{i}.spatial_mlp`` / ``temporal_mlp`` ``.fc1``, ``.fc2`` |
+    | ``LayerNorm_0`` | ``norm`` |
+    | ``Dense_1``, ``Dense_2`` | ``head.0``, ``head.2`` |
+
+    The block count is read from the tree.
+    """
+    sd: dict[str, torch.Tensor] = {}
+    _dense(params["Dense_0"], "embed", sd)
+    sd["spatial_pe"] = _t(params["spatial_pe"])
+    sd["temporal_pe"] = _t(params["temporal_pe"])
+    n_blocks = sum(1 for k in params if k.startswith("SpatioTemporalBlock_"))
+    for i in range(n_blocks):
+        bp = params[f"SpatioTemporalBlock_{i}"]
+        for half, ln1, att, ln2, mlp in _ST_HALVES:
+            b = f"blocks.{i}.{half}"
+            _scale_bias(bp[ln1], f"{b}_norm1", sd)
+            _dense(bp[att]["Dense_0"], f"{b}_attn.qkv", sd)
+            _dense(bp[att]["Dense_1"], f"{b}_attn.proj", sd)
+            _scale_bias(bp[ln2], f"{b}_norm2", sd)
+            _dense(bp[mlp]["Dense_0"], f"{b}_mlp.fc1", sd)
+            _dense(bp[mlp]["Dense_1"], f"{b}_mlp.fc2", sd)
+    _scale_bias(params["LayerNorm_0"], "norm", sd)
+    _dense(params["Dense_1"], "head.0", sd)
+    _dense(params["Dense_2"], "head.2", sd)
+    return sd

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-LN_EPS = 1e-5
+from pose3d_tpu_torch.ops.numerics import LN_EPS
 
 
 def sinusoidal_positional_embeddings(sequence_length: int, d: int) -> np.ndarray:

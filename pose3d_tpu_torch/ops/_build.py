@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
-library with a plain C interface, under ``pose3d_tpu_torch/_build/``,
-named by a hash of the sources and flags: a changed source builds anew,
-an unchanged one loads the library already built. Nothing is downloaded;
-a missing ``nvcc`` or a failed build raises.
+``nvcc`` compiles every ``csrc/*.cu`` of the package, one process per
+source and all at once, and links them into one shared library with a
+plain C interface, under ``pose3d_tpu_torch/_build/``, named by a hash of
+the sources and flags: a changed source builds anew, an unchanged one
+loads the library already built. Nothing is downloaded; a missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _NVCC_TIMEOUT_S = 600
 
 
@@ -52,19 +53,40 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Runs the commands side by side; returns their output, or raises
+    with the first failure's."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    try:
+        outs = [p.communicate(timeout=_NVCC_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()  # no-op for a process that has ended
+            p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _compile(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=_NVCC_TIMEOUT_S)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objs)])
+        log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]])
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 @functools.cache
@@ -75,8 +97,13 @@ def library() -> ctypes.CDLL:
         _compile(so)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lifter_trunk_launch.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.lifter_trunk_launch.restype = i
+    for name, args in (("lifter_trunk_launch", [p, p, p, p, i, i, i, i, p]),
+                       ("attention_launch", [p, p, i, i, i, i, p]),
+                       ("stblock_spatial_launch", [p, p, p, i, i, i, p]),
+                       ("stblock_temporal_launch", [p, p, p, p, p, i, i, i, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i
     lib.pose3d_cuda_error_string.argtypes = [i]
     lib.pose3d_cuda_error_string.restype = ctypes.c_char_p
     return lib

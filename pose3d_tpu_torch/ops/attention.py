@@ -1,10 +1,15 @@
-"""Plain PyTorch attention math shared by the port's kernels.
+"""Multi-head self-attention over flat ``[q|k|v]`` rows: the port of
+``pose3d_tpu/ops/pallas_attention.py``.
 
-The counterpart of the helpers in ``pose3d_tpu/ops/pallas_attention.py``
-(``score_exp``, ``block_diag_mask``, ``masked_heads_attention``,
-``frame_chunked_attention``). The CUDA trunk kernel (``csrc/
-lifter_trunk.cu``) inlines the same math per frame; these functions are
-what the plain versions of that kernel run, on any device.
+- ``packed_flat_attention(qkv, seq, heads)``: (n·seq, 3·dim) rows that
+  hold n sequences of ``seq`` tokens back to back -> (n·seq, dim), each
+  sequence attending to itself only (the TPU kernel ``_packed_kernel``).
+- ``seq_attention(qkv, heads)``: (N, L, 3·dim) -> (N, L, dim), one
+  sequence per row of the first axis (the TPU kernel ``_seq_kernel``).
+
+Both launch the CUDA kernel of ``csrc/attention.cu`` when ``qkv`` lies on
+a CUDA device and run their plain versions (``*_reference``) when it lies
+on the CPU. Forward only: the training slice adds the backward.
 
 Numerical contract, as in the JAX helpers: scores and softmax in f32,
 the numerator ``e = exp(min(s, 80))`` with no row max, the normalizer
@@ -16,31 +21,29 @@ from __future__ import annotations
 
 import torch
 
+from pose3d_tpu_torch.ops import _build
+
 SCORE_CLAMP = 80.0  # overflow guard in place of the softmax row max
+HEAD_DIMS = (16, 32, 64)  # the head widths the CUDA kernel is built for
+SMEM_LIMIT = 232448  # shared memory one CUDA block may use on Hopper
 
 
 def score_exp(s: torch.Tensor) -> torch.Tensor:
     """Clamped softmax numerator ``exp(min(s, SCORE_CLAMP))`` of f32 scores.
 
     The same math as a max-subtracted softmax while every score is below
-    the clamp; exp(-inf) = 0 keeps masked entries exact.
+    the clamp.
     """
     return torch.exp(torch.clamp(s, max=SCORE_CLAMP))
 
 
-def block_diag_mask(rows: int, seq: int, device) -> torch.Tensor:
-    """(rows, rows) bool: True within each length-``seq`` diagonal block."""
-    idx = torch.arange(rows, device=device) // seq
-    return idx[:, None] == idx[None, :]
-
-
-def masked_heads_attention(qkv: torch.Tensor, mask, heads: int,
-                           dh: int) -> torch.Tensor:
-    """Multi-head attention over packed rows.
+def heads_attention(qkv: torch.Tensor, heads: int, dh: int) -> torch.Tensor:
+    """Multi-head attention within each sequence of ``rows`` tokens: the
+    JAX helper ``masked_heads_attention`` with no mask.
 
     qkv (..., rows, 3*heads*dh), columns ``[q | k | v]`` with head h of
-    each at ``[h*dh, (h+1)*dh)``; mask (rows, rows) bool or None (full
-    attention). Returns (..., rows, heads*dh) in ``qkv.dtype``.
+    each at ``[h*dh, (h+1)*dh)``. Returns (..., rows, heads*dh) in
+    ``qkv.dtype``.
     """
     dim = heads * dh
     scale = dh ** -0.5
@@ -49,30 +52,118 @@ def masked_heads_attention(qkv: torch.Tensor, mask, heads: int,
         q = qkv[..., h * dh:(h + 1) * dh].float()
         k = qkv[..., dim + h * dh:dim + (h + 1) * dh].float()
         v = qkv[..., 2 * dim + h * dh:2 * dim + (h + 1) * dh]
-        s = (q @ k.transpose(-1, -2)) * scale
-        if mask is not None:
-            s = s.masked_fill(~mask, float("-inf"))
-        e = score_exp(s)
+        e = score_exp((q @ k.transpose(-1, -2)) * scale)
         r = 1.0 / e.sum(dim=-1, keepdim=True)
         av = e.to(v.dtype).float() @ v.float()
         outs.append((av * r).to(qkv.dtype))
     return torch.cat(outs, dim=-1)
 
 
-def frame_chunked_attention(qkv: torch.Tensor, seq: int, heads: int, dh: int,
-                            chunk: int) -> torch.Tensor:
-    """Per-sequence attention over flat rows, computed in ``chunk``-row
-    score tiles that align to sequence boundaries.
+def packed_flat_attention_reference(qkv: torch.Tensor, seq: int,
+                                    heads: int) -> torch.Tensor:
+    """Plain version of ``packed_flat_attention``: full attention on the
+    (rows // seq, seq, 3·dim) view, which equals the JAX kernel's
+    block-diagonal mask over any whole number of sequences."""
+    rows, three_dim = qkv.shape
+    dim = three_dim // 3
+    out = heads_attention(qkv.view(rows // seq, seq, three_dim), heads, dim // heads)
+    return out.view(rows, dim)
 
-    qkv (rows, 3*heads*dh) holds ``rows // seq`` sequences back to back.
-    Equal to ``masked_heads_attention(qkv, block_diag_mask(rows, seq))``;
-    ``chunk == seq`` gives one unmasked tile per sequence.
+
+def seq_attention_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain version of ``seq_attention``."""
+    return heads_attention(qkv, heads, qkv.shape[-1] // 3 // heads)
+
+
+def smem_bytes(seq: int, dh: int) -> int:
+    """Shared memory of one CUDA block at sequence length ``seq``: Q, K and
+    V of one head, padded to whole 16-row tiles, at a pitch of dh + 8 bf16.
+    ``csrc/attention.cuh`` computes the same."""
+    return 3 * (-(-seq // 16) * 16) * (dh + 8) * 2
+
+
+def _head_dim(qkv: torch.Tensor, heads: int, seq: int) -> int:
+    three_dim = qkv.shape[-1]
+    if three_dim % 3 or (three_dim // 3) % heads:
+        raise ValueError(f"qkv width {three_dim} is not 3 x {heads} heads")
+    dh = three_dim // 3 // heads
+    if seq < 1:
+        raise ValueError(f"sequence length {seq} must be at least 1")
+    if qkv.device.type == "cpu":
+        return dh
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {qkv.device}")
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"the attention kernel takes bfloat16, got {qkv.dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head width {dh}: the attention kernel takes {HEAD_DIMS}")
+    if smem_bytes(seq, dh) > SMEM_LIMIT:
+        raise ValueError(f"sequence length {seq} at head width {dh} needs "
+                         f"{smem_bytes(seq, dh)} bytes of shared memory")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("qkv must be contiguous and start on a 16-byte boundary")
+    return dh
+
+
+def packed_flat_attention(qkv: torch.Tensor, seq: int,
+                          heads: int) -> torch.Tensor:
+    """MHSA over flat rows: qkv (n·seq, 3·dim) -> (n·seq, dim), each run of
+    ``seq`` rows one sequence.
+
+    On a CUDA device this launches the kernel (bf16, head width 16, 32 or
+    64; anything else raises) and counts it in
+    ``packed_flat_attention.launches``; on the CPU it runs
+    ``packed_flat_attention_reference``.
     """
+    if qkv.dim() != 2:
+        raise ValueError(f"qkv must be (rows, 3*dim), got {tuple(qkv.shape)}")
+    dh = _head_dim(qkv, heads, seq)
     rows = qkv.shape[0]
-    if chunk >= rows or rows % chunk or chunk % seq:
-        # a misaligned chunk would split a sequence: one full masked tile
-        return masked_heads_attention(
-            qkv, block_diag_mask(rows, seq, qkv.device), heads, dh)
-    mask = None if chunk == seq else block_diag_mask(chunk, seq, qkv.device)
-    tiles = qkv.view(rows // chunk, chunk, qkv.shape[1])
-    return masked_heads_attention(tiles, mask, heads, dh).view(rows, heads * dh)
+    if rows % seq:
+        raise ValueError(f"{rows} rows are not whole sequences of {seq}")
+    if qkv.device.type == "cpu":
+        return packed_flat_attention_reference(qkv, seq, heads)
+    out = torch.empty(rows, heads * dh, dtype=qkv.dtype, device=qkv.device)
+    if rows:
+        _launch(qkv, out, rows // seq, seq, heads, dh)
+        packed_flat_attention.launches += 1
+    return out
+
+
+packed_flat_attention.launches = 0
+
+
+def seq_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """MHSA, one sequence per row of the first axis: qkv (N, L, 3·dim) ->
+    (N, L, dim), for L too long to pack (the 243-frame temporal axis).
+
+    On a CUDA device this launches the kernel (bf16, head width 16, 32 or
+    64; anything else raises) and counts it in ``seq_attention.launches``;
+    on the CPU it runs ``seq_attention_reference``.
+    """
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be (N, L, 3*dim), got {tuple(qkv.shape)}")
+    n, length, _ = qkv.shape
+    dh = _head_dim(qkv, heads, length)
+    if qkv.device.type == "cpu":
+        return seq_attention_reference(qkv, heads)
+    out = torch.empty(n, length, heads * dh, dtype=qkv.dtype, device=qkv.device)
+    if n:
+        _launch(qkv, out, n, length, heads, dh)
+        seq_attention.launches += 1
+    return out
+
+
+seq_attention.launches = 0
+
+
+def _launch(qkv, out, n_seq: int, seq: int, heads: int, dh: int) -> None:
+    """Both wrappers' kernel: (n_seq, seq, 3·dim) contiguous rows are the
+    same bytes as (n_seq·seq, 3·dim) flat rows, so on the GPU the packed
+    and the per-sequence forms are one kernel, one block per (sequence,
+    head); the TPU's packing exists to fill its 128-wide matrix unit."""
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):  # the launch's current device
+        err = lib.attention_launch(qkv.data_ptr(), out.data_ptr(), n_seq, seq,
+                                   heads, dh, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "attention_launch")

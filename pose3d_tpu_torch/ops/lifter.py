@@ -11,7 +11,7 @@ head, which stay plain tensor code, as the JAX package leaves them to XLA.
 Numerical contract, the JAX kernel's: products accumulate in f32,
 LayerNorm statistics and softmax are f32, activations are rounded to the
 working dtype at the same points (``trunk_reference`` spells them out),
-and GELU uses the clamped polynomial erf below.
+and GELU uses the clamped polynomial erf of ``ops/numerics.py``.
 """
 
 from __future__ import annotations
@@ -22,26 +22,18 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from pose3d_tpu_torch.models.lifters import LN_EPS, JointTransformerLifter
+from pose3d_tpu_torch.models.lifters import JointTransformerLifter
 from pose3d_tpu_torch.ops import _build
-from pose3d_tpu_torch.ops.attention import frame_chunked_attention
+from pose3d_tpu_torch.ops.attention import packed_flat_attention_reference
+from pose3d_tpu_torch.ops.numerics import dot, gelu, ln
 
 N_JOINTS = 17
 DIM = 256
 HEADS = 4
-DIM_HEAD = DIM // HEADS
 MLP = 4 * DIM
 # frames per CUDA thread block: the kernel keeps this tile's activations
 # in shared memory for both blocks, so a batch must be a multiple of it
 FRAMES_PER_CTA = 4
-
-# erf(x) ~= clamp(x)·P(clamp(x)^2), the JAX kernel's degree-8 polynomial
-# (pallas_lifter._ERF_C): max |err| 2.7e-5 against the true erf, far below
-# bf16 resolution. The CUDA kernel carries the same coefficients.
-_ERF_C = (1.1283599228e+00, -3.7577772172e-01, 1.1177045202e-01,
-          -2.5570011680e-02, 4.4038703607e-03, -5.4564336601e-04,
-          4.5123548106e-05, -2.1986137083e-06, 4.7283642828e-08)
-_ERF_CLAMP = 3.0
 
 # One block's weights in the kernel's flat operand, in this order;
 # matrices are (in, out) row-major. csrc/lifter_trunk.cu has the same
@@ -106,38 +98,6 @@ def pack_weights(src) -> TrunkWeights:
     return TrunkWeights(torch.cat(parts).contiguous(), n_blocks)
 
 
-def _horner(coefs, s):
-    p = torch.full_like(s, coefs[-1])
-    for c in coefs[-2::-1]:
-        p = p * s + c
-    return p
-
-
-def _erf(x: torch.Tensor) -> torch.Tensor:
-    xc = torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP)
-    return xc * _horner(_ERF_C, xc * xc)
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """GELU on the polynomial erf, in f32, returned in ``x.dtype``."""
-    xf = x.float()
-    return (xf * 0.5 * (1.0 + _erf(xf / math.sqrt(2.0)))).to(x.dtype)
-
-
-def _ln(x, g, b) -> torch.Tensor:
-    """LayerNorm with f32 statistics and biased variance, in ``x.dtype``."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + LN_EPS)
-    return (y * g.float() + b.float()).to(x.dtype)
-
-
-def _dot(a, w) -> torch.Tensor:
-    """a @ w accumulated in f32 (exact products of the working dtype)."""
-    return a.float() @ w.float()
-
-
 def trunk_reference(tokens: torch.Tensor, pe: torch.Tensor,
                     weights: TrunkWeights) -> torch.Tensor:
     """Plain PyTorch version of the trunk kernel, on any device and dtype.
@@ -152,13 +112,13 @@ def trunk_reference(tokens: torch.Tensor, pe: torch.Tensor,
     x = (tokens.view(-1, N_JOINTS, DIM) + pe).view(rows, DIM)
     for i in range(weights.n_blocks):
         w = weights.block(i)
-        y = _ln(_ln(x, w["lna_g"], w["lna_b"]), w["lnb_g"], w["lnb_b"])
-        qkv = _dot(y, w["w_qkv"]).to(dt)
-        att = frame_chunked_attention(qkv, N_JOINTS, HEADS, DIM_HEAD, N_JOINTS)
-        x = x + _dot(att, w["w_proj"]).to(dt)
-        y = _ln(x, w["ln2_g"], w["ln2_b"])
-        y = _gelu((_dot(y, w["w1"]) + w["b1"].float()).to(dt))
-        x = x + (_dot(y, w["w2"]) + w["b2"].float()).to(dt)
+        y = ln(ln(x, w["lna_g"], w["lna_b"]), w["lnb_g"], w["lnb_b"])
+        qkv = dot(y, w["w_qkv"]).to(dt)
+        att = packed_flat_attention_reference(qkv, N_JOINTS, HEADS)
+        x = x + dot(att, w["w_proj"]).to(dt)
+        y = ln(x, w["ln2_g"], w["ln2_b"])
+        y = gelu((dot(y, w["w1"]) + w["b1"].float()).to(dt))
+        x = x + (dot(y, w["w2"]) + w["b2"].float()).to(dt)
     return x
 
 

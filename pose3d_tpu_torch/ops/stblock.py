@@ -1,0 +1,303 @@
+"""Fused sub-blocks of the temporal lifter, and the fused serving forward
+built on them: the port of ``pose3d_tpu/ops/pallas_stblock.py``.
+
+Each half of a ``SpatioTemporalBlock`` is one pre-LN transformer sub-block
+on flat (rows, 256) bf16 token rows, frame-major (row (c·T + t)·17 + j is
+joint j of frame t of clip c):
+
+- ``spatial_block``: attention over the 17 joints of each frame;
+- ``temporal_slab``: attention over the T frames of each joint, on the
+  (C, T, 17·256) slab, which is the same bytes as the spatial rows.
+
+Each runs its CUDA kernel (``csrc/stblock.cu``) when its operands lie on a
+CUDA device and its plain version (``*_reference``) when they lie on the
+CPU. ``temporal_forward_fused`` is the whole ``TemporalLifter`` inference
+on them; the embed + PE and the LN -> 128 -> ReLU -> 3 head stay plain
+tensor code, as the JAX package leaves them to XLA.
+
+Numerical contract, the JAX kernels': products accumulate in f32,
+LayerNorm statistics and softmax are f32, activations are rounded to the
+working dtype at the same points (``_sub_block`` spells them out: qkv =
+bf16(dot + b); x += bf16(dot + b) after the projection; the MLP
+pre-activation is bf16(dot + b1), then GELU on the polynomial erf, then
+x += bf16(dot + b2)), and softmax is the clamped one of ``ops/attention``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from pose3d_tpu_torch.models.temporal import TemporalLifter
+from pose3d_tpu_torch.ops import _build, attention
+from pose3d_tpu_torch.ops.numerics import dot, gelu, ln
+
+N_JOINTS = 17
+DIM = 256
+HEADS = 8
+DIM_HEAD = DIM // HEADS
+MLP = 4 * DIM
+# frames per CUDA thread block of the spatial kernel: whole frames, since
+# each attends within itself; a last partial tile runs with zero frames
+FRAMES_PER_CTA = 4
+
+# One sub-block's weights in the kernels' flat operand, in this order (the
+# order of pallas_stblock.pack_spatial_weights / pack_temporal_weights);
+# matrices are (in, out) row-major. csrc/stblock.cu has the same offsets.
+# Each entry: name, shape, key in a SpatioTemporalBlock half, transposed.
+_LAYOUT = (
+    ("ln1_g", (DIM,), "norm1.weight", False),
+    ("ln1_b", (DIM,), "norm1.bias", False),
+    ("w_qkv", (DIM, 3 * DIM), "attn.qkv.weight", True),
+    ("b_qkv", (3 * DIM,), "attn.qkv.bias", False),
+    ("w_proj", (DIM, DIM), "attn.proj.weight", True),
+    ("b_proj", (DIM,), "attn.proj.bias", False),
+    ("ln2_g", (DIM,), "norm2.weight", False),
+    ("ln2_b", (DIM,), "norm2.bias", False),
+    ("w1", (DIM, MLP), "mlp.fc1.weight", True),
+    ("b1", (MLP,), "mlp.fc1.bias", False),
+    ("w2", (MLP, DIM), "mlp.fc2.weight", True),
+    ("b2", (DIM,), "mlp.fc2.bias", False),
+)
+BLOCK_ELEMS = sum(math.prod(shape) for _, shape, _, _ in _LAYOUT)
+
+
+@dataclass(frozen=True)
+class SubBlockWeights:
+    """One sub-block's weights as the kernels take them: one contiguous
+    1-D tensor of ``BLOCK_ELEMS`` elements in ``_LAYOUT``."""
+
+    flat: torch.Tensor
+
+    def parts(self) -> dict[str, torch.Tensor]:
+        """Views of the tensors, by layout name."""
+        out, pos = {}, 0
+        for name, shape, _, _ in _LAYOUT:
+            n = math.prod(shape)
+            out[name] = self.flat[pos:pos + n].view(shape)
+            pos += n
+        return out
+
+
+def _pack(block, half: str) -> SubBlockWeights:
+    sd = block.state_dict()
+    ref = sd[f"{half}_attn.qkv.weight"]
+    parts = []
+    for name, shape, key, transposed in _LAYOUT:
+        t = sd[f"{half}_{key}"]
+        t = t.t() if transposed else t
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{half}_{key}: shape {tuple(t.shape)}, the kernel "
+                             f"takes {shape} as {name}")
+        parts.append(t.to(device=ref.device, dtype=ref.dtype).reshape(-1))
+    return SubBlockWeights(torch.cat(parts).contiguous())
+
+
+def pack_spatial_weights(block) -> SubBlockWeights:
+    """A ``SpatioTemporalBlock``'s spatial half -> the kernels' operand, on
+    its device and in its dtype. Raises ValueError where the widths are not
+    the kernel's (hidden 256, MLP 1024)."""
+    return _pack(block, "spatial")
+
+
+def pack_temporal_weights(block) -> SubBlockWeights:
+    """The temporal half, as ``pack_spatial_weights``."""
+    return _pack(block, "temporal")
+
+
+def pack_temporal_lifter(module) -> list[tuple[SubBlockWeights, SubBlockWeights]]:
+    """(spatial, temporal) operands of every block of a ``TemporalLifter``."""
+    return [(pack_spatial_weights(b), pack_temporal_weights(b)) for b in module.blocks]
+
+
+def _sub_block(x: torch.Tensor, w: dict, attend) -> torch.Tensor:
+    """One sub-block on flat rows x, ``attend`` mapping its qkv rows to
+    attention rows, rounded to ``x.dtype`` where the JAX kernels round."""
+    dt = x.dtype
+    y = ln(x, w["ln1_g"], w["ln1_b"])
+    qkv = (dot(y, w["w_qkv"]) + w["b_qkv"].float()).to(dt)
+    x = x + (dot(attend(qkv), w["w_proj"]) + w["b_proj"].float()).to(dt)
+    y = ln(x, w["ln2_g"], w["ln2_b"])
+    y = gelu((dot(y, w["w1"]) + w["b1"].float()).to(dt))
+    return x + (dot(y, w["w2"]) + w["b2"].float()).to(dt)
+
+
+def spatial_block_reference(x: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
+    """Plain version of ``spatial_block``, on any device and dtype."""
+    return _sub_block(x, w.parts(), lambda qkv: attention.packed_flat_attention_reference(
+        qkv, N_JOINTS, HEADS))
+
+
+def temporal_slab_reference(x_slab: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
+    """Plain version of ``temporal_slab``, on any device and dtype."""
+    c, t, width = x_slab.shape
+
+    def attend(qkv):  # per (clip, joint): attention over its t frames
+        joint_major = qkv.view(c, t, N_JOINTS, 3 * DIM).transpose(1, 2)
+        out = attention.seq_attention_reference(joint_major, HEADS)
+        return out.transpose(1, 2).reshape(c * t * N_JOINTS, DIM)
+
+    rows = x_slab.reshape(c * t * N_JOINTS, DIM)
+    return _sub_block(rows, w.parts(), attend).view(c, t, width)
+
+
+def _check_operands(x: torch.Tensor, w: SubBlockWeights) -> None:
+    if w.flat.numel() != BLOCK_ELEMS:
+        raise ValueError("weights do not follow the kernel's layout")
+    if w.flat.device != x.device or w.flat.dtype != x.dtype:
+        raise ValueError(f"weights are {w.flat.dtype} on {w.flat.device}, tokens "
+                         f"{x.dtype} on {x.device}")
+    if x.device.type == "cpu":
+        return
+    if x.device.type != "cuda":
+        raise ValueError(f"no sub-block kernel for device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the sub-block kernels take bfloat16, got {x.dtype}")
+    for name, t in (("tokens", x), ("weights", w.flat)):
+        if not t.is_contiguous() or t.data_ptr() % 16:  # 16-byte vector loads
+            raise ValueError(f"{name} must be contiguous and start on a 16-byte boundary")
+
+
+def spatial_block(x: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
+    """The spatial sub-block on flat (n_frames·17, 256) rows.
+
+    On a CUDA device this launches the kernel on the current stream (bf16
+    only; anything else raises) and counts it in ``spatial_block.launches``;
+    on the CPU it runs ``spatial_block_reference``.
+    """
+    if x.dim() != 2 or x.shape[1] != DIM or x.shape[0] % N_JOINTS:
+        raise ValueError(f"tokens must be (n_frames*{N_JOINTS}, {DIM}), "
+                         f"got {tuple(x.shape)}")
+    _check_operands(x, w)
+    if x.device.type == "cpu":
+        return spatial_block_reference(x, w)
+    out = torch.empty_like(x)
+    n_frames = x.shape[0] // N_JOINTS
+    if n_frames == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(x.device):  # the launch's current device
+        err = lib.stblock_spatial_launch(
+            x.data_ptr(), w.flat.data_ptr(), out.data_ptr(), n_frames, FRAMES_PER_CTA,
+            BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "stblock_spatial_launch")
+    spatial_block.launches += 1
+    return out
+
+
+spatial_block.launches = 0
+
+
+def temporal_slab(x_slab: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
+    """The temporal sub-block on the (C, T, 17·256) frame-major slab.
+
+    On a CUDA device this launches the kernels on the current stream (bf16
+    only; anything else raises: three kernels in a row, with a qkv and an
+    attention scratch allocated here) and counts the call in
+    ``temporal_slab.launches``; on the CPU it runs
+    ``temporal_slab_reference``.
+    """
+    if x_slab.dim() != 3 or x_slab.shape[2] != N_JOINTS * DIM or x_slab.shape[1] < 1:
+        raise ValueError(f"the slab must be (C, T, {N_JOINTS * DIM}), "
+                         f"got {tuple(x_slab.shape)}")
+    _check_operands(x_slab, w)
+    if x_slab.device.type == "cpu":
+        return temporal_slab_reference(x_slab, w)
+    c, t, _ = x_slab.shape
+    if attention.smem_bytes(t, DIM_HEAD) > attention.SMEM_LIMIT:
+        raise ValueError(f"{t} frames: a joint's K and V do not fit in shared memory")
+    out = torch.empty_like(x_slab)
+    if c == 0:
+        return out
+    rows = c * t * N_JOINTS
+    qkv = torch.empty(rows, 3 * DIM, dtype=x_slab.dtype, device=x_slab.device)
+    att = torch.empty(rows, DIM, dtype=x_slab.dtype, device=x_slab.device)
+    lib = _build.library()
+    with torch.cuda.device(x_slab.device):  # the launch's current device
+        err = lib.stblock_temporal_launch(
+            x_slab.data_ptr(), w.flat.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+            out.data_ptr(), c, t, BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "stblock_temporal_launch")
+    temporal_slab.launches += 1
+    return out
+
+
+temporal_slab.launches = 0
+
+
+def supports(model) -> bool:
+    """True iff ``model`` has the widths the kernels bake in (17 joints,
+    hidden 256, 8 heads): the fused route's condition in the JAX
+    package's ``lift_sequence``."""
+    return (isinstance(model, TemporalLifter) and model.n_joints == N_JOINTS
+            and model.hidden == DIM and model.heads == HEADS)
+
+
+def embed_clips(module, clips: torch.Tensor) -> torch.Tensor:
+    """(C, clip_len, 17, in_dim) clips -> the trunk's (C·clip_len·17, 256)
+    input rows in the module's dtype: ``x @ W + b``, plus the PE table
+    bf16(spatial_pe) + bf16(temporal_pe), rounded before it meets the
+    tokens, as in the JAX fused forward (the module adds the two in
+    turn)."""
+    c, t, j, d = clips.shape
+    if j != N_JOINTS or t != module.clip_len or d != module.in_dim:
+        raise ValueError(f"expected (C, {module.clip_len}, {N_JOINTS}, "
+                         f"{module.in_dim}), got {tuple(clips.shape)}")
+    emb = module.embed
+    tokens = clips.reshape(c * t * j, d).to(module.dtype) @ emb.weight.t() + emb.bias
+    pe = module.spatial_pe[0, 0][None] + module.temporal_pe[0, :t][:, None]
+    return tokens + pe.reshape(t * j, DIM).repeat(c, 1)
+
+
+def temporal_trunk(tokens: torch.Tensor, n_clips: int, weights) -> torch.Tensor:
+    """Every block's spatial then temporal sub-block on the (C·T·17, 256)
+    rows of ``n_clips`` clips; ``weights`` as ``pack_temporal_lifter``."""
+    for w_spatial, w_temporal in weights:
+        tokens = spatial_block(tokens, w_spatial)
+        tokens = temporal_slab(tokens.view(n_clips, -1, N_JOINTS * DIM),
+                               w_temporal).view(-1, DIM)
+    return tokens
+
+
+def temporal_trunk_reference(tokens: torch.Tensor, n_clips: int,
+                             weights) -> torch.Tensor:
+    """Plain version of ``temporal_trunk``, on any device and dtype."""
+    for w_spatial, w_temporal in weights:
+        tokens = spatial_block_reference(tokens, w_spatial)
+        tokens = temporal_slab_reference(tokens.view(n_clips, -1, N_JOINTS * DIM),
+                                         w_temporal).view(-1, DIM)
+    return tokens
+
+
+def temporal_head(module, tokens: torch.Tensor, n_clips: int) -> torch.Tensor:
+    """The trunk's rows -> (C, T, 17, out_dim) f32 through the module's
+    LN (f32 statistics) -> Linear -> ReLU -> Linear head, in its dtype."""
+    y = ln(tokens, module.norm.weight, module.norm.bias)
+    l1, l2 = module.head[0], module.head[2]
+    y = torch.relu(y @ l1.weight.t() + l1.bias)
+    y = (y @ l2.weight.t() + l2.bias).float()
+    return y.view(n_clips, -1, N_JOINTS, module.out_dim)
+
+
+def temporal_forward_fused(module, clips: torch.Tensor, *,
+                           weights=None) -> torch.Tensor:
+    """Fused inference forward of a ``TemporalLifter`` of the kernels'
+    widths: clips (C, clip_len, 17, in_dim) on the module's device ->
+    (C, clip_len, 17, out_dim) f32, the contract of ``module(clips)``.
+
+    Computes in the module's dtype (bf16 is the served configuration and
+    the only one the kernels take): ``temporal_head(temporal_trunk(
+    embed_clips(...)))``, whose plain version, the yardstick on the card,
+    puts ``temporal_trunk_reference`` in the middle. ``weights`` defaults
+    to ``pack_temporal_lifter(module)``; pass them packed once to skip the
+    repacking.
+    """
+    if not supports(module):
+        raise ValueError("temporal_forward_fused takes a TemporalLifter with 17 "
+                         "joints, hidden 256 and 8 heads only")
+    if weights is None:
+        weights = pack_temporal_lifter(module)
+    tokens = embed_clips(module, clips)
+    return temporal_head(module, temporal_trunk(tokens, len(clips), weights), len(clips))

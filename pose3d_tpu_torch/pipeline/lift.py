@@ -1,0 +1,69 @@
+"""Sequence lifting inference: video 2D-keypoint JSON -> (T,17,3) npy; the
+port of ``pose3d_tpu/pipeline/lift.py``.
+
+Keypoints are normalized by the image size, cut into overlapping clips,
+lifted in one batched call on the model's device, and the overlapping
+predictions averaged back into a (T,17,3) float32 sequence.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pose3d_tpu_torch.models.temporal import clip_starts, make_clips
+from pose3d_tpu_torch.ops import stblock
+from pose3d_tpu_torch.pipeline.keypoints import load_video_json, save_mb_npy
+
+
+def lift_sequence(model, kp2d_px: np.ndarray, image_size: float = 1000.0,
+                  stride: int | None = None, use_kernels: bool | None = None):
+    """(T,17,2) pixel keypoints -> (T,17,3) lifted sequence, on the device
+    of ``model`` (a ``TemporalLifter``).
+
+    Clips of ``model.clip_len`` frames (of T, where T is shorter) with
+    ``stride`` overlap (default: half a clip); overlapping frame
+    predictions are averaged; every frame is covered (``clip_starts``
+    anchors a final window at the tail).
+
+    ``use_kernels``: None (default) takes the kernels for a bfloat16 model
+    only, so that an f32 model keeps f32 numerics. With kernels, full-length
+    clips of a model of the kernels' widths run the fused forward
+    (``ops.stblock.temporal_forward_fused``: one spatial and one temporal
+    sub-block kernel per block), and anything else the module with its
+    attention kernels. On the CPU every kernel runs its plain version.
+    """
+    t_total = kp2d_px.shape[0]
+    if t_total == 0:
+        return np.zeros((0, 17, 3), np.float32)
+    clip_len = min(model.clip_len, t_total)
+    stride = stride or max(clip_len // 2, 1)
+    kp = (kp2d_px / image_size).astype(np.float32)
+    clips = make_clips(kp, clip_len, stride)
+
+    if use_kernels is None:
+        use_kernels = model.dtype == torch.bfloat16
+    x = torch.from_numpy(clips).to(model.embed.weight.device)
+    with torch.inference_mode():
+        if use_kernels and clip_len == model.clip_len and stblock.supports(model):
+            out = stblock.temporal_forward_fused(model, x)
+        else:
+            out = model(x, use_kernels=use_kernels)
+    out = out.float().cpu().numpy()  # (C, L, 17, 3)
+
+    acc = np.zeros((t_total, 17, 3), np.float32)
+    cnt = np.zeros((t_total, 1, 1), np.float32)
+    for c, s in zip(out, clip_starts(t_total, clip_len, stride)):
+        end = min(s + clip_len, t_total)
+        acc[s:end] += c[: end - s]
+        cnt[s:end] += 1.0
+    assert cnt.min() >= 1.0, "internal: some frame covered by no clip"
+    return acc / cnt
+
+
+def lift_video_json(model, json_path, out_npy_path, image_size: float = 1000.0):
+    """Consolidated video JSON -> lifted (T,17,3) poses, also saved as npy."""
+    kp2d, _, _ = load_video_json(json_path)
+    poses = lift_sequence(model, kp2d, image_size)
+    save_mb_npy(poses, out_npy_path)
+    return poses

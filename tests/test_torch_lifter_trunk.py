@@ -24,10 +24,10 @@ from torch_port_util import cuda_device, flax_vit, torch_vit
 
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter
 from pose3d_tpu_torch.ops import lifter as L
+from pose3d_tpu_torch.ops import numerics as N
 from pose3d_tpu_torch.ops.attention import (
-    block_diag_mask,
-    frame_chunked_attention,
-    masked_heads_attention,
+    heads_attention,
+    packed_flat_attention_reference,
     score_exp,
 )
 
@@ -179,7 +179,7 @@ class TestPolyErf:
         from scipy.special import erf as scipy_erf
 
         x = np.linspace(-8.0, 8.0, 200_001).astype(np.float32)
-        got = L._erf(torch.from_numpy(x)).numpy()
+        got = N.erf(torch.from_numpy(x)).numpy()
         err = np.abs(got - scipy_erf(x.astype(np.float64)))
         assert err.max() < 5e-5, f"max erf err {err.max():.2e}"
 
@@ -188,10 +188,10 @@ class TestPolyErf:
 
         from pose3d_tpu.ops.pallas_lifter import _ERF_C, _gelu
 
-        assert L._ERF_C == _ERF_C
+        assert N.ERF_C == _ERF_C
         x = np.linspace(-6.0, 6.0, 4001).astype(np.float32)
         want = np.asarray(_gelu(jnp.asarray(x)))
-        np.testing.assert_allclose(L._gelu(torch.from_numpy(x)).numpy(), want,
+        np.testing.assert_allclose(N.gelu(torch.from_numpy(x)).numpy(), want,
                                    atol=1e-6, rtol=0)
 
 
@@ -212,20 +212,21 @@ class TestAttentionHelpers:
         qkv = self._qkv(68, 4, 64)
         want = pa.masked_heads_attention(
             jnp.asarray(qkv), pa.block_diag_mask(68, 17), 4, 64)
-        got = masked_heads_attention(torch.from_numpy(qkv),
-                                     block_diag_mask(68, 17, "cpu"), 4, 64)
+        got = heads_attention(torch.from_numpy(qkv).view(4, 17, -1), 4, 64).view(68, -1)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                    rtol=0)
 
     @pytest.mark.parametrize("chunk", [17, 136, 272])
     def test_frame_chunked_matches_jax(self, chunk):
+        """The JAX helper at any frame-aligned chunk equals the port's
+        per-frame attention (what the trunk's plain version runs)."""
         import jax.numpy as jnp
 
         from pose3d_tpu.ops import pallas_attention as pa
 
         qkv = self._qkv(272, 4, 64, seed=1)
-        want = pa.frame_chunked_attention(jnp.asarray(qkv), 17, 4, 64, 136)
-        got = frame_chunked_attention(torch.from_numpy(qkv), 17, 4, 64, chunk)
+        want = pa.frame_chunked_attention(jnp.asarray(qkv), 17, 4, 64, chunk)
+        got = packed_flat_attention_reference(torch.from_numpy(qkv), 17, 4)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                    rtol=0)
 

@@ -4,8 +4,8 @@
   ``jax``, ``flax`` or ``pose3d_tpu`` (checked in a fresh interpreter,
   since ``tests/conftest.py`` imports JAX into this one).
 - Its kernels are built from the repository's own CUDA sources with
-  ``nvcc`` for ``sm_90a`` and bound through ctypes, and the launcher
-  reports CUDA errors to the caller.
+  ``nvcc`` for ``sm_90a`` and bound through ctypes, call no kernel
+  library, and every launcher reports CUDA errors to the caller.
 - Importing a module builds nothing.
 """
 
@@ -32,7 +32,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import pose3d_tpu_torch, pose3d_tpu_torch.serving\n"
-        "import pose3d_tpu_torch.interop.weights\n"
+        "import pose3d_tpu_torch.interop.weights, pose3d_tpu_torch.models.temporal\n"
+        "import pose3d_tpu_torch.ops.stblock, pose3d_tpu_torch.ops.attention\n"
+        "import pose3d_tpu_torch.pipeline.lift, pose3d_tpu_torch.pipeline.keypoints\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
     )
@@ -57,6 +59,14 @@ def test_no_jax_import_in_source(path):
             assert _top(name) not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+CUDA_SOURCES = sorted((PKG / "csrc").glob("*.cu"))
+LAUNCHERS = {
+    "lifter_trunk.cu": ["lifter_trunk_launch"],
+    "attention.cu": ["attention_launch"],
+    "stblock.cu": ["stblock_spatial_launch", "stblock_temporal_launch"],
+}
+
+
 def test_kernel_build_is_nvcc_for_sm90a_from_repo_sources():
     from pose3d_tpu_torch.ops import _build
 
@@ -64,28 +74,62 @@ def test_kernel_build_is_nvcc_for_sm90a_from_repo_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == PKG / "_build"
     assert _build.library_path().parent == _build.BUILD_DIR
-    src = (PKG / "csrc" / "lifter_trunk.cu").read_text()
-    assert 'extern "C" cudaError_t lifter_trunk_launch' in src
-    assert "return cudaGetLastError();" in src
-    for lib_call in ("cublas", "cudnn", "cutlass::gemm::device"):
-        assert lib_call not in src.lower()
+    assert sorted(p.name for p in CUDA_SOURCES) == sorted(LAUNCHERS)
     gitignore = (REPO / ".gitignore").read_text().splitlines()
     assert "pose3d_tpu_torch/_build/" in gitignore
 
 
-def test_kernel_constants_match_the_wrapper():
-    """The .cu file's tile and layout constants are the Python wrapper's
-    (the launcher refuses a mismatch at run time; this catches it here)."""
-    from pose3d_tpu_torch.ops import lifter as L
+@pytest.mark.parametrize("path", CUDA_SOURCES + sorted((PKG / "csrc").glob("*.cuh")),
+                         ids=lambda p: p.name)
+def test_kernel_source_calls_no_library(path):
+    """Hand-written kernels: no cuBLAS, cuDNN or CUTLASS device GEMM, and
+    every C launcher returns the launch's error to the caller."""
+    src = path.read_text()
+    for lib_call in ("cublas", "cudnn", "cutlass::gemm::device", "scaled_dot_product"):
+        assert lib_call not in src.lower()
+    for name in LAUNCHERS.get(path.name, []):
+        assert f'extern "C" cudaError_t {name}(' in src
+    if path.suffix == ".cu":
+        assert "return cudaGetLastError();" in src
 
-    src = (PKG / "csrc" / "lifter_trunk.cu").read_text()
-    assert f"constexpr int kFrames = {L.FRAMES_PER_CTA};" in src
-    offsets = [line.split("constexpr int ")[1].split(" =")[0]
-               for line in src.splitlines()
-               if line.startswith("constexpr int kOff")]
-    names = ["kOff" + "".join(p.capitalize() for p in name.split("_"))
-             for name, *_ in L._BLOCK_LAYOUT]
-    assert offsets == names
+
+def _layout_offsets(src: str) -> list[str]:
+    return [line.split("constexpr int ")[1].split(" =")[0]
+            for line in src.splitlines() if line.startswith("constexpr int kOff")]
+
+
+def _offset_names(layout) -> list[str]:
+    return ["kOff" + "".join(p.capitalize() for p in name.split("_"))
+            for name, *_ in layout]
+
+
+@pytest.mark.parametrize("kernel", ["lifter", "stblock"])
+def test_kernel_constants_match_the_wrapper(kernel):
+    """The .cu file's tile and layout constants are the Python wrapper's
+    (the launchers refuse a mismatch at run time; this catches it here)."""
+    from pose3d_tpu_torch.ops import attention as A
+    from pose3d_tpu_torch.ops import lifter as L
+    from pose3d_tpu_torch.ops import stblock as S
+
+    if kernel == "lifter":
+        src = (PKG / "csrc" / "lifter_trunk.cu").read_text()
+        assert f"constexpr int kFrames = {L.FRAMES_PER_CTA};" in src
+        assert f"constexpr int kHeads = {L.HEADS};" in src
+        assert _layout_offsets(src) == _offset_names(L._BLOCK_LAYOUT)
+    else:
+        src = (PKG / "csrc" / "stblock.cu").read_text()
+        assert f"constexpr int kFrames = {S.FRAMES_PER_CTA};" in src
+        assert f"constexpr int kHeads = {S.HEADS};" in src
+        assert _layout_offsets(src) == _offset_names(S._LAYOUT)
+        head = (PKG / "csrc" / "attention.cuh").read_text()
+        assert "return size_t(3) * attn_rows(seq) * attn_ld(dh) * 2;" in head
+        assert "constexpr int attn_ld(int dh) { return dh + 8; }" in head
+        assert "constexpr int attn_rows(int seq) { return (seq + 15) / 16 * 16; }" in head
+        common = (PKG / "csrc" / "common.cuh").read_text()
+        assert f"constexpr int kSmemLimit = {A.SMEM_LIMIT};" in common
+        for dh in A.HEAD_DIMS:
+            assert f"case {dh}: return launch_dh<{dh}>" in (
+                PKG / "csrc" / "attention.cu").read_text()
 
 
 def test_import_builds_nothing(tmp_path):

@@ -1,0 +1,248 @@
+"""The port's temporal sub-blocks and fused serving forward
+(``pose3d_tpu_torch/ops/stblock.py``) against the JAX package's Pallas
+kernels (``pose3d_tpu/ops/pallas_stblock.py``) in interpret mode, on the
+same flax-initialised weights (``temporal_lifter_from_flax``), and the
+CUDA kernels against their plain versions on the card.
+
+Both sides compute GELU on the same clamped polynomial erf and softmax
+without a row max; the flax module computes the exact erf and softmax.
+Tolerances, the JAX package's own (tests/test_pallas_stblock.py):
+
+- plain fused forward vs the JAX fused forward: 5e-2 on the (C, T, 17, 3)
+  outputs (measured 2.3e-2 here: f32 sums in another order flip bf16
+  roundings of the residual stream);
+- plain fused forward (bf16) vs the f32 flax apply: 0.1;
+- sub-block rows, which reach |6| where one bf16 step is 2^-5: 5e-2 +
+  2^-5·|want| (measured one step).
+
+The tests marked ``cuda`` skip where there is no CUDA device.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import cuda_device, flax_apply, flax_temporal, torch_temporal
+
+from pose3d_tpu_torch.models.temporal import TemporalLifter
+from pose3d_tpu_torch.ops import stblock as S
+
+torch.set_num_threads(2)
+
+CLIPS, CLIP_LEN, N_BLOCKS = 4, 27, 2
+FIELDS = {"clip_len": CLIP_LEN, "n_blocks": N_BLOCKS}
+
+
+def _rows_close(got, want):
+    """Sub-block rows: 5e-2 + 2^-5·|want| (see the module docstring)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    excess = np.abs(got - want) - (5e-2 + 2 ** -5 * np.abs(want))
+    assert excess.max() <= 0, f"max abs err {np.abs(got - want).max():.3g}"
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """flax TemporalLifter(clip_len=27, n_blocks=2) params, the port's bf16
+    copy, seeded clips and tokens, and the JAX kernels' outputs on them
+    (interpret mode, run once for the module)."""
+    import jax.numpy as jnp
+
+    from pose3d_tpu.ops import pallas_stblock as ps
+
+    fmodel, params = flax_temporal(seed=0, **FIELDS)
+    clips = np.random.default_rng(3).random((CLIPS, CLIP_LEN, 17, 2)).astype(np.float32)
+    tokens = np.random.default_rng(5).standard_normal(
+        (CLIPS * CLIP_LEN * 17, 256)).astype(np.float32)
+    tok = jnp.asarray(tokens, jnp.bfloat16)
+    bp = params["SpatioTemporalBlock_0"]
+    return {
+        "flax": fmodel,
+        "params": params,
+        "bf16": torch_temporal(params, dtype=torch.bfloat16, **FIELDS),
+        "clips": clips,
+        "tokens": torch.from_numpy(tokens).to(torch.bfloat16),
+        "jax_spatial": np.asarray(ps.spatial_block_fused(
+            tok, ps.pack_spatial_weights(bp), interpret=True).astype(jnp.float32)),
+        "jax_temporal": np.asarray(ps.temporal_slab_fused(
+            tok.reshape(CLIPS, CLIP_LEN, 17 * 256), ps.pack_temporal_weights(bp),
+            interpret=True).astype(jnp.float32)),
+        "jax_fused": np.asarray(ps.temporal_forward_fused(
+            params, jnp.asarray(clips), n_blocks=N_BLOCKS, clip_len=CLIP_LEN,
+            interpret=True)),
+    }
+
+
+def _fused(model, clips):
+    with torch.no_grad():
+        return S.temporal_forward_fused(model, torch.from_numpy(clips))
+
+
+class TestPlainAgainstJax:
+    @pytest.mark.parametrize("half", ["spatial", "temporal"])
+    def test_pack_weights_follow_jax_order(self, setup, half):
+        from pose3d_tpu.ops import pallas_stblock as ps
+
+        pack_jax = getattr(ps, f"pack_{half}_weights")
+        want = [np.asarray(a, np.float32).reshape(-1) for a in pack_jax(
+            setup["params"]["SpatioTemporalBlock_1"], dtype=np.float32)]
+        got = getattr(S, f"pack_{half}_weights")(torch_temporal(setup["params"], **FIELDS)
+                                                  .blocks[1])
+        assert got.flat.dtype == torch.float32 and got.flat.numel() == S.BLOCK_ELEMS
+        np.testing.assert_array_equal(got.flat.numpy(), np.concatenate(want))
+
+    def test_spatial_reference_matches_jax_kernel(self, setup):
+        w = S.pack_spatial_weights(setup["bf16"].blocks[0])
+        got = S.spatial_block(setup["tokens"], w)
+        assert got.dtype == torch.bfloat16 and got.shape == setup["tokens"].shape
+        _rows_close(got.float().numpy(), setup["jax_spatial"])
+
+    def test_temporal_reference_matches_jax_kernel(self, setup):
+        w = S.pack_temporal_weights(setup["bf16"].blocks[0])
+        slab = setup["tokens"].view(CLIPS, CLIP_LEN, 17 * 256)
+        got = S.temporal_slab(slab, w)
+        assert got.shape == slab.shape
+        _rows_close(got.float().numpy(), setup["jax_temporal"])
+
+    def test_fused_matches_jax_fused(self, setup):
+        got = _fused(setup["bf16"], setup["clips"])
+        assert got.dtype == torch.float32 and got.shape == (CLIPS, CLIP_LEN, 17, 3)
+        err = np.abs(got.numpy() - setup["jax_fused"]).max()
+        assert err < 5e-2, f"max abs err {err}"
+
+    def test_fused_close_to_f32_flax_apply(self, setup):
+        want = flax_apply(setup["flax"], setup["params"], setup["clips"])
+        err = np.abs(_fused(setup["bf16"], setup["clips"]).numpy() - want).max()
+        assert err < 0.1, f"max abs err {err}"
+
+
+class TestPlainPath:
+    def test_clip_isolation(self, setup):
+        """Perturbing clip 0 leaves every other clip bit-identical."""
+        base = _fused(setup["bf16"], setup["clips"])
+        clips = setup["clips"].copy()
+        clips[0] += 1.0
+        pert = _fused(setup["bf16"], clips)
+        assert torch.equal(base[1:], pert[1:])
+        assert not torch.equal(base[0], pert[0])
+
+    def test_spatial_frame_isolation(self, setup):
+        w = S.pack_spatial_weights(setup["bf16"].blocks[0])
+        x = setup["tokens"][:8 * 17]
+        pert = x.clone()
+        pert[:17] += 1.0
+        base, out = S.spatial_block(x, w), S.spatial_block(pert, w)
+        assert torch.equal(base[17:], out[17:])
+        assert not torch.equal(base[:17], out[:17])
+
+    def test_wrappers_run_the_plain_version_on_cpu(self, setup):
+        blk = setup["bf16"].blocks[1]
+        ws, wt = S.pack_spatial_weights(blk), S.pack_temporal_weights(blk)
+        x = setup["tokens"]
+        slab = x.view(CLIPS, CLIP_LEN, -1)
+        before = (S.spatial_block.launches, S.temporal_slab.launches)
+        assert torch.equal(S.spatial_block(x, ws), S.spatial_block_reference(x, ws))
+        assert torch.equal(S.temporal_slab(slab, wt), S.temporal_slab_reference(slab, wt))
+        assert (S.spatial_block.launches, S.temporal_slab.launches) == before
+
+    def test_pack_rejects_other_widths(self):
+        model = TemporalLifter(clip_len=8, hidden=64, heads=4, n_blocks=1, device="cpu")
+        with pytest.raises(ValueError, match="kernel takes"):
+            S.pack_spatial_weights(model.blocks[0])
+        with pytest.raises(ValueError, match="hidden 256"):
+            S.temporal_forward_fused(model, torch.zeros(1, 8, 17, 2))
+
+    @pytest.mark.parametrize("case", ["rows", "slab", "dtype", "clip_len"])
+    def test_rejects_bad_operands(self, setup, case):
+        model = setup["bf16"]
+        w = S.pack_spatial_weights(model.blocks[0])
+        x = setup["tokens"]
+        with pytest.raises(ValueError):
+            if case == "rows":
+                S.spatial_block(x[:20], w)
+            elif case == "slab":
+                S.temporal_slab(x.view(-1, 256, 17), w)
+            elif case == "dtype":
+                S.spatial_block(x.float(), w)
+            else:
+                S.temporal_forward_fused(model, torch.zeros(1, CLIP_LEN - 1, 17, 2))
+
+
+@pytest.mark.cuda
+class TestSubBlockKernels:
+    """The CUDA kernels against their plain versions on the card, on the
+    embedded tokens of seeded clips at full width (T = 243). Sub-block
+    rows: 5e-2 + 2^-5·|want|; the fused forward's outputs: 5e-2."""
+
+    @staticmethod
+    def _setup(dev, clips, n_blocks=1, seed=0):
+        model = TemporalLifter(n_blocks=n_blocks, device="cpu").init_weights(
+            torch.Generator().manual_seed(seed))
+        model = model.to(device=dev, dtype=torch.bfloat16).eval().requires_grad_(False)
+        kp = torch.rand(clips, model.clip_len, 17, 2,
+                        generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+        emb = model.embed
+        tokens = (kp.reshape(-1, 2).to(torch.bfloat16) @ emb.weight.t() + emb.bias)
+        return model, kp, tokens.contiguous()
+
+    @pytest.mark.parametrize("clips", [1, 3])
+    def test_spatial_kernel_matches_plain(self, clips):
+        dev = cuda_device()
+        model, _, tokens = self._setup(dev, clips)
+        w = S.pack_spatial_weights(model.blocks[0])
+        before = S.spatial_block.launches
+        got = S.spatial_block(tokens, w)
+        torch.cuda.synchronize()
+        assert S.spatial_block.launches == before + 1
+        _rows_close(got.float().cpu(), S.spatial_block_reference(tokens, w).float().cpu())
+
+    @pytest.mark.parametrize("clips", [1, 3])
+    def test_temporal_kernel_matches_plain(self, clips):
+        dev = cuda_device()
+        model, _, tokens = self._setup(dev, clips)
+        w = S.pack_temporal_weights(model.blocks[0])
+        slab = tokens.view(clips, model.clip_len, -1)
+        before = S.temporal_slab.launches
+        got = S.temporal_slab(slab, w)
+        torch.cuda.synchronize()
+        assert S.temporal_slab.launches == before + 1
+        _rows_close(got.float().cpu(), S.temporal_slab_reference(slab, w).float().cpu())
+
+    def test_kernels_isolate_clips_and_frames(self):
+        dev = cuda_device()
+        model, _, tokens = self._setup(dev, 2)
+        ws = S.pack_spatial_weights(model.blocks[0])
+        wt = S.pack_temporal_weights(model.blocks[0])
+        pert = tokens.clone()
+        pert[:17] += 1.0
+        base, out = S.spatial_block(tokens, ws), S.spatial_block(pert, ws)
+        assert torch.equal(base[17:], out[17:]) and not torch.equal(base[:17], out[:17])
+        t = model.clip_len
+        base = S.temporal_slab(tokens.view(2, t, -1), wt)
+        out = S.temporal_slab(pert.view(2, t, -1), wt)
+        assert torch.equal(base[1:], out[1:]) and not torch.equal(base[0], out[0])
+
+    def test_fused_forward_matches_plain(self):
+        dev = cuda_device()
+        model, kp, _ = self._setup(dev, 2, n_blocks=2)
+        before = (S.spatial_block.launches, S.temporal_slab.launches)
+        got = S.temporal_forward_fused(model, kp)
+        assert (S.spatial_block.launches, S.temporal_slab.launches) == (
+            before[0] + 2, before[1] + 2)
+        want = _plain_fused(model, kp)
+        err = (got - want).abs().max().item()
+        assert err < 5e-2, f"max abs err {err}"
+
+    def test_kernels_reject_f32(self):
+        dev = cuda_device()
+        model = TemporalLifter(n_blocks=1, device=dev)
+        with pytest.raises(TypeError, match="bfloat16"):
+            S.spatial_block(torch.zeros(17, 256, device=dev),
+                            S.pack_spatial_weights(model.blocks[0]))
+
+
+def _plain_fused(model, kp):
+    """temporal_forward_fused with the trunk in its plain version."""
+    tokens = S.embed_clips(model, kp)
+    trunk = S.temporal_trunk_reference(tokens, len(kp), S.pack_temporal_lifter(model))
+    return S.temporal_head(model, trunk, len(kp))
