@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port: `python3 chip_smoke.py`.
 
-Drives the port's two serving paths on one NVIDIA GPU (Hopper, sm_90a),
+Drives the port's three serving paths on one NVIDIA GPU (Hopper, sm_90a),
 with random weights from a seed, and fails (non-zero exit, traceback) if
 any phase fails:
 
@@ -23,7 +23,8 @@ The lifter path, the default JointTransformerLifter (the reference MyViT:
    200, 8192, 10000, each checked against the f32 module (atol 0.1) and
    the plain path (atol 5e-2); the trunk's launches over these requests
    must be the number of batches they make;
-5. times at B=8192 with CUDA events, median of 20 runs after warm-up.
+5. times at B=8192 (every time below: ms per call, the median of 3 runs
+   of 20 back-to-back calls, each run fenced by CUDA events, after warm-up).
 
 The temporal path, the default TemporalLifter (17 joints, hidden 256, 8
 heads x 32, MLP 1024, 5 blocks, clips of 243 frames, bf16):
@@ -42,11 +43,27 @@ heads x 32, MLP 1024, 5 blocks, clips of 243 frames, bf16):
    for the frames) and 40 frames (packed attention for both), each held
    to the f32 module (atol 0.1) and to the same route on the plain
    versions (atol 5e-2), with every launch counted;
-8. times at C = 16 x 243 frames, CUDA events, median of 20 after warm-up:
+8. times at C = 16 x 243 frames:
    each kernel, its plain version and, for the attention, PyTorch's
    ``scaled_dot_product_attention`` on the same head-split inputs (a
    yardstick only; the port never calls it); the fused forward, its plain
    path and the eager bf16 module.
+
+The Martinez path, the default MartinezLifter (the reference LinearModel:
+34 -> 1024, 2 residual blocks of 1024, -> 51, BatchNorm, bf16):
+
+9. kernel vs plain: the block kernel against ``fused_residual_block_reference``
+   at B = 64, 200 (a ragged last tile) and 8192 on the first block's input
+   rows of seeded keypoints (rows: 5e-2 + 2^-5 |want| and the f32-yardstick
+   ratio 1.5, as for the trunk); row isolation;
+10. serving: ``LifterService`` on the same requests as the lifter path, each
+    checked against the f32 module (atol 0.1) and the plain route (atol
+    5e-2); the block's launches must be 2 blocks x the 6 batches;
+11. times at B = 8192: the kernel, its plain version, the block's two
+    GEMMs as bare ``torch.matmul`` (a yardstick only; the port never calls
+    it), the eager bf16 module, the fused forward and ``LifterService.lift``
+    host to host; and the device time of the fused forward and of the
+    block by kernel (torch.profiler over 20 calls).
 
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
@@ -69,11 +86,12 @@ import numpy as np
 import torch
 
 import pose3d_tpu_torch
-from pose3d_tpu_torch.models.lifters import JointTransformerLifter
+from pose3d_tpu_torch.models.lifters import JointTransformerLifter, MartinezLifter
 from pose3d_tpu_torch.models.temporal import TemporalLifter
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops import attention as A
 from pose3d_tpu_torch.ops import lifter as L
+from pose3d_tpu_torch.ops import martinez as Mz
 from pose3d_tpu_torch.ops import stblock as S
 from pose3d_tpu_torch.pipeline.lift import lift_sequence
 from pose3d_tpu_torch.serving import LifterService
@@ -81,7 +99,8 @@ from pose3d_tpu_torch.serving import LifterService
 SEED = 0
 TOP = 8192
 REQUESTS = (1, 33, 200, 8192, 10000)
-N_TIMED = 20
+N_TIMED = 20         # calls per timed run
+N_RUNS = 3           # timed runs; the median is kept
 KERNEL_ATOL = 5e-2   # kernel vs plain path, (B, 17, 3) outputs (the JAX package's bf16 budget)
 # the trunk's outputs reach |7|: a different f32 summation order flips bf16
 # roundings that the bf16 residual stream carries on, so the bound grows
@@ -230,20 +249,46 @@ def _plain_forward(model, svc, x):
 
 
 def cuda_ms(fn, n=N_TIMED) -> float:
-    """Median ms of fn() over n runs, each fenced by CUDA events."""
+    """ms per call of fn(): the median over N_RUNS runs of n back-to-back
+    calls, each run fenced by CUDA events, after 3 warm-up calls. Where
+    the host enqueues faster than the device runs, this is device time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(n):
+    for _ in range(N_RUNS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, n=N_TIMED) -> dict[str, float]:
+    """Device ms per call of fn() by kernel name, from torch.profiler's
+    CUDA activity over n calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1][:60]
+            out[name] = out.get(name, 0.0) + us / n / 1e3
+    if not out:
+        raise AssertionError("torch.profiler recorded no device time")
+    return out
 
 
 def timing_phase(model, svc) -> dict:
@@ -449,13 +494,118 @@ def temporal_timing_phase(model) -> dict:
     return t
 
 
+def seeded_martinez(device, dtype):
+    model = MartinezLifter(device="cpu")
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def martinez_kernel_phase(model) -> float:
+    """The block kernel vs its plain version on the first block's input rows
+    of seeded keypoints; returns the max abs error at B=TOP."""
+    fused = Mz.pack_martinez(model)
+    w1, s1, b1, w2, s2, b2 = block = fused.blocks[0]
+    gen = torch.Generator().manual_seed(SEED + 10)
+    err = None
+    for batch in (64, 200, TOP):
+        h = Mz.martinez_input(fused, torch.rand(batch, 17, 2, generator=gen).to("cuda"))
+        err = _rows_check(f"martinez_block B={batch}", Mz.fused_residual_block(h, *block),
+                          Mz.fused_residual_block_reference(h, *block),
+                          Mz.fused_residual_block_reference(h.float(), w1.float(), s1, b1,
+                                                            w2.float(), s2, b2))
+    h = Mz.martinez_input(fused, torch.rand(200, 17, 2, generator=gen).to("cuda"))
+    pert = h.clone()
+    pert[131] += 1.0  # a row of the second row tile
+    base, out = Mz.fused_residual_block(h, *block), Mz.fused_residual_block(pert, *block)
+    torch.cuda.synchronize()
+    if (not torch.equal(base[:131], out[:131]) or not torch.equal(base[132:], out[132:])
+            or torch.equal(base[131], out[131])):
+        raise AssertionError("row isolation: perturbing row 131 moved other rows")
+    log("martinez_block row isolation: ok")
+    return err
+
+
+def _martinez_plain(fused, svc, x):
+    """The plain route on x padded to its service bucket, as lift pads it."""
+    n = len(x)
+    xp = torch.zeros((svc._bucket(n), 17, 2), device=x.device)
+    xp[:n] = x
+    h = Mz.martinez_input(fused, xp)
+    for block in fused.blocks:
+        h = Mz.fused_residual_block_reference(h, *block)
+    return Mz.martinez_output(fused, h)[:n].reshape(n, 17, 3).cpu().numpy()
+
+
+def martinez_serving_phase(model, model_f32):
+    """Returns (service, the block launches the requests made)."""
+    svc = LifterService(model, None, device="cuda", max_batch=TOP).warmup()
+    if not svc.fused:
+        raise AssertionError("the bf16 Martinez lifter is not on the kernel route")
+    fused = Mz.pack_martinez(model)
+    rng = np.random.default_rng(SEED + 11)
+    requests = [rng.random((n, 17, 2)).astype(np.float32) for n in REQUESTS]
+    expected = len(fused.blocks) * sum(-(-n // TOP) for n in REQUESTS)
+
+    Mz.fused_residual_block.launches = 0
+    answers = [svc.lift(kp) for kp in requests]
+    launches = Mz.fused_residual_block.launches
+    log(f"martinez serving: {len(REQUESTS)} requests, block launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError("the Martinez requests did not all go through the kernel")
+
+    for kp, got in zip(requests, answers):
+        n = len(kp)
+        if got.shape != (n, 17, 3) or not np.isfinite(got).all():
+            raise AssertionError(f"martinez N={n}: bad answer {got.shape}")
+        x = torch.from_numpy(kp).to("cuda")
+        ref32 = model_f32(x).reshape(n, 17, 3).cpu().numpy()
+        plain = np.concatenate([
+            _martinez_plain(fused, svc, x[i:i + TOP]) for i in range(0, n, TOP)])
+        e32 = np.abs(got - ref32).max()
+        ep = np.abs(got - plain).max()
+        log(f"martinez serving N={n}: max abs err vs f32 module {e32:.6g} (atol "
+            f"{F32_ATOL}; |f32| max {np.abs(ref32).max():.4g}), vs plain route {ep:.6g} "
+            f"(atol {KERNEL_ATOL})")
+        if e32 > F32_ATOL or ep > KERNEL_ATOL:
+            raise AssertionError(f"martinez N={n}: answer out of tolerance")
+    return svc, launches
+
+
+def martinez_timing_phase(model, svc) -> dict:
+    fused = Mz.pack_martinez(model)
+    block = fused.blocks[0]
+    kp = torch.rand(TOP, 17, 2, generator=torch.Generator().manual_seed(SEED + 12))
+    kp_dev = kp.to("cuda")
+    kp_np = kp.numpy()
+    h = Mz.martinez_input(fused, kp_dev)
+    t = {
+        "martinez_block": cuda_ms(lambda: Mz.fused_residual_block(h, *block)),
+        "martinez_block_plain": cuda_ms(lambda: Mz.fused_residual_block_reference(h, *block)),
+        "martinez_two_matmuls": cuda_ms(lambda: (h @ block[0]) @ block[3]),
+        "eager_bf16_module": cuda_ms(lambda: model(kp_dev)),
+        "fused_forward": cuda_ms(lambda: Mz.martinez_infer_fused(fused, kp_dev)),
+        "service_lift": cuda_ms(lambda: svc.lift(kp_np)),
+    }
+    for k in ("eager_bf16_module", "fused_forward", "service_lift"):
+        log(f"time martinez B={TOP} {k}: {t[k]:.4f} ms = {TOP / t[k] * 1e3:.1f} frames/s")
+    for k in ("martinez_block", "martinez_block_plain", "martinez_two_matmuls"):
+        log(f"time martinez B={TOP} {k}: {t[k]:.4f} ms")
+    for what, fn in (("fused_forward", lambda: Mz.martinez_infer_fused(fused, kp_dev)),
+                     ("martinez_block", lambda: Mz.fused_residual_block(h, *block))):
+        split = device_ms_by_kernel(fn)
+        log(f"device time martinez B={TOP} {what}: {sum(split.values()):.4f} ms per call: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    return t
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_bounds(model_vit, model_t) -> dict:
+def kernel_bounds(model_vit, model_t, model_m) -> dict:
     """Each kernel's bound at the shapes it is timed at: its matrix-product
     flops, and its bytes with each input read once and each output written
     once (weights included)."""
@@ -474,8 +624,11 @@ def kernel_bounds(model_vit, model_t) -> dict:
                      2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
     packed = bound(CLIPS * t * 8 * 17 * 17 * 32 * 4, rows * 4 * d * b2)
     seq = bound(CLIPS * 17 * 8 * t * t * 32 * 4, rows * 4 * d * b2)
+    f = model_m.hidden
+    martinez = bound(4 * TOP * f * f,  # two (TOP, f) x (f, f) products
+                     2 * TOP * f * b2 + 2 * f * f * b2 + 4 * f * 4)  # x, out; W1, W2; s, b
     return {"lifter_trunk": trunk, "spatial_block": spatial, "temporal_slab": temporal,
-            "packed_flat_attention": packed, "seq_attention": seq}
+            "packed_flat_attention": packed, "seq_attention": seq, "martinez_block": martinez}
 
 
 @torch.inference_mode()
@@ -492,7 +645,12 @@ def main() -> None:
     errs = {**sub_block_phase(tmodel), **attention_phase()}
     tlaunches = lift_phase(tmodel, seeded_temporal("cuda", torch.float32))
     tt = temporal_timing_phase(tmodel)
-    bounds = kernel_bounds(model, tmodel)
+
+    mmodel = seeded_martinez("cuda", torch.bfloat16)
+    merr = martinez_kernel_phase(mmodel)
+    msvc, mlaunches = martinez_serving_phase(mmodel, seeded_martinez("cuda", torch.float32))
+    mt = martinez_timing_phase(mmodel, msvc)
+    bounds = kernel_bounds(model, tmodel, mmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -518,6 +676,10 @@ def main() -> None:
                "pose3d_tpu/ops/pallas_attention.py:447", tlaunches["seq_attention"],
                errs["seq_attention"], tt["seq_attention"], tt["seq_attention_plain"],
                tt["seq_attention_sdpa"]),
+        # no one PyTorch call computes the block; its two GEMMs alone are
+        # logged above as martinez_two_matmuls, a yardstick only
+        record("martinez_block", f"{csrc}/martinez.cu", "pose3d_tpu/ops/pallas_martinez.py:34",
+               mlaunches, merr, mt["martinez_block"], mt["martinez_block_plain"], None),
     ]
     for k in kernels:
         if k["launches"] < 1:

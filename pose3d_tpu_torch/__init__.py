@@ -5,12 +5,17 @@ functions with PyTorch on an NVIDIA Hopper GPU, and every Pallas kernel on
 a ported path becomes a CUDA kernel written by hand for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use and bound through ``ctypes``.
 
-Ported so far: the lifter serving path.
+Ported so far: the lifter serving path (all three lifter families) and the
+temporal serving path.
 
-- ``models/lifters.py``  ``JointTransformerLifter`` (the reference MyViT).
-- ``interop/weights.py`` flax param tree -> the port's state dict.
-- ``ops/attention.py``   plain per-frame attention math (clamped softmax).
-- ``ops/lifter.py``      the fused trunk: kernel wrapper + plain version.
+- ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
+  ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
+- ``models/temporal.py`` ``TemporalLifter``, ``clip_starts``, ``make_clips``.
+- ``interop/weights.py`` flax param trees -> the port's state dicts.
+- ``ops/``               kernel wrappers + plain versions: the ViT trunk
+  (``lifter.py``), the Martinez block (``martinez.py``), the temporal
+  sub-blocks (``stblock.py``), attention (``attention.py``).
+- ``pipeline/lift.py``   ``lift_sequence``: video -> 3D.
 - ``serving.py``         ``LifterService``: bucketed batch inference.
 
 The package imports torch and numpy, never jax, flax or ``pose3d_tpu``.

@@ -1,10 +1,11 @@
 """flax param trees of the JAX package -> state dicts of the port.
 
 The counterpart of ``pose3d_tpu/interop/torch_weights.py``'s
-``vit_lifter_to_torch``, written with numpy alone so that the port needs
-no JAX: a flax ``Dense`` kernel is (in, out) and a torch ``Linear``
-weight (out, in), so kernels are transposed; LayerNorm scale/bias become
-weight/bias.
+``vit_lifter_to_torch``, ``martinez_to_torch`` and ``ae_to_torch``,
+written with numpy alone so that the port needs no JAX: a flax ``Dense``
+kernel is (in, out) and a torch ``Linear`` weight (out, in), so kernels
+are transposed; LayerNorm and BatchNorm scale/bias become weight/bias,
+BatchNorm mean/var become running_mean/running_var.
 """
 
 from __future__ import annotations
@@ -26,6 +27,65 @@ def _dense(p, prefix: str, sd: dict) -> None:
 def _scale_bias(p, prefix: str, sd: dict) -> None:
     sd[f"{prefix}.weight"] = _t(p["scale"])
     sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _batch_norm(p, stats, prefix: str, sd: dict) -> None:
+    """flax BatchNorm (scale/bias params, mean/var statistics) -> torch's
+    weight, bias, running_mean, running_var and the num_batches_tracked
+    counter, which ``load_state_dict(strict=True)`` needs."""
+    _scale_bias(p, prefix, sd)
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def martinez_lifter_from_flax(params, batch_stats=None) -> dict[str, torch.Tensor]:
+    """``MartinezLifter`` flax params and batch_stats -> the port's
+    ``MartinezLifter`` state dict (reference ``LinearModel`` keys).
+
+    | flax | port |
+    | --- | --- |
+    | ``Dense_0``, ``BatchNorm_0`` | ``w1``, ``batch_norm1`` |
+    | ``MartinezBlock_{i}.Dense_0``, ``.BatchNorm_0`` | ``linear_stages.{i}.w1``, ``.batch_norm1`` |
+    | ``MartinezBlock_{i}.Dense_1``, ``.BatchNorm_1`` | ``linear_stages.{i}.w2``, ``.batch_norm2`` |
+    | ``Dense_1`` | ``w2`` |
+
+    The stage count is read from the tree, and so is ``use_bn``: a tree
+    without BatchNorm (``use_bn=False``) needs no ``batch_stats``.
+    """
+    sd: dict[str, torch.Tensor] = {}
+    stats = batch_stats or {}
+    _dense(params["Dense_0"], "w1", sd)
+    if "BatchNorm_0" in params:
+        _batch_norm(params["BatchNorm_0"], stats["BatchNorm_0"], "batch_norm1", sd)
+    n_stages = sum(1 for k in params if k.startswith("MartinezBlock_"))
+    for i in range(n_stages):
+        bp, t = params[f"MartinezBlock_{i}"], f"linear_stages.{i}"
+        for j in range(2):
+            _dense(bp[f"Dense_{j}"], f"{t}.w{j + 1}", sd)
+            if f"BatchNorm_{j}" in bp:
+                _batch_norm(bp[f"BatchNorm_{j}"], stats[f"MartinezBlock_{i}"][f"BatchNorm_{j}"],
+                            f"{t}.batch_norm{j + 1}", sd)
+    _dense(params["Dense_1"], "w2", sd)
+    return sd
+
+
+# the AELifter's Dense_i / BatchNorm_i -> the reference AE's Sequential indices
+_AE_LAYERS = (("encoder2.1", "encoder2.2"), ("encoder2.5", "encoder2.6"),
+              ("decoder2.0", "decoder2.1"))
+
+
+def ae_lifter_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """``AELifter`` flax params and batch_stats -> the port's ``AELifter``
+    state dict (reference ``AE`` keys): ``Dense_i`` / ``BatchNorm_i`` for
+    i < 3 -> ``encoder2.1``/``.2``, ``encoder2.5``/``.6``,
+    ``decoder2.0``/``.1``; ``Dense_3`` -> ``decoder2.4``."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, (linear, bn) in enumerate(_AE_LAYERS):
+        _dense(params[f"Dense_{i}"], linear, sd)
+        _batch_norm(params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"], bn, sd)
+    _dense(params["Dense_3"], "decoder2.4", sd)
+    return sd
 
 
 def vit_lifter_from_flax(params) -> dict[str, torch.Tensor]:

@@ -1,7 +1,24 @@
-"""Joint-token transformer lifter: the port of ``pose3d_tpu/models/lifters.py``
-(``JointAttention``, ``TransformerBlock``, ``JointTransformerLifter``).
+"""The 2D -> 3D lifters: the port of ``pose3d_tpu/models/lifters.py``.
 
-The module is the reference MyViT (17 joint tokens -> Linear to hidden 256
+``MartinezBlock``, ``MartinezLifter`` and ``AELifter`` are the residual
+BatchNorm MLPs of the reference (``LinearModel`` and ``AE``): flat
+(B, 34) or (B, 17, 2) keypoints in, (B, out_dim) out, in at least f32.
+Their parameter names are the reference's state-dict keys (Martinez:
+``w1``, ``batch_norm1``, ``linear_stages.{i}.{w1,batch_norm1,w2,
+batch_norm2}``, ``w2``; AE: ``encoder2.{1,2,5,6}``, ``decoder2.{0,1,4}``),
+so ``load_state_dict(strict=True)`` takes what ``interop.weights.
+martinez_lifter_from_flax`` / ``ae_lifter_from_flax`` return. Dropout is
+active in training only, and ``use_bn=False`` drops every BatchNorm of
+the Martinez lifter. The AE has no Tanh: it is dead code in the reference.
+
+BatchNorm stays f32 in a model of any narrower dtype (``F32BatchNorm1d``),
+as the flax ``BatchNorm`` of the JAX package (``models/norm.py``) keeps
+its parameters and statistics f32 and normalises in f32 whatever the
+model's dtype: a bf16 cast of the running mean and variance would round
+them.
+
+``JointAttention``, ``TransformerBlock`` and ``JointTransformerLifter``
+are the reference MyViT (17 joint tokens -> Linear to hidden 256
 -> fixed sinusoidal PE -> 2 pre-LN blocks with 4 heads -> per-token MLP
 256 -> 128 -> out). Its parameter names are the reference's state-dict
 keys (``linear_mapper``, ``blocks.{i}.norm1``, ``blocks.{i}.mhsa.{norm,
@@ -17,8 +34,8 @@ Kept for parity with the JAX module:
 - GELU is exact (erf);
 - the PE is a fixed, non-persistent buffer.
 
-``dtype`` is both the parameter and the compute dtype; softmax runs in at
-least f32, as the flax module's does.
+``dtype`` is both the parameter and the compute dtype (BatchNorm apart);
+softmax runs in at least f32, as the flax module's does.
 """
 
 from __future__ import annotations
@@ -40,6 +57,165 @@ def sinusoidal_positional_embeddings(sequence_length: int, d: int) -> np.ndarray
     angle_odd = i / np.power(1e4, (j - 1) / d)
     pe = np.where(j % 2 == 0, np.sin(angle_even), np.cos(angle_odd))
     return pe.astype(np.float32)
+
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch's convention; flax's 0.9 in the JAX package
+
+
+class F32BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (momentum 0.1, eps 1e-5) that stays f32 inside a
+    model cast to a narrower float.
+
+    How: ``_apply``, through which ``.to()``, ``.bfloat16()``, ``.half()``
+    and the like cast every module, converts this module's parameters and
+    running statistics from their f32 values to f32 wherever the cast
+    would make them narrower (so they are never rounded), and ``forward``
+    normalises its input in at least f32 and returns it in the input's
+    dtype. Training updates the running variance with the unbiased batch
+    variance, torch's semantics, which the JAX package's BatchNorm copies.
+    """
+
+    def __init__(self, num_features: int, *, device):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM,
+                         device=device, dtype=torch.float32)
+
+    def _apply(self, fn, recurse=True):
+        def keep_f32(t):
+            out = fn(t)
+            if out.is_floating_point() and torch.finfo(out.dtype).bits < 32:
+                out = t.to(device=out.device, dtype=torch.float32)
+            return out
+
+        return super()._apply(keep_f32, recurse)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return super().forward(x.to(acc)).to(x.dtype)
+
+
+@torch.no_grad()
+def _init_linear_bn(module: nn.Module, generator: torch.Generator) -> None:
+    """Draws every Linear and BatchNorm of ``module`` from ``generator``:
+    Linear weights lecun-normal, biases N(0, 0.1); BatchNorm scales
+    1 + N(0, 0.1), shifts and running means N(0, 0.1), running variances
+    U(0.5, 1.5). No bias is 0, no scale or variance 1 and no mean 0, so
+    folding BatchNorm is tested with real statistics."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            w = torch.randn(m.weight.shape, generator=generator)
+            m.weight.copy_(w * m.in_features ** -0.5)
+            m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=generator))
+        elif isinstance(m, nn.BatchNorm1d):
+            n = m.num_features
+            m.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=generator))
+            m.bias.copy_(0.1 * torch.randn(n, generator=generator))
+            m.running_mean.copy_(0.1 * torch.randn(n, generator=generator))
+            m.running_var.copy_(0.5 + torch.rand(n, generator=generator))
+
+
+class MartinezBlock(nn.Module):
+    """Residual block: 2 x (Linear -> BN -> ReLU -> Dropout) + skip
+    (reference ``Linear``)."""
+
+    def __init__(self, size: int = 1024, dropout: float = 0.5, use_bn: bool = True,
+                 *, device, dtype=torch.float32):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.w1 = nn.Linear(size, size, **kw)
+        self.batch_norm1 = F32BatchNorm1d(size, device=device) if use_bn else None
+        self.w2 = nn.Linear(size, size, **kw)
+        self.batch_norm2 = F32BatchNorm1d(size, device=device) if use_bn else None
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x
+        for linear, bn in ((self.w1, self.batch_norm1), (self.w2, self.batch_norm2)):
+            y = linear(y)
+            if bn is not None:
+                y = bn(y)
+            y = self.dropout(torch.relu(y))
+        return x + y
+
+
+class MartinezLifter(nn.Module):
+    """Martinez-style residual-MLP lifter (reference ``LinearModel``):
+    Linear(in_dim, hidden) -> BN -> ReLU -> Dropout -> ``num_stages`` x
+    ``MartinezBlock`` -> Linear(hidden, out_dim)."""
+
+    def __init__(self, in_dim: int = 34, out_dim: int = 51, hidden: int = 1024,
+                 num_stages: int = 2, dropout: float = 0.5, use_bn: bool = True,
+                 *, device, dtype=torch.float32):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.in_dim = in_dim
+        self.out_dim = out_dim
+        self.hidden = hidden
+        self.num_stages = num_stages
+        self.use_bn = use_bn
+        self.w1 = nn.Linear(in_dim, hidden, **kw)
+        self.batch_norm1 = F32BatchNorm1d(hidden, device=device) if use_bn else None
+        self.dropout = nn.Dropout(dropout)
+        self.linear_stages = nn.ModuleList(
+            MartinezBlock(hidden, dropout, use_bn, **kw) for _ in range(num_stages))
+        self.w2 = nn.Linear(hidden, out_dim, **kw)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Compute dtype (of the Linear layers)."""
+        return self.w1.weight.dtype
+
+    def init_weights(self, generator: torch.Generator):
+        """Draw every parameter and BN statistic from ``generator`` (a CPU
+        generator), as ``_init_linear_bn`` says."""
+        _init_linear_bn(self, generator)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 17, 2) or (B, in_dim) -> (B, out_dim) in at least f32."""
+        y = self.w1(x.reshape(x.shape[0], -1).to(self.dtype))
+        if self.batch_norm1 is not None:
+            y = self.batch_norm1(y)
+        y = self.dropout(torch.relu(y))
+        for stage in self.linear_stages:
+            y = stage(y)
+        return self.w2(y).to(torch.promote_types(self.dtype, torch.float32))
+
+
+class AELifter(nn.Module):
+    """Autoencoder lifter: the reference ``AE``'s active encoder2/decoder2
+    path, Flatten -> [Linear(hidden) BN ReLU Dropout] x 2 -> Linear(hidden)
+    BN ReLU Dropout -> Linear(out_dim), with no Tanh."""
+
+    def __init__(self, in_dim: int = 34, out_dim: int = 51, hidden: int = 1024,
+                 dropout: float = 0.5, *, device, dtype=torch.float32):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.in_dim = in_dim
+        self.out_dim = out_dim
+        self.hidden = hidden
+
+        def layer(d_in):
+            return [nn.Linear(d_in, hidden, **kw), F32BatchNorm1d(hidden, device=device),
+                    nn.ReLU(), nn.Dropout(dropout)]
+
+        self.encoder2 = nn.Sequential(nn.Flatten(), *layer(in_dim), *layer(hidden))
+        self.decoder2 = nn.Sequential(*layer(hidden), nn.Linear(hidden, out_dim, **kw))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Compute dtype (of the Linear layers)."""
+        return self.encoder2[1].weight.dtype
+
+    def init_weights(self, generator: torch.Generator):
+        """As ``MartinezLifter.init_weights``."""
+        _init_linear_bn(self, generator)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 17, 2) or (B, in_dim) -> (B, out_dim) in at least f32."""
+        y = self.encoder2(x.reshape(x.shape[0], -1).to(self.dtype))
+        return self.decoder2(y).to(torch.promote_types(self.dtype, torch.float32))
 
 
 class JointAttention(nn.Module):

@@ -100,7 +100,8 @@ def library() -> ctypes.CDLL:
     for name, args in (("lifter_trunk_launch", [p, p, p, p, i, i, i, i, p]),
                        ("attention_launch", [p, p, i, i, i, i, p]),
                        ("stblock_spatial_launch", [p, p, p, i, i, i, p]),
-                       ("stblock_temporal_launch", [p, p, p, p, p, i, i, i, p])):
+                       ("stblock_temporal_launch", [p, p, p, p, p, i, i, i, p]),
+                       ("martinez_launch", [p, p, p, p, p, p, p, p, p, i, i, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i

@@ -6,17 +6,32 @@
   a request above the top bucket is served in top-bucket chunks.
 - A bf16 ``JointTransformerLifter`` of the default architecture runs the
   fused forward (``ops/lifter.lifter_forward_fused``): on a CUDA device
-  the trunk is the Hopper kernel. Any other model, or an f32 one, runs its
+  the trunk is the Hopper kernel.
+- A bf16 ``MartinezLifter`` with BatchNorm and hidden 1024 runs the fused
+  inference (``ops/martinez.martinez_infer_fused``) on its weights packed
+  once, every stage it has: on a CUDA device each residual block is the
+  Hopper kernel.
+- Any other model (an ``AELifter``, an f32 model, other widths) runs its
   ``nn.Module`` forward in its own dtype, so an f32 model keeps f32
   numerics.
+
+Every family answers (N, 17, 2) keypoints with (N, 17, 3) poses: the
+flat lifters' (N, 51) outputs are reshaped per joint, as the JAX service
+does.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from pose3d_tpu_torch.models.lifters import JointTransformerLifter
 from pose3d_tpu_torch.ops import lifter as _lifter
+from pose3d_tpu_torch.ops import martinez as _martinez
+
+N_JOINTS = 17
 
 
 def fused_vit_buckets_ok(buckets) -> bool:
@@ -27,17 +42,31 @@ def fused_vit_buckets_ok(buckets) -> bool:
     return all(b % _lifter.FRAMES_PER_CTA == 0 for b in buckets)
 
 
+def _io_shapes(model) -> tuple[tuple[int, int], tuple[int, int]]:
+    """Per-frame (input, output) shapes: (joints, in_dim), (joints, out_dim)
+    for the joint-token ViT, the flat widths split over 17 joints for the
+    others."""
+    if isinstance(model, JointTransformerLifter):
+        return (model.n_joints, model.in_dim), (model.n_joints, model.out_dim)
+    if model.in_dim % N_JOINTS or model.out_dim % N_JOINTS:
+        raise ValueError(f"in_dim {model.in_dim} and out_dim {model.out_dim} must "
+                         f"split over {N_JOINTS} joints")
+    return ((N_JOINTS, model.in_dim // N_JOINTS),
+            (N_JOINTS, model.out_dim // N_JOINTS))
+
+
 class LifterService:
     """Wraps a lifter for padded, bucketed batch inference on one device.
 
     ``state_dict`` (or None to keep the model's weights) is loaded with
     ``strict=True``. ``device`` is where the model runs; a CUDA device
-    that is not available raises.
+    that is not available raises. ``fused`` says whether a fused route
+    (ViT trunk or Martinez blocks) serves the model.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict=None, *, device,
                  max_batch: int = 8192, min_bucket: int = 64,
-                 use_fused_vit: bool = True):
+                 use_fused_vit: bool = True, use_fused_martinez: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"LifterService(device={device!r}): CUDA is "
@@ -45,6 +74,7 @@ class LifterService:
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
+        self.in_shape, self.out_shape = _io_shapes(model)
         self.buckets = []
         b = min_bucket
         while b <= max_batch:
@@ -52,23 +82,27 @@ class LifterService:
             b *= 2
         if not self.buckets:
             raise ValueError(f"no bucket between {min_bucket} and {max_batch}")
-        self.fused = (use_fused_vit and _lifter.supports(model)
-                      and model.dtype == torch.bfloat16
-                      and fused_vit_buckets_ok(self.buckets))
-        self._weights = _lifter.pack_weights(model) if self.fused else None
+        # the fused routes compute in bf16: only bf16 models take them
+        bf16 = getattr(model, "dtype", None) == torch.bfloat16
+        if (use_fused_vit and bf16 and _lifter.supports(model)
+                and fused_vit_buckets_ok(self.buckets)):
+            self._forward = functools.partial(
+                _lifter.lifter_forward_fused, model, weights=_lifter.pack_weights(model))
+        elif use_fused_martinez and bf16 and _martinez.supports(model):
+            self._forward = functools.partial(
+                _martinez.martinez_infer_fused, _martinez.pack_martinez(model))
+        else:
+            self._forward = model
+        self.fused = self._forward is not model
 
     @torch.inference_mode()
     def _run(self, kp2d: torch.Tensor) -> torch.Tensor:
-        if self.fused:
-            return _lifter.lifter_forward_fused(self.model, kp2d,
-                                                weights=self._weights)
-        return self.model(kp2d)
+        return self._forward(kp2d)
 
     def warmup(self):
         """Run every bucket once (the first request pays no first-call cost)."""
         for b in self.buckets:
-            self._run(torch.zeros(b, self.model.n_joints, self.model.in_dim,
-                                  device=self.device))
+            self._run(torch.zeros(b, *self.in_shape, device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -77,14 +111,14 @@ class LifterService:
         return next(b for b in self.buckets if b >= n)
 
     def lift(self, kp2d: np.ndarray) -> np.ndarray:
-        """(N, J, in_dim) -> (N, J, out_dim) f32; N arbitrary (chunked over
-        the top bucket)."""
+        """(N, J, in) -> (N, J, out) f32 (J = 17, (2, 3) for the served
+        lifters); N arbitrary (chunked over the top bucket)."""
         kp2d = np.asarray(kp2d, np.float32)
-        want = (self.model.n_joints, self.model.in_dim)
-        if kp2d.ndim != 3 or kp2d.shape[1:] != want:
-            raise ValueError(f"kp2d must be (N, {want[0]}, {want[1]}), got {kp2d.shape}")
+        if kp2d.ndim != 3 or kp2d.shape[1:] != self.in_shape:
+            raise ValueError(f"kp2d must be (N, {self.in_shape[0]}, "
+                             f"{self.in_shape[1]}), got {kp2d.shape}")
         n = len(kp2d)
-        out = np.empty((n, self.model.n_joints, self.model.out_dim), np.float32)
+        out = np.empty((n, *self.out_shape), np.float32)
         top = self.buckets[-1]
         pos = 0
         while pos < n:
@@ -94,6 +128,7 @@ class LifterService:
             x = torch.zeros((b, *chunk.shape[1:]), device=self.device)
             x[:take] = chunk.to(self.device)
             pred = self._run(x)
-            out[pos: pos + take] = pred[:take].float().cpu().numpy()
+            out[pos: pos + take] = pred[:take].float().cpu().numpy().reshape(
+                take, *self.out_shape)
             pos += take
         return out

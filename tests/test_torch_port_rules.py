@@ -34,6 +34,7 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch, pose3d_tpu_torch.serving\n"
         "import pose3d_tpu_torch.interop.weights, pose3d_tpu_torch.models.temporal\n"
         "import pose3d_tpu_torch.ops.stblock, pose3d_tpu_torch.ops.attention\n"
+        "import pose3d_tpu_torch.ops.martinez, pose3d_tpu_torch.models.lifters\n"
         "import pose3d_tpu_torch.pipeline.lift, pose3d_tpu_torch.pipeline.keypoints\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -64,6 +65,7 @@ LAUNCHERS = {
     "lifter_trunk.cu": ["lifter_trunk_launch"],
     "attention.cu": ["attention_launch"],
     "stblock.cu": ["stblock_spatial_launch", "stblock_temporal_launch"],
+    "martinez.cu": ["martinez_launch"],
 }
 
 
@@ -103,15 +105,19 @@ def _offset_names(layout) -> list[str]:
             for name, *_ in layout]
 
 
-@pytest.mark.parametrize("kernel", ["lifter", "stblock"])
+@pytest.mark.parametrize("kernel", ["lifter", "stblock", "martinez"])
 def test_kernel_constants_match_the_wrapper(kernel):
     """The .cu file's tile and layout constants are the Python wrapper's
     (the launchers refuse a mismatch at run time; this catches it here)."""
     from pose3d_tpu_torch.ops import attention as A
     from pose3d_tpu_torch.ops import lifter as L
+    from pose3d_tpu_torch.ops import martinez as M
     from pose3d_tpu_torch.ops import stblock as S
 
-    if kernel == "lifter":
+    if kernel == "martinez":
+        src = (PKG / "csrc" / "martinez.cu").read_text()
+        assert f"constexpr int kWidth = {M.WIDTH};" in src
+    elif kernel == "lifter":
         src = (PKG / "csrc" / "lifter_trunk.cu").read_text()
         assert f"constexpr int kFrames = {L.FRAMES_PER_CTA};" in src
         assert f"constexpr int kHeads = {L.HEADS};" in src

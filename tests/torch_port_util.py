@@ -55,13 +55,68 @@ def flax_temporal(seed: int = 0, **fields):
 def _jitted_apply(model):
     import jax
 
-    return jax.jit(lambda params, x: model.apply({"params": params}, x))
+    return jax.jit(lambda variables, x: model.apply(variables, x))
 
 
-def flax_apply(model, params, x) -> np.ndarray:
-    """``model.apply`` under one jit per flax module (modules hash by
-    their fields), as numpy."""
-    return np.asarray(_jitted_apply(model)(params, x))
+def flax_apply(model, params, x, batch_stats=None) -> np.ndarray:
+    """``model.apply`` (inference) under one jit per flax module (modules
+    hash by their fields), as numpy."""
+    variables = {"params": params}
+    if batch_stats:
+        variables["batch_stats"] = batch_stats
+    return np.asarray(_jitted_apply(model)(variables, x))
+
+
+def _seeded_norms(tree, rng, stats: bool):
+    """A copy of a flax params (or batch_stats) tree whose biases, BN
+    scales (or BN means and variances) are drawn from ``rng``: biases and
+    means N(0, 0.1), scales 1 + N(0, 0.1), variances U(0.5, 1.5). The init's
+    zeros and ones would hide a bias, scale or statistic read from the
+    wrong place."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _seeded_norms(v, rng, stats)
+        elif k in ("bias", "mean"):
+            out[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k == "scale":
+            out[k] = (1.0 + 0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k == "var":
+            out[k] = (0.5 + rng.random(v.shape)).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+def flax_bn_lifter(kind: str, seed: int = 0, **fields):
+    """(flax MartinezLifter or AELifter, params, batch_stats) at
+    ``fields``, as numpy, with seeded biases, BN scales and statistics."""
+    jax = pytest.importorskip("jax")
+    from pose3d_tpu.models.lifters import AELifter, MartinezLifter
+
+    model = {"martinez": MartinezLifter, "ae": AELifter}[kind](**fields)
+    x = np.zeros((1, fields.get("in_dim", 34)), np.float32)
+    variables = jax.jit(lambda k: model.init({"params": k}, x, train=False))(
+        jax.random.key(seed))
+    rng = np.random.default_rng(seed + 100)
+    params = _seeded_norms(jax.tree.map(np.asarray, variables["params"]), rng, False)
+    stats = _seeded_norms(jax.tree.map(np.asarray, variables.get("batch_stats", {})),
+                          rng, True)
+    return model, params, stats
+
+
+def torch_bn_lifter(kind: str, params, batch_stats, dtype=torch.float32, device="cpu",
+                    **fields):
+    """The port's MartinezLifter or AELifter at ``fields``, holding the flax
+    ``params`` and ``batch_stats``."""
+    from pose3d_tpu_torch.interop import weights
+    from pose3d_tpu_torch.models.lifters import AELifter, MartinezLifter
+
+    cls, bridge = {"martinez": (MartinezLifter, weights.martinez_lifter_from_flax),
+                   "ae": (AELifter, weights.ae_lifter_from_flax)}[kind]
+    model = cls(**fields, device=device, dtype=dtype)
+    model.load_state_dict(bridge(params, batch_stats), strict=True)
+    return model.eval()
 
 
 def torch_temporal(params, dtype=torch.float32, device="cpu", **fields):
