@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: `python3 chip_smoke.py`.
 
-Drives the port's three serving paths on one NVIDIA GPU (Hopper, sm_90a),
-with random weights from a seed, and fails (non-zero exit, traceback) if
-any phase fails:
+Drives the port's three serving paths and its temporal training path on
+one NVIDIA GPU (Hopper, sm_90a), with random weights from a seed, and
+fails (non-zero exit, traceback) if any phase fails:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the kernels from ``pose3d_tpu_torch/csrc`` (one
@@ -65,6 +65,27 @@ The Martinez path, the default MartinezLifter (the reference LinearModel:
     host to host; and the device time of the fused forward and of the
     block by kernel (torch.profiler over 20 calls).
 
+The temporal training path, the default TemporalLifter with f32 master
+weights (bf16 compute in the kernels), 16 clips x 243 frames a step
+(66,096 token rows), synthetic clips from ``data/synthetic.py``:
+
+12. kernel vs plain: the four training wrappers (``spatial_fwd``,
+    ``spatial_bwd``, ``slab_fwd``, ``slab_bwd``) at 16 clips and at 1 clip
+    (243 frames, not a multiple of the spatial kernel's 4 frames per CTA):
+    outputs and residuals as rows, dx and each of the 12 weight gradients
+    within 2^-7 max|want| + 2^-7 |want|, each with the f32 yardstick; two
+    backward calls must give bitwise equal gradients;
+13. the whole training forward + backward on the kernels vs on the plain
+    versions (the loss within 1e-2 relative, each parameter's gradient
+    within 5e-2 in relative L2) and vs the f32 module (the yardstick);
+14. 10 AdamW steps at lr 1e-3 through ``make_lifter_train_step``: 5
+    launches of each training wrapper per step, a finite loss whose last
+    three steps' mean is below the first; times of the step (frames/s),
+    of the eager bf16 module's forward + backward through torch autograd
+    (a yardstick only; the port never calls it), of each training wrapper
+    and its plain version, and a torch.profiler device-time split of one
+    step by kernel.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
 peak and its bytes, each input read once and each output written once,
@@ -76,6 +97,7 @@ and ``pose3d_tpu_torch`` only.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -86,15 +108,20 @@ import numpy as np
 import torch
 
 import pose3d_tpu_torch
+from pose3d_tpu_torch.data.feed import batch_iterator
+from pose3d_tpu_torch.data.synthetic import synthetic_h36m
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter, MartinezLifter
-from pose3d_tpu_torch.models.temporal import TemporalLifter
+from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops import attention as A
 from pose3d_tpu_torch.ops import lifter as L
 from pose3d_tpu_torch.ops import martinez as Mz
 from pose3d_tpu_torch.ops import stblock as S
+from pose3d_tpu_torch.ops import stblock_train as ST
 from pose3d_tpu_torch.pipeline.lift import lift_sequence
 from pose3d_tpu_torch.serving import LifterService
+from pose3d_tpu_torch.train.state import create_train_state
+from pose3d_tpu_torch.train.steps import make_lifter_train_step
 
 SEED = 0
 TOP = 8192
@@ -115,6 +142,17 @@ F32_ATOL = 0.1       # bf16 path vs the f32 module (test_close_to_f32_flax_apply
 ATTN_ATOL, ATTN_RTOL = 2 ** -6, 2 ** -7
 CLIPS = 16           # the JAX bench's temporal_infer batch (TI_B)
 VIDEOS = (600, 100, 40)  # frames: the fused route, the module route at L > 64, at L <= 64
+TRAIN_CLIPS = 16     # TemporalConfig.batch_size: 16 x 243 x 17 = 66,096 token rows
+TRAIN_STEPS = 10     # steps of the training run whose loss must fall
+TRAIN_LR = 1e-3
+# gradients (dx, each of the 12 weight gradients): a bf16 kernel summing in
+# another order than its plain version flips bf16 roundings of the
+# intermediates (dh, dqkv, dx1), which move a gradient by a few bf16 steps
+# of its elements: 2^-7 of the tensor's largest element plus 2^-7 |want|,
+# and, as for the forwards, the f32 yardstick ratio 1.5 (with a floor of
+# 2^-16 of the f32 tensor's largest element where the plain error is ~0)
+GRAD_ATOL_REL, GRAD_RTOL = 2 ** -7, 2 ** -7
+STEP_GRAD_REL = 5e-2  # whole step, kernels vs plain versions: relative L2 per parameter
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA's data sheet)
 PEAK_HBM = 3.35e12   # H100 SXM HBM3 bytes/s
 
@@ -599,6 +637,205 @@ def martinez_timing_phase(model, svc) -> dict:
     return t
 
 
+def seeded_train_model():
+    """The default TemporalLifter with f32 master weights on the card."""
+    model = TemporalLifter(device="cpu").init_weights(torch.Generator().manual_seed(SEED))
+    return model.to("cuda")
+
+
+def synthetic_batch(n_clips, clip_len, seed):
+    """(2D clips, root-centred 3D clips) on the card from the port's
+    synthetic Human3.6M-like poses."""
+    kp2d, kp3d = synthetic_h36m(n_clips * clip_len, seed=seed)
+    y1 = make_clips(kp2d, clip_len)
+    y2 = make_clips(kp3d - kp3d[:, :1], clip_len)
+    return torch.from_numpy(y1).to("cuda"), torch.from_numpy(y2).to("cuda")
+
+
+def _grad_check(what, got, want, ref32) -> float:
+    """A gradient tensor: 2^-7 max|want| + 2^-7 |want| and the f32 yardstick."""
+    got, want = got.float(), want.float()
+    top = want.abs().max().item()
+    diff = (got - want).abs()
+    excess = (diff - (GRAD_ATOL_REL * top + GRAD_RTOL * want.abs())).max().item()
+    err32 = (got - ref32).abs().max().item()
+    plain32 = (want - ref32).abs().max().item()
+    floor = 2 ** -16 * ref32.abs().max().item()
+    ok = torch.isfinite(got).all() and excess <= 0 and err32 <= F32_ERR_RATIO * plain32 + floor
+    if not ok:
+        log(f"FAILED {what}: max abs err {diff.max().item():.6g} (|want| max {top:.4g}, "
+            f"excess {excess:.4g}); vs f32: kernel {err32:.6g}, plain {plain32:.6g}")
+        raise AssertionError(f"kernel gradient disagrees with its plain version: {what}")
+    return diff.max().item()
+
+
+def train_kernel_phase(model) -> dict:
+    """The four training wrappers vs their plain versions on the card, on
+    the first sub-block inputs of synthetic clips: C = 16 clips, and C = 1
+    (243 frames, not a multiple of the spatial kernel's 4 frames per CTA).
+    Forward outputs and residuals as sub-block rows; dx and every weight
+    gradient as gradients. Two backward calls must give bitwise equal
+    results. Returns the max abs errors at C = 16."""
+    errs = {}
+    blk = model.blocks[0]
+    with torch.no_grad():
+        for n_clips in (1, TRAIN_CLIPS):
+            y1, _ = synthetic_batch(n_clips, model.clip_len, SEED + 20 + n_clips)
+            tokens = ST.embed_clips(model, y1, torch.bfloat16)
+            gen = torch.Generator().manual_seed(SEED + 21)
+            dout = (torch.randn(tokens.shape, generator=gen) * 2 ** -6).to("cuda", torch.bfloat16)
+            for half, fwd, bwd, fref, bref, shape in (
+                    ("spatial", ST.spatial_fwd, ST.spatial_bwd, ST.spatial_fwd_reference,
+                     ST.spatial_bwd_reference, tokens.shape),
+                    ("temporal", ST.slab_fwd, ST.slab_bwd, ST.slab_fwd_reference,
+                     ST.slab_bwd_reference, (n_clips, model.clip_len, 17 * 256))):
+                w = ST.pack_train(blk, half, torch.bfloat16)
+                w32 = S.SubBlockWeights(w.flat.float())
+                x, g = tokens.view(shape), dout.view(shape)
+                got, want = fwd(x, w), fref(x, w)
+                ref32 = fref(x.float(), w32)
+                e_fwd = max(_rows_check(f"{fwd.__name__} {name} C={n_clips}", a, b, c)
+                            for name, a, b, c in zip(("out", "x1", "att"), got, want, ref32))
+                # the backward kernels on the plain forward's residuals
+                dx, dw = bwd(x, *want[1:], g, w)
+                dx_p, dw_p = bref(x, *want[1:], g, w)
+                dx32, dw32 = bref(x.float(), *(t.float() for t in want[1:]), g.float(), w32)
+                e_bwd = _grad_check(f"{bwd.__name__} dx C={n_clips}", dx, dx_p, dx32)
+                pos = 0
+                for name, shp, _, _ in S._LAYOUT:
+                    n = math.prod(shp)
+                    e_bwd = max(e_bwd, _grad_check(
+                        f"{bwd.__name__} d{name} C={n_clips}", dw[pos:pos + n],
+                        dw_p[pos:pos + n], dw32[pos:pos + n]))
+                    pos += n
+                dx2, dw2 = bwd(x, *want[1:], g, w)
+                torch.cuda.synchronize()
+                if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
+                    raise AssertionError(f"{bwd.__name__}: two calls gave different gradients")
+                log(f"{bwd.__name__} C={n_clips}: dx and 12 weight gradients within "
+                    f"tolerance (max abs err {e_bwd:.6g}); two calls bitwise equal")
+                errs[fwd.__name__], errs[bwd.__name__] = e_fwd, e_bwd
+    return errs
+
+
+class plain_sub_blocks:
+    """Within it, the training forward's sub-blocks run their plain
+    versions on the card (the yardstick of the whole step)."""
+
+    NAMES = ("spatial_fwd", "spatial_bwd", "slab_fwd", "slab_bwd")
+
+    def __enter__(self):
+        self.saved = {n: getattr(ST, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(ST, n, getattr(ST, f"{n}_reference"))
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(ST, n, f)
+
+
+def _loss_and_grads(model, apply, y1, y2):
+    model.zero_grad(set_to_none=True)
+    loss = ((apply(model, y1) - y2) ** 2).mean()
+    loss.backward()
+    return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def train_step_phase(model):
+    """The whole training forward + backward on the kernels vs on the plain
+    versions (same bf16 route) and vs the f32 module: the loss, and each
+    parameter's gradient error in relative L2."""
+    y1, y2 = synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 22)
+    fused = ST.temporal_train_forward_fused
+    loss_k, g_k = _loss_and_grads(model, fused, y1, y2)
+    with plain_sub_blocks():
+        loss_p, g_p = _loss_and_grads(model, fused, y1, y2)
+    loss_32, g_32 = _loss_and_grads(model, lambda m, x: m(x), y1, y2)
+    model.zero_grad(set_to_none=True)
+    rel = {n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm()).item() for n in g_k}
+    rel32_k = {n: ((g_k[n] - g_32[n]).norm() / g_32[n].norm()).item() for n in g_k}
+    rel32_p = {n: ((g_p[n] - g_32[n]).norm() / g_32[n].norm()).item() for n in g_k}
+    worst = max(rel, key=rel.get)
+    worst32 = max(rel32_k, key=lambda n: rel32_k[n] / max(rel32_p[n], 1e-3))
+    log(f"train step C={TRAIN_CLIPS}: loss kernels {loss_k:.8g}, plain {loss_p:.8g}, f32 module "
+        f"{loss_32:.8g}; grads kernels vs plain: worst relative L2 {rel[worst]:.4g} ({worst}), "
+        f"median {statistics.median(rel.values()):.4g}; vs the f32 module: worst kernels "
+        f"{rel32_k[worst32]:.4g}, plain {rel32_p[worst32]:.4g} ({worst32})")
+    if (not math.isfinite(loss_k) or abs(loss_k - loss_p) > 1e-2 * abs(loss_p)
+            or rel[worst] > STEP_GRAD_REL
+            or rel32_k[worst32] > F32_ERR_RATIO * max(rel32_p[worst32], 1e-3)):
+        raise AssertionError("the fused training step disagrees with its plain version")
+
+
+def train_loop_phase(model) -> tuple[dict, dict]:
+    """TRAIN_STEPS AdamW steps (lr 1e-3) through ``make_lifter_train_step``
+    on the fused route, distinct synthetic batches of TRAIN_CLIPS clips:
+    the main path of the training slice. Each step must launch each
+    training wrapper 5 times (one per block), and the loss must fall.
+    Returns (the wrappers' launches, times)."""
+    clips2d, clips3d = synthetic_batch(TRAIN_CLIPS * TRAIN_STEPS, model.clip_len, SEED + 23)
+    batches = list(batch_iterator((clips2d.cpu().numpy(), clips3d.cpu().numpy()),
+                                  TRAIN_CLIPS, shuffle=True, seed=SEED, epochs=1))
+    state = create_train_state(model, lr=TRAIN_LR, apply=ST.temporal_train_forward_fused)
+    step = make_lifter_train_step("mse")
+    batches = [(torch.from_numpy(a).to("cuda"), torch.from_numpy(b).to("cuda"))
+               for a, b in batches]
+    for f in ST.WRAPPERS:
+        f.launches = 0
+    losses = [step(state, *b)["loss"].item() for b in batches]
+    launches = {f.__name__: f.launches for f in ST.WRAPPERS}
+    log(f"train loop: {TRAIN_STEPS} steps, loss " + ", ".join(f"{v:.5g}" for v in losses)
+        + f"; launches {launches} (expected {5 * TRAIN_STEPS} each)")
+    if any(n != 5 * TRAIN_STEPS for n in launches.values()):
+        raise AssertionError("the training steps did not all go through the kernels")
+    # Adam's first steps move every weight by ~lr and the loss may spike
+    # before it falls: the last three steps' mean must be below the first
+    if not all(math.isfinite(v) for v in losses) or not (
+            statistics.mean(losses[-3:]) < losses[0]):
+        raise AssertionError("the training loss did not fall")
+
+    y1, y2 = batches[0]
+    frames = TRAIN_CLIPS * model.clip_len
+    t = {"train_step": cuda_ms(lambda: step(state, y1, y2))}
+    bf16_model = TemporalLifter(device="cpu").to("cuda", torch.bfloat16)
+    bf16_model.load_state_dict(model.state_dict())
+
+    def eager_step():  # the yardstick: eager bf16 module, torch autograd (cuBLAS)
+        bf16_model.zero_grad(set_to_none=True)
+        ((bf16_model(y1) - y2) ** 2).mean().backward()
+
+    t["eager_bf16_fwd_bwd"] = cuda_ms(eager_step)
+    for k in ("train_step", "eager_bf16_fwd_bwd"):
+        log(f"time C={TRAIN_CLIPS} x {model.clip_len} {k}: {t[k]:.4f} ms = "
+            f"{frames / t[k] * 1e3:.1f} frames/s")
+    split = device_ms_by_kernel(lambda: step(state, y1, y2), n=5)
+    log(f"device time C={TRAIN_CLIPS} x {model.clip_len} train_step: "
+        f"{sum(split.values()):.4f} ms per step: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])[:16]))
+
+    blk = model.blocks[0]
+    with torch.no_grad():
+        tokens = ST.embed_clips(model, y1, torch.bfloat16)
+        dout = (torch.randn(tokens.shape, generator=torch.Generator().manual_seed(SEED + 24))
+                * 2 ** -6).to("cuda", torch.bfloat16)
+        for half, fwd, bwd, fref, bref, shape in (
+                ("spatial", ST.spatial_fwd, ST.spatial_bwd, ST.spatial_fwd_reference,
+                 ST.spatial_bwd_reference, tokens.shape),
+                ("temporal", ST.slab_fwd, ST.slab_bwd, ST.slab_fwd_reference,
+                 ST.slab_bwd_reference, (TRAIN_CLIPS, model.clip_len, 17 * 256))):
+            w = ST.pack_train(blk, half, torch.bfloat16)
+            x, g = tokens.view(shape), dout.view(shape)
+            _, x1, att = fwd(x, w)
+            t[fwd.__name__] = cuda_ms(lambda: fwd(x, w))
+            t[f"{fwd.__name__}_plain"] = cuda_ms(lambda: fref(x, w))
+            t[bwd.__name__] = cuda_ms(lambda: bwd(x, x1, att, g, w))
+            t[f"{bwd.__name__}_plain"] = cuda_ms(lambda: bref(x, x1, att, g, w))
+    for f in ST.WRAPPERS:
+        log(f"time C={TRAIN_CLIPS} x {model.clip_len} {f.__name__}: {t[f.__name__]:.4f} ms, "
+            f"plain {t[f.__name__ + '_plain']:.4f} ms")
+    return launches, t
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
@@ -618,38 +855,56 @@ def kernel_bounds(model_vit, model_t, model_m) -> dict:
         2 * rows_vit * d * b2 + 17 * d * b2 + model_vit.n_blocks * L.BLOCK_ELEMS * b2)
     t = model_t.clip_len
     rows = CLIPS * t * 17
-    spatial = bound(rows * dense + CLIPS * t * 8 * 17 * 17 * 32 * 4,
-                    2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
-    temporal = bound(rows * dense + CLIPS * 17 * 8 * t * t * 32 * 4,
-                     2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
-    packed = bound(CLIPS * t * 8 * 17 * 17 * 32 * 4, rows * 4 * d * b2)
-    seq = bound(CLIPS * 17 * 8 * t * t * 32 * 4, rows * 4 * d * b2)
+    att_spatial = CLIPS * t * 8 * 17 * 17 * 32 * 4  # QK^T and PV per (frame, head)
+    att_temporal = CLIPS * 17 * 8 * t * t * 32 * 4
+    spatial = bound(rows * dense + att_spatial, 2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
+    temporal = bound(rows * dense + att_temporal, 2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
+    packed = bound(att_spatial, rows * 4 * d * b2)
+    seq = bound(att_temporal, rows * 4 * d * b2)
     f = model_m.hidden
     martinez = bound(4 * TOP * f * f,  # two (TOP, f) x (f, f) products
                      2 * TOP * f * b2 + 2 * f * f * b2 + 4 * f * 4)  # x, out; W1, W2; s, b
+    # training, at TRAIN_CLIPS (= CLIPS) clips: the forwards also write x1
+    # and att; the backwards read x, x1, att, dout and the weights, write dx
+    # and the f32 weight gradients, and do the recomputed qkv and fc1
+    # products, twice the forward's four products (the W^T products and the
+    # weight gradients) and 2.5x its attention products (scores recomputed,
+    # dA, dV, dQ, dK)
+    recompute = 2 * d * (3 * d + 4 * d)
+    fwd_bytes = 4 * rows * d * b2 + S.BLOCK_ELEMS * b2
+    bwd_bytes = 5 * rows * d * b2 + S.BLOCK_ELEMS * (b2 + 4)
     return {"lifter_trunk": trunk, "spatial_block": spatial, "temporal_slab": temporal,
-            "packed_flat_attention": packed, "seq_attention": seq, "martinez_block": martinez}
+            "packed_flat_attention": packed, "seq_attention": seq, "martinez_block": martinez,
+            "spatial_fwd": bound(rows * dense + att_spatial, fwd_bytes),
+            "slab_fwd": bound(rows * dense + att_temporal, fwd_bytes),
+            "spatial_bwd": bound(rows * (recompute + 2 * dense) + 2.5 * att_spatial, bwd_bytes),
+            "slab_bwd": bound(rows * (recompute + 2 * dense) + 2.5 * att_temporal, bwd_bytes)}
 
 
-@torch.inference_mode()
 def main() -> None:
     name = device_phase()
     build_phase()
-    model = seeded_model("cuda", torch.bfloat16)
-    model_f32 = seeded_model("cuda", torch.float32)
-    err = kernel_phase(model)
-    svc, launches = serving_phase(model, model_f32)
-    t = timing_phase(model, svc)
+    with torch.inference_mode():
+        model = seeded_model("cuda", torch.bfloat16)
+        model_f32 = seeded_model("cuda", torch.float32)
+        err = kernel_phase(model)
+        svc, launches = serving_phase(model, model_f32)
+        t = timing_phase(model, svc)
 
-    tmodel = seeded_temporal("cuda", torch.bfloat16)
-    errs = {**sub_block_phase(tmodel), **attention_phase()}
-    tlaunches = lift_phase(tmodel, seeded_temporal("cuda", torch.float32))
-    tt = temporal_timing_phase(tmodel)
+        tmodel = seeded_temporal("cuda", torch.bfloat16)
+        errs = {**sub_block_phase(tmodel), **attention_phase()}
+        tlaunches = lift_phase(tmodel, seeded_temporal("cuda", torch.float32))
+        tt = temporal_timing_phase(tmodel)
 
-    mmodel = seeded_martinez("cuda", torch.bfloat16)
-    merr = martinez_kernel_phase(mmodel)
-    msvc, mlaunches = martinez_serving_phase(mmodel, seeded_martinez("cuda", torch.float32))
-    mt = martinez_timing_phase(mmodel, msvc)
+        mmodel = seeded_martinez("cuda", torch.bfloat16)
+        merr = martinez_kernel_phase(mmodel)
+        msvc, mlaunches = martinez_serving_phase(mmodel, seeded_martinez("cuda", torch.float32))
+        mt = martinez_timing_phase(mmodel, msvc)
+
+    train_model = seeded_train_model()
+    errs.update(train_kernel_phase(train_model))
+    train_step_phase(train_model)
+    trlaunches, trt = train_loop_phase(train_model)
     bounds = kernel_bounds(model, tmodel, mmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -681,6 +936,13 @@ def main() -> None:
         record("martinez_block", f"{csrc}/martinez.cu", "pose3d_tpu/ops/pallas_martinez.py:34",
                mlaunches, merr, mt["martinez_block"], mt["martinez_block_plain"], None),
     ]
+    # no one PyTorch call computes a sub-block's forward or backward; the
+    # eager bf16 module's forward + backward is logged above as a yardstick
+    train_rows = (("spatial_fwd", "stblock.cu", ":348"), ("spatial_bwd", "stblock_train.cu", ":359"),
+                  ("slab_fwd", "stblock.cu", ":407"), ("slab_bwd", "stblock_train.cu", ":424"))
+    kernels += [record(k, f"{csrc}/{src}", f"pose3d_tpu/ops/pallas_stblock_train.py{line}",
+                       trlaunches[k], errs[k], trt[k], trt[f"{k}_plain"], None)
+                for k, src, line in train_rows]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")

@@ -5,8 +5,8 @@ functions with PyTorch on an NVIDIA Hopper GPU, and every Pallas kernel on
 a ported path becomes a CUDA kernel written by hand for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use and bound through ``ctypes``.
 
-Ported so far: the lifter serving path (all three lifter families) and the
-temporal serving path.
+Ported so far: the lifter serving path (all three lifter families), the
+temporal serving path and temporal training.
 
 - ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
   ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
@@ -14,7 +14,10 @@ temporal serving path.
 - ``interop/weights.py`` flax param trees -> the port's state dicts.
 - ``ops/``               kernel wrappers + plain versions: the ViT trunk
   (``lifter.py``), the Martinez block (``martinez.py``), the temporal
-  sub-blocks (``stblock.py``), attention (``attention.py``).
+  sub-blocks (``stblock.py``) and their training forms
+  (``stblock_train.py``), attention (``attention.py``).
+- ``losses.py``, ``train/``, ``core/``, ``data/``, ``config.py``,
+  ``cli/train_temporal.py``  the temporal trainer and what it needs.
 - ``pipeline/lift.py``   ``lift_sequence``: video -> 3D.
 - ``serving.py``         ``LifterService``: bucketed batch inference.
 

@@ -1,0 +1,116 @@
+"""Temporal sequence-lifter trainer: the port of
+``pose3d_tpu/cli/train_temporal.py``.
+
+Trains the ``TemporalLifter`` on clips of ``clip_len`` frames of synthetic
+Human3.6M-like poses (reading the dataset comes with the phase-1 trainer).
+On a CUDA device at the kernels' widths (17 joints, hidden 256, 8 heads)
+the step runs the fused sub-block kernels in bf16 over f32 parameters
+(``ops/stblock_train``); otherwise it differentiates the module in f32.
+
+Usage:
+  python -m pose3d_tpu_torch.cli.train_temporal --run_name t1 --clip_len 243
+  python -m pose3d_tpu_torch.cli.train_temporal --cpu --n_blocks 1 --clip_len 12 \\
+      --data.synthetic_frames 480 --n_epochs 2
+"""
+
+from __future__ import annotations
+
+import pathlib
+
+import torch
+
+from pose3d_tpu_torch import losses
+from pose3d_tpu_torch.config import TemporalConfig, parse_config
+from pose3d_tpu_torch.data import synthetic
+from pose3d_tpu_torch.data.feed import batch_iterator, prefetch_to_device
+from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
+from pose3d_tpu_torch.ops.stblock import supports
+from pose3d_tpu_torch.ops.stblock_train import temporal_train_forward_fused
+from pose3d_tpu_torch.train import checkpoint as ckpt
+from pose3d_tpu_torch.train.logging import MetricLogger
+from pose3d_tpu_torch.train.state import create_train_state
+from pose3d_tpu_torch.train.steps import make_lifter_eval_step, make_lifter_train_step
+
+
+def load_clips(cfg: TemporalConfig, is_train: bool):
+    """(2D clips, root-centred 3D clips) of the train or validation split."""
+    d = cfg.data
+    if d.data_dir and pathlib.Path(d.data_dir).exists():
+        raise NotImplementedError(
+            f"reading Human3.6M from {d.data_dir} is not ported yet (it comes with the "
+            "phase-1 trainer); leave data.data_dir unset to train on synthetic poses")
+    n = d.synthetic_frames if is_train else max(d.synthetic_frames // 4, cfg.clip_len)
+    kp2d, kp3d = synthetic.synthetic_h36m(n, seed=0 if is_train else 1)
+    kp3d = kp3d - kp3d[:, :1]
+    return make_clips(kp2d, cfg.clip_len, cfg.clip_len), make_clips(kp3d, cfg.clip_len,
+                                                                    cfg.clip_len)
+
+
+def train(cfg: TemporalConfig):
+    """Train for ``cfg.n_epochs`` epochs, logging each; returns the state."""
+    device = torch.device(cfg.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --cpu to train on the CPU")
+    model = TemporalLifter(clip_len=cfg.clip_len, hidden=cfg.hidden, n_blocks=cfg.n_blocks,
+                           heads=cfg.heads, device="cpu")
+    model = model.init_weights(torch.Generator().manual_seed(cfg.seed)).to(device)
+    c2, c3 = load_clips(cfg, True)
+    v2, v3 = load_clips(cfg, False)
+    print(f"clips: train {c2.shape}, val {v2.shape}")
+
+    fused = cfg.use_kernels_train and device.type == "cuda" and supports(model)
+    state = create_train_state(model, lr=cfg.lr,
+                               apply=temporal_train_forward_fused if fused else None)
+    if fused:
+        print("train step: fused sub-block kernels")
+    if cfg.resume and ckpt.exists(cfg.log_dir, cfg.run_name):
+        state, _ = ckpt.restore(state, cfg.log_dir, cfg.run_name)
+        print(f"resumed at step {state.step}")
+    step = make_lifter_train_step(cfg.loss)
+    eval_step = make_lifter_eval_step(cfg.loss)
+    logger = MetricLogger(cfg.log_dir, cfg.run_name, config={
+        "learning_rate": cfg.lr, "architecture": "temporal_transformer",
+        "clip_len": cfg.clip_len, "epochs": cfg.n_epochs,
+    })
+
+    bs = min(cfg.batch_size, len(c2))
+    n_train = (len(c2) // bs) * bs * cfg.clip_len
+    for epoch in range(cfg.n_epochs):
+        it = prefetch_to_device(batch_iterator((c2, c3), bs, shuffle=True, seed=cfg.seed + epoch,
+                                               epochs=1), device)
+        loss_acc, sums_acc, last = [], [], None
+        for y1, y2 in it:
+            m = step(state, y1, y2)
+            loss_acc.append(m["loss"])
+            sums_acc.append(m["mpjpe_sums"])
+            last = m["loss"]
+        # the reference steps its scheduler on the last train batch's loss
+        state.plateau.step(float(last))
+
+        vloss, vsums, n_val = [], [], 0
+        for y1, y2 in prefetch_to_device(batch_iterator((v2, v3), min(bs, len(v2)),
+                                                        shuffle=False, epochs=1), device):
+            vm = eval_step(state, y1, y2)
+            vloss.append(vm["loss"])
+            vsums.append(vm["mpjpe_sums"])
+            n_val += y1.shape[0] * cfg.clip_len
+        logger.log_epoch(
+            epoch, cfg.n_epochs,
+            float(torch.stack(loss_acc).mean()),
+            float(losses.mpjpe_mm(torch.stack(sums_acc).sum(0), n_train)),
+            float(torch.stack(vloss).mean()),
+            float(losses.mpjpe_mm(torch.stack(vsums).sum(0), n_val)),
+            lr=state.lr,
+        )
+
+    # heads cannot be read back from parameter shapes: the sidecar keeps it
+    path = ckpt.save(state, cfg.log_dir, cfg.run_name, batch_size=cfg.batch_size,
+                     extra={"heads": cfg.heads, "hidden": cfg.hidden,
+                            "n_blocks": cfg.n_blocks, "clip_len": cfg.clip_len})
+    logger.finish()
+    print(f"saved {path}")
+    return state
+
+
+if __name__ == "__main__":
+    train(parse_config(TemporalConfig))

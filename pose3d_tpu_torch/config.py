@@ -1,0 +1,82 @@
+"""Typed run configuration: the port of ``DataConfig``, ``TemporalConfig``
+and ``parse_config`` of ``pose3d_tpu/config.py`` (the other phases' configs
+come with their trainers).
+
+``TemporalConfig.use_kernels_train`` is JAX's ``use_pallas_train``: train
+on the fused sub-block kernels where they apply. ``--cpu`` selects the
+torch CPU device (``device``, default ``cuda``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class DataConfig:
+    """What the temporal trainer reads of the JAX ``DataConfig``. The
+    Human3.6M reader's fields (action filter, normalisation, subjects,
+    cameras) come with that reader in the phase-1 training slice."""
+
+    data_dir: Optional[str] = None   # H36M root; unset or missing => synthetic
+    synthetic_frames: int = 16384    # synthetic fallback size (train)
+
+
+@dataclasses.dataclass
+class TemporalConfig:
+    """Temporal (MotionBERT-style) sequence lifter config (BASELINE config #3)."""
+
+    clip_len: int = 243
+    hidden: int = 256
+    n_blocks: int = 5
+    heads: int = 8
+    batch_size: int = 16
+    n_epochs: int = 30
+    lr: float = 5e-4
+    # fused sub-block kernels for the train step (CUDA, the kernels' widths
+    # only; ops/stblock_train): computes in bf16 with f32 parameters
+    use_kernels_train: bool = True
+    run_name: str = "temporal_run"
+    resume: bool = False
+    loss: str = "mse"
+    log_dir: str = "./logs"
+    seed: int = 0
+    device: str = "cuda"
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+
+def _add_fields(parser: argparse.ArgumentParser, cls, prefix=""):
+    # every default is None: a flag not passed keeps the dataclass default
+    for f in dataclasses.fields(cls):
+        if f.name == "data":
+            _add_fields(parser, DataConfig, prefix=f"{f.name}.")
+            continue
+        name = f"--{prefix}{f.name}"
+        if f.type in ("bool", bool):
+            parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
+                                default=None)
+        elif f.type in ("int", int):
+            parser.add_argument(name, type=int, default=None)
+        elif f.type in ("float", float):
+            parser.add_argument(name, type=float, default=None)
+        else:
+            parser.add_argument(name, type=str, default=None)
+
+
+def parse_config(cls, argv=None):
+    """A config dataclass from flags (``--field value``, ``--data.field
+    value``); ``--cpu`` sets ``device`` to ``cpu``."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cpu", action="store_true", help="run on the CPU")
+    _add_fields(parser, cls)
+    args = vars(parser.parse_args(argv))
+    if args.pop("cpu"):
+        args["device"] = "cpu"
+    data_kwargs = {k.split(".", 1)[1]: v for k, v in args.items()
+                   if k.startswith("data.") and v is not None}
+    cfg = cls(**{k: v for k, v in args.items() if "." not in k and v is not None})
+    if data_kwargs:
+        cfg.data = dataclasses.replace(cfg.data, **data_kwargs)
+    return cfg

@@ -34,6 +34,13 @@
 // common.cuh): as for the lifter trunk, the L2 stream sets the pace. What
 // a CTA can keep in shared memory caps the tile and so that ratio.
 //
+// The training forwards (pallas_stblock_train.py _spatial_fwd_kernel :348,
+// _temporal_slab_fwd_kernel :407) are the same launchers given residual
+// pointers, which select the kSave kernels: they also store x1 and att,
+// which the backward (stblock_train.cu) reads. Both are in shared memory
+// already when the kernel reaches them, so the cost is two stores of the
+// tile's rows. Serving passes null and runs the kernels it always ran.
+//
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError().
 
@@ -80,10 +87,13 @@ enum class Part {
   kRest,   // projection + residual, MLP + residual: x, attn -> out
 };
 
-template <Part P>
+// kSave (training forwards): also store x1, the residual stream after the
+// projection, and for kWhole the attention output, to global memory.
+template <Part P, bool kSave = false>
 __global__ void __launch_bounds__(kThreads, 1)
 sub_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ weights,
-                 const bf16* __restrict__ attn, bf16* __restrict__ out, int n_rows) {
+                 const bf16* __restrict__ attn, bf16* __restrict__ out, int n_rows,
+                 bf16* __restrict__ x1_out, bf16* __restrict__ att_out) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);   // residual stream
   bf16* big = xs + kRowsPad * kLdX;           // see common.cuh
@@ -160,6 +170,13 @@ sub_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ weights,
                              e_s, f + i * kLdBig + kColQ, lane);
     }
     __syncthreads();
+    if (kSave) {
+      for (int idx = threadIdx.x; idx < rows * (kDim / 8); idx += kThreads) {
+        const int r = idx / (kDim / 8);
+        const int c = (idx % (kDim / 8)) * 8;
+        copy16(att_out + (row0 + r) * kDim + c, big + r * kLdBig + kColQ + c);
+      }
+    }
   }
 
   // x += bf16(o @ W_proj + b_proj)
@@ -169,6 +186,13 @@ sub_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ weights,
     residual_add2(xs + r * kLdX + c, v0, v1);
   });
   __syncthreads();
+  if (kSave) {
+    for (int idx = threadIdx.x; idx < rows * (kDim / 8); idx += kThreads) {
+      const int r = idx / (kDim / 8);
+      const int c = (idx % (kDim / 8)) * 8;
+      copy16(x1_out + (row0 + r) * kDim + c, xs + r * kLdX + c);
+    }
+  }
 
   mlp_residual(xs, big, ws, weights + kOffLn2G, weights + kOffLn2B, weights + kOffB1,
                weights + kOffB2, rows, warp, lane);
@@ -180,16 +204,17 @@ sub_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ weights,
   }
 }
 
-template <Part P>
+template <Part P, bool kSave = false>
 cudaError_t launch_part(const bf16* x, const bf16* w, const bf16* attn, bf16* out, int n_rows,
-                        cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(sub_block_kernel<P>,
+                        cudaStream_t stream, bf16* x1_out = nullptr,
+                        bf16* att_out = nullptr) {
+  cudaError_t err = cudaFuncSetAttribute(sub_block_kernel<P, kSave>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   constexpr int kTile = P == Part::kWhole ? kSpatialRows : kRowsPad;
-  sub_block_kernel<P><<<(n_rows + kTile - 1) / kTile, kThreads, kSmemBytes, stream>>>(
-      x, w, attn, out, n_rows);
+  sub_block_kernel<P, kSave><<<(n_rows + kTile - 1) / kTile, kThreads, kSmemBytes, stream>>>(
+      x, w, attn, out, n_rows, x1_out, att_out);
   return cudaGetLastError();
 }
 
@@ -199,28 +224,38 @@ cudaError_t launch_part(const bf16* x, const bf16* w, const bf16* attn, bf16* ou
 // layout above. frames_per_cta and block_elems are the caller's idea of
 // the kernel's constants: a mismatch returns cudaErrorInvalidValue. A last
 // tile of fewer than 4 frames runs with its missing frames as zero rows,
-// which no real frame sees. Launches on the calling thread's current
-// device, which must hold the operands.
+// which no real frame sees. x1 and att are null for serving; the training
+// forward passes both, shaped like x, and the kSave kernel also stores the
+// residuals there. Passing only one is cudaErrorInvalidValue. Launches on
+// the calling thread's current device, which must hold the operands.
 extern "C" cudaError_t stblock_spatial_launch(const void* x, const void* weights, void* out,
-                                              int n_frames, int frames_per_cta,
-                                              int block_elems, void* stream) {
+                                              void* x1, void* att, int n_frames,
+                                              int frames_per_cta, int block_elems,
+                                              void* stream) {
   if (n_frames < 0 || n_frames > (1 << 30) / kJoints || frames_per_cta != kFrames ||
-      block_elems != kBlockElems)
+      block_elems != kBlockElems || (x1 == nullptr) != (att == nullptr))
     return cudaErrorInvalidValue;
   if (n_frames == 0) return cudaSuccess;
-  return launch_part<Part::kWhole>(static_cast<const bf16*>(x),
-                                   static_cast<const bf16*>(weights), nullptr,
-                                   static_cast<bf16*>(out), n_frames * kJoints,
-                                   static_cast<cudaStream_t>(stream));
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(weights);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (x1 == nullptr)
+    return launch_part<Part::kWhole>(xb, wb, nullptr, static_cast<bf16*>(out),
+                                     n_frames * kJoints, s);
+  return launch_part<Part::kWhole, true>(xb, wb, nullptr, static_cast<bf16*>(out),
+                                         n_frames * kJoints, s, static_cast<bf16*>(x1),
+                                         static_cast<bf16*>(att));
 }
 
 // x, out: (n_clips, T, 17 * 256) bf16, the frame-major slab (the spatial
 // kernel's rows, reshaped); qkv: (n_clips * T * 17, 768) and attn:
 // (n_clips * T * 17, 256) bf16 scratch. Three launches in a row (see
-// above); the first error ends the sequence and is returned.
+// above); the first error ends the sequence and is returned. x1 is null
+// for serving; the training forward passes it, shaped like x, and keeps
+// attn as its att residual.
 extern "C" cudaError_t stblock_temporal_launch(const void* x, const void* weights, void* qkv,
-                                               void* attn, void* out, int n_clips, int T,
-                                               int block_elems, void* stream) {
+                                               void* attn, void* x1, void* out, int n_clips,
+                                               int T, int block_elems, void* stream) {
   if (n_clips < 0 || T < 1 || static_cast<long long>(n_clips) * T * kJoints > (1 << 30) ||
       block_elems != kBlockElems)
     return cudaErrorInvalidValue;
@@ -239,5 +274,8 @@ extern "C" cudaError_t stblock_temporal_launch(const void* x, const void* weight
                          {T * frame * kQkv, kQkv, frame * kQkv},
                          {T * frame * kDim, kDim, frame * kDim}, s);
   if (err != cudaSuccess) return err;
-  return launch_part<Part::kRest>(xb, wb, attnb, static_cast<bf16*>(out), n_rows, s);
+  if (x1 == nullptr)
+    return launch_part<Part::kRest>(xb, wb, attnb, static_cast<bf16*>(out), n_rows, s);
+  return launch_part<Part::kRest, true>(xb, wb, attnb, static_cast<bf16*>(out), n_rows, s,
+                                        static_cast<bf16*>(x1), nullptr);
 }

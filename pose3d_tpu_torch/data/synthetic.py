@@ -1,0 +1,66 @@
+"""Synthetic Human3.6M-like poses for tests and runs without the dataset:
+the port of ``pose3d_tpu/data/synthetic.py`` (``synthetic_poses_3d``,
+``project_to_2d``, ``synthetic_h36m``; numpy, the same draws from the same
+seed). 3D poses in camera space (metres, root 2.5-5.5 m deep), 2D poses
+as pinhole projections divided by the 1000-pixel image size."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pose3d_tpu_torch.core import cameras
+from pose3d_tpu_torch.core.skeleton import NUM_JOINTS
+
+# Average H36M bone offsets (metres) from the root, per joint
+_REST_POSE = np.array(
+    [
+        [0.0, 0.0, 0.0],       # root
+        [-0.13, 0.0, 0.0],     # rhip
+        [-0.14, 0.0, -0.45],   # rkne
+        [-0.15, 0.0, -0.90],   # rank
+        [0.13, 0.0, 0.0],      # lhip
+        [0.14, 0.0, -0.45],    # lkne
+        [0.15, 0.0, -0.90],    # lank
+        [0.0, 0.02, 0.25],     # belly
+        [0.0, 0.03, 0.50],     # neck
+        [0.0, 0.08, 0.60],     # nose
+        [0.0, 0.04, 0.70],     # head
+        [0.15, 0.0, 0.47],     # lsho
+        [0.30, 0.02, 0.28],    # lelb
+        [0.42, 0.05, 0.10],    # lwri
+        [-0.15, 0.0, 0.47],    # rsho
+        [-0.30, 0.02, 0.28],   # relb
+        [-0.42, 0.05, 0.10],   # rwri
+    ],
+    dtype=np.float32,
+)
+
+
+def synthetic_poses_3d(n_frames: int, seed: int = 0, jitter: float = 0.05) -> np.ndarray:
+    """(N, 17, 3) float32 camera-frame poses: rest pose + noise + depth."""
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(scale=jitter, size=(n_frames, NUM_JOINTS, 3)).astype(np.float32)
+    root = np.zeros((n_frames, 1, 3), dtype=np.float32)
+    root[:, 0, 0] = rng.uniform(-0.5, 0.5, n_frames)
+    root[:, 0, 1] = rng.uniform(-0.3, 0.3, n_frames)
+    root[:, 0, 2] = rng.uniform(2.5, 5.5, n_frames)
+    # camera frame: x right, y down, z forward; the rest pose's up is -y
+    pose = _REST_POSE[None].copy()
+    pose = np.stack([pose[..., 0], -pose[..., 2], pose[..., 1]], axis=-1)
+    return (pose + noise + root).astype(np.float32)
+
+
+def project_to_2d(poses_3d: np.ndarray, camera: int = 0) -> np.ndarray:
+    """Pinhole-project (N, 17, 3) poses with camera ``camera``'s
+    intrinsics to (N, 17, 2) pixels / 1000."""
+    f = cameras.FOCAL_LENGTH[camera]
+    c = cameras.CENTER[camera]
+    xy = poses_3d[..., :2] / np.clip(poses_3d[..., 2:], 1e-6, None)
+    return ((xy * f + c) / 1000.0).astype(np.float32)
+
+
+def synthetic_h36m(n_frames: int, seed: int = 0):
+    """(kp2d (N, 17, 2), kp3d (N, 17, 3) metres), as the H36M reader
+    returns them."""
+    kp3d = synthetic_poses_3d(n_frames, seed=seed)
+    return project_to_2d(kp3d, camera=seed % 4), kp3d

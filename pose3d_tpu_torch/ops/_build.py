@@ -99,12 +99,15 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (("lifter_trunk_launch", [p, p, p, p, i, i, i, i, p]),
                        ("attention_launch", [p, p, i, i, i, i, p]),
-                       ("stblock_spatial_launch", [p, p, p, i, i, i, p]),
-                       ("stblock_temporal_launch", [p, p, p, p, p, i, i, i, p]),
+                       ("stblock_spatial_launch", [p, p, p, p, p, i, i, i, p]),
+                       ("stblock_temporal_launch", [p, p, p, p, p, p, i, i, i, p]),
+                       ("stblock_train_bwd_launch", [p] * 8 + [i, i, i, i, p]),
                        ("martinez_launch", [p, p, p, p, p, p, p, p, p, i, i, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i
+    lib.stblock_train_bwd_workspace.argtypes = [i]
+    lib.stblock_train_bwd_workspace.restype = ctypes.c_longlong
     lib.pose3d_cuda_error_string.argtypes = [i]
     lib.pose3d_cuda_error_string.restype = ctypes.c_char_p
     return lib

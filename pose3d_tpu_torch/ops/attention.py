@@ -9,7 +9,10 @@
 
 Both launch the CUDA kernel of ``csrc/attention.cu`` when ``qkv`` lies on
 a CUDA device and run their plain versions (``*_reference``) when it lies
-on the CPU. Forward only: the training slice adds the backward.
+on the CPU. Both are ``torch.autograd.Function``s on either device, as the
+JAX wrappers are ``custom_vjp``s: the backward recomputes and
+differentiates the standard-softmax formulation (``standard_attention``,
+JAX's ``_xla_attention_flat``), for which JAX has no TPU kernel either.
 
 Numerical contract, as in the JAX helpers: scores and softmax in f32,
 the numerator ``e = exp(min(s, 80))`` with no row max, the normalizer
@@ -105,10 +108,75 @@ def _head_dim(qkv: torch.Tensor, heads: int, seq: int) -> int:
     return dh
 
 
+def standard_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """MHSA within each sequence of qkv (..., L, 3·dim) with the standard
+    max-subtracted softmax in f32, probabilities cast to the value dtype:
+    the formulation the JAX wrappers' backward differentiates
+    (``pallas_attention._xla_attention_flat``)."""
+    *lead, length, three_dim = qkv.shape
+    dim = three_dim // 3
+    dh = dim // heads
+    q, k, v = qkv.reshape(-1, length, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    a = (q @ k.transpose(-1, -2)) * dh ** -0.5
+    a = torch.softmax(a.float(), dim=-1).to(qkv.dtype)
+    return (a @ v).transpose(1, 2).reshape(*lead, length, dim)
+
+
+def _standard_grad(qkv: torch.Tensor, g: torch.Tensor, heads: int) -> torch.Tensor:
+    """d(standard_attention)/d(qkv) against the output gradient g."""
+    with torch.enable_grad():
+        x = qkv.detach().requires_grad_(True)
+        (dx,) = torch.autograd.grad(standard_attention(x, heads), x, g)
+    return dx
+
+
+class _PackedFlatAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, seq, heads, dh):
+        ctx.save_for_backward(qkv)
+        ctx.seq, ctx.heads = seq, heads
+        if qkv.device.type == "cpu":
+            return packed_flat_attention_reference(qkv, seq, heads)
+        rows = qkv.shape[0]
+        out = torch.empty(rows, heads * dh, dtype=qkv.dtype, device=qkv.device)
+        if rows:
+            _launch(qkv, out, rows // seq, seq, heads, dh)
+            packed_flat_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        rows, seq = qkv.shape[0], ctx.seq
+        dqkv = _standard_grad(qkv.view(rows // seq, seq, -1), g.reshape(rows // seq, seq, -1),
+                              ctx.heads)
+        return dqkv.view(rows, -1), None, None, None
+
+
+class _SeqAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, heads, dh):
+        ctx.save_for_backward(qkv)
+        ctx.heads = heads
+        if qkv.device.type == "cpu":
+            return seq_attention_reference(qkv, heads)
+        n, length, _ = qkv.shape
+        out = torch.empty(n, length, heads * dh, dtype=qkv.dtype, device=qkv.device)
+        if n:
+            _launch(qkv, out, n, length, heads, dh)
+            seq_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return _standard_grad(qkv, g, ctx.heads), None, None
+
+
 def packed_flat_attention(qkv: torch.Tensor, seq: int,
                           heads: int) -> torch.Tensor:
     """MHSA over flat rows: qkv (n·seq, 3·dim) -> (n·seq, dim), each run of
-    ``seq`` rows one sequence.
+    ``seq`` rows one sequence; differentiable (see the module docstring).
 
     On a CUDA device this launches the kernel (bf16, head width 16, 32 or
     64; anything else raises) and counts it in
@@ -118,16 +186,9 @@ def packed_flat_attention(qkv: torch.Tensor, seq: int,
     if qkv.dim() != 2:
         raise ValueError(f"qkv must be (rows, 3*dim), got {tuple(qkv.shape)}")
     dh = _head_dim(qkv, heads, seq)
-    rows = qkv.shape[0]
-    if rows % seq:
-        raise ValueError(f"{rows} rows are not whole sequences of {seq}")
-    if qkv.device.type == "cpu":
-        return packed_flat_attention_reference(qkv, seq, heads)
-    out = torch.empty(rows, heads * dh, dtype=qkv.dtype, device=qkv.device)
-    if rows:
-        _launch(qkv, out, rows // seq, seq, heads, dh)
-        packed_flat_attention.launches += 1
-    return out
+    if qkv.shape[0] % seq:
+        raise ValueError(f"{qkv.shape[0]} rows are not whole sequences of {seq}")
+    return _PackedFlatAttention.apply(qkv, seq, heads, dh)
 
 
 packed_flat_attention.launches = 0
@@ -135,7 +196,8 @@ packed_flat_attention.launches = 0
 
 def seq_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """MHSA, one sequence per row of the first axis: qkv (N, L, 3·dim) ->
-    (N, L, dim), for L too long to pack (the 243-frame temporal axis).
+    (N, L, dim), for L too long to pack (the 243-frame temporal axis);
+    differentiable (see the module docstring).
 
     On a CUDA device this launches the kernel (bf16, head width 16, 32 or
     64; anything else raises) and counts it in ``seq_attention.launches``;
@@ -143,15 +205,8 @@ def seq_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """
     if qkv.dim() != 3:
         raise ValueError(f"qkv must be (N, L, 3*dim), got {tuple(qkv.shape)}")
-    n, length, _ = qkv.shape
-    dh = _head_dim(qkv, heads, length)
-    if qkv.device.type == "cpu":
-        return seq_attention_reference(qkv, heads)
-    out = torch.empty(n, length, heads * dh, dtype=qkv.dtype, device=qkv.device)
-    if n:
-        _launch(qkv, out, n, length, heads, dh)
-        seq_attention.launches += 1
-    return out
+    dh = _head_dim(qkv, heads, qkv.shape[1])
+    return _SeqAttention.apply(qkv, heads, dh)
 
 
 seq_attention.launches = 0

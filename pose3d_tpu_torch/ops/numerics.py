@@ -1,9 +1,12 @@
 """The elementwise math the port's kernels share, as plain PyTorch.
 
-The counterpart of ``_ln``, ``_erf``, ``_gelu`` and the f32-accumulated
-dot of ``pose3d_tpu/ops/pallas_lifter.py``, which the lifter trunk and the
-temporal sub-block kernels all use. The CUDA kernels (``csrc/common.cuh``)
-carry the same constants and follow the same rounding.
+The counterpart of ``_ln``, ``_erf``, ``_erf_grad``, ``_gelu`` and the
+f32-accumulated dot of ``pose3d_tpu/ops/pallas_lifter.py``, which the
+lifter trunk and the temporal sub-block kernels all use, and of the
+training kernels' ``_gelu_grad``, ``_ln_fwd_stats`` and ``_ln_bwd_input``
+(``pallas_stblock_train.py``). The CUDA kernels (``csrc/common.cuh``,
+``csrc/stblock_train.cu``) carry the same constants and follow the same
+rounding.
 """
 
 from __future__ import annotations
@@ -42,13 +45,50 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return (xf * 0.5 * (1.0 + erf(xf / math.sqrt(2.0)))).to(x.dtype)
 
 
-def ln(x, g, b) -> torch.Tensor:
-    """LayerNorm with f32 statistics and biased variance, in ``x.dtype``."""
+# P'(s) of the erf polynomial: d/dx [x·P(x^2)] = P(s) + 2s·P'(s)
+# (pallas_lifter._ERF_D)
+ERF_D = tuple(float((i + 1) * c) for i, c in enumerate(ERF_C[1:]))
+INV_SQRT2 = float(1.0 / math.sqrt(2.0))
+
+
+def erf_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of ``erf``: 0 where |x| >= 3 (strict ``<`` at the clamp, as the
+    JAX kernels), in ``x.dtype``."""
+    s = torch.clamp(x, -ERF_CLAMP, ERF_CLAMP).square()
+    inner = _horner(ERF_C, s) + 2.0 * s * _horner(ERF_D, s)
+    return torch.where(x.abs() < ERF_CLAMP, inner, torch.zeros_like(inner))
+
+
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """The exact derivative of ``gelu`` (0.5·x·(1 + erf(x/sqrt2)) on the
+    polynomial erf), in f32: the train kernels' GELU backward
+    (pallas_stblock_train._gelu_grad)."""
+    xf = x.float()
+    u = xf * INV_SQRT2
+    return 0.5 * (1.0 + erf(u)) + 0.5 * xf * INV_SQRT2 * erf_grad(u)
+
+
+def ln_fwd_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 LayerNorm forward pieces (xhat, r), biased variance."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + LN_EPS)
-    return (y * g.float() + b.float()).to(x.dtype)
+    r = torch.rsqrt(var + LN_EPS)
+    return (xf - mu) * r, r
+
+
+def ln_bwd_input(dy_affine: torch.Tensor, xhat: torch.Tensor,
+                 r: torch.Tensor) -> torch.Tensor:
+    """dx of LayerNorm given d(xhat·g), already multiplied by g."""
+    m1 = dy_affine.mean(dim=-1, keepdim=True)
+    m2 = (dy_affine * xhat).mean(dim=-1, keepdim=True)
+    return r * (dy_affine - m1 - xhat * m2)
+
+
+def ln(x, g, b) -> torch.Tensor:
+    """LayerNorm with f32 statistics and biased variance, in ``x.dtype``."""
+    xhat, _ = ln_fwd_stats(x)
+    return (xhat * g.float() + b.float()).to(x.dtype)
 
 
 def dot(a, w) -> torch.Tensor:

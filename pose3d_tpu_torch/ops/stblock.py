@@ -81,30 +81,37 @@ class SubBlockWeights:
         return out
 
 
-def _pack(block, half: str) -> SubBlockWeights:
-    sd = block.state_dict()
-    ref = sd[f"{half}_attn.qkv.weight"]
+def pack_half(block, half: str, dtype: torch.dtype | None = None) -> SubBlockWeights:
+    """One half ("spatial" or "temporal") of a ``SpatioTemporalBlock`` ->
+    the kernels' operand in ``dtype`` (default the block's). Differentiable:
+    a ``torch.cat`` of the parameters' own transposed and cast views, so
+    autograd splits the flat gradient back onto each parameter (a pack of
+    the detached state dict would train nothing). Raises ValueError where
+    the widths are not the kernel's (hidden 256, MLP 1024)."""
+    params = dict(block.named_parameters())
+    ref = params[f"{half}_attn.qkv.weight"]
     parts = []
     for name, shape, key, transposed in _LAYOUT:
-        t = sd[f"{half}_{key}"]
+        t = params[f"{half}_{key}"]
         t = t.t() if transposed else t
         if tuple(t.shape) != shape:
             raise ValueError(f"{half}_{key}: shape {tuple(t.shape)}, the kernel "
                              f"takes {shape} as {name}")
-        parts.append(t.to(device=ref.device, dtype=ref.dtype).reshape(-1))
-    return SubBlockWeights(torch.cat(parts).contiguous())
+        parts.append(t.to(device=ref.device, dtype=dtype or ref.dtype).reshape(-1))
+    return SubBlockWeights(torch.cat(parts))
 
 
 def pack_spatial_weights(block) -> SubBlockWeights:
-    """A ``SpatioTemporalBlock``'s spatial half -> the kernels' operand, on
-    its device and in its dtype. Raises ValueError where the widths are not
-    the kernel's (hidden 256, MLP 1024)."""
-    return _pack(block, "spatial")
+    """A ``SpatioTemporalBlock``'s spatial half -> the kernels' operand for
+    serving (no grad), on its device and in its dtype."""
+    with torch.no_grad():
+        return pack_half(block, "spatial")
 
 
 def pack_temporal_weights(block) -> SubBlockWeights:
     """The temporal half, as ``pack_spatial_weights``."""
-    return _pack(block, "temporal")
+    with torch.no_grad():
+        return pack_half(block, "temporal")
 
 
 def pack_temporal_lifter(module) -> list[tuple[SubBlockWeights, SubBlockWeights]]:
@@ -112,35 +119,56 @@ def pack_temporal_lifter(module) -> list[tuple[SubBlockWeights, SubBlockWeights]
     return [(pack_spatial_weights(b), pack_temporal_weights(b)) for b in module.blocks]
 
 
-def _sub_block(x: torch.Tensor, w: dict, attend) -> torch.Tensor:
+def _sub_block(x: torch.Tensor, w: dict, attend, with_residuals: bool = False):
     """One sub-block on flat rows x, ``attend`` mapping its qkv rows to
-    attention rows, rounded to ``x.dtype`` where the JAX kernels round."""
+    attention rows, rounded to ``x.dtype`` where the JAX kernels round.
+    With ``with_residuals`` returns (out, x1, att): the training forward's
+    residual stream after the projection and attention output."""
     dt = x.dtype
     y = ln(x, w["ln1_g"], w["ln1_b"])
     qkv = (dot(y, w["w_qkv"]) + w["b_qkv"].float()).to(dt)
-    x = x + (dot(attend(qkv), w["w_proj"]) + w["b_proj"].float()).to(dt)
-    y = ln(x, w["ln2_g"], w["ln2_b"])
-    y = gelu((dot(y, w["w1"]) + w["b1"].float()).to(dt))
-    return x + (dot(y, w["w2"]) + w["b2"].float()).to(dt)
+    att = attend(qkv)
+    x1 = x + (dot(att, w["w_proj"]) + w["b_proj"].float()).to(dt)
+    y = ln(x1, w["ln2_g"], w["ln2_b"])
+    hg = gelu((dot(y, w["w1"]) + w["b1"].float()).to(dt))
+    out = x1 + (dot(hg, w["w2"]) + w["b2"].float()).to(dt)
+    return (out, x1, att) if with_residuals else out
 
 
-def spatial_block_reference(x: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
-    """Plain version of ``spatial_block``, on any device and dtype."""
+def joint_major(rows: torch.Tensor, n_clips: int) -> torch.Tensor:
+    """(C·T·17, w) frame-major rows -> (C·17, T, w) joint sequences."""
+    w = rows.shape[-1]
+    return rows.view(n_clips, -1, N_JOINTS, w).transpose(1, 2).reshape(
+        n_clips * N_JOINTS, -1, w)
+
+
+def frame_major(seqs: torch.Tensor, n_clips: int) -> torch.Tensor:
+    """Inverse of ``joint_major``."""
+    w = seqs.shape[-1]
+    return seqs.view(n_clips, N_JOINTS, -1, w).transpose(1, 2).reshape(-1, w)
+
+
+def spatial_block_reference(x: torch.Tensor, w: SubBlockWeights,
+                            with_residuals: bool = False):
+    """Plain version of ``spatial_block`` (and, ``with_residuals``, of the
+    training forward), on any device and dtype."""
     return _sub_block(x, w.parts(), lambda qkv: attention.packed_flat_attention_reference(
-        qkv, N_JOINTS, HEADS))
+        qkv, N_JOINTS, HEADS), with_residuals)
 
 
-def temporal_slab_reference(x_slab: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
-    """Plain version of ``temporal_slab``, on any device and dtype."""
-    c, t, width = x_slab.shape
+def temporal_slab_reference(x_slab: torch.Tensor, w: SubBlockWeights,
+                            with_residuals: bool = False):
+    """Plain version of ``temporal_slab`` (and, ``with_residuals``, of the
+    training forward), on any device and dtype."""
+    c = x_slab.shape[0]
 
     def attend(qkv):  # per (clip, joint): attention over its t frames
-        joint_major = qkv.view(c, t, N_JOINTS, 3 * DIM).transpose(1, 2)
-        out = attention.seq_attention_reference(joint_major, HEADS)
-        return out.transpose(1, 2).reshape(c * t * N_JOINTS, DIM)
+        return frame_major(attention.seq_attention_reference(joint_major(qkv, c), HEADS), c)
 
-    rows = x_slab.reshape(c * t * N_JOINTS, DIM)
-    return _sub_block(rows, w.parts(), attend).view(c, t, width)
+    outs = _sub_block(x_slab.reshape(-1, DIM), w.parts(), attend, with_residuals)
+    if with_residuals:
+        return tuple(o.view(x_slab.shape) for o in outs)
+    return outs.view(x_slab.shape)
 
 
 def _check_operands(x: torch.Tensor, w: SubBlockWeights) -> None:
@@ -160,6 +188,69 @@ def _check_operands(x: torch.Tensor, w: SubBlockWeights) -> None:
             raise ValueError(f"{name} must be contiguous and start on a 16-byte boundary")
 
 
+def check_rows(x: torch.Tensor) -> None:
+    """Raises unless x is (n_frames·17, 256) spatial rows."""
+    if x.dim() != 2 or x.shape[1] != DIM or x.shape[0] % N_JOINTS:
+        raise ValueError(f"tokens must be (n_frames*{N_JOINTS}, {DIM}), "
+                         f"got {tuple(x.shape)}")
+
+
+def check_slab(x_slab: torch.Tensor) -> None:
+    """Raises unless x_slab is a (C, T, 17·256) slab whose T the CUDA
+    attention can hold."""
+    if x_slab.dim() != 3 or x_slab.shape[2] != N_JOINTS * DIM or x_slab.shape[1] < 1:
+        raise ValueError(f"the slab must be (C, T, {N_JOINTS * DIM}), "
+                         f"got {tuple(x_slab.shape)}")
+    t = x_slab.shape[1]
+    if x_slab.device.type == "cuda" and attention.smem_bytes(t, DIM_HEAD) > attention.SMEM_LIMIT:
+        raise ValueError(f"{t} frames: a joint's K and V do not fit in shared memory")
+
+
+def run_spatial(x: torch.Tensor, w: SubBlockWeights, counter, with_residuals: bool):
+    """``spatial_block`` and, ``with_residuals``, the training forward
+    (out, x1, att): the kernel on a CUDA device, counted in
+    ``counter.launches``, the plain version on the CPU."""
+    check_rows(x)
+    _check_operands(x, w)
+    if x.device.type == "cpu":
+        return spatial_block_reference(x, w, with_residuals)
+    outs = [torch.empty_like(x) for _ in range(3 if with_residuals else 1)]
+    n_frames = x.shape[0] // N_JOINTS
+    if n_frames:
+        x1, att = (outs[1].data_ptr(), outs[2].data_ptr()) if with_residuals else (None, None)
+        with torch.cuda.device(x.device):  # the launch's current device
+            err = _build.library().stblock_spatial_launch(
+                x.data_ptr(), w.flat.data_ptr(), outs[0].data_ptr(), x1, att, n_frames,
+                FRAMES_PER_CTA, BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "stblock_spatial_launch")
+        counter.launches += 1
+    return tuple(outs) if with_residuals else outs[0]
+
+
+def run_slab(x_slab: torch.Tensor, w: SubBlockWeights, counter, with_residuals: bool):
+    """``temporal_slab`` and, ``with_residuals``, the training forward
+    (out, x1, att), as ``run_spatial``. The kernels run three in a row with
+    a qkv and an attention scratch allocated here; the training forward
+    returns the attention scratch as att."""
+    check_slab(x_slab)
+    _check_operands(x_slab, w)
+    if x_slab.device.type == "cpu":
+        return temporal_slab_reference(x_slab, w, with_residuals)
+    c, t, _ = x_slab.shape
+    out, att = torch.empty_like(x_slab), torch.empty_like(x_slab)
+    x1 = torch.empty_like(x_slab) if with_residuals else None
+    if c:
+        qkv = torch.empty(c * t * N_JOINTS, 3 * DIM, dtype=x_slab.dtype, device=x_slab.device)
+        with torch.cuda.device(x_slab.device):  # the launch's current device
+            err = _build.library().stblock_temporal_launch(
+                x_slab.data_ptr(), w.flat.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+                x1.data_ptr() if with_residuals else None, out.data_ptr(), c, t,
+                BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "stblock_temporal_launch")
+        counter.launches += 1
+    return (out, x1, att) if with_residuals else out
+
+
 def spatial_block(x: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
     """The spatial sub-block on flat (n_frames·17, 256) rows.
 
@@ -167,24 +258,7 @@ def spatial_block(x: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
     only; anything else raises) and counts it in ``spatial_block.launches``;
     on the CPU it runs ``spatial_block_reference``.
     """
-    if x.dim() != 2 or x.shape[1] != DIM or x.shape[0] % N_JOINTS:
-        raise ValueError(f"tokens must be (n_frames*{N_JOINTS}, {DIM}), "
-                         f"got {tuple(x.shape)}")
-    _check_operands(x, w)
-    if x.device.type == "cpu":
-        return spatial_block_reference(x, w)
-    out = torch.empty_like(x)
-    n_frames = x.shape[0] // N_JOINTS
-    if n_frames == 0:
-        return out
-    lib = _build.library()
-    with torch.cuda.device(x.device):  # the launch's current device
-        err = lib.stblock_spatial_launch(
-            x.data_ptr(), w.flat.data_ptr(), out.data_ptr(), n_frames, FRAMES_PER_CTA,
-            BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "stblock_spatial_launch")
-    spatial_block.launches += 1
-    return out
+    return run_spatial(x, w, spatial_block, with_residuals=False)
 
 
 spatial_block.launches = 0
@@ -199,29 +273,7 @@ def temporal_slab(x_slab: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
     ``temporal_slab.launches``; on the CPU it runs
     ``temporal_slab_reference``.
     """
-    if x_slab.dim() != 3 or x_slab.shape[2] != N_JOINTS * DIM or x_slab.shape[1] < 1:
-        raise ValueError(f"the slab must be (C, T, {N_JOINTS * DIM}), "
-                         f"got {tuple(x_slab.shape)}")
-    _check_operands(x_slab, w)
-    if x_slab.device.type == "cpu":
-        return temporal_slab_reference(x_slab, w)
-    c, t, _ = x_slab.shape
-    if attention.smem_bytes(t, DIM_HEAD) > attention.SMEM_LIMIT:
-        raise ValueError(f"{t} frames: a joint's K and V do not fit in shared memory")
-    out = torch.empty_like(x_slab)
-    if c == 0:
-        return out
-    rows = c * t * N_JOINTS
-    qkv = torch.empty(rows, 3 * DIM, dtype=x_slab.dtype, device=x_slab.device)
-    att = torch.empty(rows, DIM, dtype=x_slab.dtype, device=x_slab.device)
-    lib = _build.library()
-    with torch.cuda.device(x_slab.device):  # the launch's current device
-        err = lib.stblock_temporal_launch(
-            x_slab.data_ptr(), w.flat.data_ptr(), qkv.data_ptr(), att.data_ptr(),
-            out.data_ptr(), c, t, BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "stblock_temporal_launch")
-    temporal_slab.launches += 1
-    return out
+    return run_slab(x_slab, w, temporal_slab, with_residuals=False)
 
 
 temporal_slab.launches = 0
@@ -235,19 +287,21 @@ def supports(model) -> bool:
             and model.hidden == DIM and model.heads == HEADS)
 
 
-def embed_clips(module, clips: torch.Tensor) -> torch.Tensor:
+def embed_clips(module, clips: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
     """(C, clip_len, 17, in_dim) clips -> the trunk's (C·clip_len·17, 256)
-    input rows in the module's dtype: ``x @ W + b``, plus the PE table
-    bf16(spatial_pe) + bf16(temporal_pe), rounded before it meets the
-    tokens, as in the JAX fused forward (the module adds the two in
-    turn)."""
+    input rows in ``dtype`` (default the module's): ``x @ W + b``, plus the
+    PE table dtype(spatial_pe) + dtype(temporal_pe), rounded before it
+    meets the tokens, as in the JAX fused forward (the module adds the two
+    in turn). Differentiable in the module's parameters."""
     c, t, j, d = clips.shape
     if j != N_JOINTS or t != module.clip_len or d != module.in_dim:
         raise ValueError(f"expected (C, {module.clip_len}, {N_JOINTS}, "
                          f"{module.in_dim}), got {tuple(clips.shape)}")
+    dt = dtype or module.dtype
     emb = module.embed
-    tokens = clips.reshape(c * t * j, d).to(module.dtype) @ emb.weight.t() + emb.bias
-    pe = module.spatial_pe[0, 0][None] + module.temporal_pe[0, :t][:, None]
+    tokens = clips.reshape(c * t * j, d).to(dt) @ emb.weight.t().to(dt) + emb.bias.to(dt)
+    pe = module.spatial_pe.to(dt)[0, 0][None] + module.temporal_pe.to(dt)[0, :t][:, None]
     return tokens + pe.reshape(t * j, DIM).repeat(c, 1)
 
 
@@ -273,11 +327,13 @@ def temporal_trunk_reference(tokens: torch.Tensor, n_clips: int,
 
 def temporal_head(module, tokens: torch.Tensor, n_clips: int) -> torch.Tensor:
     """The trunk's rows -> (C, T, 17, out_dim) f32 through the module's
-    LN (f32 statistics) -> Linear -> ReLU -> Linear head, in its dtype."""
+    LN (f32 statistics) -> Linear -> ReLU -> Linear head, in the rows'
+    dtype."""
     y = ln(tokens, module.norm.weight, module.norm.bias)
+    dt = y.dtype
     l1, l2 = module.head[0], module.head[2]
-    y = torch.relu(y @ l1.weight.t() + l1.bias)
-    y = (y @ l2.weight.t() + l2.bias).float()
+    y = torch.relu(y @ l1.weight.t().to(dt) + l1.bias.to(dt))
+    y = (y @ l2.weight.t().to(dt) + l2.bias.to(dt)).float()
     return y.view(n_clips, -1, N_JOINTS, module.out_dim)
 
 

@@ -1,0 +1,60 @@
+"""Checkpoint save / restore with ``torch.save``: the port of
+``pose3d_tpu/train/checkpoint.py``. The reference's run layout
+``<log_dir>/models/<run_name>`` (train_1.py:186) holds the step, the model
+and optimizer state dicts and the plateau scheduler's state; a
+``.meta.json`` sidecar beside it holds run metadata that shapes cannot
+carry (``batch_size`` and, for the temporal lifter, ``heads``,
+``hidden``, ``n_blocks``, ``clip_len``). ``save`` writes a temporary file
+and renames it, so a checkpoint is whole or absent.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+
+import torch
+
+from pose3d_tpu_torch.train.state import TrainState
+
+
+def _path(log_dir, run_name: str) -> pathlib.Path:
+    return (pathlib.Path(log_dir) / "models" / run_name).absolute()
+
+
+def save(state: TrainState, log_dir, run_name: str, *, batch_size: int | None = None,
+         extra: dict | None = None) -> str:
+    path = _path(log_dir, run_name)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {"step": state.step, "model": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict(),
+               "plateau": state.plateau.state_dict()}
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    with open(str(path) + ".meta.json", "w") as f:
+        json.dump({"batch_size": batch_size or 0, **(extra or {})}, f)
+    return str(path)
+
+
+def load_meta(log_dir, run_name: str) -> dict:
+    """The ``.meta.json`` sidecar ({} when absent)."""
+    meta = pathlib.Path(str(_path(log_dir, run_name)) + ".meta.json")
+    return json.loads(meta.read_text()) if meta.exists() else {}
+
+
+def restore(state: TrainState, log_dir, run_name: str) -> tuple[TrainState, dict]:
+    """Load a checkpoint into ``state`` (its model, optimizer and plateau
+    schedule, in place, on the model's device); returns (state, meta)."""
+    device = next(state.model.parameters()).device
+    payload = torch.load(_path(log_dir, run_name), map_location=device, weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.plateau.load_state_dict(payload["plateau"])
+    state.step = payload["step"]
+    return state, load_meta(log_dir, run_name)
+
+
+def exists(log_dir, run_name: str) -> bool:
+    return _path(log_dir, run_name).exists()

@@ -1,0 +1,53 @@
+"""Train and eval steps of the lifters: the port of
+``make_lifter_train_step`` / ``make_lifter_eval_step`` of
+``pose3d_tpu/train/steps.py``.
+
+A step returns the loss and the batch's per-joint MPJPE sums
+(``losses.loss_mpjpe``); the epoch loop sums them and finishes with
+``losses.mpjpe_mm``. The eval step's flip test-time augmentation waits
+for the phase-1 trainer (``core/transforms``), and the data-parallel step
+for the port's ``torch.distributed`` work.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pose3d_tpu_torch import losses
+from pose3d_tpu_torch.train.state import TrainState, clip_by_global_norm
+
+
+def make_lifter_train_step(loss: str = "mse"):
+    """(state, y1, y2) -> {"loss", "mpjpe_sums"}: forward through
+    ``state.apply``, loss, backward, optimizer step at the lr the plateau
+    schedule left in the optimizer. y1: model inputs; y2: targets, to whose
+    shape the prediction is reshaped."""
+    loss_fn = losses.LOSS_FNS[loss]
+
+    def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
+        pred = state.apply(state.model, y1).reshape(y2.shape)
+        loss_val = loss_fn(pred, y2)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss_val.backward()
+        if state.grad_clip:
+            clip_by_global_norm(list(state.model.parameters()), state.grad_clip)
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            sums = losses.loss_mpjpe(pred, y2)
+        return {"loss": loss_val.detach(), "mpjpe_sums": sums}
+
+    return step
+
+
+def make_lifter_eval_step(loss: str = "mse"):
+    """(state, y1, y2) -> {"loss", "mpjpe_sums", "pred"}, without grads."""
+    loss_fn = losses.LOSS_FNS[loss]
+
+    @torch.no_grad()
+    def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
+        pred = state.apply(state.model, y1).reshape(y2.shape)
+        return {"loss": loss_fn(pred, y2), "mpjpe_sums": losses.loss_mpjpe(pred, y2),
+                "pred": pred}
+
+    return step

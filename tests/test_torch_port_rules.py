@@ -36,6 +36,8 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch.ops.stblock, pose3d_tpu_torch.ops.attention\n"
         "import pose3d_tpu_torch.ops.martinez, pose3d_tpu_torch.models.lifters\n"
         "import pose3d_tpu_torch.pipeline.lift, pose3d_tpu_torch.pipeline.keypoints\n"
+        "import pose3d_tpu_torch.ops.stblock_train, pose3d_tpu_torch.cli.train_temporal\n"
+        "import pose3d_tpu_torch.train.checkpoint, pose3d_tpu_torch.train.logging\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
     )
@@ -65,6 +67,7 @@ LAUNCHERS = {
     "lifter_trunk.cu": ["lifter_trunk_launch"],
     "attention.cu": ["attention_launch"],
     "stblock.cu": ["stblock_spatial_launch", "stblock_temporal_launch"],
+    "stblock_train.cu": ["stblock_train_bwd_launch"],
     "martinez.cu": ["martinez_launch"],
 }
 
@@ -105,7 +108,7 @@ def _offset_names(layout) -> list[str]:
             for name, *_ in layout]
 
 
-@pytest.mark.parametrize("kernel", ["lifter", "stblock", "martinez"])
+@pytest.mark.parametrize("kernel", ["lifter", "stblock", "stblock_train", "martinez"])
 def test_kernel_constants_match_the_wrapper(kernel):
     """The .cu file's tile and layout constants are the Python wrapper's
     (the launchers refuse a mismatch at run time; this catches it here)."""
@@ -117,6 +120,10 @@ def test_kernel_constants_match_the_wrapper(kernel):
     if kernel == "martinez":
         src = (PKG / "csrc" / "martinez.cu").read_text()
         assert f"constexpr int kWidth = {M.WIDTH};" in src
+    elif kernel == "stblock_train":
+        src = (PKG / "csrc" / "stblock_train.cu").read_text()
+        assert f"constexpr int kHeads = {S.HEADS};" in src
+        assert _layout_offsets(src) == _offset_names(S._LAYOUT)
     elif kernel == "lifter":
         src = (PKG / "csrc" / "lifter_trunk.cu").read_text()
         assert f"constexpr int kFrames = {L.FRAMES_PER_CTA};" in src
