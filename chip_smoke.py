@@ -86,9 +86,36 @@ weights (bf16 compute in the kernels), 16 clips x 243 frames a step
     and its plain version, and a torch.profiler device-time split of one
     step by kernel.
 
+The direct image->3D path, the default PoseNet3D (the reference Model_3D:
+ResNet-50, three 4x4 stride-2 deconvs of 256, a 1x1 conv to 17 x 64
+channels, z_scale 2.5, bf16), 64 frames of 256 x 256 a batch (bench.py's
+``direct_train`` batch), synthetic frames from ``data/synthetic.py``, the
+final conv's weights x8 so that the heatmaps peak and the coordinates
+spread (std >= 0.1 is asserted):
+
+15. kernel vs plain: the NHWC soft-argmax kernel on the model's own
+    logits, on N(0, 1) + 100 logits with a +30 peak planted per (sample,
+    joint) (the coordinates must sit on the peaks) and at J = 3; the
+    conv-decode kernel on the model's own features, with +200 on its bias
+    and at J = 3: coordinates within 1e-3 of the plain version, the
+    kernel's error against a float64 run at most 1.5x the plain version's
+    (+ 2^-16 of the largest coordinate), two calls bitwise equal;
+16. the forward on each route (heatmap, NHWC, fused) against the same
+    route on the plain versions (atol 5e-2) and the f32 module (atol
+    5e-2), one soft-argmax launch on the NHWC route, one conv-decode
+    launch on the fused route, none on the heatmap route (counts set to 0
+    before each forward); ``make_direct_eval_chunk_step`` over 4 batches
+    of uint8 frames on the fused route (4 conv-decode launches);
+17. times: each kernel, its plain version and, for the conv decode, the
+    1x1 conv alone as one bf16 ``torch.matmul`` (a yardstick; the port
+    never calls it); the forward on each route (frames/s), and a
+    torch.profiler device-time split of the fused route (decode,
+    convolutions, batch norm, casts and copies, the rest).
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
-peak and its bytes, each input read once and each output written once,
+peak, or for the soft-argmax its f32 operations over the 67 TFLOP/s f32
+peak, and its bytes, each input read once and each output written once,
 over 3.35 TB/s), then as the last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result. Imports torch, numpy
 and ``pose3d_tpu_torch`` only.
@@ -109,17 +136,22 @@ import torch
 
 import pose3d_tpu_torch
 from pose3d_tpu_torch.data.feed import batch_iterator
-from pose3d_tpu_torch.data.synthetic import synthetic_h36m
+from pose3d_tpu_torch.data.synthetic import synthetic_frames, synthetic_h36m
+from pose3d_tpu_torch.models.heads import PoseNet3D
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter, MartinezLifter
 from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops import attention as A
+from pose3d_tpu_torch.ops import conv_decode as CD
+from pose3d_tpu_torch.ops import heatmap as H
 from pose3d_tpu_torch.ops import lifter as L
 from pose3d_tpu_torch.ops import martinez as Mz
+from pose3d_tpu_torch.ops import softargmax as SA
 from pose3d_tpu_torch.ops import stblock as S
 from pose3d_tpu_torch.ops import stblock_train as ST
 from pose3d_tpu_torch.pipeline.lift import lift_sequence
 from pose3d_tpu_torch.serving import LifterService
+from pose3d_tpu_torch.train.image_steps import make_direct_eval_chunk_step, make_direct_eval_step
 from pose3d_tpu_torch.train.state import create_train_state
 from pose3d_tpu_torch.train.steps import make_lifter_train_step
 
@@ -153,7 +185,17 @@ TRAIN_LR = 1e-3
 # 2^-16 of the f32 tensor's largest element where the plain error is ~0)
 GRAD_ATOL_REL, GRAD_RTOL = 2 ** -7, 2 ** -7
 STEP_GRAD_REL = 5e-2  # whole step, kernels vs plain versions: relative L2 per parameter
+DIRECT_B = 64        # bench.py's DIRECT_B
+DIRECT_SIZE = 256    # the reference's input frames
+DIRECT_CHUNK = 4     # batches of the eval chunk step
+# the final conv x8: at the init's scale the heatmaps are near uniform and
+# every coordinate sits near -1/32, so a comparison would say little
+FINAL_SCALE = 8.0
+MIN_SPREAD = 0.1     # std of the coordinates over samples and joints
+DECODE_ATOL = 1e-3   # decode kernels vs plain: both sum in f32, in other orders
+DIRECT_ATOL = 5e-2   # direct routes vs plain routes and vs the f32 module (bf16 budget)
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA's data sheet)
+PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_HBM = 3.35e12   # H100 SXM HBM3 bytes/s
 
 
@@ -836,13 +878,233 @@ def train_loop_phase(model) -> tuple[dict, dict]:
     return launches, t
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def seeded_posenet(device, dtype):
+    """The default PoseNet3D from the seed, its final conv x FINAL_SCALE."""
+    model = PoseNet3D(device="cpu").init_weights(torch.Generator().manual_seed(SEED))
+    model.final_layer.weight.data.mul_(FINAL_SCALE)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def direct_frames(n, seed):
+    return torch.from_numpy(synthetic_frames(n, DIRECT_SIZE, seed=seed)).to("cuda")
+
+
+def _decode_check(what, kernel, plain, ref64, args, spread_check=True) -> float:
+    """A decode kernel vs its plain version: coordinates within DECODE_ATOL,
+    the kernel's error against ref64, the same function in float64, at
+    most F32_ERR_RATIO x the plain version's (+ 2^-16 of the largest
+    coordinate), two calls bitwise equal, and (unless spread_check is
+    off) coordinates that spread. Returns the max abs error."""
+    got, again = kernel(*args), kernel(*args)
+    want = plain(*args)
+    ref = ref64(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    err_k = (got.double() - ref).abs().max().item()
+    err_p = (want.double() - ref).abs().max().item()
+    floor = 2 ** -16 * ref.abs().max().item()
+    spread = got.std().item()
+    log(f"kernel vs plain, {what}: max abs err {err:.6g} (atol {DECODE_ATOL}); vs float64: "
+        f"kernel {err_k:.6g}, plain {err_p:.6g}; coordinate std {spread:.4g}")
+    if not torch.isfinite(got).all() or err > DECODE_ATOL or err_k > F32_ERR_RATIO * err_p + floor:
+        raise AssertionError(f"kernel disagrees with its plain version: {what}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two calls gave different coordinates")
+    if spread_check and spread < MIN_SPREAD:
+        raise AssertionError(f"{what}: the coordinates do not spread (std {spread:.4g})")
+    return err
+
+
+def direct_kernel_phase(model) -> dict:
+    """The two decode kernels vs their plain versions at B = DIRECT_B on
+    the model's own head output, on planted peaks, on large logits and at
+    J = 3. Returns the max abs errors on the model's own tensors."""
+    j, d = model.num_joints, model.depth
+    feats = model.features(direct_frames(DIRECT_B, SEED + 30))
+    logits = model.final_layer(feats).permute(0, 2, 3, 1)  # a view: NHWC in memory
+    if not logits.is_contiguous():
+        raise AssertionError("the final conv's output is not channels_last")
+    errs = {}
+
+    def soft(x, jj):
+        return (lambda t: SA.soft_argmax_3d_nhwc_kernel(t, jj, d),
+                lambda t: SA.soft_argmax_3d_nhwc_reference(t, jj, d),
+                lambda t: SA.soft_argmax_3d_nhwc_reference(t.double(), jj, d), (x,))
+
+    # N(0, 1) + 100 logits with a +30 peak at a seeded voxel per (sample,
+    # joint): against 262,144 others the peak holds all but ~1e-7 of the
+    # mass, so the coordinates sit on it
+    b, h, w = logits.shape[:3]
+    gen = torch.Generator().manual_seed(SEED + 31)
+    where = torch.stack([torch.randint(0, n, (b, j), generator=gen) for n in (w, h, d)], -1)
+    planted = torch.randn(b, h * w, j, d, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(SEED + 31)) + 100
+    bi, ji = torch.meshgrid(torch.arange(b), torch.arange(j), indexing="ij")
+    idx = [t.flatten().to("cuda") for t in (bi, where[..., 1] * w + where[..., 0], ji,
+                                             where[..., 2])]
+    planted[tuple(idx)] += 30
+    planted = planted.to(torch.bfloat16).view(b, h, w, j * d)
+    errs["soft_argmax_nhwc"] = _decode_check(f"soft_argmax_nhwc B={b} model logits",
+                                             *soft(logits, j))
+    _decode_check(f"soft_argmax_nhwc B={b} planted peaks, logits ~100", *soft(planted, j))
+    peaks = torch.stack([where[..., 0] / w, where[..., 1] / h, where[..., 2] / d], -1)
+    peaks = (peaks - 0.5) * torch.tensor([2.0, 2.0, model.z_scale])
+    miss = (SA.soft_argmax_3d_nhwc_kernel(planted, j, d).cpu().view(b, j, 3) - peaks).abs().max()
+    log(f"soft_argmax_nhwc planted peaks: max distance to the peaks {miss.item():.6g}")
+    if miss > 5e-3:
+        raise AssertionError("soft_argmax_nhwc did not find the planted peaks")
+    # J = 3: three joints of the logits above (their spread is not asserted again)
+    _decode_check(f"soft_argmax_nhwc B={b} J=3", *soft(logits[..., :3 * d].contiguous(), 3),
+                  spread_check=False)
+
+    nhwc = feats.permute(0, 2, 3, 1)
+    weight = model.final_layer.weight.view(j * d, -1)
+    bias = model.final_layer.bias.float()
+
+    def fused(wt, bs, jj):
+        return (lambda *a: CD.conv_soft_argmax_3d_fused(*a, jj, d),
+                lambda *a: CD.conv_soft_argmax_3d_reference(*a, jj, d),
+                lambda f, w_, b_: H.soft_argmax_3d_nhwc(
+                    f.double() @ w_.double().t() + b_.double(), jj, d), (nhwc, wt, bs))
+
+    errs["conv_decode"] = _decode_check(f"conv_decode B={b} model features",
+                                        *fused(weight, bias, j))
+    _decode_check(f"conv_decode B={b} bias +200", *fused(weight, bias + 200, j))
+    _decode_check(f"conv_decode B={b} J=3", *fused(weight[:3 * d], bias[:3 * d], 3),
+                  spread_check=False)
+    return errs
+
+
+ROUTES = {"heatmap": (True, False), "nhwc": (False, False), "fused": (False, True)}
+DECODE_KERNELS = (SA.soft_argmax_3d_nhwc_kernel, CD.conv_soft_argmax_3d_fused)
+
+
+def set_route(model, route):
+    model.return_heatmap, model.fuse_final_conv = ROUTES[route]
+    return model
+
+
+def _plain_route(model, route, x):
+    """The route on the plain versions, from the model's own features."""
+    feats = model.features(x)
+    j, d = model.num_joints, model.depth
+    if route == "fused":
+        return CD.conv_soft_argmax_3d_reference(
+            feats.permute(0, 2, 3, 1), model.final_layer.weight.view(j * d, -1),
+            model.final_layer.bias.float(), j, d, z_scale=model.z_scale)
+    logits = model.final_layer(feats)
+    if route == "nhwc":
+        return H.soft_argmax_3d_nhwc(logits.permute(0, 2, 3, 1), j, d, z_scale=model.z_scale)
+    b, _, h, w = logits.shape
+    return H.soft_argmax_3d(logits.reshape(b, j, d, h, w), j, d, h, w, z_scale=model.z_scale)[0]
+
+
+def direct_forward_phase(model, model_f32) -> dict:
+    """PoseNet3D's forward on each route at B = DIRECT_B, each route's
+    kernel launches counted from 0, and the eval chunk step on the fused
+    route. Returns each decode kernel's launches on its route."""
+    x = direct_frames(DIRECT_B, SEED + 32)
+    expected = {"heatmap": (0, 0), "nhwc": (1, 0), "fused": (0, 1)}
+    launches = {}
+    for route in ROUTES:
+        for f in DECODE_KERNELS:
+            f.launches = 0
+        coords, heatmap = set_route(model, route)(x)
+        made = tuple(f.launches for f in DECODE_KERNELS)
+        torch.cuda.synchronize()
+        for f, n in zip(DECODE_KERNELS, made):
+            launches[f.__name__] = launches.get(f.__name__, 0) + n
+        plain = _plain_route(model, route, x)
+        ref32 = set_route(model_f32, route)(x)[0]
+        ep = (coords - plain).abs().max().item()
+        e32 = (coords - ref32).abs().max().item()
+        spread = coords.std().item()
+        log(f"direct forward {route} B={DIRECT_B}: launches soft_argmax {made[0]}, conv_decode "
+            f"{made[1]} (expected {expected[route]}); max abs err vs plain route {ep:.6g}, vs "
+            f"f32 module {e32:.6g} (atol {DIRECT_ATOL}); coordinate std {spread:.4g}")
+        if made != expected[route]:
+            raise AssertionError(f"the {route} route did not take its kernels")
+        if (coords.shape != (DIRECT_B, 51) or not torch.isfinite(coords).all()
+                or ep > DIRECT_ATOL or e32 > DIRECT_ATOL or spread < MIN_SPREAD):
+            raise AssertionError(f"the {route} route is out of tolerance")
+        if route == "heatmap":
+            sums = heatmap.sum(dim=(2, 3, 4))
+            side = DIRECT_SIZE // 4
+            if heatmap.shape != (DIRECT_B, 17, 64, side, side) or (sums - 1).abs().max() > 1e-4:
+                raise AssertionError("the heatmap is not a normalised (B, J, D, H, W) volume")
+
+    set_route(model, "fused")
+    rng = np.random.default_rng(SEED + 33)
+    frames = torch.from_numpy(rng.integers(0, 256, (DIRECT_CHUNK, DIRECT_B, DIRECT_SIZE,
+                                                    DIRECT_SIZE, 3), dtype=np.uint8)).to("cuda")
+    kp3d = torch.from_numpy(rng.uniform(-1, 1, (DIRECT_CHUNK, DIRECT_B, 17, 3))).float().to("cuda")
+    state = create_train_state(model, lr=1e-3)
+    CD.conv_soft_argmax_3d_fused.launches = 0
+    out = make_direct_eval_chunk_step("mse")(state, frames, kp3d)
+    n = CD.conv_soft_argmax_3d_fused.launches
+    single = [make_direct_eval_step("mse")(state, f, y) for f, y in zip(frames, kp3d)]
+    want_loss = torch.stack([o["loss"] for o in single]).mean()
+    want_sums = torch.stack([o["mpjpe_sums"] for o in single]).sum(0)
+    log(f"eval chunk step, {DIRECT_CHUNK} x {DIRECT_B} uint8 frames: loss "
+        f"{out['loss'].item():.6g}, conv_decode launches {n} (expected {DIRECT_CHUNK})")
+    if (n != DIRECT_CHUNK or out["mpjpe_sums"].shape != (17,)
+            or not torch.isfinite(out["mpjpe_sums"]).all()
+            or not torch.allclose(out["loss"], want_loss, rtol=1e-5, atol=0)
+            or not torch.allclose(out["mpjpe_sums"], want_sums, rtol=1e-5, atol=0)):
+        raise AssertionError("the eval chunk step is not the mean of its batches' eval steps")
+    return launches
+
+
+def direct_timing_phase(model) -> dict:
+    j, d = model.num_joints, model.depth
+    x = direct_frames(DIRECT_B, SEED + 34)
+    feats = model.features(x)
+    logits = model.final_layer(feats).permute(0, 2, 3, 1)
+    nhwc = feats.permute(0, 2, 3, 1)
+    weight = model.final_layer.weight.view(j * d, -1)
+    bias = model.final_layer.bias.float()
+    rows = nhwc.reshape(-1, nhwc.shape[-1])  # a view: (B*H*W, 256)
+    t = {
+        "soft_argmax_nhwc": cuda_ms(lambda: SA.soft_argmax_3d_nhwc_kernel(logits, j, d)),
+        "soft_argmax_nhwc_plain": cuda_ms(
+            lambda: SA.soft_argmax_3d_nhwc_reference(logits, j, d)),
+        "conv_decode": cuda_ms(lambda: CD.conv_soft_argmax_3d_fused(nhwc, weight, bias, j, d)),
+        "conv_decode_plain": cuda_ms(
+            lambda: CD.conv_soft_argmax_3d_reference(nhwc, weight, bias, j, d)),
+        "conv_decode_matmul": cuda_ms(lambda: rows @ weight.t()),
+    }
+    for route in ROUTES:
+        t[f"forward_{route}"] = cuda_ms(lambda: set_route(model, route)(x))
+        log(f"time direct B={DIRECT_B} forward {route}: {t[f'forward_{route}']:.4f} ms = "
+            f"{DIRECT_B / t[f'forward_{route}'] * 1e3:.1f} frames/s")
+    for k in ("soft_argmax_nhwc", "soft_argmax_nhwc_plain", "conv_decode", "conv_decode_plain",
+              "conv_decode_matmul"):
+        log(f"time direct B={DIRECT_B} {k}: {t[k]:.4f} ms")
+    split = device_ms_by_kernel(lambda: set_route(model, "fused")(x), n=5)
+    kinds = (("decode", ("decode_kernel", "merge_kernel")),
+             ("convolutions", ("conv", "gemm", "xmma", "fprop", "dgrad", "nvjet", "cutlass")),
+             ("batch norm", ("bn_", "batch_norm")),
+             ("casts and copies", ("copy",)))
+    groups = {kind: 0.0 for kind, _ in kinds} | {"other": 0.0}
+    for name, ms in split.items():
+        kind = next((k for k, keys in kinds if any(key in name.lower() for key in keys)),
+                    "other")
+        groups[kind] += ms
+    busy = sum(split.values())
+    log(f"device time direct B={DIRECT_B} forward fused: {busy:.4f} ms per call, "
+        f"{busy / t['forward_fused']:.1%} of its event-timed {t['forward_fused']:.4f} ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in groups.items()) + "; by kernel: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])[:12]))
+    return t
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_bounds(model_vit, model_t, model_m) -> dict:
+def kernel_bounds(model_vit, model_t, model_m, model_d) -> dict:
     """Each kernel's bound at the shapes it is timed at: its matrix-product
     flops, and its bytes with each input read once and each output written
     once (weights included)."""
@@ -873,7 +1135,18 @@ def kernel_bounds(model_vit, model_t, model_m) -> dict:
     recompute = 2 * d * (3 * d + 4 * d)
     fwd_bytes = 4 * rows * d * b2 + S.BLOCK_ELEMS * b2
     bwd_bytes = 5 * rows * d * b2 + S.BLOCK_ELEMS * (b2 + 4)
-    return {"lifter_trunk": trunk, "spatial_block": spatial, "temporal_slab": temporal,
+    # the direct decodes at B = DIRECT_B on the model's 64 x 64 head output:
+    # the soft-argmax reads the bf16 logits and does no matrix product (an
+    # exp, a subtract and four multiply-adds a logit, f32); the conv decode
+    # reads the features, the weight and the bias and does the 1x1 conv's
+    # product; both write (B, J, 3) f32
+    pix = DIRECT_B * (DIRECT_SIZE // 4) ** 2
+    jd = model_d.num_joints * model_d.depth
+    out_bytes = DIRECT_B * model_d.num_joints * 3 * 4
+    soft = bound(6 * pix * jd, pix * jd * b2 + out_bytes, PEAK_F32)
+    decode = bound(2 * pix * 256 * jd, pix * 256 * b2 + jd * 256 * b2 + jd * 4 + out_bytes)
+    return {"soft_argmax_nhwc": soft, "conv_decode": decode,
+            "lifter_trunk": trunk, "spatial_block": spatial, "temporal_slab": temporal,
             "packed_flat_attention": packed, "seq_attention": seq, "martinez_block": martinez,
             "spatial_fwd": bound(rows * dense + att_spatial, fwd_bytes),
             "slab_fwd": bound(rows * dense + att_temporal, fwd_bytes),
@@ -901,11 +1174,16 @@ def main() -> None:
         msvc, mlaunches = martinez_serving_phase(mmodel, seeded_martinez("cuda", torch.float32))
         mt = martinez_timing_phase(mmodel, msvc)
 
+        dmodel = seeded_posenet("cuda", torch.bfloat16)
+        derrs = direct_kernel_phase(dmodel)
+        dlaunches = direct_forward_phase(dmodel, seeded_posenet("cuda", torch.float32))
+        dt = direct_timing_phase(dmodel)
+
     train_model = seeded_train_model()
     errs.update(train_kernel_phase(train_model))
     train_step_phase(train_model)
     trlaunches, trt = train_loop_phase(train_model)
-    bounds = kernel_bounds(model, tmodel, mmodel)
+    bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -943,6 +1221,17 @@ def main() -> None:
     kernels += [record(k, f"{csrc}/{src}", f"pose3d_tpu/ops/pallas_stblock_train.py{line}",
                        trlaunches[k], errs[k], trt[k], trt[f"{k}_plain"], None)
                 for k, src, line in train_rows]
+    kernels += [
+        # no one PyTorch call computes the soft-argmax
+        record("soft_argmax_nhwc", f"{csrc}/softargmax.cu",
+               "pose3d_tpu/ops/pallas_softargmax.py:138",
+               dlaunches["soft_argmax_3d_nhwc_kernel"], derrs["soft_argmax_nhwc"],
+               dt["soft_argmax_nhwc"], dt["soft_argmax_nhwc_plain"], None),
+        # the 1x1 conv alone as one bf16 torch.matmul: a yardstick only
+        record("conv_decode", f"{csrc}/conv_decode.cu", "pose3d_tpu/ops/pallas_conv_decode.py:98",
+               dlaunches["conv_soft_argmax_3d_fused"], derrs["conv_decode"], dt["conv_decode"],
+               dt["conv_decode_plain"], dt["conv_decode_matmul"]),
+    ]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")

@@ -6,18 +6,24 @@ a ported path becomes a CUDA kernel written by hand for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use and bound through ``ctypes``.
 
 Ported so far: the lifter serving path (all three lifter families), the
-temporal serving path and temporal training.
+temporal serving path, temporal training and the direct image->3D
+forward.
 
 - ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
   ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
 - ``models/temporal.py`` ``TemporalLifter``, ``clip_starts``, ``make_clips``.
+- ``models/resnet.py``, ``models/heads.py``  ``ResNet``, ``PoseNet3D`` (the
+  reference Model_3D); ``models/norm.py`` the f32 BatchNorms.
 - ``interop/weights.py`` flax param trees -> the port's state dicts.
 - ``ops/``               kernel wrappers + plain versions: the ViT trunk
   (``lifter.py``), the Martinez block (``martinez.py``), the temporal
   sub-blocks (``stblock.py``) and their training forms
-  (``stblock_train.py``), attention (``attention.py``).
+  (``stblock_train.py``), attention (``attention.py``), the direct
+  model's decodes (``softargmax.py``, ``conv_decode.py``; the plain ones
+  in ``heatmap.py``).
 - ``losses.py``, ``train/``, ``core/``, ``data/``, ``config.py``,
-  ``cli/train_temporal.py``  the temporal trainer and what it needs.
+  ``cli/train_temporal.py``  the temporal trainer and what it needs; the
+  direct model's eval steps (``train/image_steps.py``).
 - ``pipeline/lift.py``   ``lift_sequence``: video -> 3D.
 - ``serving.py``         ``LifterService``: bucketed batch inference.
 

@@ -1,10 +1,11 @@
-"""Typed run configuration: the port of ``DataConfig``, ``TemporalConfig``
-and ``parse_config`` of ``pose3d_tpu/config.py`` (the other phases' configs
-come with their trainers).
+"""Typed run configuration: the port of ``DataConfig``, ``TemporalConfig``,
+``DirectConfig`` and ``parse_config`` of ``pose3d_tpu/config.py`` (the
+other phases' configs come with their trainers).
 
 ``TemporalConfig.use_kernels_train`` is JAX's ``use_pallas_train``: train
 on the fused sub-block kernels where they apply. ``--cpu`` selects the
-torch CPU device (``device``, default ``cuda``).
+torch CPU device (``device``, default ``cuda``). ``DirectConfig`` has every
+field of the JAX one; its trainer comes with the direct-training slice.
 """
 
 from __future__ import annotations
@@ -47,6 +48,41 @@ class TemporalConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
 
 
+@dataclasses.dataclass
+class DirectConfig:
+    """Direct image->3D (phase-3/4) trainer config (the reference
+    ``train_3.py`` and phase-4 ``train.py``). The JAX config's data field
+    also sets the H36M reader's action filter and split rate, which come
+    with that reader."""
+
+    architecture: str = "resnet50"
+    batch_size: int = 64
+    n_epochs: int = 20
+    lr: float = 1e-3
+    run_name: str = "direct_run"
+    resume: bool = False
+    z_scale: float = 2.5              # 2.5 phase 3, 2.0 phase 4
+    image_size: int = 256             # the reference's input geometry
+    source: str = "h36m"              # h36m (phase 3) | video (phase 4)
+    video: str = ""                   # phase 4: video name under pipeline_root
+    pipeline_root: str = "./videos"   # phase 4: the video pipeline's artifact root
+    heatmap_loss_weight: float = 0.0  # optional heatmap MSE supervision
+    # the 1x1 conv fused into the decode (ops/conv_decode): coordinates
+    # only, so ignored with a heatmap loss
+    fuse_final_conv: bool = False
+    chunk_steps: int = 8              # optimizer steps per chunk of batches
+    loss: str = "mse"
+    # None: the reference phase's optimizer, Adam(weight_decay=1e-8) for
+    # h36m, bare Adam for video
+    weight_decay: Optional[float] = None
+    optimizer: str = "adam"
+    log_dir: str = "./logs"
+    seed: int = 0
+    bf16: bool = True
+    device: str = "cuda"
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+
 def _add_fields(parser: argparse.ArgumentParser, cls, prefix=""):
     # every default is None: a flag not passed keeps the dataclass default
     for f in dataclasses.fields(cls):
@@ -59,7 +95,7 @@ def _add_fields(parser: argparse.ArgumentParser, cls, prefix=""):
                                 default=None)
         elif f.type in ("int", int):
             parser.add_argument(name, type=int, default=None)
-        elif f.type in ("float", float):
+        elif f.type in ("float", float, "Optional[float]"):
             parser.add_argument(name, type=float, default=None)
         else:
             parser.add_argument(name, type=str, default=None)

@@ -1,0 +1,192 @@
+// Volumetric soft-argmax straight off NHWC logits, for Hopper (sm_90a):
+// logits (B, H, W, J * D), bf16 or f32, channel j * D + d; for each
+// (sample, joint) a softmax over the joint's D x H x W volume, maximum
+// subtracted, and the expected column, row and depth index: out (B, J, 3)
+// f32 [Ex, Ey, Ez]. The wrapper (ops/softargmax.py) scales them to
+// coordinates. Forward only: the backward (the TPU's _kernel_nhwc_bwd /
+// _kernel_nhwc_pair_bwd) comes with direct training.
+//
+// Replaces pose3d_tpu/ops/pallas_softargmax.py:138 _kernel_nhwc_fwd (via
+// _simple_fwd_call :268) and :183 _kernel_nhwc_pair_fwd (via
+// _expectations_nhwc_fwd :303), entry soft_argmax_3d_nhwc_pallas :395. The
+// TPU's one-joint / joint-pair / odd-tail split exists for its 128-lane
+// blocks; this one kernel takes any J and any D that holds whole 16-byte
+// vectors.
+//
+// What bounds it on this card: bytes. It reads the logits once (570 MB in
+// bf16 at B = 64, H = W = D = 64, J = 17: 0.17 ms at 3.35 TB/s) and does
+// one exp per logit.
+//
+// Why not the TPU's design: the TPU holds one joint's whole volume (1 MB
+// in f32) in VMEM, takes its maximum, then its sums. No SM holds that, and
+// a second read for the maximum would double the bytes. The design: a CTA
+// per (sample, tile of kTilePixels pixels) reads the tile's pixels, whose
+// J * D channels are contiguous, in 16-byte vectors; thread (v, r) of the
+// (J*D / vector, rows) block owns channel vector v (which lies in one
+// joint) for the pixels r, r + rows, ..., and keeps an online softmax of
+// its elements: a running maximum, with s, sx, sy, sz rescaled when it
+// grows. The CTA folds each joint's threads into one tile partial
+// (softargmax.cuh), in a fixed order; merge_kernel folds the tiles. Two
+// launches, no atomics: two calls are bitwise equal.
+//
+// The launcher runs on the caller's stream, does not synchronise,
+// allocates nothing (the wrapper allocates the partials and the output),
+// and returns cudaGetLastError().
+
+#include "common.cuh"
+#include "softargmax.cuh"
+
+namespace {
+
+using namespace pose3d;
+
+constexpr int kTilePixels = 128;  // pixels of a CTA's tile
+constexpr int kTargetThreads = 512;
+constexpr int kUnroll = 4;        // pixel vectors in flight per thread
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<bf16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void load(const bf16* p, float (&f)[kN]) {
+    const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void load(const float* p, float (&f)[kN]) {
+    const float4 u = __ldcs(reinterpret_cast<const float4*>(p));
+    f[0] = u.x;
+    f[1] = u.y;
+    f[2] = u.z;
+    f[3] = u.w;
+  }
+};
+
+// grid (n_tiles, B), block (J * D / V, rows): see the header comment.
+// part: (B * J, n_tiles, 5) tile partials.
+template <typename T>
+__global__ void __launch_bounds__(1024) tile_kernel(const T* __restrict__ logits,
+                                                    float* __restrict__ part, int pixels,
+                                                    int width, int joints, int depth) {
+  constexpr int V = Vec<T>::kN;
+  extern __shared__ float red[];  // (5, rows, vectors)
+  const int n_vec = blockDim.x;
+  const int rows = blockDim.y;
+  const int v = threadIdx.x;
+  const int r = threadIdx.y;
+  const int channels = n_vec * V;
+  const int tile = blockIdx.x;
+  const int b = blockIdx.y;
+  const int p0 = tile * kTilePixels;
+  const int p1 = min(p0 + kTilePixels, pixels);
+  const float d0 = float((v * V) % depth);
+  const T* base = logits + size_t(b) * pixels * channels + v * V;
+
+  Partial acc;
+  for (int p = p0 + r; p < p1; p += rows * kUnroll) {
+    float f[kUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (p + u * rows < p1) Vec<T>::load(base + size_t(p + u * rows) * channels, f[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * rows;
+      if (q >= p1) break;
+      float mx = f[u][0];
+#pragma unroll
+      for (int i = 1; i < V; ++i) mx = fmaxf(mx, f[u][i]);
+      if (mx > acc.m) {
+        const float a = exp2f((acc.m - mx) * kLog2e);  // 0 while acc is empty
+        acc.s *= a;
+        acc.sx *= a;
+        acc.sy *= a;
+        acc.sz *= a;
+        acc.m = mx;
+      }
+      const float ml = acc.m * kLog2e;
+      float ps = 0.f, pz = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float e = exp2f(fmaf(f[u][i], kLog2e, -ml));
+        ps += e;
+        pz = fmaf(e, float(i), pz);
+      }
+      acc.s += ps;
+      acc.sx = fmaf(ps, float(q % width), acc.sx);
+      acc.sy = fmaf(ps, float(q / width), acc.sy);
+      acc.sz += fmaf(ps, d0, pz);
+    }
+  }
+
+  const int stride = rows * n_vec;
+  acc.store_strided(red + r * n_vec + v, stride);
+  __syncthreads();
+  const int j = r * n_vec + v;  // one thread per joint folds its vectors
+  if (j < joints) {
+    const int per_joint = depth / V;
+    Partial t;
+    for (int rr = 0; rr < rows; ++rr)
+      for (int vv = j * per_joint; vv < (j + 1) * per_joint; ++vv)
+        t.merge(Partial::load_strided(red + rr * n_vec + vv, stride));
+    const int n_tiles = gridDim.x;
+    t.store(part + ((size_t(b) * joints + j) * n_tiles + tile) * kPartial);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const T* logits, float* part, float* out, int batch, int height, int width,
+                   int joints, int depth, cudaStream_t stream) {
+  constexpr int V = Vec<T>::kN;
+  const int pixels = height * width;
+  const int n_vec = joints * depth / V;
+  if (depth % V != 0 || n_vec > 1024) return cudaErrorInvalidValue;
+  const int rows = n_vec < kTargetThreads ? kTargetThreads / n_vec : 1;  // n_vec * rows <= 1024
+  const int n_tiles = (pixels + kTilePixels - 1) / kTilePixels;
+  const size_t smem = size_t(kPartial) * rows * n_vec * sizeof(float);
+  tile_kernel<T><<<dim3(n_tiles, batch), dim3(n_vec, rows), smem, stream>>>(
+      logits, part, pixels, width, joints, depth);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = batch * joints;
+  merge_kernel<kMergeThreads><<<(n + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, stream>>>(
+      part, n_tiles, n, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// logits: (batch, height, width, joints * depth), bf16 (is_bf16 = 1) or f32
+// (is_bf16 = 0), contiguous, 16-byte aligned; partials: (batch * joints,
+// ceil(height * width / tile_pixels), 5) f32 scratch; out: (batch, joints,
+// 3) f32. tile_pixels is the caller's idea of the kernel's tile: a mismatch,
+// a depth that is not a whole number of 16-byte vectors, more than 1024
+// vectors a pixel or a batch past the grid's limit returns
+// cudaErrorInvalidValue. Two launches in a row on the calling thread's
+// current device; the first error ends the sequence and is returned.
+extern "C" cudaError_t softargmax_nhwc_launch(const void* logits, int is_bf16, void* partials,
+                                              void* out, int batch, int height, int width,
+                                              int joints, int depth, int tile_pixels,
+                                              void* stream) {
+  if (tile_pixels != kTilePixels || batch < 1 || batch > 65535 || height < 1 || width < 1 ||
+      joints < 1 || depth < 1)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* part = static_cast<float*>(partials);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16)
+    return launch(static_cast<const bf16*>(logits), part, o, batch, height, width, joints, depth,
+                  s);
+  return launch(static_cast<const float*>(logits), part, o, batch, height, width, joints, depth, s);
+}

@@ -1,8 +1,9 @@
 """Synthetic Human3.6M-like poses for tests and runs without the dataset:
 the port of ``pose3d_tpu/data/synthetic.py`` (``synthetic_poses_3d``,
-``project_to_2d``, ``synthetic_h36m``; numpy, the same draws from the same
-seed). 3D poses in camera space (metres, root 2.5-5.5 m deep), 2D poses
-as pinhole projections divided by the 1000-pixel image size."""
+``project_to_2d``, ``synthetic_h36m``, ``synthetic_frames``; numpy, the
+same draws from the same seed). 3D poses in camera space (metres, root
+2.5-5.5 m deep), 2D poses as pinhole projections divided by the
+1000-pixel image size."""
 
 from __future__ import annotations
 
@@ -64,3 +65,11 @@ def synthetic_h36m(n_frames: int, seed: int = 0):
     returns them."""
     kp3d = synthetic_poses_3d(n_frames, seed=seed)
     return project_to_2d(kp3d, camera=seed % 4), kp3d
+
+
+def synthetic_frames(n_frames: int, size: int = 256, seed: int = 0) -> np.ndarray:
+    """(N, size, size, 3) float32 frames in [0, 1), as the reference's
+    resized and normalised frames (256 x 256, /256): the same draws from
+    the same seed as the JAX package's ``synthetic_frames``."""
+    rng = np.random.default_rng(seed)
+    return rng.random((n_frames, size, size, 3), dtype=np.float32)

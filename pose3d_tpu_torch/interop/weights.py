@@ -1,10 +1,12 @@
 """flax param trees of the JAX package -> state dicts of the port.
 
 The counterpart of ``pose3d_tpu/interop/torch_weights.py``'s
-``vit_lifter_to_torch``, ``martinez_to_torch`` and ``ae_to_torch``,
-written with numpy alone so that the port needs no JAX: a flax ``Dense``
-kernel is (in, out) and a torch ``Linear`` weight (out, in), so kernels
-are transposed; LayerNorm and BatchNorm scale/bias become weight/bias,
+``vit_lifter_to_torch``, ``martinez_to_torch``, ``ae_to_torch``,
+``resnet_to_torch`` and ``posenet3d_to_torch``, written with numpy alone
+so that the port needs no JAX: a flax ``Dense`` kernel is (in, out) and a
+torch ``Linear`` weight (out, in), so kernels are transposed; a flax
+``Conv`` kernel is (kH, kW, in, out) and a torch ``Conv2d`` weight (out,
+in, kH, kW); LayerNorm and BatchNorm scale/bias become weight/bias,
 BatchNorm mean/var become running_mean/running_var.
 """
 
@@ -162,4 +164,73 @@ def temporal_lifter_from_flax(params) -> dict[str, torch.Tensor]:
     _scale_bias(params["LayerNorm_0"], "norm", sd)
     _dense(params["Dense_1"], "head.0", sd)
     _dense(params["Dense_2"], "head.2", sd)
+    return sd
+
+
+def _conv(p, prefix: str, sd: dict) -> None:
+    """flax Conv kernel (kH, kW, I, O) -> torch Conv2d weight (O, I, kH, kW)."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_transpose(p, prefix: str, sd: dict) -> None:
+    """flax ConvTranspose kernel (kH, kW, I, O) -> torch ConvTranspose2d
+    weight (I, O, kH, kW), spatially flipped: flax's ConvTranspose(4, 2,
+    'SAME') is torch's ConvTranspose2d(4, 2, padding=1) only with the
+    kernel flipped (``pose3d_tpu/interop/torch_weights.py`` ``_deconv``)."""
+    w = np.asarray(p["kernel"]).transpose(2, 3, 0, 1)
+    sd[f"{prefix}.weight"] = _t(w[:, :, ::-1, ::-1])
+
+
+def resnet_from_flax(params, batch_stats, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``ResNet`` flax params and batch_stats -> the port's ``ResNet`` state
+    dict (torchvision's keys), each key after ``prefix``.
+
+    | flax | port |
+    | --- | --- |
+    | ``stem_conv``, ``stem_bn`` | ``conv1``, ``bn1`` |
+    | ``stage{s}_block{i}.Conv_{k}``, ``.BatchNorm_{k}``, k < body | ``layer{s}.{i}.conv{k+1}``, ``.bn{k+1}`` |
+    | ``stage{s}_block{i}.Conv_{body}``, ``.BatchNorm_{body}`` | ``layer{s}.{i}.downsample.0``, ``.downsample.1`` |
+
+    ``body`` is 3 convolutions for a Bottleneck (whose first is 1x1) and 2
+    for a BasicBlock (whose first is 3x3); a block with one more has the
+    downsample. The blocks are read from the tree.
+    """
+    sd: dict[str, torch.Tensor] = {}
+    _conv(params["stem_conv"], f"{prefix}conv1", sd)
+    _batch_norm(params["stem_bn"], batch_stats["stem_bn"], f"{prefix}bn1", sd)
+    for name in (k for k in params if "_block" in k):
+        stage, idx = name.removeprefix("stage").split("_block")
+        bp, bs = params[name], batch_stats[name]
+        t = f"{prefix}layer{stage}.{idx}"
+        body = 2 if np.asarray(bp["Conv_0"]["kernel"]).shape[0] == 3 else 3
+        for k in range(body):
+            _conv(bp[f"Conv_{k}"], f"{t}.conv{k + 1}", sd)
+            _batch_norm(bp[f"BatchNorm_{k}"], bs[f"BatchNorm_{k}"], f"{t}.bn{k + 1}", sd)
+        if f"Conv_{body}" in bp:
+            _conv(bp[f"Conv_{body}"], f"{t}.downsample.0", sd)
+            _batch_norm(bp[f"BatchNorm_{body}"], bs[f"BatchNorm_{body}"],
+                        f"{t}.downsample.1", sd)
+    return sd
+
+
+def posenet3d_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """``PoseNet3D`` flax params and batch_stats -> the port's
+    ``PoseNet3D`` state dict (the reference ``Model_3D`` keys).
+
+    | flax | port |
+    | --- | --- |
+    | ``backbone`` | ``preact.`` + ``resnet_from_flax`` |
+    | ``head.ConvTranspose_{i}``, i = 0, 1, 2 | ``deconv_layers.{0,3,6}`` (kernel flipped) |
+    | ``head.BatchNorm_{i}`` | ``deconv_layers.{1,4,7}`` |
+    | ``head.Conv_0`` | ``final_layer`` |
+    """
+    sd = resnet_from_flax(params["backbone"], batch_stats["backbone"], prefix="preact.")
+    hp, hs = params["head"], batch_stats["head"]
+    n_deconv = sum(1 for k in hp if k.startswith("ConvTranspose_"))
+    for i in range(n_deconv):
+        _conv_transpose(hp[f"ConvTranspose_{i}"], f"deconv_layers.{3 * i}", sd)
+        _batch_norm(hp[f"BatchNorm_{i}"], hs[f"BatchNorm_{i}"], f"deconv_layers.{3 * i + 1}", sd)
+    _conv(hp["Conv_0"], "final_layer", sd)
     return sd

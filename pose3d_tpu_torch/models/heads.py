@@ -1,0 +1,148 @@
+"""Direct image -> 3D regression: the port of ``DeconvHead`` and
+``PoseNet3D`` of ``pose3d_tpu/models/heads.py`` (the reference
+``Model_3D``).
+
+(B, H, W, 3) NHWC frames in [0, 1] -> a ResNet (``preact``) -> three
+(ConvTranspose2d(4, 2, 1, no bias) -> BatchNorm -> ReLU) that upsample the
+stride-32 map 8x (``deconv_layers``, slots 0/3/6 and 1/4/7) -> a 1x1
+conv to J*D channels (``final_layer``) -> a softmax over each joint's D x
+H x W volume -> its expected x, y, z: (B, J*3) coordinates, x and y in
+[-1, 1], z in [-z_scale/2, z_scale/2]. The module names are those of the
+reference ``Model_3D`` state dict (``interop.weights.posenet3d_from_flax``
+writes one). The modules run ``channels_last``, the layout of the JAX
+package's NHWC convolutions, so the (B, J*D, H, W) logits are (B, H, W,
+J*D) in memory, the layout the decode kernels read, without a transpose.
+
+Three decodes, as in the JAX module:
+
+- ``return_heatmap=True`` (the default): the plain ``soft_argmax_3d`` on
+  the (B, J, D, H, W) volume; returns the coordinates and the normalised
+  heatmap.
+- ``return_heatmap=False``: straight off the NHWC logits, through the
+  kernel wrapper ``ops.softargmax.soft_argmax_3d_nhwc_kernel`` when
+  ``use_kernels`` (JAX's ``use_pallas``) and not training, else through
+  the plain, differentiable ``heatmap.soft_argmax_3d_nhwc``.
+- ``fuse_final_conv=True`` with ``return_heatmap=False``: the 1x1 conv
+  fused into the decode, ``ops.conv_decode.conv_soft_argmax_3d_fused``;
+  the logits never exist. The kernel takes bf16: a model of another
+  dtype takes the plain ``conv_soft_argmax_3d_reference`` (the one plain
+  route on a card, as ``LifterService`` gates its kernels on bf16).
+
+The kernel wrappers have no backward yet (the direct-training slice), so
+the two kernel routes run under ``torch.no_grad()``. ``PoseNet2D`` and
+``ProjectionMLP`` come with the consistency-loop slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pose3d_tpu_torch.models.norm import F32BatchNorm2d, seed_batch_norm
+from pose3d_tpu_torch.models.resnet import ResNet
+from pose3d_tpu_torch.ops import conv_decode, softargmax
+from pose3d_tpu_torch.ops.heatmap import soft_argmax_3d, soft_argmax_3d_nhwc
+
+
+class DeconvHead(nn.Sequential):
+    """The deconv stack (the reference's ``deconv_layers``): per width in
+    ``filters``, ConvTranspose2d(4, 2, 1, no bias) -> BatchNorm -> ReLU,
+    each doubling H and W. The JAX ``DeconvHead`` also holds the 1x1
+    projection; here it is ``PoseNet3D.final_layer``, where ``Model_3D``
+    keeps it."""
+
+    def __init__(self, in_channels: int, filters=(256, 256, 256), *, device,
+                 dtype=torch.float32):
+        layers = []
+        for f in filters:
+            layers += [nn.ConvTranspose2d(in_channels, f, 4, 2, padding=1, bias=False,
+                                          device=device, dtype=dtype),
+                       F32BatchNorm2d(f, device=device), nn.ReLU()]
+            in_channels = f
+        super().__init__(*layers)
+        self.out_channels = in_channels
+
+
+class PoseNet3D(nn.Module):
+    """(B, H, W, 3) NHWC frames -> ((B, J*3) f32 coordinates, the (B, J, D,
+    H/4, W/4) f32 heatmap or None). The defaults are the served
+    configuration: ResNet-50, 17 joints, a 64-deep volume, z_scale 2.5
+    (the phase-4 variant uses 2.0)."""
+
+    def __init__(self, architecture: str = "resnet50", num_joints: int = 17,
+                 depth: int = 64, z_scale: float = 2.5, return_heatmap: bool = True,
+                 use_kernels: bool = True, fuse_final_conv: bool = False, *, device,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.architecture = architecture
+        self.num_joints = num_joints
+        self.depth = depth
+        self.z_scale = z_scale
+        self.return_heatmap = return_heatmap
+        self.use_kernels = use_kernels
+        self.fuse_final_conv = fuse_final_conv
+        self.preact = ResNet(architecture, **kw)
+        self.deconv_layers = DeconvHead(self.preact.feature_channels, **kw)
+        self.final_layer = nn.Conv2d(self.deconv_layers.out_channels, num_joints * depth, 1,
+                                     **kw)
+        self.to(memory_format=torch.channels_last)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Compute dtype (of the convolutions)."""
+        return self.final_layer.weight.dtype
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """Draw every parameter and BatchNorm statistic from ``generator``
+        (a CPU generator): convolution weights N(0, 1 / fan_in) (a
+        transposed conv's fan-in: in x kH x kW / stride^2), the final
+        conv's bias N(0, 0.1), BatchNorms as ``norm.seed_batch_norm``."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = torch.randn(m.weight.shape, generator=generator)
+                kh, kw = m.kernel_size
+                if isinstance(m, nn.ConvTranspose2d):
+                    fan_in = m.in_channels * kh * kw / (m.stride[0] * m.stride[1])
+                else:
+                    fan_in = m.in_channels * kh * kw
+                m.weight.copy_(w * fan_in ** -0.5)
+                if m.bias is not None:
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=generator))
+            elif isinstance(m, nn.BatchNorm2d):
+                seed_batch_norm(m, generator)
+        return self
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) NHWC frames -> the deconv head's (B, 256, H/4, W/4)
+        output, channels_last: what the final conv (or the fused decode)
+        reads."""
+        return self.deconv_layers(self.preact(x.permute(0, 3, 1, 2)))
+
+    def decode(self, feats: torch.Tensor):
+        """The deconv head's output -> (coordinates, heatmap or None), by the
+        route the module's flags choose (see the module docstring)."""
+        j, d = self.num_joints, self.depth
+        if self.fuse_final_conv and not self.return_heatmap:
+            nhwc = feats.permute(0, 2, 3, 1)
+            weight = self.final_layer.weight.view(j * d, -1)
+            bias = self.final_layer.bias
+            if weight.dtype == torch.bfloat16:
+                return conv_decode.conv_soft_argmax_3d_fused(
+                    nhwc, weight, bias.float(), j, d, z_scale=self.z_scale), None
+            return conv_decode.conv_soft_argmax_3d_reference(
+                nhwc, weight, bias, j, d, z_scale=self.z_scale), None
+        logits = self.final_layer(feats)
+        b, _, h, w = logits.shape
+        if not self.return_heatmap:
+            nhwc = logits.permute(0, 2, 3, 1)
+            if self.use_kernels and not self.training:
+                return softargmax.soft_argmax_3d_nhwc_kernel(nhwc, j, d,
+                                                             z_scale=self.z_scale), None
+            return soft_argmax_3d_nhwc(nhwc, j, d, z_scale=self.z_scale), None
+        return soft_argmax_3d(logits.reshape(b, j, d, h, w), j, d, h, w, z_scale=self.z_scale,
+                              return_heatmap=True)
+
+    def forward(self, x: torch.Tensor):
+        return self.decode(self.features(x))

@@ -11,7 +11,8 @@ martinez_lifter_from_flax`` / ``ae_lifter_from_flax`` return. Dropout is
 active in training only, and ``use_bn=False`` drops every BatchNorm of
 the Martinez lifter. The AE has no Tanh: it is dead code in the reference.
 
-BatchNorm stays f32 in a model of any narrower dtype (``F32BatchNorm1d``),
+BatchNorm stays f32 in a model of any narrower dtype (``F32BatchNorm1d``
+of ``models/norm.py``),
 as the flax ``BatchNorm`` of the JAX package (``models/norm.py``) keeps
 its parameters and statistics f32 and normalises in f32 whatever the
 model's dtype: a bf16 cast of the running mean and variance would round
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pose3d_tpu_torch.models.norm import F32BatchNorm1d, seed_batch_norm
 from pose3d_tpu_torch.ops.numerics import LN_EPS
 
 
@@ -59,41 +61,6 @@ def sinusoidal_positional_embeddings(sequence_length: int, d: int) -> np.ndarray
     return pe.astype(np.float32)
 
 
-BN_EPS = 1e-5
-BN_MOMENTUM = 0.1  # torch's convention; flax's 0.9 in the JAX package
-
-
-class F32BatchNorm1d(nn.BatchNorm1d):
-    """``nn.BatchNorm1d`` (momentum 0.1, eps 1e-5) that stays f32 inside a
-    model cast to a narrower float.
-
-    How: ``_apply``, through which ``.to()``, ``.bfloat16()``, ``.half()``
-    and the like cast every module, converts this module's parameters and
-    running statistics from their f32 values to f32 wherever the cast
-    would make them narrower (so they are never rounded), and ``forward``
-    normalises its input in at least f32 and returns it in the input's
-    dtype. Training updates the running variance with the unbiased batch
-    variance, torch's semantics, which the JAX package's BatchNorm copies.
-    """
-
-    def __init__(self, num_features: int, *, device):
-        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM,
-                         device=device, dtype=torch.float32)
-
-    def _apply(self, fn, recurse=True):
-        def keep_f32(t):
-            out = fn(t)
-            if out.is_floating_point() and torch.finfo(out.dtype).bits < 32:
-                out = t.to(device=out.device, dtype=torch.float32)
-            return out
-
-        return super()._apply(keep_f32, recurse)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        acc = torch.promote_types(x.dtype, torch.float32)
-        return super().forward(x.to(acc)).to(x.dtype)
-
-
 @torch.no_grad()
 def _init_linear_bn(module: nn.Module, generator: torch.Generator) -> None:
     """Draws every Linear and BatchNorm of ``module`` from ``generator``:
@@ -107,11 +74,7 @@ def _init_linear_bn(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.copy_(w * m.in_features ** -0.5)
             m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=generator))
         elif isinstance(m, nn.BatchNorm1d):
-            n = m.num_features
-            m.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=generator))
-            m.bias.copy_(0.1 * torch.randn(n, generator=generator))
-            m.running_mean.copy_(0.1 * torch.randn(n, generator=generator))
-            m.running_var.copy_(0.5 + torch.rand(n, generator=generator))
+            seed_batch_norm(m, generator)
 
 
 class MartinezBlock(nn.Module):

@@ -102,7 +102,9 @@ def library() -> ctypes.CDLL:
                        ("stblock_spatial_launch", [p, p, p, p, p, i, i, i, p]),
                        ("stblock_temporal_launch", [p, p, p, p, p, p, i, i, i, p]),
                        ("stblock_train_bwd_launch", [p] * 8 + [i, i, i, i, p]),
-                       ("martinez_launch", [p, p, p, p, p, p, p, p, p, i, i, p])):
+                       ("martinez_launch", [p, p, p, p, p, p, p, p, p, i, i, p]),
+                       ("softargmax_nhwc_launch", [p, i, p, p, i, i, i, i, i, i, p]),
+                       ("conv_decode_launch", [p, p, p, p, p] + [i] * 7 + [p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i

@@ -38,6 +38,9 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch.pipeline.lift, pose3d_tpu_torch.pipeline.keypoints\n"
         "import pose3d_tpu_torch.ops.stblock_train, pose3d_tpu_torch.cli.train_temporal\n"
         "import pose3d_tpu_torch.train.checkpoint, pose3d_tpu_torch.train.logging\n"
+        "import pose3d_tpu_torch.models.resnet, pose3d_tpu_torch.models.heads\n"
+        "import pose3d_tpu_torch.ops.softargmax, pose3d_tpu_torch.ops.conv_decode\n"
+        "import pose3d_tpu_torch.train.image_steps, pose3d_tpu_torch.config\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
     )
@@ -69,6 +72,8 @@ LAUNCHERS = {
     "stblock.cu": ["stblock_spatial_launch", "stblock_temporal_launch"],
     "stblock_train.cu": ["stblock_train_bwd_launch"],
     "martinez.cu": ["martinez_launch"],
+    "softargmax.cu": ["softargmax_nhwc_launch"],
+    "conv_decode.cu": ["conv_decode_launch"],
 }
 
 
@@ -108,16 +113,29 @@ def _offset_names(layout) -> list[str]:
             for name, *_ in layout]
 
 
-@pytest.mark.parametrize("kernel", ["lifter", "stblock", "stblock_train", "martinez"])
+@pytest.mark.parametrize("kernel", ["lifter", "stblock", "stblock_train", "martinez",
+                                    "softargmax", "conv_decode"])
 def test_kernel_constants_match_the_wrapper(kernel):
     """The .cu file's tile and layout constants are the Python wrapper's
     (the launchers refuse a mismatch at run time; this catches it here)."""
     from pose3d_tpu_torch.ops import attention as A
+    from pose3d_tpu_torch.ops import conv_decode as CD
     from pose3d_tpu_torch.ops import lifter as L
     from pose3d_tpu_torch.ops import martinez as M
+    from pose3d_tpu_torch.ops import softargmax as SA
     from pose3d_tpu_torch.ops import stblock as S
 
-    if kernel == "martinez":
+    if kernel == "softargmax":
+        src = (PKG / "csrc" / "softargmax.cu").read_text()
+        assert f"constexpr int kTilePixels = {SA.TILE_PIXELS};" in src
+        head = (PKG / "csrc" / "softargmax.cuh").read_text()
+        assert "constexpr int kPartial = 5;" in head  # the wrappers' (..., 5) partials
+    elif kernel == "conv_decode":
+        src = (PKG / "csrc" / "conv_decode.cu").read_text()
+        assert f"constexpr int kTilePixels = {CD.TILE_PIXELS};" in src
+        assert f"constexpr int kFeat = {CD.FEATURES};" in src
+        assert f"constexpr int kDepth = {CD.DEPTH};" in src
+    elif kernel == "martinez":
         src = (PKG / "csrc" / "martinez.cu").read_text()
         assert f"constexpr int kWidth = {M.WIDTH};" in src
     elif kernel == "stblock_train":

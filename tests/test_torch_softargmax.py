@@ -1,0 +1,188 @@
+"""The port's volumetric soft-argmax decodes (``pose3d_tpu_torch/ops/
+heatmap.py``) and the NHWC soft-argmax kernel's wrapper and plain version
+(``ops/softargmax.py``) against the JAX package.
+
+Seeded numpy logits go through the JAX functions (the Pallas kernel
+``soft_argmax_3d_nhwc_pallas`` in interpret mode, and the XLA
+``heatmap.soft_argmax_3d_nhwc`` / ``soft_argmax_3d``) and through the
+port. The logits are N(0, 3) around an offset of 100, with a planted
+peak of +12 per (sample, joint): a decode that skipped the maximum
+subtraction would overflow exp (e^100 > the f32 maximum). H != W, so a
+decode that swapped x and y fails. Tolerances:
+
+- f32: atol 2e-5, the JAX suite's (both sides sum in f32, in another
+  order; measured up to 9.4e-6 on coordinates reaching |1|);
+- bf16 logits: the same 2e-5, since both sides promote the same bf16
+  values to f32 before any arithmetic (measured up to 1.3e-5);
+- the heatmap: atol 1e-6 (probabilities below 1).
+
+Tests marked ``cuda`` run the Hopper kernel against its plain version and
+skip without a card: coordinates within 1e-3 (both sum in f32, in another
+order; measured on the H100 in ``chip_smoke.py``), two calls bitwise
+equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import cuda_device
+
+from pose3d_tpu_torch.ops import heatmap as H
+from pose3d_tpu_torch.ops import softargmax as SA
+
+torch.set_num_threads(2)
+
+ATOL = 2e-5
+KERNEL_ATOL = 1e-3
+
+
+def _logits(b, h, w, j, d, seed=0, offset=100.0, peak=12.0):
+    """(B, H, W, J*D) f32 logits: N(0, 3) + offset, plus one planted peak
+    per (sample, joint) at a seeded voxel."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, w, j, d)) * 3.0 + offset
+    for bi in range(b):
+        for ji in range(j):
+            x[bi, rng.integers(h), rng.integers(w), ji, rng.integers(d)] += peak
+    return x.reshape(b, h, w, j * d).astype(np.float32)
+
+
+def _jnp(x, dtype):
+    import jax.numpy as jnp
+
+    return jnp.asarray(x, {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype])
+
+
+def _torch(x, dtype):
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("j", [17, 4, 3])
+def test_plain_nhwc_matches_jax_kernel(j, d, dtype):
+    """The wrapper on the CPU (its plain version) vs the JAX Pallas kernel
+    in interpret mode and vs the JAX XLA decode."""
+    from pose3d_tpu.ops.heatmap import soft_argmax_3d_nhwc
+    from pose3d_tpu.ops.pallas_softargmax import soft_argmax_3d_nhwc_pallas
+
+    x = _logits(2, 8, 6, j, d, seed=j * d)
+    want = np.asarray(soft_argmax_3d_nhwc_pallas(_jnp(x, dtype), j, d, interpret=True))
+    want_xla = np.asarray(soft_argmax_3d_nhwc(_jnp(x, dtype), j, d))
+    got = SA.soft_argmax_3d_nhwc_kernel(_torch(x, dtype), j, d)
+    assert got.dtype == torch.float32 and got.shape == (2, j * 3)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want_xla, atol=ATOL, rtol=0)
+    plain = SA.soft_argmax_3d_nhwc_reference(_torch(x, dtype), j, d)
+    assert torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("z_scale,xy_scale", [(2.5, 2.0), (2.0, 2.0), (1.0, 1.0)])
+def test_scaling_matches_jax(z_scale, xy_scale):
+    from pose3d_tpu.ops.heatmap import soft_argmax_3d_nhwc
+
+    x = _logits(2, 5, 7, 3, 8, seed=1)
+    want = np.asarray(soft_argmax_3d_nhwc(_jnp(x, "float32"), 3, 8, z_scale=z_scale,
+                                          xy_scale=xy_scale))
+    got = H.soft_argmax_3d_nhwc(torch.from_numpy(x), 3, 8, z_scale=z_scale, xy_scale=xy_scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_planted_peaks_are_found():
+    """A peak of +30 over N(0, 1) logits takes nearly all the mass: the
+    expectations sit on the planted voxel (x over W, y over H, z over D)."""
+    rng = np.random.default_rng(3)
+    b, h, w, j, d = 2, 8, 6, 4, 8
+    x = rng.standard_normal((b, h, w, j, d)).astype(np.float32)
+    where = [(rng.integers(h), rng.integers(w), rng.integers(d)) for _ in range(b * j)]
+    for n, (yi, xi, di) in enumerate(where):
+        x[n // j, yi, xi, n % j, di] += 30.0
+    e = H.nhwc_expectations(torch.from_numpy(x.reshape(b, h, w, j * d)), j, d)
+    want = np.array([(xi, yi, di) for yi, xi, di in where], np.float32).reshape(b, j, 3)
+    np.testing.assert_allclose(e.numpy(), want, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["flat", "5d"])
+def test_plain_heatmap_decode_matches_jax(layout):
+    """``soft_argmax_3d`` with the heatmap, on (B, J*D, H, W) or (B, J, D,
+    H, W) logits, vs the JAX XLA function."""
+    from pose3d_tpu.ops.heatmap import soft_argmax_3d
+
+    b, j, d, h, w = 2, 4, 8, 6, 5
+    x = _logits(b, h, w, j, d, seed=5).reshape(b, h, w, j * d).transpose(0, 3, 1, 2).copy()
+    if layout == "5d":
+        x = x.reshape(b, j, d, h, w)
+    want, want_hm = soft_argmax_3d(_jnp(x, "float32"), j, d, h, w, z_scale=2.5)
+    got, hm = H.soft_argmax_3d(torch.from_numpy(x), j, d, h, w, z_scale=2.5)
+    assert hm.shape == (b, j, d, h, w) and hm.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(hm.numpy(), np.asarray(want_hm), atol=1e-6, rtol=0)
+    assert H.soft_argmax_3d(torch.from_numpy(x), j, d, h, w, return_heatmap=False)[1] is None
+
+
+def test_heatmap_and_nhwc_decodes_agree():
+    """The two layouts of one decode: (B, J*D, H, W) and its NHWC view."""
+    x = torch.from_numpy(_logits(2, 6, 5, 3, 8, seed=6))
+    nhwc = H.soft_argmax_3d_nhwc(x, 3, 8)
+    flat, _ = H.soft_argmax_3d(x.permute(0, 3, 1, 2), 3, 8, 6, 5)
+    torch.testing.assert_close(nhwc, flat, atol=ATOL, rtol=0)
+
+
+def test_plain_nhwc_decode_is_differentiable():
+    x = torch.from_numpy(_logits(1, 4, 4, 2, 8, seed=7)).requires_grad_()
+    H.soft_argmax_3d_nhwc(x, 2, 8).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+class TestWrapperRules:
+    def test_refuses_grad_and_other_devices(self):
+        x = torch.zeros(1, 4, 4, 16, requires_grad=True)
+        with pytest.raises(ValueError, match="no backward yet"):
+            SA.soft_argmax_3d_nhwc_kernel(x, 2, 8)
+        with torch.no_grad():
+            assert SA.soft_argmax_3d_nhwc_kernel(x, 2, 8).shape == (1, 6)
+        with pytest.raises(ValueError, match="no soft-argmax kernel for device meta"):
+            SA.soft_argmax_3d_nhwc_kernel(torch.zeros(1, 4, 4, 16, device="meta"), 2, 8)
+
+    def test_rejects_a_channel_count_that_is_not_j_times_d(self):
+        with pytest.raises(ValueError, match="logits must be"):
+            SA.soft_argmax_3d_nhwc_kernel(torch.zeros(1, 4, 4, 15), 2, 8)
+        with pytest.raises(ValueError, match="channels are not"):
+            H.soft_argmax_3d_nhwc(torch.zeros(1, 4, 4, 15), 2, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(2, 8, 6, 17, 64), (3, 13, 11, 3, 8), (2, 64, 64, 17, 64)])
+def test_kernel_matches_plain_version_on_the_card(shape, dtype):
+    """Coordinates within 1e-3 of the plain version (143 pixels: a ragged
+    second tile), a finite result at logits of ~100, two calls bitwise
+    equal and one count per call."""
+    dev = cuda_device()
+    b, h, w, j, d = shape
+    x = _torch(_logits(b, h, w, j, d, seed=11), dtype).to(dev)
+    before = SA.soft_argmax_3d_nhwc_kernel.launches
+    got = SA.soft_argmax_3d_nhwc_kernel(x, j, d)
+    again = SA.soft_argmax_3d_nhwc_kernel(x, j, d)
+    torch.cuda.synchronize()
+    assert SA.soft_argmax_3d_nhwc_kernel.launches == before + 2
+    want = SA.soft_argmax_3d_nhwc_reference(x, j, d)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=KERNEL_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_a_channels_last_conv_output():
+    """The layout PoseNet3D hands it: a channels_last (B, J*D, H, W)
+    tensor, permuted to NHWC as a view; a transposed copy is refused."""
+    dev = cuda_device()
+    x = torch.from_numpy(_logits(2, 8, 8, 3, 64, seed=12)).to(dev, torch.bfloat16)
+    nchw = x.permute(0, 3, 1, 2)
+    assert nchw.is_contiguous(memory_format=torch.channels_last)
+    got = SA.soft_argmax_3d_nhwc_kernel(nchw.permute(0, 2, 3, 1), 3, 64)
+    torch.testing.assert_close(got, SA.soft_argmax_3d_nhwc_reference(x, 3, 64),
+                               atol=KERNEL_ATOL, rtol=0)
+    with pytest.raises(ValueError, match="contiguous in NHWC order"):
+        SA.soft_argmax_3d_nhwc_kernel(nchw.contiguous().permute(0, 2, 3, 1), 3, 64)

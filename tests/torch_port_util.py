@@ -129,6 +129,46 @@ def torch_temporal(params, dtype=torch.float32, device="cpu", **fields):
     return model.eval()
 
 
+@functools.cache
+def flax_posenet(architecture: str = "resnet18", seed: int = 0, final_scale: float = 32.0):
+    """(params, batch_stats) of a flax ``PoseNet3D`` (17 joints, depth 64),
+    as numpy, cached per process: biases, BN scales and BN statistics
+    seeded (``_seeded_norms``), and the final 1x1 conv's kernel scaled by
+    ``final_scale`` so that the coordinates spread (at the init's scale
+    the heatmaps are near uniform and every coordinate sits near -1/32).
+    Callers must not modify the trees."""
+    jax = pytest.importorskip("jax")
+    from pose3d_tpu.models.heads import PoseNet3D
+
+    model = PoseNet3D(architecture=architecture)
+    x = np.zeros((1, 64, 64, 3), np.float32)
+    variables = jax.jit(lambda k: model.init({"params": k}, x, train=False))(
+        jax.random.key(seed))
+    rng = np.random.default_rng(seed + 100)
+    params = _seeded_norms(jax.tree.map(np.asarray, variables["params"]), rng, False)
+    stats = _seeded_norms(jax.tree.map(np.asarray, variables["batch_stats"]), rng, True)
+    params["head"]["Conv_0"]["kernel"] = params["head"]["Conv_0"]["kernel"] * final_scale
+    return params, stats
+
+
+def flax_posenet_apply(model, params, batch_stats, x):
+    """A flax PoseNet3D's inference under one jit per module: (coords,
+    heatmap or None) as numpy."""
+    coords, heatmap = _jitted_apply(model)({"params": params, "batch_stats": batch_stats}, x)
+    return np.asarray(coords), None if heatmap is None else np.asarray(heatmap)
+
+
+def torch_posenet(params, batch_stats, dtype=torch.float32, device="cpu", **fields):
+    """The port's PoseNet3D at ``fields``, holding the flax ``params`` and
+    ``batch_stats``, in eval mode."""
+    from pose3d_tpu_torch.interop.weights import posenet3d_from_flax
+    from pose3d_tpu_torch.models.heads import PoseNet3D
+
+    model = PoseNet3D(**fields, device=device, dtype=dtype)
+    model.load_state_dict(posenet3d_from_flax(params, batch_stats), strict=True)
+    return model.eval()
+
+
 def cuda_device() -> torch.device:
     """The first CUDA device; skips the calling test where there is none."""
     if not torch.cuda.is_available():
