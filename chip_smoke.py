@@ -112,19 +112,54 @@ spread (std >= 0.1 is asserted):
     torch.profiler device-time split of the fused route (decode,
     convolutions, batch norm, casts and copies, the rest).
 
+The direct training path, the default PoseNet3D with f32 master weights
+computing in bf16 under ``torch.autocast`` (``image_steps.bf16_apply``),
+Adam with weight decay 1e-8 at lr 1e-3, 64 uint8 frames of 256 x 256 a
+step (bench.py's ``direct_train``), the final conv x8 as above:
+
+18. decode backwards vs plain on the model's own tensors at B = 64: the
+    soft-argmax backward (dx) on the model's logits, at J = 3 and on the
+    planted peaks of logits ~100; the conv-decode backward (dfeats, dW,
+    db) on the model's features, with +100 on its bias and at J = 3:
+    each output's error against a float64 run of its plain version at
+    most 1.5x the plain version's (+ 2^-16 of the largest float64
+    value), two calls bitwise equal;
+19. the train step on three routes (fused: the conv-decode kernels
+    forward and backward; NHWC with ``use_kernels_train``: the
+    soft-argmax kernels; NHWC plain, the JAX trainer's default): one
+    forward and one backward launch of the route's kernels a step
+    (counts set to 0 before it); against the same step with the decode
+    Functions on their kernels' plain versions: the loss within rtol
+    1e-2, the final conv's gradients and all gradients together within
+    5e-2 in relative L2, and each parameter's gradient as close to an f32
+    step's as the plain step's is (at most 1.5x, floor 5e-2); 10 Adam
+    steps on one fixed batch whose loss must be finite and whose last
+    three steps' mean must be below the first; ms a step and frames/s
+    per route (CUDA events), a torch.profiler device-time split of each
+    route's step by kind and its busy share (device time over event time);
+    each backward kernel, its plain version and, for the conv decode, its
+    three products as bf16 ``torch.matmul`` (a yardstick; the port never
+    calls it);
+20. ``cli.train_direct.train`` for one epoch on the fused route (256
+    synthetic frames, 2 optimizer steps a chunk), then ``infer`` on its
+    checkpoint.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
-peak, or for the soft-argmax its f32 operations over the 67 TFLOP/s f32
-peak, and its bytes, each input read once and each output written once,
-over 3.35 TB/s), then as the last line ``{"ok": true, "device": {...}}``.
+peak, or for the soft-argmax and its backward their f32 operations over
+the 67 TFLOP/s f32 peak, and its bytes, each input read once and each
+output written once, over 3.35 TB/s), then as the last line
+``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result. Imports torch, numpy
 and ``pose3d_tpu_torch`` only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -135,6 +170,8 @@ import numpy as np
 import torch
 
 import pose3d_tpu_torch
+from pose3d_tpu_torch.cli import train_direct
+from pose3d_tpu_torch.config import DataConfig, DirectConfig
 from pose3d_tpu_torch.data.feed import batch_iterator
 from pose3d_tpu_torch.data.synthetic import synthetic_frames, synthetic_h36m
 from pose3d_tpu_torch.models.heads import PoseNet3D
@@ -151,7 +188,8 @@ from pose3d_tpu_torch.ops import stblock as S
 from pose3d_tpu_torch.ops import stblock_train as ST
 from pose3d_tpu_torch.pipeline.lift import lift_sequence
 from pose3d_tpu_torch.serving import LifterService
-from pose3d_tpu_torch.train.image_steps import make_direct_eval_chunk_step, make_direct_eval_step
+from pose3d_tpu_torch.train.image_steps import (bf16_apply, make_direct_eval_chunk_step,
+                                                make_direct_eval_step, make_direct_train_step)
 from pose3d_tpu_torch.train.state import create_train_state
 from pose3d_tpu_torch.train.steps import make_lifter_train_step
 
@@ -184,7 +222,7 @@ TRAIN_LR = 1e-3
 # and, as for the forwards, the f32 yardstick ratio 1.5 (with a floor of
 # 2^-16 of the f32 tensor's largest element where the plain error is ~0)
 GRAD_ATOL_REL, GRAD_RTOL = 2 ** -7, 2 ** -7
-STEP_GRAD_REL = 5e-2  # whole step, kernels vs plain versions: relative L2 per parameter
+STEP_GRAD_REL = 5e-2  # whole step, kernels vs plain versions: relative L2 (see each phase)
 DIRECT_B = 64        # bench.py's DIRECT_B
 DIRECT_SIZE = 256    # the reference's input frames
 DIRECT_CHUNK = 4     # batches of the eval chunk step
@@ -194,6 +232,9 @@ FINAL_SCALE = 8.0
 MIN_SPREAD = 0.1     # std of the coordinates over samples and joints
 DECODE_ATOL = 1e-3   # decode kernels vs plain: both sum in f32, in other orders
 DIRECT_ATOL = 5e-2   # direct routes vs plain routes and vs the f32 module (bf16 budget)
+DIRECT_LR = 1e-3     # DirectConfig.lr
+DIRECT_WD = 1e-8     # the phase-3 Adam's weight decay (cli/train_direct._weight_decay)
+CLI_FRAMES = 256     # the CLI phase's synthetic training frames
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA's data sheet)
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_HBM = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -349,8 +390,11 @@ def cuda_ms(fn, n=N_TIMED) -> float:
 
 
 def device_ms_by_kernel(fn, n=N_TIMED) -> dict[str, float]:
-    """Device ms per call of fn() by kernel name, from torch.profiler's
-    CUDA activity over n calls after one warm-up call."""
+    """Device ms per call of fn() by kernel (its full name), from
+    torch.profiler's CUDA activity over n calls after one warm-up call.
+    User annotations (``record_function`` ranges, such as the
+    optimizer's step) are left out: their device time is that of the
+    kernels inside them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -362,13 +406,34 @@ def device_ms_by_kernel(fn, n=N_TIMED) -> dict[str, float]:
     out = {}
     for e in prof.key_averages():
         us = e.self_device_time_total
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                and not e.is_user_annotation):
             name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("::")[-1][:60]
             out[name] = out.get(name, 0.0) + us / n / 1e3
     if not out:
         raise AssertionError("torch.profiler recorded no device time")
     return out
+
+
+def top_kernels(split: dict[str, float], n: int) -> str:
+    """The n kernels of a split with the most device time, by short name
+    (the function and the start of its template arguments)."""
+    def short(name):
+        head, sep, tail = name.split("(")[0].partition("<")
+        return (head.split("::")[-1] + sep + tail)[:60]
+
+    return ", ".join(f"{short(k)} {v:.4f}"
+                     for k, v in sorted(split.items(), key=lambda kv: -kv[1])[:n])
+
+
+def by_kind(split: dict[str, float], kinds) -> dict[str, float]:
+    """Device ms of a split summed by kind: the first kind one of whose
+    keys is in a kernel's full name, else "other"."""
+    groups = {kind: 0.0 for kind, _ in kinds} | {"other": 0.0}
+    for name, ms in split.items():
+        low = name.lower()
+        groups[next((k for k, keys in kinds if any(key in low for key in keys)), "other")] += ms
+    return groups
 
 
 def timing_phase(model, svc) -> dict:
@@ -675,7 +740,7 @@ def martinez_timing_phase(model, svc) -> dict:
                      ("martinez_block", lambda: Mz.fused_residual_block(h, *block))):
         split = device_ms_by_kernel(fn)
         log(f"device time martinez B={TOP} {what}: {sum(split.values()):.4f} ms per call: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+            + top_kernels(split, 12))
     return t
 
 
@@ -852,8 +917,7 @@ def train_loop_phase(model) -> tuple[dict, dict]:
             f"{frames / t[k] * 1e3:.1f} frames/s")
     split = device_ms_by_kernel(lambda: step(state, y1, y2), n=5)
     log(f"device time C={TRAIN_CLIPS} x {model.clip_len} train_step: "
-        f"{sum(split.values()):.4f} ms per step: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])[:16]))
+        f"{sum(split.values()):.4f} ms per step: " + top_kernels(split, 16))
 
     blk = model.blocks[0]
     with torch.no_grad():
@@ -915,6 +979,22 @@ def _decode_check(what, kernel, plain, ref64, args, spread_check=True) -> float:
     return err
 
 
+def planted_logits(b, h, w, j, d):
+    """N(0, 1) + 100 bf16 logits (B, H, W, J*D) with a +30 peak at a seeded
+    voxel per (sample, joint), and the peaks' (B, J, 3) [x, y, depth]
+    indices: against 262,144 others a peak holds all but ~1e-7 of the
+    mass, so the coordinates sit on it."""
+    gen = torch.Generator().manual_seed(SEED + 31)
+    where = torch.stack([torch.randint(0, n, (b, j), generator=gen) for n in (w, h, d)], -1)
+    planted = torch.randn(b, h * w, j, d, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(SEED + 31)) + 100
+    bi, ji = torch.meshgrid(torch.arange(b), torch.arange(j), indexing="ij")
+    idx = [t.flatten().to("cuda") for t in (bi, where[..., 1] * w + where[..., 0], ji,
+                                             where[..., 2])]
+    planted[tuple(idx)] += 30
+    return planted.to(torch.bfloat16).view(b, h, w, j * d), where
+
+
 def direct_kernel_phase(model) -> dict:
     """The two decode kernels vs their plain versions at B = DIRECT_B on
     the model's own head output, on planted peaks, on large logits and at
@@ -931,19 +1011,8 @@ def direct_kernel_phase(model) -> dict:
                 lambda t: SA.soft_argmax_3d_nhwc_reference(t, jj, d),
                 lambda t: SA.soft_argmax_3d_nhwc_reference(t.double(), jj, d), (x,))
 
-    # N(0, 1) + 100 logits with a +30 peak at a seeded voxel per (sample,
-    # joint): against 262,144 others the peak holds all but ~1e-7 of the
-    # mass, so the coordinates sit on it
     b, h, w = logits.shape[:3]
-    gen = torch.Generator().manual_seed(SEED + 31)
-    where = torch.stack([torch.randint(0, n, (b, j), generator=gen) for n in (w, h, d)], -1)
-    planted = torch.randn(b, h * w, j, d, device="cuda",
-                          generator=torch.Generator("cuda").manual_seed(SEED + 31)) + 100
-    bi, ji = torch.meshgrid(torch.arange(b), torch.arange(j), indexing="ij")
-    idx = [t.flatten().to("cuda") for t in (bi, where[..., 1] * w + where[..., 0], ji,
-                                             where[..., 2])]
-    planted[tuple(idx)] += 30
-    planted = planted.to(torch.bfloat16).view(b, h, w, j * d)
+    planted, where = planted_logits(b, h, w, j, d)
     errs["soft_argmax_nhwc"] = _decode_check(f"soft_argmax_nhwc B={b} model logits",
                                              *soft(logits, j))
     _decode_check(f"soft_argmax_nhwc B={b} planted peaks, logits ~100", *soft(planted, j))
@@ -1081,21 +1150,311 @@ def direct_timing_phase(model) -> dict:
               "conv_decode_matmul"):
         log(f"time direct B={DIRECT_B} {k}: {t[k]:.4f} ms")
     split = device_ms_by_kernel(lambda: set_route(model, "fused")(x), n=5)
-    kinds = (("decode", ("decode_kernel", "merge_kernel")),
-             ("convolutions", ("conv", "gemm", "xmma", "fprop", "dgrad", "nvjet", "cutlass")),
-             ("batch norm", ("bn_", "batch_norm")),
-             ("casts and copies", ("copy",)))
-    groups = {kind: 0.0 for kind, _ in kinds} | {"other": 0.0}
-    for name, ms in split.items():
-        kind = next((k for k, keys in kinds if any(key in name.lower() for key in keys)),
-                    "other")
-        groups[kind] += ms
+    groups = by_kind(split, (("decode", ("decode_kernel", "merge_kernel")),
+                             ("convolutions", ("conv", "gemm", "xmma", "fprop", "dgrad", "nvjet",
+                                               "cutlass")),
+                             ("batch norm", ("bn_", "batch_norm")),
+                             ("casts and copies", ("copy",))))
     busy = sum(split.values())
     log(f"device time direct B={DIRECT_B} forward fused: {busy:.4f} ms per call, "
         f"{busy / t['forward_fused']:.1%} of its event-timed {t['forward_fused']:.4f} ms: "
         + ", ".join(f"{k} {v:.4f}" for k, v in groups.items()) + "; by kernel: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])[:12]))
+        + top_kernels(split, 12))
     return t
+
+
+def _grad_check_f64(what, got, again, want, ref64) -> float:
+    """A backward kernel's output vs its plain version: the kernel's error
+    against ref64, the plain version run in float64, at most F32_ERR_RATIO
+    x the plain version's (+ 2^-16 of the largest float64 value), two
+    calls bitwise equal. Returns the max abs error against the plain
+    version."""
+    err = (got.float() - want.float()).abs().max().item()
+    err_k = (got.double() - ref64).abs().max().item()
+    err_p = (want.double() - ref64).abs().max().item()
+    top = ref64.abs().max().item()
+    log(f"kernel vs plain, {what}: max abs err {err:.6g}; vs float64: kernel {err_k:.6g}, "
+        f"plain {err_p:.6g} (|float64| max {top:.4g})")
+    if not torch.isfinite(got).all() or err_k > F32_ERR_RATIO * err_p + 2 ** -16 * top:
+        raise AssertionError(f"backward kernel disagrees with its plain version: {what}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two calls gave different gradients")
+    return err
+
+
+def direct_backward_phase(model) -> dict:
+    """The two decode backwards vs their plain versions at B = DIRECT_B on
+    the model's own head output, at J = 3 and on logits of ~100 (planted
+    peaks for the soft-argmax, +100 on the bias for the conv decode), the
+    gradients g of the expectations drawn from the seed. Returns the max
+    abs errors on the model's own tensors."""
+    j, d = model.num_joints, model.depth
+    feats = model.features(direct_frames(DIRECT_B, SEED + 40))
+    logits = model.final_layer(feats).permute(0, 2, 3, 1)
+    gen = torch.Generator().manual_seed(SEED + 41)
+    b, h, w = logits.shape[:3]
+
+    def soft(x, jj, what):
+        g = torch.randn(b, jj, 3, generator=gen).to("cuda")
+        e, stats = SA.soft_argmax_3d_nhwc_expectations(x, jj, d, with_stats=True)
+        got, again = (SA.soft_argmax_3d_nhwc_backward(x, e, stats, g) for _ in range(2))
+        want = SA.soft_argmax_3d_nhwc_backward_reference(x, e, g, jj, d)
+        ref = SA.soft_argmax_3d_nhwc_backward_reference(x.double(), e.double(), g.double(),
+                                                        jj, d)
+        torch.cuda.synchronize()
+        return _grad_check_f64(f"soft_argmax_nhwc_bwd B={b} {what} dx", got, again, want, ref)
+
+    errs = {"soft_argmax_nhwc_bwd": soft(logits, j, "model logits")}
+    soft(logits[..., :3 * d].contiguous(), 3, "J=3")
+    soft(planted_logits(b, h, w, j, d)[0], j, "planted peaks, logits ~100")
+
+    nhwc = feats.permute(0, 2, 3, 1)
+    weight = model.final_layer.weight.view(j * d, -1)
+    bias = model.final_layer.bias.float()
+
+    def fused(wt, bs, jj, what):
+        g = torch.randn(b, jj, 3, generator=gen).to("cuda")
+        e, stats = CD.conv_soft_argmax_3d_expectations(nhwc, wt, bs, jj, d, with_stats=True)
+        got, again = (CD.conv_soft_argmax_3d_backward(nhwc, wt, bs, e, stats, g)
+                      for _ in range(2))
+        want = CD.conv_soft_argmax_3d_backward_reference(nhwc, wt, bs, e, g, jj, d)
+        ref = CD.conv_soft_argmax_3d_backward_reference(nhwc.double(), wt.double(), bs.double(),
+                                                        e.double(), g.double(), jj, d)
+        torch.cuda.synchronize()
+        return max(_grad_check_f64(f"conv_decode_bwd B={b} {what} {name}", *args)
+                   for name, *args in zip(("dfeats", "dW", "db"), got, again, want, ref))
+
+    errs["conv_decode_bwd"] = fused(weight, bias, j, "model features")
+    fused(weight, bias + 100, j, "bias +100")
+    fused(weight[:3 * d], bias[:3 * d], 3, "J=3")
+    return errs
+
+
+def direct_backward_timing_phase(model) -> dict:
+    """Each decode backward, its plain version and, for the conv decode,
+    its three products (the logits' recompute, dfeats, dW) as bf16
+    ``torch.matmul`` (a yardstick; the port never calls it), at B =
+    DIRECT_B on the model's own tensors."""
+    j, d = model.num_joints, model.depth
+    feats = model.features(direct_frames(DIRECT_B, SEED + 42))
+    logits = model.final_layer(feats).permute(0, 2, 3, 1)
+    nhwc = feats.permute(0, 2, 3, 1)
+    weight = model.final_layer.weight.view(j * d, -1)
+    bias = model.final_layer.bias.float()
+    g = torch.randn(DIRECT_B, j, 3, generator=torch.Generator().manual_seed(SEED + 43)).to("cuda")
+    e, stats = SA.soft_argmax_3d_nhwc_expectations(logits, j, d, with_stats=True)
+    fe, fstats = CD.conv_soft_argmax_3d_expectations(nhwc, weight, bias, j, d, with_stats=True)
+    rows = nhwc.reshape(-1, nhwc.shape[-1])  # a view: (B*H*W, 256)
+    dslab = torch.randn(rows.shape[0], j * d, device="cuda", dtype=torch.bfloat16)
+    t = {
+        "soft_argmax_nhwc_bwd": cuda_ms(
+            lambda: SA.soft_argmax_3d_nhwc_backward(logits, e, stats, g)),
+        "soft_argmax_nhwc_bwd_plain": cuda_ms(
+            lambda: SA.soft_argmax_3d_nhwc_backward_reference(logits, e, g, j, d)),
+        "conv_decode_bwd": cuda_ms(
+            lambda: CD.conv_soft_argmax_3d_backward(nhwc, weight, bias, fe, fstats, g)),
+        "conv_decode_bwd_plain": cuda_ms(
+            lambda: CD.conv_soft_argmax_3d_backward_reference(nhwc, weight, bias, fe, g, j, d)),
+        "conv_decode_bwd_matmuls": cuda_ms(
+            lambda: (rows @ weight.t(), dslab @ weight, dslab.t() @ rows)),
+    }
+    for k, ms in t.items():
+        log(f"time direct B={DIRECT_B} {k}: {ms:.4f} ms")
+    return t
+
+
+# route: (PoseNet3D's flags, the kernel wrappers a step launches: forward, backward)
+DIRECT_TRAIN_ROUTES = {
+    "fused": ({"return_heatmap": False, "fuse_final_conv": True},
+              (CD.conv_soft_argmax_3d_fused, CD.conv_soft_argmax_3d_backward)),
+    "nhwc_kernels": ({"return_heatmap": False, "use_kernels_train": True},
+                     (SA.soft_argmax_3d_nhwc_kernel, SA.soft_argmax_3d_nhwc_backward)),
+    "nhwc_plain": ({"return_heatmap": False}, ()),
+}
+DECODE_WRAPPERS = (SA.soft_argmax_3d_nhwc_kernel, SA.soft_argmax_3d_nhwc_backward,
+                   CD.conv_soft_argmax_3d_fused, CD.conv_soft_argmax_3d_backward)
+TRAIN_KINDS = (
+    ("decode", ("decode_kernel", "merge_kernel", "dfeats_kernel", "dweight_kernel",
+                "fold_kernel", "tile_kernel", "bwd_kernel")),
+    ("convolutions", ("conv", "gemm", "xmma", "fprop", "dgrad", "wgrad", "nvjet", "cutlass",
+                      "sm90")),
+    ("batch norm", ("bn_", "batch_norm", "batchnorm")),
+    ("Adam", ("adam", "multi_tensor")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce", "copy", "fill",
+                     "relu", "max_pool", "clamp")),
+)
+
+
+def seeded_train_posenet(**flags):
+    """The default PoseNet3D with f32 master weights on the card, from the
+    seed, its final conv x FINAL_SCALE, in train mode."""
+    model = PoseNet3D(device="cpu", **flags).init_weights(torch.Generator().manual_seed(SEED))
+    model.final_layer.weight.data.mul_(FINAL_SCALE)
+    return model.to("cuda").train()
+
+
+def direct_train_batch(seed):
+    """DIRECT_B uint8 frames of DIRECT_SIZE^2 and root-centred synthetic
+    Human3.6M-like poses, on the card."""
+    frames = (synthetic_frames(DIRECT_B, DIRECT_SIZE, seed=seed) * 256.0).astype(np.uint8)
+    _, kp3d = synthetic_h36m(DIRECT_B, seed=seed)
+    return (torch.from_numpy(frames).to("cuda"),
+            torch.from_numpy(kp3d - kp3d[:, :1]).to("cuda"))
+
+
+@contextlib.contextmanager
+def plain_decodes():
+    """Within it, the decode Functions run their kernels' plain versions on
+    the card (the yardstick of the step): the same rounding points, the
+    sums in other orders."""
+    def soft_fwd(x, j, d, with_stats=False):
+        return H.nhwc_expectations(x, j, d), None
+
+    def soft_bwd(x, e, stats, g):
+        j = e.shape[1]
+        return SA.soft_argmax_3d_nhwc_backward_reference(x, e, g, j, x.shape[3] // j)
+
+    def fused_fwd(f, w, b, j, d, with_stats=False):
+        return CD.conv_soft_argmax_3d_expectations_reference(f, w, b, j, d), None
+
+    def fused_bwd(f, w, b, e, stats, g):
+        j = e.shape[1]
+        return CD.conv_soft_argmax_3d_backward_reference(f, w, b, e, g, j, w.shape[0] // j)
+
+    plain = ((SA, "soft_argmax_3d_nhwc_expectations", soft_fwd),
+             (SA, "soft_argmax_3d_nhwc_backward", soft_bwd),
+             (CD, "conv_soft_argmax_3d_expectations", fused_fwd),
+             (CD, "conv_soft_argmax_3d_backward", fused_bwd))
+    saved = [(m, name, getattr(m, name)) for m, name, _ in plain]
+    for m, name, f in plain:
+        setattr(m, name, f)
+    try:
+        yield
+    finally:
+        for m, name, f in saved:
+            setattr(m, name, f)
+
+
+def _direct_loss_and_grads(model, frames, kp3d, apply=bf16_apply):
+    model.zero_grad(set_to_none=True)
+    coords, _ = apply(model, frames.float() / 256.0)
+    loss = ((coords.reshape(kp3d.shape) - kp3d) ** 2).mean()
+    loss.backward()
+    return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def direct_step_check(route, model, frames, kp3d) -> None:
+    """One bf16 step's loss and gradients on the kernels against the same
+    step with the decode Functions on their kernels' plain versions, and
+    both against the step in f32 on the plain versions (the yardstick).
+    Train-mode BatchNorm amplifies where bf16 rounds: one flipped
+    rounding in the decode's gradient moves the gradients of the layers
+    below by ~1% (relative L2; ~10% for the stem BatchNorm's bias, whose
+    gradient nearly cancels), so each parameter is held to the f32 step:
+    its error at most F32_ERR_RATIO x the plain step's (floor
+    STEP_GRAD_REL); the final conv's gradients (the decode backward's own
+    output) and all gradients together within STEP_GRAD_REL of the plain
+    step's, the loss within 1e-2."""
+    loss_k, g_k = _direct_loss_and_grads(model, frames, kp3d)
+    with plain_decodes():
+        loss_p, g_p = _direct_loss_and_grads(model, frames, kp3d)
+        _, g_32 = _direct_loss_and_grads(model, frames, kp3d, lambda m, x: m(x))
+    rel = {n: _rel(g_k[n], g_p[n]) for n in g_k}
+    worst = max(rel, key=rel.get)
+    total = _rel(torch.cat([g.flatten() for g in g_k.values()]),
+                 torch.cat([g.flatten() for g in g_p.values()]))
+    ratio = {n: _rel(g_k[n], g_32[n]) / max(_rel(g_p[n], g_32[n]), STEP_GRAD_REL) for n in g_k}
+    worst32 = max(ratio, key=ratio.get)
+    final = max(rel["final_layer.weight"], rel["final_layer.bias"])
+    log(f"direct train step {route} B={DIRECT_B}: loss kernels {loss_k:.8g}, plain {loss_p:.8g}; "
+        f"grads kernels vs plain: all together {total:.4g}, final conv {final:.4g}, median "
+        f"{statistics.median(rel.values()):.4g}, worst {rel[worst]:.4g} ({worst}); vs the f32 "
+        f"step: worst kernels {_rel(g_k[worst32], g_32[worst32]):.4g}, plain "
+        f"{_rel(g_p[worst32], g_32[worst32]):.4g} ({worst32})")
+    if (not math.isfinite(loss_k) or abs(loss_k - loss_p) > 1e-2 * abs(loss_p)
+            or total > STEP_GRAD_REL or final > STEP_GRAD_REL
+            or ratio[worst32] > F32_ERR_RATIO):
+        raise AssertionError(f"the {route} train step disagrees with its plain version")
+
+
+def direct_train_phase() -> tuple[dict, dict]:
+    """The direct train step on each route (DIRECT_TRAIN_ROUTES), B =
+    DIRECT_B, bf16 compute over f32 master weights, Adam: the step's loss
+    and gradients against the same step on the plain versions
+    (``direct_step_check``), then TRAIN_STEPS steps on one fixed batch
+    with the decode wrappers' counts set to 0 before them (one forward and
+    one backward launch of the route's kernels a step), and times.
+    Returns (the backward wrappers' launches, times)."""
+    frames, kp3d = direct_train_batch(SEED + 50)
+    launches, t = {}, {}
+    for route, (flags, wrappers) in DIRECT_TRAIN_ROUTES.items():
+        model = seeded_train_posenet(**flags)
+        if wrappers:
+            direct_step_check(route, model, frames, kp3d)
+        state = create_train_state(model, lr=DIRECT_LR, optimizer="adam",
+                                   weight_decay=DIRECT_WD, apply=bf16_apply)
+        step = make_direct_train_step("mse")
+        for f in DECODE_WRAPPERS:
+            f.launches = 0
+        losses = [step(state, frames, kp3d)["loss"].item() for _ in range(TRAIN_STEPS)]
+        made = {f.__name__: f.launches for f in DECODE_WRAPPERS}
+        want = {f.__name__: TRAIN_STEPS * (f in wrappers) for f in DECODE_WRAPPERS}
+        log(f"direct train {route}: {TRAIN_STEPS} Adam steps, loss "
+            + ", ".join(f"{v:.5g}" for v in losses) + f"; launches {made} (expected {want})")
+        if made != want:
+            raise AssertionError(f"the {route} train steps did not take their kernels")
+        if not all(math.isfinite(v) for v in losses) or not (
+                statistics.mean(losses[-3:]) < losses[0]):
+            raise AssertionError(f"the {route} training loss did not fall")
+        launches.update({f.__name__: made[f.__name__] for f in wrappers[1:]})
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            raise AssertionError("Adam stepped parameters that are not f32")
+
+        t[route] = cuda_ms(lambda: step(state, frames, kp3d), n=10)
+        log(f"time direct train B={DIRECT_B} step {route}: {t[route]:.4f} ms = "
+            f"{DIRECT_B / t[route] * 1e3:.1f} frames/s")
+        split = device_ms_by_kernel(lambda: step(state, frames, kp3d), n=5)
+        busy = sum(split.values())
+        log(f"device time direct train B={DIRECT_B} step {route}: {busy:.4f} ms per step, "
+            f"{busy / t[route]:.1%} of its event-timed {t[route]:.4f} ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in by_kind(split, TRAIN_KINDS).items())
+            + "; by kernel: " + top_kernels(split, 16))
+        del model, state
+        torch.cuda.empty_cache()
+    return launches, t
+
+
+def direct_cli_phase() -> None:
+    """``cli.train_direct.train`` for one epoch on the fused route (the
+    default ResNet-50 at B = DIRECT_B, CLI_FRAMES synthetic frames, 2 steps
+    a chunk; its checkpoint under the checkout's gitignored ``logs/``),
+    then ``infer`` on that checkpoint."""
+    log_dir = Path(__file__).resolve().parent / "logs" / "chip_smoke_direct"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cfg = DirectConfig(fuse_final_conv=True, n_epochs=1, chunk_steps=2, log_dir=str(log_dir),
+                       run_name="chip_smoke", data=DataConfig(synthetic_frames=CLI_FRAMES))
+    for f in DECODE_WRAPPERS:
+        f.launches = 0
+    t0 = time.perf_counter()
+    state = train_direct.train(cfg)
+    steps = CLI_FRAMES // DIRECT_B
+    val_batches = len(train_direct.load_image_split(cfg, is_train=False)[0]) // DIRECT_B
+    made = {f.__name__: f.launches for f in DECODE_WRAPPERS}
+    log(f"cli train_direct: {state.step} steps in {time.perf_counter() - t0:.1f} s; "
+        f"launches {made}")
+    # each step's forward and backward, and each validation batch's forward
+    if (state.step != steps or made["conv_soft_argmax_3d_backward"] != steps
+            or made["conv_soft_argmax_3d_fused"] != steps + val_batches):
+        raise AssertionError("the CLI's steps did not take the conv-decode kernels")
+    del state
+    mpjpe = train_direct.infer(cfg)
+    if not math.isfinite(mpjpe):
+        raise AssertionError("infer gave no MPJPE")
+    shutil.rmtree(log_dir)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
@@ -1145,7 +1504,18 @@ def kernel_bounds(model_vit, model_t, model_m, model_d) -> dict:
     out_bytes = DIRECT_B * model_d.num_joints * 3 * 4
     soft = bound(6 * pix * jd, pix * jd * b2 + out_bytes, PEAK_F32)
     decode = bound(2 * pix * 256 * jd, pix * 256 * b2 + jd * 256 * b2 + jd * 4 + out_bytes)
+    # the backwards read g, E and the statistics (8 f32 a joint) besides:
+    # the soft-argmax's reads the logits and writes dx (a subtract, an
+    # exp, two multiplies and five multiply-adds a logit, f32); the conv
+    # decode's reads the features, the weight and the bias, writes dfeats,
+    # dW (bf16) and db (f32), and does three products of the forward's
+    # size (the recompute, dfeats and dW)
+    coef_bytes = DIRECT_B * model_d.num_joints * 8 * 4
+    soft_bwd = bound(9 * pix * jd, 2 * pix * jd * b2 + coef_bytes, PEAK_F32)
+    decode_bwd = bound(3 * 2 * pix * 256 * jd, 2 * pix * 256 * b2 + 2 * (jd * 256 * b2 + jd * 4)
+                       + coef_bytes)
     return {"soft_argmax_nhwc": soft, "conv_decode": decode,
+            "soft_argmax_nhwc_bwd": soft_bwd, "conv_decode_bwd": decode_bwd,
             "lifter_trunk": trunk, "spatial_block": spatial, "temporal_slab": temporal,
             "packed_flat_attention": packed, "seq_attention": seq, "martinez_block": martinez,
             "spatial_fwd": bound(rows * dense + att_spatial, fwd_bytes),
@@ -1178,11 +1548,17 @@ def main() -> None:
         derrs = direct_kernel_phase(dmodel)
         dlaunches = direct_forward_phase(dmodel, seeded_posenet("cuda", torch.float32))
         dt = direct_timing_phase(dmodel)
+        derrs.update(direct_backward_phase(dmodel))
+        dt.update(direct_backward_timing_phase(dmodel))
 
     train_model = seeded_train_model()
     errs.update(train_kernel_phase(train_model))
     train_step_phase(train_model)
     trlaunches, trt = train_loop_phase(train_model)
+    del train_model
+    torch.cuda.empty_cache()
+    dtrlaunches, _ = direct_train_phase()
+    direct_cli_phase()
     bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -1231,6 +1607,17 @@ def main() -> None:
         record("conv_decode", f"{csrc}/conv_decode.cu", "pose3d_tpu/ops/pallas_conv_decode.py:98",
                dlaunches["conv_soft_argmax_3d_fused"], derrs["conv_decode"], dt["conv_decode"],
                dt["conv_decode_plain"], dt["conv_decode_matmul"]),
+        # the backwards: launches in the TRAIN_STEPS steps of their routes;
+        # no one PyTorch call computes either (the conv decode's three
+        # products as torch.matmul are logged above, a yardstick only)
+        record("soft_argmax_nhwc_bwd", f"{csrc}/softargmax.cu",
+               "pose3d_tpu/ops/pallas_softargmax.py:164",
+               dtrlaunches["soft_argmax_3d_nhwc_backward"], derrs["soft_argmax_nhwc_bwd"],
+               dt["soft_argmax_nhwc_bwd"], dt["soft_argmax_nhwc_bwd_plain"], None),
+        record("conv_decode_bwd", f"{csrc}/conv_decode_bwd.cu",
+               "pose3d_tpu/ops/pallas_conv_decode.py:124",
+               dtrlaunches["conv_soft_argmax_3d_backward"], derrs["conv_decode_bwd"],
+               dt["conv_decode_bwd"], dt["conv_decode_bwd_plain"], None),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -6,8 +6,8 @@ a ported path becomes a CUDA kernel written by hand for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use and bound through ``ctypes``.
 
 Ported so far: the lifter serving path (all three lifter families), the
-temporal serving path, temporal training and the direct image->3D
-forward.
+temporal serving path, temporal training, and the direct image->3D
+forward and training.
 
 - ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
   ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
@@ -19,11 +19,12 @@ forward.
   (``lifter.py``), the Martinez block (``martinez.py``), the temporal
   sub-blocks (``stblock.py``) and their training forms
   (``stblock_train.py``), attention (``attention.py``), the direct
-  model's decodes (``softargmax.py``, ``conv_decode.py``; the plain ones
-  in ``heatmap.py``).
+  model's decodes, forward and backward (``softargmax.py``,
+  ``conv_decode.py``; the plain ones and the heatmap targets in
+  ``heatmap.py``).
 - ``losses.py``, ``train/``, ``core/``, ``data/``, ``config.py``,
-  ``cli/train_temporal.py``  the temporal trainer and what it needs; the
-  direct model's eval steps (``train/image_steps.py``).
+  ``cli/train_temporal.py``, ``cli/train_direct.py``  the two trainers and
+  what they need (the direct model's steps in ``train/image_steps.py``).
 - ``pipeline/lift.py``   ``lift_sequence``: video -> 3D.
 - ``serving.py``         ``LifterService``: bucketed batch inference.
 

@@ -5,7 +5,7 @@ other phases' configs come with their trainers).
 ``TemporalConfig.use_kernels_train`` is JAX's ``use_pallas_train``: train
 on the fused sub-block kernels where they apply. ``--cpu`` selects the
 torch CPU device (``device``, default ``cuda``). ``DirectConfig`` has every
-field of the JAX one; its trainer comes with the direct-training slice.
+field of the JAX one (``cli/train_direct.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Optional
 
 @dataclasses.dataclass
 class DataConfig:
-    """What the temporal trainer reads of the JAX ``DataConfig``. The
+    """What the port's trainers read of the JAX ``DataConfig``. The
     Human3.6M reader's fields (action filter, normalisation, subjects,
     cameras) come with that reader in the phase-1 training slice."""
 

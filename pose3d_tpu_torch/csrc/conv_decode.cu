@@ -5,8 +5,8 @@
 // each (sample, joint) a softmax over the joint's 64 x H x W logits,
 // maximum subtracted, and the expected column, row and depth index: out
 // (B, J, 3) f32 [Ex, Ey, Ez]. The logits never reach device memory. The
-// wrapper (ops/conv_decode.py) scales them to coordinates. Forward only:
-// the backward (the TPU's _bwd_kernel) comes with direct training.
+// wrapper (ops/conv_decode.py) scales them to coordinates. The backward is
+// conv_decode_bwd.cu.
 //
 // Replaces pose3d_tpu/ops/pallas_conv_decode.py:98 _fwd_kernel (via
 // _expectations_fused_fwd :186, entry conv_soft_argmax_3d_fused :277).
@@ -22,9 +22,8 @@
 // and no sentinel. The design: a CTA per (sample, tile of 128 pixels)
 // holds its 128 x 256 feature tile in shared memory and streams the J
 // weight slabs (64 x 256 bf16 each, L2-resident) through a two-slab
-// cp.async ring; 8 warps (4 x 2, 32 x 32 logits each) compute a slab's
-// 128 x 64 logits with ldmatrix + mma.sync m16n8k16 (bf16 in, f32
-// accumulate), add the bias and reduce their logits to a softmax partial
+// cp.async ring; 8 warps compute a slab's 128 x 64 logits
+// (conv_decode.cuh), add the bias and reduce their logits to a softmax partial
 // (softargmax.cuh) in registers and warp shuffles. At the end the CTA
 // folds each joint's 8 warp partials in warp order into its tile partial,
 // and merge_kernel folds the tiles in tile order. Two launches, no
@@ -34,42 +33,14 @@
 // allocates nothing (the wrapper allocates the partials and the output),
 // and returns cudaGetLastError().
 
-#include "common.cuh"
-#include "softargmax.cuh"
+#include "conv_decode.cuh"
 
 namespace {
 
 using namespace pose3d;
 
-constexpr int kFeat = 256;        // C: feature channels, the products' K
-constexpr int kDepth = 64;        // D: a joint's channels, a slab's N
-constexpr int kTilePixels = 128;  // a CTA's pixels, the products' M
-constexpr int kDecodeWarpsM = 4;
-constexpr int kDecodeWarpsN = 2;
-constexpr int kDecodeWarps = kDecodeWarpsM * kDecodeWarpsN;
-constexpr int kDecodeThreads = 32 * kDecodeWarps;
-constexpr int kWarpRows = kTilePixels / kDecodeWarpsM;  // 32
-constexpr int kWarpCols = kDepth / kDecodeWarpsN;       // 32
-constexpr int kFragM = kWarpRows / 16;
-constexpr int kFragN = kWarpCols / 8;
-// shared-memory row pitch in bf16 elements: 16 bytes of skew per row keep
-// the 8 rows of an ldmatrix on distinct banks
-constexpr int kLd = kFeat + 8;
-constexpr int kSlabElems = kDepth * kLd;
-constexpr size_t kSmemTiles = size_t(kTilePixels + 2 * kDepth) * kLd * sizeof(bf16);
-constexpr int kChunks = kFeat / 8;  // 16-byte copies per row
-
+constexpr size_t kSmemTiles = size_t(kTileElems + 2 * kSlabElems) * sizeof(bf16);
 static_assert(kSmemTiles % 16 == 0, "the warp partials start aligned");
-static_assert(kFragN % 2 == 0 && kFeat % 16 == 0, "tiling");
-
-__device__ __forceinline__ void load_slab(bf16* dst, const bf16* __restrict__ weight, int joint) {
-  const bf16* src = weight + size_t(joint) * kDepth * kFeat;
-  for (int i = threadIdx.x; i < kDepth * kChunks; i += kDecodeThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    cp_async16(dst + r * kLd + c, src + size_t(r) * kFeat + c);
-  }
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -95,18 +66,12 @@ decode_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ weight,
   const int p0 = tile * kTilePixels;
 
   // the feature tile; rows past the last pixel repeat it and are masked
-  const bf16* f = feats + size_t(b) * pixels * kFeat;
-  for (int i = threadIdx.x; i < kTilePixels * kChunks; i += kDecodeThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    cp_async16(a_s + r * kLd + c, f + size_t(min(p0 + r, pixels - 1)) * kFeat + c);
-  }
+  load_feature_tile(a_s, feats + size_t(b) * pixels * kFeat, p0, pixels);
   load_slab(w_s, weight, 0);
   cp_async_commit();
   if (joints > 1) load_slab(w_s + kSlabElems, weight, 1);
   cp_async_commit();
 
-  // m16n8 accumulators: (row g, columns 2q, 2q + 1) and (row g + 8, ...)
   const int g = lane / 4;
   const int q = lane % 4;
   float rx[kFragM][2], ry[kFragM][2];
@@ -120,38 +85,12 @@ decode_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ weight,
       rx[m][h] = float(pix % width);
       ry[m][h] = float(pix / width);
     }
-  // ldmatrix row addresses of this lane: feature rows lane % 16 (+ 16 m)
-  // at k offset (lane / 16) * 8; weight rows (lane / 16) * 8 + lane % 8
-  // (+ 16 h) at k offset ((lane / 8) % 2) * 8 (non-transposed: N x K rows
-  // give the column fragments)
-  const unsigned a_lane = smem_u32(a_s) + ((wm * kWarpRows + lane % 16) * kLd + (lane / 16) * 8) * 2;
-  const unsigned w_lane =
-      ((wn * kWarpCols + (lane / 16) * 8 + lane % 8) * kLd + ((lane / 8) % 2) * 8) * 2;
 
   for (int j = 0; j < joints; ++j) {
     cp_async_wait<1>();  // slab j (and, for j = 0, the feature tile) has landed
     __syncthreads();
-    const unsigned ws = smem_u32(w_s + (j % 2) * kSlabElems) + w_lane;
-    float acc[kFragM][kFragN][4];
-#pragma unroll
-    for (int m = 0; m < kFragM; ++m)
-#pragma unroll
-      for (int n = 0; n < kFragN; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < kFeat / 16; ++k) {
-      unsigned af[kFragM][4], bfr[kFragN / 2][4];
-#pragma unroll
-      for (int m = 0; m < kFragM; ++m) ldsm_x4(af[m], a_lane + (m * 16 * kLd + k * 16) * 2);
-#pragma unroll
-      for (int h = 0; h < kFragN / 2; ++h) ldsm_x4(bfr[h], ws + (h * 16 * kLd + k * 16) * 2);
-#pragma unroll
-      for (int m = 0; m < kFragM; ++m)
-#pragma unroll
-        for (int n = 0; n < kFragN; ++n)
-          mma_bf16(acc[m][n], af[m], bfr[n / 2][(n % 2) * 2], bfr[n / 2][(n % 2) * 2 + 1]);
-    }
+    LogitAcc acc;
+    slab_logits(a_s, w_s + (j % 2) * kSlabElems, wm, wn, lane, acc);
     __syncthreads();  // every warp is done with this slab's buffer
     if (j + 2 < joints) load_slab(w_s + (j % 2) * kSlabElems, weight, j + 2);
     cp_async_commit();  // an empty group past the end keeps the count
@@ -173,7 +112,6 @@ decode_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ weight,
     Partial pt;
     pt.m = warp_max(mx);
     if (pt.m != -INFINITY) {  // else every row of the warp is past the last pixel
-      const float ml = pt.m * kLog2e;
 #pragma unroll
       for (int n = 0; n < kFragN; ++n)
 #pragma unroll
@@ -181,7 +119,7 @@ decode_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ weight,
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             if (ok[m][i / 2]) {
-              const float e = exp2f(fmaf(acc[m][n][i], kLog2e, -ml));
+              const float e = exp2f((acc[m][n][i] - pt.m) * kLog2e);  // m * log2e unrounded
               pt.s += e;
               pt.sx = fmaf(e, rx[m][i / 2], pt.sx);
               pt.sy = fmaf(e, ry[m][i / 2], pt.sy);
@@ -210,16 +148,17 @@ decode_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ weight,
 // feats: (batch, height, width, channels) bf16; weight: (joints * depth,
 // channels) bf16; bias: (joints * depth) f32; every pointer contiguous and
 // 16-byte aligned. partials: (batch * joints, ceil(height * width /
-// tile_pixels), 5) f32 scratch; out: (batch, joints, 3) f32. channels,
+// tile_pixels), 5) f32 scratch; out: (batch, joints, 3) f32; stats:
+// (batch, joints, 2) f32 [m, s], or null where no backward follows. channels,
 // depth and tile_pixels are the caller's idea of the kernel's widths: a
 // mismatch, a batch past the grid's limit or more joints than shared
 // memory holds partials for returns cudaErrorInvalidValue. Two launches in
 // a row on the calling thread's current device; the first error ends the
 // sequence and is returned.
 extern "C" cudaError_t conv_decode_launch(const void* feats, const void* weight, const void* bias,
-                                          void* partials, void* out, int batch, int height,
-                                          int width, int channels, int joints, int depth,
-                                          int tile_pixels, void* stream) {
+                                          void* partials, void* out, void* stats, int batch,
+                                          int height, int width, int channels, int joints,
+                                          int depth, int tile_pixels, void* stream) {
   const size_t smem = kSmemTiles + size_t(joints) * kDecodeWarps * kPartial * sizeof(float);
   if (channels != kFeat || depth != kDepth || tile_pixels != kTilePixels || batch < 1 ||
       batch > 65535 || height < 1 || width < 1 || joints < 1 || smem > size_t(kSmemLimit))
@@ -238,6 +177,6 @@ extern "C" cudaError_t conv_decode_launch(const void* feats, const void* weight,
   if (err != cudaSuccess) return err;
   const int n = batch * joints;
   merge_kernel<kMergeThreads><<<(n + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, s>>>(
-      part, n_tiles, n, static_cast<float*>(out));
+      part, n_tiles, n, static_cast<float*>(out), static_cast<float*>(stats));
   return cudaGetLastError();
 }

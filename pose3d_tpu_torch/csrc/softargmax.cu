@@ -3,19 +3,21 @@
 // (sample, joint) a softmax over the joint's D x H x W volume, maximum
 // subtracted, and the expected column, row and depth index: out (B, J, 3)
 // f32 [Ex, Ey, Ez]. The wrapper (ops/softargmax.py) scales them to
-// coordinates. Forward only: the backward (the TPU's _kernel_nhwc_bwd /
-// _kernel_nhwc_pair_bwd) comes with direct training.
+// coordinates. The backward takes the gradient g of [Ex, Ey, Ez] and
+// writes dx, the logits' gradient, in their dtype and layout.
 //
 // Replaces pose3d_tpu/ops/pallas_softargmax.py:138 _kernel_nhwc_fwd (via
 // _simple_fwd_call :268) and :183 _kernel_nhwc_pair_fwd (via
-// _expectations_nhwc_fwd :303), entry soft_argmax_3d_nhwc_pallas :395. The
-// TPU's one-joint / joint-pair / odd-tail split exists for its 128-lane
-// blocks; this one kernel takes any J and any D that holds whole 16-byte
-// vectors.
+// _expectations_nhwc_fwd :303), and the backwards :164 _kernel_nhwc_bwd
+// (via _simple_bwd_call :286) and :220 _kernel_nhwc_pair_bwd (via
+// _nhwc_vjp_bwd :352); entry soft_argmax_3d_nhwc_pallas :395. The TPU's
+// one-joint / joint-pair / odd-tail split exists for its 128-lane blocks;
+// these kernels take any J and any D that holds whole 16-byte vectors.
 //
-// What bounds it on this card: bytes. It reads the logits once (570 MB in
-// bf16 at B = 64, H = W = D = 64, J = 17: 0.17 ms at 3.35 TB/s) and does
-// one exp per logit.
+// What bounds them on this card: bytes. The forward reads the logits once
+// (570 MB in bf16 at B = 64, H = W = D = 64, J = 17: 0.17 ms at 3.35
+// TB/s) and does one exp per logit; the backward reads them once and
+// writes dx once (0.34 ms).
 //
 // Why not the TPU's design: the TPU holds one joint's whole volume (1 MB
 // in f32) in VMEM, takes its maximum, then its sums. No SM holds that, and
@@ -26,12 +28,16 @@
 // joint) for the pixels r, r + rows, ..., and keeps an online softmax of
 // its elements: a running maximum, with s, sx, sy, sz rescaled when it
 // grows. The CTA folds each joint's threads into one tile partial
-// (softargmax.cuh), in a fixed order; merge_kernel folds the tiles. Two
-// launches, no atomics: two calls are bitwise equal.
+// (softargmax.cuh), in a fixed order; merge_kernel folds the tiles and,
+// for the backward, keeps each joint's maximum m and sum s. Two launches,
+// no atomics: two calls are bitwise equal. The backward is one launch on
+// the same grid: each thread turns its vectors into dx = exp(x - m) / s *
+// (the joint's coefficients, softargmax.cuh GradCoef), one read and one
+// write of each element.
 //
-// The launcher runs on the caller's stream, does not synchronise,
-// allocates nothing (the wrapper allocates the partials and the output),
-// and returns cudaGetLastError().
+// The launchers run on the caller's stream, do not synchronise, allocate
+// nothing (the wrapper allocates the partials, the statistics and the
+// outputs), and return cudaGetLastError().
 
 #include "common.cuh"
 #include "softargmax.cuh"
@@ -60,6 +66,13 @@ struct Vec<bf16> {
       f[2 * i + 1] = t.y;
     }
   }
+  static __device__ __forceinline__ void store(bf16* p, const float (&f)[kN]) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    __stcs(reinterpret_cast<uint4*>(p), u);
+  }
 };
 
 template <>
@@ -71,6 +84,9 @@ struct Vec<float> {
     f[1] = u.y;
     f[2] = u.z;
     f[3] = u.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&f)[kN]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
   }
 };
 
@@ -115,11 +131,10 @@ __global__ void __launch_bounds__(1024) tile_kernel(const T* __restrict__ logits
         acc.sz *= a;
         acc.m = mx;
       }
-      const float ml = acc.m * kLog2e;
       float ps = 0.f, pz = 0.f;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float e = exp2f(fmaf(f[u][i], kLog2e, -ml));
+        const float e = exp2f((f[u][i] - acc.m) * kLog2e);  // m * log2e unrounded
         ps += e;
         pz = fmaf(e, float(i), pz);
       }
@@ -145,24 +160,89 @@ __global__ void __launch_bounds__(1024) tile_kernel(const T* __restrict__ logits
   }
 }
 
+// grid (n_tiles, B), block (J * D / V, rows), as tile_kernel: dx of each
+// element of the tile from g, e ((B * J, 3) f32) and stats ((B * J, 2)).
 template <typename T>
-cudaError_t launch(const T* logits, float* part, float* out, int batch, int height, int width,
-                   int joints, int depth, cudaStream_t stream) {
+__global__ void __launch_bounds__(1024) bwd_kernel(const T* __restrict__ logits,
+                                                   const float* __restrict__ g,
+                                                   const float* __restrict__ e,
+                                                   const float* __restrict__ stats,
+                                                   T* __restrict__ dx, int pixels, int width,
+                                                   int joints, int depth) {
   constexpr int V = Vec<T>::kN;
-  const int pixels = height * width;
+  const int n_vec = blockDim.x;
+  const int rows = blockDim.y;
+  const int v = threadIdx.x;
+  const int channels = n_vec * V;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kTilePixels;
+  const int p1 = min(p0 + kTilePixels, pixels);
+  const float d0 = float((v * V) % depth);
+  const GradCoef c = GradCoef::load(g, e, stats, b * joints + (v * V) / depth);
+  const size_t base = size_t(b) * pixels * channels + v * V;
+
+  for (int p = p0 + threadIdx.y; p < p1; p += rows * kUnroll) {
+    float f[kUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (p + u * rows < p1) Vec<T>::load(logits + base + size_t(p + u * rows) * channels, f[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * rows;
+      if (q >= p1) break;
+      const float xi = float(q % width);
+      const float yi = float(q / width);
+#pragma unroll
+      for (int i = 0; i < V; ++i) f[u][i] = c.grad(f[u][i], xi, yi, d0 + float(i));
+      Vec<T>::store(dx + base + size_t(q) * channels, f[u]);
+    }
+  }
+}
+
+// The block shape of both kernels: (vectors a pixel, pixel rows), or
+// dim3(0) where the vectors do not fit one block.
+template <typename T>
+dim3 block_shape(int joints, int depth) {
+  constexpr int V = Vec<T>::kN;
   const int n_vec = joints * depth / V;
-  if (depth % V != 0 || n_vec > 1024) return cudaErrorInvalidValue;
-  const int rows = n_vec < kTargetThreads ? kTargetThreads / n_vec : 1;  // n_vec * rows <= 1024
+  if (depth % V != 0 || n_vec > 1024) return dim3(0);
+  return dim3(n_vec, n_vec < kTargetThreads ? kTargetThreads / n_vec : 1);  // n_vec * rows <= 1024
+}
+
+template <typename T>
+cudaError_t launch(const T* logits, float* part, float* out, float* stats, int batch, int height,
+                   int width, int joints, int depth, cudaStream_t stream) {
+  const dim3 block = block_shape<T>(joints, depth);
+  if (block.x == 0) return cudaErrorInvalidValue;
+  const int pixels = height * width;
   const int n_tiles = (pixels + kTilePixels - 1) / kTilePixels;
-  const size_t smem = size_t(kPartial) * rows * n_vec * sizeof(float);
-  tile_kernel<T><<<dim3(n_tiles, batch), dim3(n_vec, rows), smem, stream>>>(
-      logits, part, pixels, width, joints, depth);
+  const size_t smem = size_t(kPartial) * block.x * block.y * sizeof(float);
+  tile_kernel<T><<<dim3(n_tiles, batch), block, smem, stream>>>(logits, part, pixels, width,
+                                                                 joints, depth);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = batch * joints;
   merge_kernel<kMergeThreads><<<(n + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, stream>>>(
-      part, n_tiles, n, out);
+      part, n_tiles, n, out, stats);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const T* logits, const float* g, const float* e, const float* stats, T* dx,
+                       int batch, int height, int width, int joints, int depth,
+                       cudaStream_t stream) {
+  const dim3 block = block_shape<T>(joints, depth);
+  if (block.x == 0) return cudaErrorInvalidValue;
+  const int pixels = height * width;
+  const int n_tiles = (pixels + kTilePixels - 1) / kTilePixels;
+  bwd_kernel<T><<<dim3(n_tiles, batch), block, 0, stream>>>(logits, g, e, stats, dx, pixels,
+                                                             width, joints, depth);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int batch, int height, int width, int joints, int depth, int tile_pixels) {
+  return tile_pixels != kTilePixels || batch < 1 || batch > 65535 || height < 1 || width < 1 ||
+         joints < 1 || depth < 1;
 }
 
 }  // namespace
@@ -170,23 +250,44 @@ cudaError_t launch(const T* logits, float* part, float* out, int batch, int heig
 // logits: (batch, height, width, joints * depth), bf16 (is_bf16 = 1) or f32
 // (is_bf16 = 0), contiguous, 16-byte aligned; partials: (batch * joints,
 // ceil(height * width / tile_pixels), 5) f32 scratch; out: (batch, joints,
-// 3) f32. tile_pixels is the caller's idea of the kernel's tile: a mismatch,
-// a depth that is not a whole number of 16-byte vectors, more than 1024
-// vectors a pixel or a batch past the grid's limit returns
+// 3) f32; stats: (batch, joints, 2) f32 [m, s], or null where no backward
+// follows. tile_pixels is the caller's idea of the kernel's tile: a
+// mismatch, a depth that is not a whole number of 16-byte vectors, more
+// than 1024 vectors a pixel or a batch past the grid's limit returns
 // cudaErrorInvalidValue. Two launches in a row on the calling thread's
 // current device; the first error ends the sequence and is returned.
 extern "C" cudaError_t softargmax_nhwc_launch(const void* logits, int is_bf16, void* partials,
-                                              void* out, int batch, int height, int width,
-                                              int joints, int depth, int tile_pixels,
+                                              void* out, void* stats, int batch, int height,
+                                              int width, int joints, int depth, int tile_pixels,
                                               void* stream) {
-  if (tile_pixels != kTilePixels || batch < 1 || batch > 65535 || height < 1 || width < 1 ||
-      joints < 1 || depth < 1)
-    return cudaErrorInvalidValue;
+  if (bad_shape(batch, height, width, joints, depth, tile_pixels)) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   auto* part = static_cast<float*>(partials);
   auto* o = static_cast<float*>(out);
+  auto* st = static_cast<float*>(stats);
   if (is_bf16)
-    return launch(static_cast<const bf16*>(logits), part, o, batch, height, width, joints, depth,
-                  s);
-  return launch(static_cast<const float*>(logits), part, o, batch, height, width, joints, depth, s);
+    return launch(static_cast<const bf16*>(logits), part, o, st, batch, height, width, joints,
+                  depth, s);
+  return launch(static_cast<const float*>(logits), part, o, st, batch, height, width, joints,
+                depth, s);
+}
+
+// The backward: logits as above; g, e: (batch, joints, 3) f32, the
+// gradient of the expectations and the expectations; stats: the forward's
+// (batch, joints, 2) [m, s]; dx: the logits' shape and dtype, contiguous,
+// 16-byte aligned. The same checks as the forward; one launch.
+extern "C" cudaError_t softargmax_nhwc_bwd_launch(const void* logits, int is_bf16, const void* g,
+                                                  const void* e, const void* stats, void* dx,
+                                                  int batch, int height, int width, int joints,
+                                                  int depth, int tile_pixels, void* stream) {
+  if (bad_shape(batch, height, width, joints, depth, tile_pixels)) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* gp = static_cast<const float*>(g);
+  const auto* ep = static_cast<const float*>(e);
+  const auto* st = static_cast<const float*>(stats);
+  if (is_bf16)
+    return launch_bwd(static_cast<const bf16*>(logits), gp, ep, st, static_cast<bf16*>(dx), batch,
+                      height, width, joints, depth, s);
+  return launch_bwd(static_cast<const float*>(logits), gp, ep, st, static_cast<float*>(dx), batch,
+                    height, width, joints, depth, s);
 }

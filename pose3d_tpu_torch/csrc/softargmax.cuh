@@ -8,10 +8,17 @@
 // m) and sx, sy, sz, the same sums weighted by the pixel's x (column), y
 // (row) and the depth index. merge_kernel then folds a joint's tile
 // partials in tile order, rescaling each to the running maximum, and
-// writes [Ex, Ey, Ez] = [sx, sy, sz] / s. The fixed order makes two calls
-// bitwise equal; there are no atomics.
+// writes [Ex, Ey, Ez] = [sx, sy, sz] / s and, where asked, the joint's
+// final m and s. The fixed order makes two calls bitwise equal; there are
+// no atomics.
 //
-// Partials are float[5] {m, s, sx, sy, sz}, laid out (B * J, n_tiles, 5).
+// The backwards (softargmax.cu, conv_decode_bwd.cu) take those m and s:
+// each element's p / s = exp(x - m) / s in one read of its input, with no
+// second pass for the maximum, and dx = p / s * (gx (xi - Ex) + gy (yi -
+// Ey) + gz (d - Ez)) for the gradient g = [gx, gy, gz] of [Ex, Ey, Ez].
+//
+// Partials are float[5] {m, s, sx, sy, sz}, laid out (B * J, n_tiles, 5);
+// statistics float[2] {m, s}, (B * J, 2).
 
 #pragma once
 
@@ -73,12 +80,14 @@ constexpr int kMergeThreads = 128;
 
 // One thread per (sample, joint), kThreads_ a block, grid ceil(n /
 // kThreads_): folds its n_tiles partials in order and writes out[i * 3 +
-// {0, 1, 2}] = [Ex, Ey, Ez]. A template, so that each source including
-// this file instantiates it without a duplicate symbol at link time.
+// {0, 1, 2}] = [Ex, Ey, Ez] and, unless stats is null, stats[i * 2 + {0,
+// 1}] = [m, s]. A template, so that each source including this file
+// instantiates it without a duplicate symbol at link time.
 template <int kThreads_>
 __global__ void __launch_bounds__(kThreads_) merge_kernel(const float* __restrict__ part,
                                                           int n_tiles, int n,
-                                                          float* __restrict__ out) {
+                                                          float* __restrict__ out,
+                                                          float* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Partial acc;
@@ -87,6 +96,37 @@ __global__ void __launch_bounds__(kThreads_) merge_kernel(const float* __restric
   out[size_t(i) * 3 + 0] = acc.sx * inv;
   out[size_t(i) * 3 + 1] = acc.sy * inv;
   out[size_t(i) * 3 + 2] = acc.sz * inv;
+  if (stats) {
+    stats[size_t(i) * 2] = acc.m;
+    stats[size_t(i) * 2 + 1] = acc.s;
+  }
 }
+
+// The backward's coefficients of one (sample, joint) i, from the gradient
+// g and the expectations e ((B * J, 3) f32 each) and the statistics.
+struct GradCoef {
+  float gx, gy, gz, ex, ey, ez, m, inv_s;
+
+  static __device__ __forceinline__ GradCoef load(const float* __restrict__ g,
+                                                  const float* __restrict__ e,
+                                                  const float* __restrict__ stats, int i) {
+    GradCoef c;
+    c.gx = g[i * 3];
+    c.gy = g[i * 3 + 1];
+    c.gz = g[i * 3 + 2];
+    c.ex = e[i * 3];
+    c.ey = e[i * 3 + 1];
+    c.ez = e[i * 3 + 2];
+    c.m = stats[i * 2];
+    c.inv_s = 1.f / stats[i * 2 + 1];
+    return c;
+  }
+
+  // dx of the logit x at column xi, row yi and depth index d
+  __device__ __forceinline__ float grad(float x, float xi, float yi, float d) const {
+    const float p = exp2f((x - m) * kLog2e) * inv_s;
+    return p * fmaf(gx, xi - ex, fmaf(gy, yi - ey, gz * (d - ez)));
+  }
+};
 
 }  // namespace pose3d

@@ -20,16 +20,24 @@ Three decodes, as in the JAX module:
   heatmap.
 - ``return_heatmap=False``: straight off the NHWC logits, through the
   kernel wrapper ``ops.softargmax.soft_argmax_3d_nhwc_kernel`` when
-  ``use_kernels`` (JAX's ``use_pallas``) and not training, else through
-  the plain, differentiable ``heatmap.soft_argmax_3d_nhwc``.
+  ``use_kernels`` (JAX's ``use_pallas``) and, in training, only under
+  ``use_kernels_train`` (JAX's ``use_pallas_train``, default off); else
+  through the plain ``heatmap.soft_argmax_3d_nhwc``.
 - ``fuse_final_conv=True`` with ``return_heatmap=False``: the 1x1 conv
-  fused into the decode, ``ops.conv_decode.conv_soft_argmax_3d_fused``;
-  the logits never exist. The kernel takes bf16: a model of another
-  dtype takes the plain ``conv_soft_argmax_3d_reference`` (the one plain
-  route on a card, as ``LifterService`` gates its kernels on bf16).
+  fused into the decode, ``ops.conv_decode.conv_soft_argmax_3d_fused``,
+  in training and in eval; the logits never exist. The kernel takes bf16:
+  where the compute dtype (the features' dtype: the model's, or bf16
+  under ``torch.autocast``) is another, the route takes the plain
+  ``conv_soft_argmax_3d_reference`` (the one plain route on a card, as
+  ``LifterService`` gates its kernels on bf16).
 
-The kernel wrappers have no backward yet (the direct-training slice), so
-the two kernel routes run under ``torch.no_grad()``. ``PoseNet2D`` and
+Every route is differentiable; the kernel routes through the decode
+kernels' backwards. An f32 model under ``torch.autocast(device,
+torch.bfloat16)`` computes as the flax model with f32 parameters and a
+bf16 ``dtype`` does: each convolution casts its weight to bf16, the
+BatchNorms stay f32 (``models/norm.py``), and the fused route casts the
+final conv's weight and bias to bf16 for the decode, so that their
+gradients pass through one bf16 rounding. ``PoseNet2D`` and
 ``ProjectionMLP`` come with the consistency-loop slice.
 """
 
@@ -71,8 +79,8 @@ class PoseNet3D(nn.Module):
 
     def __init__(self, architecture: str = "resnet50", num_joints: int = 17,
                  depth: int = 64, z_scale: float = 2.5, return_heatmap: bool = True,
-                 use_kernels: bool = True, fuse_final_conv: bool = False, *, device,
-                 dtype=torch.float32):
+                 use_kernels: bool = True, fuse_final_conv: bool = False,
+                 use_kernels_train: bool = False, *, device, dtype=torch.float32):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.architecture = architecture
@@ -81,6 +89,7 @@ class PoseNet3D(nn.Module):
         self.z_scale = z_scale
         self.return_heatmap = return_heatmap
         self.use_kernels = use_kernels
+        self.use_kernels_train = use_kernels_train
         self.fuse_final_conv = fuse_final_conv
         self.preact = ResNet(architecture, **kw)
         self.deconv_layers = DeconvHead(self.preact.feature_channels, **kw)
@@ -90,7 +99,7 @@ class PoseNet3D(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """Compute dtype (of the convolutions)."""
+        """The parameters' dtype: the compute dtype outside torch.autocast."""
         return self.final_layer.weight.dtype
 
     @torch.no_grad()
@@ -128,16 +137,17 @@ class PoseNet3D(nn.Module):
             nhwc = feats.permute(0, 2, 3, 1)
             weight = self.final_layer.weight.view(j * d, -1)
             bias = self.final_layer.bias
-            if weight.dtype == torch.bfloat16:
+            if feats.dtype == torch.bfloat16:  # the compute dtype
                 return conv_decode.conv_soft_argmax_3d_fused(
-                    nhwc, weight, bias.float(), j, d, z_scale=self.z_scale), None
+                    nhwc, weight.to(torch.bfloat16), bias.to(torch.bfloat16).float(), j, d,
+                    z_scale=self.z_scale), None
             return conv_decode.conv_soft_argmax_3d_reference(
                 nhwc, weight, bias, j, d, z_scale=self.z_scale), None
         logits = self.final_layer(feats)
         b, _, h, w = logits.shape
         if not self.return_heatmap:
             nhwc = logits.permute(0, 2, 3, 1)
-            if self.use_kernels and not self.training:
+            if self.use_kernels and (not self.training or self.use_kernels_train):
                 return softargmax.soft_argmax_3d_nhwc_kernel(nhwc, j, d,
                                                              z_scale=self.z_scale), None
             return soft_argmax_3d_nhwc(nhwc, j, d, z_scale=self.z_scale), None

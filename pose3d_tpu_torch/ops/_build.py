@@ -103,8 +103,10 @@ def library() -> ctypes.CDLL:
                        ("stblock_temporal_launch", [p, p, p, p, p, p, i, i, i, p]),
                        ("stblock_train_bwd_launch", [p] * 8 + [i, i, i, i, p]),
                        ("martinez_launch", [p, p, p, p, p, p, p, p, p, i, i, p]),
-                       ("softargmax_nhwc_launch", [p, i, p, p, i, i, i, i, i, i, p]),
-                       ("conv_decode_launch", [p, p, p, p, p] + [i] * 7 + [p])):
+                       ("softargmax_nhwc_launch", [p, i, p, p, p] + [i] * 6 + [p]),
+                       ("softargmax_nhwc_bwd_launch", [p, i, p, p, p, p] + [i] * 6 + [p]),
+                       ("conv_decode_launch", [p] * 6 + [i] * 7 + [p]),
+                       ("conv_decode_bwd_launch", [p] * 10 + [i] * 8 + [p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i

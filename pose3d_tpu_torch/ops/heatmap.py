@@ -8,17 +8,79 @@ index along each axis, rescaled as the reference does (``Model.py``
 175-177): x over W and y over H to ``(E / n - 0.5) * xy_scale``, z over D
 to ``(E / D - 0.5) * z_scale``. Coordinates come out (B, J*3) as
 [x, y, z] per joint. Both are differentiable: the training route of
-``PoseNet3D`` decodes through ``soft_argmax_3d_nhwc``.
+``PoseNet3D`` decodes through ``soft_argmax_3d_nhwc``. Both compute in
+f32 (or wider) under ``torch.autocast`` too (``f32_math``), as the JAX
+decodes compute in f32 in a bf16 model.
 
-``heatmap_targets``, ``soft_argmax_2d``, ``hard_argmax_2d`` and
+``heatmap_targets`` (with ``xyz_to_uvw``, ``uvw_to_xyz`` and
+``gaussian_heatmap_3d``) synthesises the heatmap loss's Gaussian targets
+(``H36_dataset.py:148-202``). ``soft_argmax_2d``, ``hard_argmax_2d`` and
 ``norm_heatmap`` come with the slices that read them.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 GRID = 64
+SIGMA = 0.5
+
+
+def f32_math(fn):
+    """Runs ``fn(x, ...)`` with autocast off on x's device, so that its
+    products stay in the dtype it computes in."""
+    @functools.wraps(fn)
+    def wrapped(x, *args, **kwargs):
+        with torch.autocast(x.device.type, enabled=False):
+            return fn(x, *args, **kwargs)
+
+    return wrapped
+
+
+def xyz_to_uvw(kp: torch.Tensor) -> torch.Tensor:
+    """Axis remap for heatmap storage (``H36_dataset.py:143-144``): (x, y,
+    z) -> (-y, -z, x). kp: (..., 3)."""
+    return torch.stack([-kp[..., 1], -kp[..., 2], kp[..., 0]], dim=-1)
+
+
+def uvw_to_xyz(kp: torch.Tensor) -> torch.Tensor:
+    """The inverse remap (``Model.py:129-130``): (u, v, w) -> (w, -u, -v)."""
+    return torch.stack([kp[..., 2], -kp[..., 0], -kp[..., 1]], dim=-1)
+
+
+def _axis_profile(k: torch.Tensor, grid: int, sigma: float) -> torch.Tensor:
+    """Windowed 1-D Gaussian: exp(-(i - k)^2 / 2 sigma^2) on the reference's
+    integer window |i - rint(k)| <= size // 2, zero elsewhere. k: (...,) ->
+    (..., grid)."""
+    size = int(math.ceil(6 * sigma))
+    if size % 2 == 0:
+        size += 1
+    idx = torch.arange(grid, device=k.device, dtype=k.dtype)
+    k = k[..., None]
+    g = torch.exp(-(idx - k).square() / (2.0 * sigma * sigma))
+    return torch.where((idx - torch.round(k)).abs() <= size // 2, g, torch.zeros_like(g))
+
+
+@f32_math
+def gaussian_heatmap_3d(kp_uvw: torch.Tensor, grid=GRID, sigma: float = SIGMA) -> torch.Tensor:
+    """(..., 3) uvw keypoints in [-1, 1] -> (..., gu, gv, gw) heatmaps
+    (``_keypoint_to_heatmap_3D``, ``H36_dataset.py:148-194``): each axis
+    scaled to (g / 2 - 0.5) * (1 + k), a separable Gaussian on the odd
+    window around rint(k). ``grid`` is an int (cubic) or a (gu, gv, gw)
+    tuple."""
+    sizes = (grid,) * 3 if isinstance(grid, int) else tuple(grid)
+    gu, gv, gw = (_axis_profile((g / 2.0 - 0.5) * (1.0 + kp_uvw[..., axis]), g, sigma)
+                  for axis, g in enumerate(sizes))
+    return torch.einsum("...u,...v,...w->...uvw", gu, gv, gw)
+
+
+def heatmap_targets(kp3d: torch.Tensor, grid=GRID, sigma: float = SIGMA) -> torch.Tensor:
+    """(B, J, 3) xyz keypoints in [-1, 1] -> (B, J, gu, gv, gw) targets,
+    with the reference's xyz -> uvw storage remap applied."""
+    return gaussian_heatmap_3d(xyz_to_uvw(kp3d), grid, sigma)
 
 
 def coords_from_expectations(e: torch.Tensor, height: int, width: int, depth: int,
@@ -31,6 +93,7 @@ def coords_from_expectations(e: torch.Tensor, height: int, width: int, depth: in
     return torch.stack([cx, cy, cz], dim=-1).reshape(e.shape[0], -1)
 
 
+@f32_math
 def nhwc_expectations(logits_nhwc: torch.Tensor, num_joints: int,
                       depth: int) -> torch.Tensor:
     """(B, H, W, J*D) logits, channel ``j*D + d`` -> (B, J, 3) f32 index
@@ -65,6 +128,7 @@ def soft_argmax_3d_nhwc(logits_nhwc: torch.Tensor, num_joints: int = 17,
     return coords_from_expectations(e, h, w, depth, z_scale, xy_scale)
 
 
+@f32_math
 def soft_argmax_3d(logits: torch.Tensor, num_joints: int = 17, depth: int = GRID,
                    height: int = GRID, width: int = GRID, z_scale: float = 2.5,
                    xy_scale: float = 2.0, return_heatmap: bool = True):

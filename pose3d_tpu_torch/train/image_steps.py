@@ -1,13 +1,23 @@
-"""Eval steps of the direct image->3D models: the port of ``_normalize``,
+"""Train and eval steps of the direct image->3D models: the port of
+``_normalize``, ``make_direct_train_step``, ``make_direct_chunk_step``,
 ``make_direct_eval_step`` and ``make_direct_eval_chunk_step`` of
-``pose3d_tpu/train/image_steps.py`` (the train steps come with the
-direct-training slice).
+``pose3d_tpu/train/image_steps.py`` (the reference ``train_3.py`` loop
+body: MSE on the soft-argmax coordinates, Adam with weight decay 1e-8,
+the plateau schedule; with the optional heatmap MSE supervision of
+``heatmap_loss_weight``).
 
 A step runs ``state.apply(state.model, frames)``, which returns
-(coordinates, heatmap or None) as ``PoseNet3D`` does, without grads (the
-decode kernels have no backward yet), and returns the loss and the
+(coordinates, heatmap or None) as ``PoseNet3D`` does; ``bf16_apply`` runs
+an f32 model in bf16 under ``torch.autocast``, the flax model's f32
+parameters with a bf16 ``dtype``. The train steps put the model in train
+mode (BatchNorm on batch statistics, running statistics updated), the
+eval steps in eval mode, without grads. Steps return the loss and the
 per-joint MPJPE sums (``losses.loss_mpjpe``); the caller sums those over
-the eval set and finishes with ``losses.mpjpe_mm``.
+an epoch and finishes with ``losses.mpjpe_mm``. The chunk step is a
+Python loop of K optimizer steps where the JAX step scans; the deconv
+head has no dropout, so there is no rng to carry. The data-parallel step
+(``make_dp_direct_train_step``) comes with the port's
+``torch.distributed`` work.
 """
 
 from __future__ import annotations
@@ -15,6 +25,8 @@ from __future__ import annotations
 import torch
 
 from pose3d_tpu_torch import losses
+from pose3d_tpu_torch.ops.heatmap import heatmap_targets
+from pose3d_tpu_torch.train.steps import apply_gradients
 
 
 def _normalize(frames: torch.Tensor) -> torch.Tensor:
@@ -25,6 +37,54 @@ def _normalize(frames: torch.Tensor) -> torch.Tensor:
     return frames
 
 
+def bf16_apply(model, x):
+    """``TrainState.apply`` for bf16 compute over f32 parameters: the
+    module under ``torch.autocast`` to bf16 on x's device."""
+    with torch.autocast(x.device.type, dtype=torch.bfloat16):
+        return model(x)
+
+
+def make_direct_train_step(loss: str = "mse", heatmap_loss_weight: float = 0.0):
+    """(state, frames (B, H, W, 3) float or uint8, kp3d (B, 17, 3)) ->
+    {"loss", "mpjpe_sums"} after one optimizer step. With
+    ``heatmap_loss_weight`` the model must return its heatmap, and the loss
+    adds that weight times the MSE between it and ``heatmap_targets`` of
+    the keypoints clipped to [-1, 1], on the heatmap's (D, H, W) grid and
+    in the targets' (u, v, w) order, as the JAX step compares them."""
+    loss_fn = losses.LOSS_FNS[loss]
+
+    def step(state, frames: torch.Tensor, kp3d: torch.Tensor) -> dict:
+        state.model.train()
+        coords, hm = state.apply(state.model, _normalize(frames))
+        pred = coords.reshape(kp3d.shape)
+        total = loss_fn(pred, kp3d)
+        if heatmap_loss_weight:
+            hm_gt = heatmap_targets(kp3d.clamp(-1.0, 1.0), grid=hm.shape[-3:])
+            total = total + heatmap_loss_weight * losses.mse(hm, hm_gt)
+        apply_gradients(state, total)
+        with torch.no_grad():
+            sums = losses.loss_mpjpe(pred, kp3d)
+        return {"loss": total.detach(), "mpjpe_sums": sums}
+
+    return step
+
+
+def make_direct_chunk_step(loss: str = "mse", heatmap_loss_weight: float = 0.0):
+    """Multi-batch step: (state, frames (K, B, H, W, 3), kp3d (K, B, 17,
+    3)) -> {"loss": the mean of the K batch losses, "last_batch_loss",
+    "mpjpe_sums": their sum}, after K optimizer steps, batch after
+    batch."""
+    train_step = make_direct_train_step(loss, heatmap_loss_weight)
+
+    def step(state, frames: torch.Tensor, kp3d: torch.Tensor) -> dict:
+        out = [train_step(state, f, y) for f, y in zip(frames, kp3d)]
+        loss_k = torch.stack([o["loss"] for o in out])
+        return {"loss": loss_k.mean(), "last_batch_loss": loss_k[-1],
+                "mpjpe_sums": torch.stack([o["mpjpe_sums"] for o in out]).sum(0)}
+
+    return step
+
+
 def make_direct_eval_step(loss: str = "mse"):
     """(state, frames (B, H, W, 3) float or uint8, kp3d (B, 17, 3)) ->
     {"loss", "mpjpe_sums", "pred"}."""
@@ -32,6 +92,7 @@ def make_direct_eval_step(loss: str = "mse"):
 
     @torch.no_grad()
     def step(state, frames: torch.Tensor, kp3d: torch.Tensor) -> dict:
+        state.model.eval()
         coords, _ = state.apply(state.model, _normalize(frames))
         pred = coords.reshape(kp3d.shape)
         return {"loss": loss_fn(pred, kp3d), "mpjpe_sums": losses.loss_mpjpe(pred, kp3d),

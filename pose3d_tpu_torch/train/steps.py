@@ -17,6 +17,17 @@ from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.train.state import TrainState, clip_by_global_norm
 
 
+def apply_gradients(state: TrainState, loss_val: torch.Tensor) -> None:
+    """Backward from ``loss_val``, the global-norm clip where set, one
+    optimizer step at the lr the plateau schedule left in the optimizer."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss_val.backward()
+    if state.grad_clip:
+        clip_by_global_norm(list(state.model.parameters()), state.grad_clip)
+    state.optimizer.step()
+    state.step += 1
+
+
 def make_lifter_train_step(loss: str = "mse"):
     """(state, y1, y2) -> {"loss", "mpjpe_sums"}: forward through
     ``state.apply``, loss, backward, optimizer step at the lr the plateau
@@ -27,12 +38,7 @@ def make_lifter_train_step(loss: str = "mse"):
     def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
         pred = state.apply(state.model, y1).reshape(y2.shape)
         loss_val = loss_fn(pred, y2)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_val.backward()
-        if state.grad_clip:
-            clip_by_global_norm(list(state.model.parameters()), state.grad_clip)
-        state.optimizer.step()
-        state.step += 1
+        apply_gradients(state, loss_val)
         with torch.no_grad():
             sums = losses.loss_mpjpe(pred, y2)
         return {"loss": loss_val.detach(), "mpjpe_sums": sums}

@@ -18,9 +18,25 @@ The JAX function takes the conv kernel (C, J*D); the port takes torch's
   without the maximum subtracted) moves f32 coordinates by at most 2e-5
   (measured 3.0e-6).
 
-Tests marked ``cuda`` run the Hopper kernel (C = 256, D = 64) against its
-plain version and skip without a card: coordinates within 1e-3, two
-calls bitwise equal.
+The backward (kernel 13b; on the CPU the autograd Function runs its plain
+version ``conv_soft_argmax_3d_backward_reference``) against ``jax.vjp`` of
+the Pallas function in interpret mode, J in {1, 3, 17}, +100 on the bias
+(logits ~100; the coordinates' spread, std >= 0.1, is asserted):
+
+- f32 dfeats, dW and db: atol 2^-16·max|want| each (f32 products and sums
+  in another order; measured up to 1.0e-6·max|want|);
+- bf16: the port's products take dslab rounded to bf16, the JAX
+  interpret-mode kernel keeps it f32, so dfeats and dW are held to
+  2^-7·max|want| + 2^-7·|want| (measured up to 6.1e-3·max|want|); db,
+  summed unrounded by both, to 2^-16·max|want| + 2^-7·|want| (the port
+  returns it f32 for a bias handed in f32, the JAX kernel in bf16);
+- the plain backward against torch.autograd of the plain forward: float64
+  atol 1e-12; its bf16 form equals the f32 pieces rounded at the products.
+
+Tests marked ``cuda`` run the Hopper kernels (C = 256, D = 64) against
+their plain versions and skip without a card: coordinates within 1e-3,
+gradients within 2^-7·max|want| + 2^-7·|want| (both round dslab to bf16,
+from f32 values computed in another order), two calls bitwise equal.
 """
 
 import numpy as np
@@ -30,11 +46,21 @@ import torch
 from torch_port_util import cuda_device
 
 from pose3d_tpu_torch.ops import conv_decode as CD
+from pose3d_tpu_torch.ops.heatmap import nhwc_expectations
+from pose3d_tpu_torch.ops.softargmax import soft_argmax_3d_nhwc_backward_reference
 
 torch.set_num_threads(2)
 
 ATOL = 2e-5
 KERNEL_ATOL = 1e-3
+MIN_SPREAD = 0.1
+GRAD_REL = 2 ** -7  # bf16 dslab rounded at the products: a bf16 step
+
+
+def assert_grad_close(got, want, atol_rel, rtol, what=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, atol=atol_rel * np.abs(want).max(), rtol=rtol,
+                               err_msg=what)
 
 
 def _operands(b, h, w, c, j, d, seed=0, bias_offset=0.0):
@@ -111,6 +137,74 @@ def test_plain_equals_the_unfused_head():
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("j", [17, 3, 1])
+def test_backward_matches_jax_vjp(j, dtype):
+    """(dfeats, dW, db) of the wrapper (its autograd Function, the plain
+    backward on the CPU) vs ``jax.vjp`` of the Pallas function in
+    interpret mode (``_bwd_kernel``). In bf16 the port's bias is the bf16
+    bias in f32, as ``PoseNet3D`` hands it over."""
+    import jax
+    import jax.numpy as jnp
+
+    from pose3d_tpu.ops.pallas_conv_decode import conv_soft_argmax_3d_fused
+
+    ops = _operands(2, 8, 8, 128, j, 64, seed=j, bias_offset=100.0)
+    ct = np.random.default_rng(j + 2).standard_normal((2, j * 3)).astype(np.float32)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    _, vjp = jax.vjp(lambda f, k, b: conv_soft_argmax_3d_fused(f, k, b, j, 64, interpret=True),
+                     *(jnp.asarray(a, jdt) for a in ops))
+    want = [np.asarray(t.astype(jnp.float32)) for t in vjp(jnp.asarray(ct))]
+    want[1] = want[1].T  # (C, J*D) kernel -> (J*D, C) weight
+    feats, weight, bias = (t.requires_grad_() for t in _port(*ops, dtype))
+    coords = CD.conv_soft_argmax_3d_fused(feats, weight, bias.float(), j, 64)
+    coords.backward(torch.from_numpy(ct))
+    assert coords.std() >= MIN_SPREAD
+    bf16 = dtype == "bfloat16"
+    for name, t, w, rel in (("dfeats", feats, want[0], GRAD_REL if bf16 else 2 ** -16),
+                            ("dW", weight, want[1], GRAD_REL if bf16 else 2 ** -16),
+                            ("db", bias, want[2], 2 ** -16)):
+        assert t.grad.dtype == t.dtype and t.grad.shape == t.shape, name
+        assert_grad_close(t.grad.float().numpy(), w, rel, GRAD_REL if bf16 else 0.0, name)
+
+
+@pytest.mark.parametrize("j,d,c", [(3, 8, 16), (17, 64, 32)])
+def test_plain_backward_matches_autograd(j, d, c):
+    """``conv_soft_argmax_3d_backward_reference`` in float64 equals
+    torch.autograd through the plain forward's expectations."""
+    feats, weight, bias = (t.double().requires_grad_()
+                           for t in _port(*_operands(2, 5, 7, c, j, d, seed=c), "float32"))
+    e = nhwc_expectations(feats @ weight.t() + bias, j, d)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((2, j, 3)))
+    want = torch.autograd.grad(e, (feats, weight, bias), g)
+    got = CD.conv_soft_argmax_3d_backward_reference(feats.detach(), weight.detach(),
+                                                    bias.detach(), e.detach(), g, j, d)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, b, atol=1e-12, rtol=0)
+
+
+def test_bf16_plain_backward_rounds_dslab_at_the_products():
+    """For bf16 operands the plain backward rounds dslab (the logits'
+    gradient, computed in f32) to bf16 before dfeats = dslab @ W and dW =
+    dslab^T @ feats, sums both in f32 and rounds each once to bf16; db
+    sums dslab unrounded, in the bias's dtype."""
+    feats, weight, bias = _port(*_operands(2, 5, 7, 32, 3, 8, seed=4, bias_offset=50.0),
+                                "bfloat16")
+    bias = bias.float()
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 3, 3)).astype(np.float32))
+    logits = feats.float() @ weight.float().t() + bias
+    e = nhwc_expectations(logits, 3, 8)
+    dslab = soft_argmax_3d_nhwc_backward_reference(logits, e, g, 3, 8).reshape(70, 24)
+    rounded = dslab.bfloat16().float()
+    dfeats, dw, db = CD.conv_soft_argmax_3d_backward_reference(feats, weight, bias, e, g, 3, 8)
+    assert (dfeats.dtype, dw.dtype, db.dtype) == (torch.bfloat16, torch.bfloat16, torch.float32)
+    assert torch.equal(dfeats, (rounded @ weight.float()).bfloat16().reshape(2, 5, 7, 32))
+    assert torch.equal(dw, (rounded.t() @ feats.float().reshape(70, 32)).bfloat16())
+    torch.testing.assert_close(db, dslab.sum(0), atol=1e-6, rtol=0)
+    assert not torch.equal(dfeats, (dslab @ weight.float()).bfloat16().reshape(2, 5, 7, 32))
+
+
 class TestWrapperRules:
     def test_rejects_bad_operands(self):
         feats, kernel, bias = _port(*_operands(1, 4, 4, 16, 2, 8), "float32")
@@ -122,10 +216,12 @@ class TestWrapperRules:
             CD.conv_soft_argmax_3d_fused(feats[0], kernel, bias, 2, 8)
 
     def test_refuses_grad_and_other_devices(self):
+        """Grad is taken (kernel 13b repaired the refusal of the forward-only
+        wrapper); any device but the CPU and CUDA is refused."""
         feats, kernel, bias = _port(*_operands(1, 4, 4, 16, 2, 8), "float32")
         kernel.requires_grad_()
-        with pytest.raises(ValueError, match="no backward yet"):
-            CD.conv_soft_argmax_3d_fused(feats, kernel, bias, 2, 8)
+        CD.conv_soft_argmax_3d_fused(feats, kernel, bias, 2, 8).sum().backward()
+        assert kernel.grad.shape == kernel.shape and torch.isfinite(kernel.grad).all()
         with torch.no_grad():
             assert CD.conv_soft_argmax_3d_fused(feats, kernel, bias, 2, 8).shape == (1, 6)
         meta = [t.detach().to("meta") for t in (feats, kernel, bias)]
@@ -163,3 +259,35 @@ def test_kernel_rejects_f32_operands_and_other_widths():
     feats, weight, bias = _port(*_operands(1, 8, 8, 128, 2, 64), "bfloat16", dev)
     with pytest.raises(ValueError, match="256 features"):
         CD.conv_soft_argmax_3d_fused(feats, weight, bias.float(), 2, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 8, 17), (3, 13, 11, 3), (2, 64, 64, 1)])
+def test_backward_kernel_matches_plain_version_on_the_card(shape):
+    """Kernel 13b through the wrapper's backward (+100 on the bias, a
+    ragged second tile at 143 pixels): dfeats (bf16, channels_last), dW
+    (bf16) and db (f32) against the plain backward, one backward count
+    per backward, two backward calls bitwise equal."""
+    dev = cuda_device()
+    b, h, w, j = shape
+    feats, weight, bias = _port(*_operands(b, h, w, 256, j, 64, seed=12, bias_offset=100.0),
+                                "bfloat16", dev)
+    bias = bias.float()
+    g = torch.randn(b, j * 3, generator=torch.Generator().manual_seed(15)).to(dev)
+    runs = []
+    for _ in range(2):
+        nchw = feats.permute(0, 3, 1, 2).detach().requires_grad_()
+        wt, bs = weight.detach().requires_grad_(), bias.detach().requires_grad_()
+        before = CD.conv_soft_argmax_3d_backward.launches
+        CD.conv_soft_argmax_3d_fused(nchw.permute(0, 2, 3, 1), wt, bs, j, 64).backward(g)
+        assert CD.conv_soft_argmax_3d_backward.launches == before + 1
+        assert nchw.grad.is_contiguous(memory_format=torch.channels_last)
+        runs.append((nchw.grad.permute(0, 2, 3, 1), wt.grad, bs.grad))
+    torch.cuda.synchronize()
+    e = nhwc_expectations(feats.float() @ weight.float().t() + bias, j, 64)
+    de = g.view(b, j, 3) * torch.tensor([2.0 / w, 2.0 / h, 2.5 / 64], device=dev)  # dcoords/dE
+    want = CD.conv_soft_argmax_3d_backward_reference(feats, weight, bias, e, de, j, 64)
+    for name, got, again, w_ in zip(("dfeats", "dW", "db"), *runs, want):
+        assert got.dtype == w_.dtype and torch.equal(got, again), name
+        assert_grad_close(got.float().cpu().numpy(), w_.float().cpu().numpy(), GRAD_REL,
+                          GRAD_REL, name)

@@ -2,7 +2,8 @@
 
 - ``pose3d_tpu_torch`` runs where JAX is absent: importing it pulls in no
   ``jax``, ``flax`` or ``pose3d_tpu`` (checked in a fresh interpreter,
-  since ``tests/conftest.py`` imports JAX into this one).
+  since ``tests/conftest.py`` imports JAX into this one), and no ``cv2``,
+  which the GPU host lacks.
 - Its kernels are built from the repository's own CUDA sources with
   ``nvcc`` for ``sm_90a`` and bound through ctypes, call no kernel
   library, and every launcher reports CUDA errors to the caller.
@@ -41,13 +42,19 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch.models.resnet, pose3d_tpu_torch.models.heads\n"
         "import pose3d_tpu_torch.ops.softargmax, pose3d_tpu_torch.ops.conv_decode\n"
         "import pose3d_tpu_torch.train.image_steps, pose3d_tpu_torch.config\n"
+        "import pose3d_tpu_torch.cli.train_direct, pose3d_tpu_torch.data.video_dataset\n"
+        "import pose3d_tpu_torch.train.epoch\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
+        "print('cv2' in sys.modules)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "", f"imported: {proc.stdout.strip()}"
+    bad, cv2 = proc.stdout.split("\n")[:2]
+    assert bad == "", f"imported: {bad}"
+    # the GPU host has no OpenCV: only the video loader imports it, inside
+    assert cv2 == "False"
 
 
 @pytest.mark.parametrize("path", SOURCES + [REPO / "chip_smoke.py"],
@@ -72,8 +79,9 @@ LAUNCHERS = {
     "stblock.cu": ["stblock_spatial_launch", "stblock_temporal_launch"],
     "stblock_train.cu": ["stblock_train_bwd_launch"],
     "martinez.cu": ["martinez_launch"],
-    "softargmax.cu": ["softargmax_nhwc_launch"],
+    "softargmax.cu": ["softargmax_nhwc_launch", "softargmax_nhwc_bwd_launch"],
     "conv_decode.cu": ["conv_decode_launch"],
+    "conv_decode_bwd.cu": ["conv_decode_bwd_launch"],
 }
 
 
@@ -130,8 +138,8 @@ def test_kernel_constants_match_the_wrapper(kernel):
         assert f"constexpr int kTilePixels = {SA.TILE_PIXELS};" in src
         head = (PKG / "csrc" / "softargmax.cuh").read_text()
         assert "constexpr int kPartial = 5;" in head  # the wrappers' (..., 5) partials
-    elif kernel == "conv_decode":
-        src = (PKG / "csrc" / "conv_decode.cu").read_text()
+    elif kernel == "conv_decode":  # the tiling both conv-decode sources include
+        src = (PKG / "csrc" / "conv_decode.cuh").read_text()
         assert f"constexpr int kTilePixels = {CD.TILE_PIXELS};" in src
         assert f"constexpr int kFeat = {CD.FEATURES};" in src
         assert f"constexpr int kDepth = {CD.DEPTH};" in src

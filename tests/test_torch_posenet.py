@@ -217,13 +217,15 @@ class TestRoutes:
             torch.Generator().manual_seed(0)).eval()
 
     def test_fused_route_gates_on_bf16(self, monkeypatch):
-        """The fused route calls the kernel wrapper for a bf16 model and the
-        plain version, by an explicit gate, for any other dtype."""
+        """The fused route calls the kernel wrapper where the compute dtype
+        is bf16 (a bf16 model, or an f32 model under autocast, whose f32
+        weight and bias it rounds to bf16) and the plain version, by an
+        explicit gate, for any other dtype."""
         calls = []
         real = conv_decode.conv_soft_argmax_3d_fused
 
         def spy(*args, **kwargs):
-            calls.append(args[1].dtype)
+            calls.append((args[0].dtype, args[1].dtype, args[2].dtype))
             return real(*args, **kwargs)
 
         monkeypatch.setattr(conv_decode, "conv_soft_argmax_3d_fused", spy)
@@ -232,31 +234,56 @@ class TestRoutes:
             for dtype in (torch.float32, torch.bfloat16):
                 coords, hm = self._model(dtype, return_heatmap=False, fuse_final_conv=True)(x)
                 assert coords.shape == (1, 51) and hm is None
-        assert calls == [torch.bfloat16]
+            model = self._model(return_heatmap=False, fuse_final_conv=True)
+            with torch.autocast("cpu", torch.bfloat16):
+                coords, _ = model(x)
+            assert coords.dtype == torch.float32
+        bf16_call = (torch.bfloat16, torch.bfloat16, torch.float32)
+        assert calls == [bf16_call, bf16_call]
 
-    @pytest.mark.parametrize("use_kernels,train,want", [(True, False, 1), (False, False, 0),
-                                                        (True, True, 0)])
+    @pytest.mark.parametrize("use_kernels,train,want,kernels_train",
+                             [(True, False, 1, False), (False, False, 0, False),
+                              (True, True, 0, False), (True, True, 1, True),
+                              (False, True, 0, True)])
     def test_nhwc_route_takes_the_kernel_wrapper_in_eval(self, monkeypatch, use_kernels,
-                                                         train, want):
+                                                         train, want, kernels_train):
+        """In eval mode under ``use_kernels``, in training only with
+        ``use_kernels_train`` as well (JAX's ``use_pallas_train``)."""
         calls = []
         real = softargmax.soft_argmax_3d_nhwc_kernel
         monkeypatch.setattr(softargmax, "soft_argmax_3d_nhwc_kernel",
                             lambda *a, **k: calls.append(1) or real(*a, **k))
-        model = self._model(return_heatmap=False, use_kernels=use_kernels).train(train)
+        model = self._model(return_heatmap=False, use_kernels=use_kernels,
+                            use_kernels_train=kernels_train).train(train)
         with torch.no_grad():
             model(torch.from_numpy(_frames(2)))
         assert len(calls) == want
 
     def test_training_route_is_differentiable_and_kernel_routes_refuse_grad(self):
+        """Every route differentiates: the plain training route, and the two
+        kernel routes that refused grad before their backwards were ported
+        (the NHWC kernel route in eval mode, the fused route of a bf16
+        model) give finite gradients to every parameter, and the kernel
+        routes' gradients are the plain routes' within relative L2 1e-4
+        (their Functions run the plain backwards on the CPU, whose f32 sums
+        run in another order than autograd's)."""
         x = torch.from_numpy(_frames(2))
-        model = self._model(return_heatmap=False).train()
-        coords, _ = model(x)
-        coords.sum().backward()
-        assert model.final_layer.weight.grad is not None
-        with pytest.raises(ValueError, match="no backward yet"):
-            self._model(return_heatmap=False)(x)
-        with pytest.raises(ValueError, match="no backward yet"):
-            self._model(torch.bfloat16, return_heatmap=False, fuse_final_conv=True)(x)
+
+        def grads(model):
+            coords, _ = model(x)
+            coords.square().sum().backward()
+            return {n: p.grad for n, p in model.named_parameters()}
+
+        plain = grads(self._model(return_heatmap=False).train())
+        assert all(g is not None and torch.isfinite(g).all() for g in plain.values())
+        for kernel_route, plain_route in (({}, {"use_kernels": False}),
+                                          ({"fuse_final_conv": True}, {})):
+            got = grads(self._model(return_heatmap=False, **kernel_route))
+            want = grads(self._model(return_heatmap=False, **plain_route))
+            for n, g in want.items():
+                assert ((got[n] - g).norm() / g.norm()).item() <= 1e-4, n
+        bf16 = grads(self._model(torch.bfloat16, return_heatmap=False, fuse_final_conv=True))
+        assert all(g is not None and torch.isfinite(g.float()).all() for g in bf16.values())
 
     def test_runs_channels_last(self):
         model = self._model(return_heatmap=False)
@@ -379,3 +406,4 @@ def test_routes_on_the_card():
         before = [k.launches for k in kernels]
         model32(x)
         assert [k.launches for k in kernels] == before
+

@@ -16,10 +16,25 @@ decode that swapped x and y fails. Tolerances:
   values to f32 before any arithmetic (measured up to 1.3e-5);
 - the heatmap: atol 1e-6 (probabilities below 1).
 
-Tests marked ``cuda`` run the Hopper kernel against its plain version and
-skip without a card: coordinates within 1e-3 (both sum in f32, in another
-order; measured on the H100 in ``chip_smoke.py``), two calls bitwise
-equal.
+The backward (kernel 11b; on the CPU the autograd Function runs its plain
+version ``soft_argmax_3d_nhwc_backward_reference``) against ``jax.vjp``
+of the Pallas function in interpret mode, J in {1, 3, 17}, on the same
+logits ~100 (the coordinates' spread, std >= 0.1, is asserted):
+
+- f32 dx: atol 2^-16·max|want| (both compute the same formula in f32;
+  measured up to 5.7e-6·max|want|);
+- bf16 dx (written in bf16 by both): 2^-7·|want| + 2^-16·max|want|, one
+  bf16 step where the f32 values round the other way (measured one step,
+  1.2e-4, on an element of ~0.03);
+- the plain backward against torch.autograd of the plain forward: float64
+  atol 1e-12, f32 atol 2^-16·max|want|.
+
+Tests marked ``cuda`` run the Hopper kernels against their plain versions
+and skip without a card: coordinates within 1e-3 (both sum in f32, in
+another order; measured on the H100 in ``chip_smoke.py``), dx within
+2^-7·|want| + 2^-16·max|want| (bf16) or 2^-14·max|want| (f32; the
+kernel's p / s comes from the forward's merged sum, the plain version's
+from its own), two calls bitwise equal.
 """
 
 import numpy as np
@@ -35,6 +50,17 @@ torch.set_num_threads(2)
 
 ATOL = 2e-5
 KERNEL_ATOL = 1e-3
+MIN_SPREAD = 0.1
+
+
+def assert_grad_close(got, want, dtype, f32_rel=2 ** -16):
+    """dx: within f32_rel·max|want| in f32; in bf16 one bf16 step of the
+    element (2^-7·|want|) plus 2^-16·max|want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    top = np.abs(want).max()
+    rtol = 2 ** -7 if dtype == "bfloat16" else 0.0
+    atol = (2 ** -16 if dtype == "bfloat16" else f32_rel) * top
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
 
 
 def _logits(b, h, w, j, d, seed=0, offset=100.0, peak=12.0):
@@ -136,11 +162,61 @@ def test_plain_nhwc_decode_is_differentiable():
     assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("j", [17, 3, 1])
+def test_backward_matches_jax_vjp(j, dtype):
+    """The wrapper's gradient (its autograd Function, the plain backward on
+    the CPU) vs ``jax.vjp`` of ``soft_argmax_3d_nhwc_pallas`` in interpret
+    mode (``_kernel_nhwc_bwd``), in the logits' dtype."""
+    import jax
+    import jax.numpy as jnp
+
+    from pose3d_tpu.ops.pallas_softargmax import soft_argmax_3d_nhwc_pallas
+
+    x = _logits(2, 8, 6, j, 64, seed=j)
+    ct = np.random.default_rng(j + 1).standard_normal((2, j * 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: soft_argmax_3d_nhwc_pallas(a, j, 64, interpret=True),
+                     _jnp(x, dtype))
+    want = np.asarray(vjp(jnp.asarray(ct))[0].astype(jnp.float32))
+    xt = _torch(x, dtype).requires_grad_()
+    coords = SA.soft_argmax_3d_nhwc_kernel(xt, j, 64)
+    coords.backward(torch.from_numpy(ct))
+    assert coords.std() >= MIN_SPREAD
+    assert xt.grad.dtype == xt.dtype and xt.grad.shape == xt.shape
+    assert_grad_close(xt.grad.float().numpy(), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("j,d", [(3, 8), (17, 64)])
+def test_plain_backward_matches_autograd(j, d, dtype):
+    """``soft_argmax_3d_nhwc_backward_reference`` (the JAX formula) equals
+    torch.autograd through the plain forward's expectations."""
+    x = torch.from_numpy(_logits(2, 5, 7, j, d, seed=d + j)).to(dtype).requires_grad_()
+    e = H.nhwc_expectations(x, j, d)
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal((2, j, 3))).to(dtype)
+    (want,) = torch.autograd.grad(e, x, g)
+    got = SA.soft_argmax_3d_nhwc_backward_reference(x.detach(), e.detach(), g, j, d)
+    assert got.dtype == dtype
+    atol = 1e-12 if dtype == torch.float64 else 2 ** -16 * want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+def test_backward_hands_a_channels_last_gradient_to_the_conv():
+    """The logits as the final conv writes them (channels_last, decoded
+    through an NHWC view): their gradient comes back channels_last."""
+    x = torch.from_numpy(_logits(2, 6, 5, 3, 8, seed=9)).permute(0, 3, 1, 2).requires_grad_()
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    SA.soft_argmax_3d_nhwc_kernel(x.permute(0, 2, 3, 1), 3, 8).sum().backward()
+    assert x.grad.is_contiguous(memory_format=torch.channels_last)
+
+
 class TestWrapperRules:
     def test_refuses_grad_and_other_devices(self):
+        """Grad is taken (kernel 11b repaired the refusal of the forward-only
+        wrapper); any device but the CPU and CUDA is refused."""
         x = torch.zeros(1, 4, 4, 16, requires_grad=True)
-        with pytest.raises(ValueError, match="no backward yet"):
-            SA.soft_argmax_3d_nhwc_kernel(x, 2, 8)
+        SA.soft_argmax_3d_nhwc_kernel(x, 2, 8).sum().backward()
+        assert x.grad.shape == x.shape and torch.isfinite(x.grad).all()
         with torch.no_grad():
             assert SA.soft_argmax_3d_nhwc_kernel(x, 2, 8).shape == (1, 6)
         with pytest.raises(ValueError, match="no soft-argmax kernel for device meta"):
@@ -186,3 +262,32 @@ def test_kernel_reads_a_channels_last_conv_output():
                                atol=KERNEL_ATOL, rtol=0)
     with pytest.raises(ValueError, match="contiguous in NHWC order"):
         SA.soft_argmax_3d_nhwc_kernel(nchw.contiguous().permute(0, 2, 3, 1), 3, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(2, 8, 6, 17, 64), (3, 13, 11, 3, 8), (2, 64, 64, 1, 64)])
+def test_backward_kernel_matches_plain_version_on_the_card(shape, dtype):
+    """Kernel 11b through the wrapper's backward: dx against the plain
+    backward (logits ~100, a ragged second tile at 143 pixels), in the
+    logits' dtype and channels_last layout, one backward count per
+    backward, two backward calls bitwise equal."""
+    dev = cuda_device()
+    b, h, w, j, d = shape
+    x = _torch(_logits(b, h, w, j, d, seed=13), dtype).to(dev)
+    g = torch.randn(b, j * 3, generator=torch.Generator().manual_seed(14)).to(dev)
+    grads = []
+    for _ in range(2):
+        nchw = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        before = SA.soft_argmax_3d_nhwc_backward.launches
+        SA.soft_argmax_3d_nhwc_kernel(nchw.permute(0, 2, 3, 1), j, d).backward(g)
+        assert SA.soft_argmax_3d_nhwc_backward.launches == before + 1
+        assert nchw.grad.is_contiguous(memory_format=torch.channels_last)
+        grads.append(nchw.grad.permute(0, 2, 3, 1))
+    torch.cuda.synchronize()
+    e = H.nhwc_expectations(x, j, d)
+    de = g.view(b, j, 3) * torch.tensor([2.0 / w, 2.0 / h, 2.5 / d], device=dev)  # dcoords/dE
+    want = SA.soft_argmax_3d_nhwc_backward_reference(x, e, de, j, d)
+    assert grads[0].dtype == x.dtype and torch.equal(grads[0], grads[1])
+    assert_grad_close(grads[0].float().cpu().numpy(), want.float().cpu().numpy(), dtype,
+                      f32_rel=2 ** -14)
