@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port: `python3 chip_smoke.py`.
 
-Drives the port's three serving paths and its temporal training path on
-one NVIDIA GPU (Hopper, sm_90a), with random weights from a seed, and
-fails (non-zero exit, traceback) if any phase fails:
+Drives the port's serving paths, its two training paths and the
+joint-major and legacy entry points on one NVIDIA GPU (Hopper, sm_90a),
+with random weights from a seed, and fails (non-zero exit, traceback) if
+any phase fails:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the kernels from ``pose3d_tpu_torch/csrc`` (one
@@ -143,6 +144,33 @@ step (bench.py's ``direct_train``), the final conv x8 as above:
 20. ``cli.train_direct.train`` for one epoch on the fused route (256
     synthetic frames, 2 optimizer steps a chunk), then ``infer`` on its
     checkpoint.
+
+The joint-major and legacy entry points: ``temporal_block_fused`` and
+``temporal_block_train`` on the default TemporalLifter's block 0 (temporal
+half), on the embedded tokens of 16 seeded clips laid out joint-major (272
+sequences of 243 frames, bf16), and ``soft_argmax_3d_pallas`` on the x8
+PoseNet3D's head output at B = 64, permuted to (B, 17, 64, 64, 64):
+
+21. the main path: with the counts set to 0, one call of each entry point
+    (``temporal_block_train`` forward and one ``backward()``, which must
+    reach the flat weights, and the decode's forward and backward); one
+    launch of each of the four kernels (the serving sub-block, the
+    training forward and backward, the legacy soft-argmax);
+22. kernel vs plain: the serving sub-block's rows (5e-2 + 2^-5 |want|,
+    the f32 yardstick ratio 1.5), bitwise equal to the slab kernel on the
+    same tokens, sequence isolation; the training forward's out, x1, att
+    as rows, dx and the 12 weight gradients within 2^-7 max|want| + 2^-7
+    |want| and the f32 yardstick; against the slab route out, x1, att and
+    dx bitwise and each weight gradient within f32 summation order
+    (relative L2 at most 2^-10, the measured value logged); two backward
+    calls bitwise equal; the legacy soft-argmax as the NHWC one (within
+    1e-3 of plain, the float64 yardstick, bitwise repeat, spread) on the
+    model's logits and on planted peaks at logits ~100 with J = 3 in f32,
+    its difference from the NHWC kernel on the same logits logged, and
+    its backward (the XLA formula on the card) against a float64 run of
+    the formula;
+23. times of the four kernels and their plain versions, and of the
+    legacy decode's backward.
 
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
@@ -825,6 +853,11 @@ def train_kernel_phase(model) -> dict:
     return errs
 
 
+# the training wrappers of the temporal trainer's step (ST.WRAPPERS also
+# holds the joint-major pair, which phase 21 drives)
+TRAIN_WRAPPERS = (ST.spatial_fwd, ST.spatial_bwd, ST.slab_fwd, ST.slab_bwd)
+
+
 class plain_sub_blocks:
     """Within it, the training forward's sub-blocks run their plain
     versions on the card (the yardstick of the whole step)."""
@@ -891,9 +924,10 @@ def train_loop_phase(model) -> tuple[dict, dict]:
         f.launches = 0
     losses = [step(state, *b)["loss"].item() for b in batches]
     launches = {f.__name__: f.launches for f in ST.WRAPPERS}
+    expected = {f.__name__: 5 * TRAIN_STEPS * (f in TRAIN_WRAPPERS) for f in ST.WRAPPERS}
     log(f"train loop: {TRAIN_STEPS} steps, loss " + ", ".join(f"{v:.5g}" for v in losses)
-        + f"; launches {launches} (expected {5 * TRAIN_STEPS} each)")
-    if any(n != 5 * TRAIN_STEPS for n in launches.values()):
+        + f"; launches {launches} (expected {expected})")
+    if launches != expected:
         raise AssertionError("the training steps did not all go through the kernels")
     # Adam's first steps move every weight by ~lr and the loss may spike
     # before it falls: the last three steps' mean must be below the first
@@ -936,7 +970,7 @@ def train_loop_phase(model) -> tuple[dict, dict]:
             t[f"{fwd.__name__}_plain"] = cuda_ms(lambda: fref(x, w))
             t[bwd.__name__] = cuda_ms(lambda: bwd(x, x1, att, g, w))
             t[f"{bwd.__name__}_plain"] = cuda_ms(lambda: bref(x, x1, att, g, w))
-    for f in ST.WRAPPERS:
+    for f in TRAIN_WRAPPERS:
         log(f"time C={TRAIN_CLIPS} x {model.clip_len} {f.__name__}: {t[f.__name__]:.4f} ms, "
             f"plain {t[f.__name__ + '_plain']:.4f} ms")
     return launches, t
@@ -1457,6 +1491,226 @@ def direct_cli_phase() -> None:
     shutil.rmtree(log_dir)
 
 
+JOINT_MAJOR_WRAPPERS = (S.temporal_block_fused, ST.sequences_fwd, ST.sequences_bwd,
+                        SA.soft_argmax_3d_pallas)
+LAYOUT_GRAD_REL = 2 ** -10  # joint-major vs slab weight gradients: f32 summation order
+
+
+def joint_major_tokens(model, n_clips, seed):
+    """The embedded tokens of seeded clips: (frame-major rows, (C·17, T,
+    256) joint-major sequences)."""
+    tokens = S.embed_clips(model, seeded_clips(n_clips, model, seed))
+    return tokens, S.joint_major(tokens, n_clips)
+
+
+def legacy_logits(model, seed):
+    """The x8 PoseNet3D's head output at B = DIRECT_B as the legacy decode
+    takes it: (B, J, D, H, W), contiguous."""
+    b, j, d = DIRECT_B, model.num_joints, model.depth
+    with torch.no_grad():
+        head = model.final_layer(model.features(direct_frames(b, seed)))  # (B, J*D, H, W)
+        return head.reshape(b, j, d, *head.shape[2:]).contiguous()
+
+
+def joint_major_main_path(tmodel, train_model, dmodel) -> dict:
+    """The four kernels' entry points once each, with every count set to 0
+    just before and read just after: ``temporal_block_fused``,
+    ``temporal_block_train`` forward and backward (the gradient must reach
+    the f32 model's temporal weights through the differentiable pack), and
+    ``soft_argmax_3d_pallas`` forward and backward. Returns the counts."""
+    blk = train_model.blocks[0]
+    with torch.no_grad():  # tmodel's weights are inference tensors
+        _, seqs = joint_major_tokens(tmodel, CLIPS, SEED + 60)
+        w = S.pack_temporal_weights(tmodel.blocks[0])
+        x = S.joint_major(ST.embed_clips(train_model, seeded_clips(CLIPS, train_model, SEED + 61),
+                                         torch.bfloat16), CLIPS)
+    x.requires_grad_(True)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(SEED + 62)).to(
+        "cuda", torch.bfloat16) * 2 ** -6
+    logits = legacy_logits(dmodel, SEED + 63).requires_grad_(True)
+    b, j, d, h, wd = logits.shape
+    for f in JOINT_MAJOR_WRAPPERS:
+        f.launches = 0
+    with torch.inference_mode():
+        served = S.temporal_block_fused(seqs, w)
+    out = ST.temporal_block_train(x, ST.pack_train(blk, "temporal", torch.bfloat16).flat)
+    if out.grad_fn is None:
+        raise AssertionError("temporal_block_train's output has no grad_fn on the card")
+    out.backward(g)
+    coords = SA.soft_argmax_3d_pallas(logits, j, d, h, wd)
+    coords.square().sum().backward()
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in JOINT_MAJOR_WRAPPERS}
+    log(f"joint-major and legacy main path: launches {launches} (expected 1 each)")
+    if any(n != 1 for n in launches.values()):
+        raise AssertionError("the joint-major and legacy entry points did not take their kernels")
+    grads = [p.grad for n, p in blk.named_parameters() if n.startswith("temporal")]
+    if (len(grads) != 12 or any(gr is None or not torch.isfinite(gr).all() for gr in grads)
+            or not all(gr.abs().max() > 0 for gr in grads) or x.grad is None):
+        raise AssertionError("temporal_block_train's backward did not reach the weights")
+    for t in (served, out, coords, logits.grad):
+        if not torch.isfinite(t).all():
+            raise AssertionError("a joint-major or legacy output is not finite")
+    if coords.std() < MIN_SPREAD:
+        raise AssertionError(f"legacy decode: the coordinates do not spread ({coords.std():.4g})")
+    blk.zero_grad(set_to_none=True)
+    return launches
+
+
+def joint_major_phase(model) -> dict:
+    """Rows 7 and 10 against their plain versions and against the slab
+    kernels on the same tokens, at 272 sequences of 243 frames. Returns
+    the max abs errors."""
+    errs = {}
+    w = S.pack_temporal_weights(model.blocks[0])
+    w32 = S.SubBlockWeights(w.flat.float())
+    tokens, seqs = joint_major_tokens(model, CLIPS, SEED + 64)
+    slab = tokens.view(CLIPS, model.clip_len, -1)
+    got = S.temporal_block_fused(seqs, w)
+    errs["temporal_block_fused"] = _rows_check(
+        f"temporal_block_fused {tuple(seqs.shape)}", got, S.temporal_block_reference(seqs, w),
+        S.temporal_block_reference(seqs.float(), w32))
+    relaid = S.joint_major(S.temporal_slab(slab, w).view(-1, 256), CLIPS)
+    pert = seqs.clone()
+    pert[0] += 1.0
+    moved = S.temporal_block_fused(pert, w)
+    torch.cuda.synchronize()
+    if not torch.equal(got, relaid):
+        raise AssertionError("temporal_block_fused differs from the slab kernel on the same tokens")
+    if not torch.equal(got[1:], moved[1:]) or torch.equal(got[0], moved[0]):
+        raise AssertionError("sequence isolation: perturbing sequence 0 moved other sequences")
+    log("temporal_block_fused: bitwise equal to temporal_slab on the same tokens; "
+        "sequence isolation ok")
+
+    dout = (torch.randn(tokens.shape, generator=torch.Generator().manual_seed(SEED + 65))
+            * 2 ** -6).to("cuda", torch.bfloat16)
+    g_seq = S.joint_major(dout, CLIPS)
+    fwd = ST.sequences_fwd(seqs, w)
+    want = ST.sequences_fwd_reference(seqs, w)
+    ref32 = ST.sequences_fwd_reference(seqs.float(), w32)
+    errs["sequences_fwd"] = max(_rows_check(f"sequences_fwd {name}", a, b, c)
+                                for name, a, b, c in zip(("out", "x1", "att"), fwd, want, ref32))
+    dx, dw = ST.sequences_bwd(seqs, *want[1:], g_seq, w)
+    dx_p, dw_p = ST.sequences_bwd_reference(seqs, *want[1:], g_seq, w)
+    dx32, dw32 = ST.sequences_bwd_reference(seqs.float(), *(t.float() for t in want[1:]),
+                                            g_seq.float(), w32)
+    e_bwd = _grad_check("sequences_bwd dx", dx, dx_p, dx32)
+    pos = 0
+    for name, shp, _, _ in S._LAYOUT:
+        n = math.prod(shp)
+        e_bwd = max(e_bwd, _grad_check(f"sequences_bwd d{name}", dw[pos:pos + n],
+                                       dw_p[pos:pos + n], dw32[pos:pos + n]))
+        pos += n
+    errs["sequences_bwd"] = e_bwd
+    dx2, dw2 = ST.sequences_bwd(seqs, *want[1:], g_seq, w)
+    # against the slab route on the same tokens, each route on its own residuals
+    slab_fwd = ST.slab_fwd(slab, w)
+    sdx, sdw = ST.slab_bwd(slab, *slab_fwd[1:], dout.view(slab.shape), w)
+    qdx, qdw = ST.sequences_bwd(seqs, *fwd[1:], g_seq, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError("sequences_bwd: two calls gave different gradients")
+    for name, a, b in zip(("out", "x1", "att", "dx"), (*slab_fwd, sdx), (*fwd, qdx)):
+        if not torch.equal(S.joint_major(a.reshape(-1, 256), CLIPS), b):
+            raise AssertionError(f"the joint-major training route's {name} differs from the "
+                                 "slab route's")
+    rels, pos = {}, 0
+    for name, shp, _, _ in S._LAYOUT:
+        n = math.prod(shp)
+        a, b = qdw[pos:pos + n], sdw[pos:pos + n]
+        rels[name] = ((a - b).norm() / b.norm()).item()
+        pos += n
+    worst = max(rels, key=rels.get)
+    log(f"sequences_fwd / sequences_bwd vs the slab route: out, x1, att, dx bitwise; weight "
+        f"gradients relative L2 worst {rels[worst]:.4g} ({worst}), median "
+        f"{statistics.median(rels.values()):.4g} (limit {LAYOUT_GRAD_REL:.4g}); two backward "
+        "calls bitwise equal")
+    if rels[worst] > LAYOUT_GRAD_REL:
+        raise AssertionError("the joint-major weight gradients differ from the slab route's")
+    return errs
+
+
+def legacy_softargmax_phase(model) -> dict:
+    """Row 12 against its plain version at B = DIRECT_B on the model's own
+    (B, J, D, H, W) logits and on planted peaks at logits ~100 with J = 3 in
+    f32; against kernel 11a on the same logits in NHWC; the backward (the
+    XLA formula on the card) against a float64 run of it. Returns the max
+    abs error on the model's logits, and the backward's time."""
+    logits = legacy_logits(model, SEED + 66)
+    b, j, d, h, w = logits.shape
+
+    def legacy(x, jj):
+        return (lambda t: SA.soft_argmax_3d_pallas(t, jj, d, h, w),
+                lambda t: H.soft_argmax_3d(t, jj, d, h, w, return_heatmap=False)[0],
+                lambda t: H.soft_argmax_3d(t.double(), jj, d, h, w, return_heatmap=False)[0],
+                (x,))
+
+    err = _decode_check(f"soft_argmax_3d_pallas B={b} model logits", *legacy(logits, j))
+    planted, where = planted_logits(b, h, w, 3, d)
+    vol = planted.float().view(b, h, w, 3, d).permute(0, 3, 4, 1, 2).contiguous()
+    _decode_check(f"soft_argmax_3d_pallas B={b} J=3 f32 planted peaks, logits ~100",
+                  *legacy(vol, 3))
+    peaks = torch.stack([where[..., 0] / w, where[..., 1] / h, where[..., 2] / d], -1)
+    peaks = (peaks - 0.5) * torch.tensor([2.0, 2.0, model.z_scale])
+    miss = (SA.soft_argmax_3d_pallas(vol, 3, d, h, w).cpu().view(b, 3, 3) - peaks).abs().max()
+    nhwc = logits.permute(0, 3, 4, 1, 2).reshape(b, h, w, j * d).contiguous()
+    vs_11a = (SA.soft_argmax_3d_pallas(logits, j, d, h, w)
+              - SA.soft_argmax_3d_nhwc_kernel(nhwc, j, d)).abs().max().item()
+    log(f"soft_argmax_3d_pallas planted peaks: max distance to the peaks {miss.item():.6g}; "
+        f"vs the NHWC kernel on the same logits: max abs difference {vs_11a:.6g}")
+    if miss > 5e-3 or vs_11a > DECODE_ATOL:
+        raise AssertionError("the legacy soft-argmax kernel missed the peaks or the NHWC kernel")
+
+    # the backward: dcoords/dE is diagonal, so g becomes dE by the scales
+    g = torch.randn(b, j, 3, generator=torch.Generator().manual_seed(SEED + 67)).to("cuda")
+    de = (g * torch.tensor([2.0 / w, 2.0 / h, model.z_scale / d], device="cuda")).view(-1, 3)
+    flat = logits.view(b * j, d, h, w)
+
+    def kernel_route():
+        x = logits.detach().requires_grad_(True)
+        SA.soft_argmax_3d_pallas(x, j, d, h, w).backward(g.view(b, -1))
+        return x.grad.view(b * j, d, h, w)
+
+    got, again = kernel_route(), kernel_route()
+    want = SA.soft_argmax_3d_backward_reference(
+        flat, SA.soft_argmax_3d_expectations_reference(flat), de)
+    f64 = flat.double()
+    ref = SA.soft_argmax_3d_backward_reference(
+        f64, SA.soft_argmax_3d_expectations_reference(f64), de.double())
+    torch.cuda.synchronize()
+    _grad_check_f64(f"soft_argmax_3d_pallas backward B={b} model logits dx", got, again, want, ref)
+    e = SA.soft_argmax_3d_volume_expectations(flat)
+    return {"soft_argmax_volume": err}, {"soft_argmax_volume_bwd": cuda_ms(
+        lambda: SA.soft_argmax_3d_backward_reference(flat, e, de))}
+
+
+def joint_major_timing_phase(model, dmodel) -> dict:
+    """The four kernels and their plain versions at the main path's shapes."""
+    w = S.pack_temporal_weights(model.blocks[0])
+    _, seqs = joint_major_tokens(model, CLIPS, SEED + 68)
+    dout = (torch.randn(seqs.shape, generator=torch.Generator().manual_seed(SEED + 69))
+            * 2 ** -6).to("cuda", torch.bfloat16)
+    _, x1, att = ST.sequences_fwd(seqs, w)
+    logits = legacy_logits(dmodel, SEED + 70)
+    b, j, d, h, wd = logits.shape
+    t = {
+        "temporal_block_fused": cuda_ms(lambda: S.temporal_block_fused(seqs, w)),
+        "temporal_block_fused_plain": cuda_ms(lambda: S.temporal_block_reference(seqs, w)),
+        "sequences_fwd": cuda_ms(lambda: ST.sequences_fwd(seqs, w)),
+        "sequences_fwd_plain": cuda_ms(lambda: ST.sequences_fwd_reference(seqs, w)),
+        "sequences_bwd": cuda_ms(lambda: ST.sequences_bwd(seqs, x1, att, dout, w)),
+        "sequences_bwd_plain": cuda_ms(
+            lambda: ST.sequences_bwd_reference(seqs, x1, att, dout, w)),
+        "soft_argmax_volume": cuda_ms(lambda: SA.soft_argmax_3d_pallas(logits, j, d, h, wd)),
+        "soft_argmax_volume_plain": cuda_ms(
+            lambda: H.soft_argmax_3d(logits, j, d, h, wd, return_heatmap=False)),
+    }
+    for k, ms in t.items():
+        log(f"time joint-major {tuple(seqs.shape)} / legacy {tuple(logits.shape)} {k}: "
+            f"{ms:.4f} ms")
+    return t
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
@@ -1514,7 +1768,13 @@ def kernel_bounds(model_vit, model_t, model_m, model_d) -> dict:
     soft_bwd = bound(9 * pix * jd, 2 * pix * jd * b2 + coef_bytes, PEAK_F32)
     decode_bwd = bound(3 * 2 * pix * 256 * jd, 2 * pix * 256 * b2 + 2 * (jd * 256 * b2 + jd * 4)
                        + coef_bytes)
-    return {"soft_argmax_nhwc": soft, "conv_decode": decode,
+    # rows 7, 10a and 10b do the work of the slab kernels on the same token
+    # count; row 12 that of the NHWC soft-argmax on the same logits
+    return {"soft_argmax_nhwc": soft, "conv_decode": decode, "soft_argmax_volume": soft,
+            "temporal_block_fused": temporal,
+            "sequences_fwd": bound(rows * dense + att_temporal, fwd_bytes),
+            "sequences_bwd": bound(rows * (recompute + 2 * dense) + 2.5 * att_temporal,
+                                   bwd_bytes),
             "soft_argmax_nhwc_bwd": soft_bwd, "conv_decode_bwd": decode_bwd,
             "lifter_trunk": trunk, "spatial_block": spatial, "temporal_slab": temporal,
             "packed_flat_attention": packed, "seq_attention": seq, "martinez_block": martinez,
@@ -1559,6 +1819,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     dtrlaunches, _ = direct_train_phase()
     direct_cli_phase()
+
+    jlaunches = joint_major_main_path(tmodel, seeded_train_model(), dmodel)
+    with torch.inference_mode():
+        errs.update(joint_major_phase(tmodel))
+    lerrs, lt = legacy_softargmax_phase(dmodel)
+    errs.update(lerrs)
+    with torch.inference_mode():
+        jt = joint_major_timing_phase(tmodel, dmodel)
+    log(f"time legacy soft-argmax backward (the XLA formula in PyTorch ops) B={DIRECT_B}: "
+        f"{lt['soft_argmax_volume_bwd']:.4f} ms")
     bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -1619,6 +1889,17 @@ def main() -> None:
                dtrlaunches["conv_soft_argmax_3d_backward"], derrs["conv_decode_bwd"],
                dt["conv_decode_bwd"], dt["conv_decode_bwd_plain"], None),
     ]
+    # rows 7, 10 and 12: launches on this slice's main path (phase 21); no
+    # one PyTorch call computes a sub-block or a soft-argmax
+    jm_rows = (("temporal_block_fused", "stblock.cu", "pallas_stblock.py:137"),
+               ("sequences_fwd", "stblock.cu", "pallas_stblock_train.py:379"),
+               ("sequences_bwd", "stblock_train.cu", "pallas_stblock_train.py:388"))
+    kernels += [record(k, f"{csrc}/{src}", f"pose3d_tpu/ops/{line}", jlaunches[k], errs[k],
+                       jt[k], jt[f"{k}_plain"], None) for k, src, line in jm_rows]
+    kernels.append(record("soft_argmax_volume", f"{csrc}/softargmax.cu",
+                          "pose3d_tpu/ops/pallas_softargmax.py:36",
+                          jlaunches["soft_argmax_3d_pallas"], errs["soft_argmax_volume"],
+                          jt["soft_argmax_volume"], jt["soft_argmax_volume_plain"], None))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")

@@ -35,9 +35,26 @@
 // (the joint's coefficients, softargmax.cuh GradCoef), one read and one
 // write of each element.
 //
+// The legacy layout: softargmax_volume_launch replaces :36 _kernel (via
+// _expectations_fwd :58; entry soft_argmax_3d_pallas :423), the same
+// expectations of N contiguous (d, h, w) volumes, W fastest: element k of a
+// volume sits at column k % w, row (k / w) % h, depth k / (h w). Bytes
+// bound it too (the same 570 MB at the main shapes), and for the same
+// reason it does not keep a volume in one CTA as the TPU does: a CTA per
+// (volume, tile of kVolumeTileBytes contiguous bytes) reads them in 16-byte
+// vectors, neighbouring threads on neighbouring vectors, every vector of
+// the tile in flight at once; each thread keeps the online softmax of its
+// vectors (a vector lies in one row, so it shares y and z), the CTA folds
+// its threads in a fixed order (a shuffle tree, then the warps in order),
+// and merge_kernel folds a volume's tiles in order. No atomics: two calls
+// are bitwise equal. The JAX package's backward of this layout is XLA
+// (_vjp_bwd :101), and so is the port's (ops/softargmax.py).
+//
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing (the wrapper allocates the partials, the statistics and the
 // outputs), and return cudaGetLastError().
+
+#include <climits>
 
 #include "common.cuh"
 #include "softargmax.cuh"
@@ -240,6 +257,134 @@ cudaError_t launch_bwd(const T* logits, const float* g, const float* e, const fl
   return cudaGetLastError();
 }
 
+constexpr int kVolumeThreads = 256;
+constexpr int kVolumeTileBytes = 16384;  // a CTA's tile of a (d, h, w) volume
+constexpr int kVolumeUnroll = kVolumeTileBytes / 16 / kVolumeThreads;  // vectors a thread
+static_assert(kVolumeUnroll * 16 * kVolumeThreads == kVolumeTileBytes, "whole vectors a thread");
+
+// this = this (+) the partial of lane (lane ^ offset), for a shuffle tree
+__device__ __forceinline__ void merge_lane(Partial& acc, int offset) {
+  Partial o;
+  o.m = __shfl_xor_sync(0xffffffffu, acc.m, offset);
+  o.s = __shfl_xor_sync(0xffffffffu, acc.s, offset);
+  o.sx = __shfl_xor_sync(0xffffffffu, acc.sx, offset);
+  o.sy = __shfl_xor_sync(0xffffffffu, acc.sy, offset);
+  o.sz = __shfl_xor_sync(0xffffffffu, acc.sz, offset);
+  acc.merge(o);
+}
+
+// The shape of one (depth, height, width) volume as the tile kernel walks
+// it: a thread's vectors lie kVolumeThreads vectors apart, a stride of
+// step_z planes, step_y rows and step_x columns, so that it finds each
+// vector's column, row and depth by additions (no division per vector).
+struct VolumeShape {
+  int volume;  // elements of one volume, a whole number of vectors
+  int n_tiles, height, width;
+  int step_x, step_y, step_z;
+};
+
+// grid n * n_tiles, block kVolumeThreads: CTA (volume, tile) reduces the
+// tile's vectors (fewer in a volume's last tile) to part[(volume *
+// n_tiles + tile) * 5]. width % V == 0, so that a vector lies in one row.
+template <typename T>
+__global__ void __launch_bounds__(kVolumeThreads)
+volume_tile_kernel(const T* __restrict__ logits, float* __restrict__ part, VolumeShape vs) {
+  constexpr int V = Vec<T>::kN;
+  constexpr int kTileVecs = kVolumeTileBytes / 16;
+  __shared__ float red[kVolumeThreads / 32][kPartial];
+  const long long vol = blockIdx.x / vs.n_tiles;
+  const int tile = blockIdx.x % vs.n_tiles;
+  const int v0 = tile * kTileVecs;
+  const int count = min(kTileVecs, vs.volume / V - v0);  // vectors of this tile
+  const T* base = logits + vol * vs.volume;
+
+  float f[kVolumeUnroll][V];
+#pragma unroll
+  for (int u = 0; u < kVolumeUnroll; ++u) {
+    const int i = threadIdx.x + u * kVolumeThreads;
+    if (i < count) Vec<T>::load(base + static_cast<long long>(v0 + i) * V, f[u]);
+  }
+  // column x, row y and depth z of this thread's first vector's first element
+  const int k0 = (v0 + static_cast<int>(threadIdx.x)) * V;
+  const int row0 = k0 / vs.width;
+  int x = k0 - row0 * vs.width;
+  int z = row0 / vs.height;
+  int y = row0 - z * vs.height;
+  Partial acc;
+#pragma unroll
+  for (int u = 0; u < kVolumeUnroll; ++u) {
+    const int i = threadIdx.x + u * kVolumeThreads;
+    if (i >= count) break;
+    float mx = f[u][0];
+#pragma unroll
+    for (int e = 1; e < V; ++e) mx = fmaxf(mx, f[u][e]);
+    if (mx > acc.m) {
+      const float a = exp2f((acc.m - mx) * kLog2e);  // 0 while acc is empty
+      acc.s *= a;
+      acc.sx *= a;
+      acc.sy *= a;
+      acc.sz *= a;
+      acc.m = mx;
+    }
+    float ps = 0.f, px = 0.f;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float p = exp2f((f[u][e] - acc.m) * kLog2e);  // m * log2e unrounded
+      ps += p;
+      px = fmaf(p, float(e), px);
+    }
+    acc.s += ps;
+    acc.sx += fmaf(ps, float(x), px);
+    acc.sy = fmaf(ps, float(y), acc.sy);
+    acc.sz = fmaf(ps, float(z), acc.sz);
+    // on to the thread's next vector: each of x, y wraps at most once
+    x += vs.step_x;
+    const int carry = x >= vs.width;
+    x -= carry * vs.width;
+    y += vs.step_y + carry;
+    if (y >= vs.height) {
+      y -= vs.height;
+      ++z;
+    }
+    z += vs.step_z;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) merge_lane(acc, offset);
+  if (lane == 0) acc.store(red[warp]);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Partial t;
+    for (int w = 0; w < kVolumeThreads / 32; ++w) t.merge(Partial::load(red[w]));
+    t.store(part + (vol * vs.n_tiles + tile) * kPartial);
+  }
+}
+
+template <typename T>
+cudaError_t launch_volume(const T* logits, float* part, float* out, int n, int depth, int height,
+                          int width, cudaStream_t stream) {
+  constexpr int V = Vec<T>::kN;
+  const long long volume = static_cast<long long>(depth) * height * width;
+  const long long tile_elems = kVolumeTileBytes / sizeof(T);
+  const long long n_tiles = (volume + tile_elems - 1) / tile_elems;
+  constexpr int kStep = kVolumeThreads * V;  // elements between a thread's vectors
+  if (width % V != 0 || volume > INT_MAX - kStep || n_tiles * n > INT_MAX)
+    return cudaErrorInvalidValue;
+  const int step_rows = kStep / width;
+  const VolumeShape vs{static_cast<int>(volume), static_cast<int>(n_tiles), height, width,
+                       kStep % width, step_rows % height, step_rows / height};
+  volume_tile_kernel<T><<<static_cast<unsigned>(n_tiles * n), kVolumeThreads, 0, stream>>>(
+      logits, part, vs);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int blocks = (n + kMergeThreads - 1) / kMergeThreads;
+  merge_kernel<kMergeThreads><<<blocks, kMergeThreads, 0, stream>>>(
+      part, static_cast<int>(n_tiles), n, out, nullptr);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int batch, int height, int width, int joints, int depth, int tile_pixels) {
   return tile_pixels != kTilePixels || batch < 1 || batch > 65535 || height < 1 || width < 1 ||
          joints < 1 || depth < 1;
@@ -290,4 +435,27 @@ extern "C" cudaError_t softargmax_nhwc_bwd_launch(const void* logits, int is_bf1
                       height, width, joints, depth, s);
   return launch_bwd(static_cast<const float*>(logits), gp, ep, st, static_cast<float*>(dx), batch,
                     height, width, joints, depth, s);
+}
+
+// logits: (n, depth, height, width), bf16 (is_bf16 = 1) or f32 (is_bf16 =
+// 0), contiguous, 16-byte aligned; partials: (n, ceil(depth * height *
+// width * element bytes / tile_bytes), 5) f32 scratch; out: (n, 3) f32 [Ex,
+// Ey, Ez]. tile_bytes is the caller's idea of the kernel's tile: a
+// mismatch, a width that is not a whole number of 16-byte vectors, a
+// volume of more than INT_MAX elements or more than INT_MAX CTAs returns
+// cudaErrorInvalidValue. Two launches in a row
+// on the calling thread's current device; the first error ends the
+// sequence and is returned.
+extern "C" cudaError_t softargmax_volume_launch(const void* logits, int is_bf16, void* partials,
+                                                void* out, int n, int depth, int height,
+                                                int width, int tile_bytes, void* stream) {
+  if (tile_bytes != kVolumeTileBytes || n < 0 || depth < 1 || height < 1 || width < 1)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* part = static_cast<float*>(partials);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16)
+    return launch_volume(static_cast<const bf16*>(logits), part, o, n, depth, height, width, s);
+  return launch_volume(static_cast<const float*>(logits), part, o, n, depth, height, width, s);
 }

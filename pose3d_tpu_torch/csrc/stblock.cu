@@ -25,6 +25,12 @@
 //   80-row tiles. Phases (1) and (3) do not care which rows share a
 //   sequence, so their tiles ignore frame boundaries. The wrapper
 //   allocates both scratches.
+// - _temporal_kernel (temporal_block_fused :161, one joint-major (L, 256)
+//   sequence per grid cell): stblock_sequences_launch, the same three
+//   launches on n joint-major sequences of L rows each, contiguous. Only
+//   the attention's layout differs: sequence s is rows s·L ... s·L + L - 1.
+//   Each sequence reads its rows in the same order as the slab's, so the
+//   two layouts of the same tokens give the same bits.
 //
 // What bounds it on this card. 1.57 MFLOP per token of dense products
 // against 1 KB of activations in and out: far above the H100's ~295 bf16
@@ -35,11 +41,12 @@
 // a CTA can keep in shared memory caps the tile and so that ratio.
 //
 // The training forwards (pallas_stblock_train.py _spatial_fwd_kernel :348,
-// _temporal_slab_fwd_kernel :407) are the same launchers given residual
-// pointers, which select the kSave kernels: they also store x1 and att,
-// which the backward (stblock_train.cu) reads. Both are in shared memory
-// already when the kernel reaches them, so the cost is two stores of the
-// tile's rows. Serving passes null and runs the kernels it always ran.
+// _temporal_fwd_kernel :379, _temporal_slab_fwd_kernel :407) are the same
+// launchers given residual pointers, which select the kSave kernels: they
+// also store x1 and att, which the backward (stblock_train.cu) reads. Both
+// are in shared memory already when the kernel reaches them, so the cost
+// is two stores of the tile's rows. Serving passes null and runs the
+// kernels it always ran.
 //
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError().
@@ -218,6 +225,27 @@ cudaError_t launch_part(const bf16* x, const bf16* w, const bf16* attn, bf16* ou
   return cudaGetLastError();
 }
 
+// The temporal sub-block's three launches on n_rows rows that hold n_seq
+// sequences of L rows, laid out for the attention as `in` (qkv) and `o`
+// (attn) say; a non-null x1 selects the kSave kernels.
+cudaError_t launch_sequences(const void* x, const void* weights, void* qkv, void* attn, void* x1,
+                             void* out, int n_rows, int n_seq, int L, int inner_n, SeqLayout in,
+                             SeqLayout o, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(weights);
+  bf16* qkvb = static_cast<bf16*>(qkv);
+  bf16* attnb = static_cast<bf16*>(attn);
+  cudaError_t err = launch_part<Part::kQkv>(xb, wb, nullptr, qkvb, n_rows, s);
+  if (err != cudaSuccess) return err;
+  err = launch_attention(qkvb, attnb, n_seq, L, kHeads, kDimHead, inner_n, in, o, s);
+  if (err != cudaSuccess) return err;
+  if (x1 == nullptr)
+    return launch_part<Part::kRest>(xb, wb, attnb, static_cast<bf16*>(out), n_rows, s);
+  return launch_part<Part::kRest, true>(xb, wb, attnb, static_cast<bf16*>(out), n_rows, s,
+                                        static_cast<bf16*>(x1), nullptr);
+}
+
 }  // namespace
 
 // x, out: (n_frames * 17, 256) bf16 rows; weights: block_elems bf16 in the
@@ -260,22 +288,26 @@ extern "C" cudaError_t stblock_temporal_launch(const void* x, const void* weight
       block_elems != kBlockElems)
     return cudaErrorInvalidValue;
   if (n_clips == 0) return cudaSuccess;
-  const int n_rows = n_clips * T * kJoints;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wb = static_cast<const bf16*>(weights);
-  bf16* qkvb = static_cast<bf16*>(qkv);
-  bf16* attnb = static_cast<bf16*>(attn);
-  cudaError_t err = launch_part<Part::kQkv>(xb, wb, nullptr, qkvb, n_rows, s);
-  if (err != cudaSuccess) return err;
   // sequence (c, j): rows c·T·17 + t·17 + j for t < T
   const long long frame = static_cast<long long>(kJoints);
-  err = launch_attention(qkvb, attnb, n_clips * kJoints, T, kHeads, kDimHead, kJoints,
-                         {T * frame * kQkv, kQkv, frame * kQkv},
-                         {T * frame * kDim, kDim, frame * kDim}, s);
-  if (err != cudaSuccess) return err;
-  if (x1 == nullptr)
-    return launch_part<Part::kRest>(xb, wb, attnb, static_cast<bf16*>(out), n_rows, s);
-  return launch_part<Part::kRest, true>(xb, wb, attnb, static_cast<bf16*>(out), n_rows, s,
-                                        static_cast<bf16*>(x1), nullptr);
+  return launch_sequences(x, weights, qkv, attn, x1, out, n_clips * T * kJoints,
+                          n_clips * kJoints, T, kJoints, {T * frame * kQkv, kQkv, frame * kQkv},
+                          {T * frame * kDim, kDim, frame * kDim}, stream);
+}
+
+// x, out: (n_seqs, L, 256) bf16, joint-major: sequence s is rows s·L ...
+// s·L + L - 1; qkv: (n_seqs * L, 768) and attn: (n_seqs * L, 256) bf16
+// scratch. The same three launches as stblock_temporal_launch, and the same
+// meaning of x1 and of the returned error; an L whose K and V do not fit in
+// shared memory returns cudaErrorInvalidValue.
+extern "C" cudaError_t stblock_sequences_launch(const void* x, const void* weights, void* qkv,
+                                                void* attn, void* x1, void* out, int n_seqs,
+                                                int L, int block_elems, void* stream) {
+  if (n_seqs < 0 || L < 1 || static_cast<long long>(n_seqs) * L > (1 << 30) ||
+      block_elems != kBlockElems)
+    return cudaErrorInvalidValue;
+  if (n_seqs == 0) return cudaSuccess;
+  const long long len = L;
+  return launch_sequences(x, weights, qkv, attn, x1, out, n_seqs * L, n_seqs, L, 1,
+                          {len * kQkv, 0, kQkv}, {len * kDim, 0, kDim}, stream);
 }

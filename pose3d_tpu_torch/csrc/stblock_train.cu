@@ -12,17 +12,20 @@
 //   dW2 = hg^T dout, dW1 = y2^T dh, dWp = att^T bf16(dx1), dWqkv = y^T bf16(dqkv),
 //   and the bias / LayerNorm gradients as column sums over the rows.
 // The attention backward is per (sequence, head), per-frame (17 joints) for
-// the spatial half and per joint over the clip's T frames for the temporal
-// slab; everything else ignores which rows share a sequence.
+// the spatial half, per joint over the clip's T frames for the temporal
+// slab, and per joint-major sequence of L contiguous rows; everything else
+// ignores which rows share a sequence.
 //
 // Replaces the backward TPU kernels of pallas_stblock_train.py:
-// _spatial_bwd_kernel :359 (via _spatial_bwd_impl :483) and
-// _temporal_slab_bwd_kernel :424 (via _temporal_slab_bwd_impl :570). The
-// TPU kernels do all of it per grid cell and accumulate the weight
-// gradients across cells, which is exact there because the TPU's grid runs
-// in order. Here blocks run in no order, and an SM holds neither the
-// weights nor a cell's backward live set, so the backward is a sequence of
-// launches through a global workspace that the wrapper allocates:
+// _spatial_bwd_kernel :359 (via _spatial_bwd_impl :483),
+// _temporal_bwd_kernel :388 (via _temporal_bwd_impl :527: one joint-major
+// sequence per grid cell) and _temporal_slab_bwd_kernel :424 (via
+// _temporal_slab_bwd_impl :570). The TPU kernels do all of it per grid
+// cell and accumulate the weight gradients across cells, which is exact
+// there because the TPU's grid runs in order. Here blocks run in no order,
+// and an SM holds neither the weights nor a cell's backward live set, so
+// the backward is a sequence of launches through a global workspace that
+// the wrapper allocates:
 // - row passes: LayerNorm rows (one warp a row), and a tiled mma.sync GEMM
 //   (128 x 128 tiles of 4 warps, a 4-slice cp.async ring; martinez.cu's
 //   tile) whose operands may each be stored transposed, so that the W^T
@@ -526,6 +529,7 @@ struct SeqRows {  // row of token t of sequence s: (s / inner_n) outer + (s % in
 };
 
 constexpr float kAttnScale = 0.17677669529663687f;  // 32^-0.5
+constexpr int kBwdMaxLen = 256;  // the longest sequence attention_bwd_kernel takes
 constexpr int kLdA = kDimHead + 8;  // shared row pitch: 16 bytes of skew
 
 // Shared memory of one (sequence, head): Q, K, V, bf16(do), bf16(bf16(r) q)
@@ -810,22 +814,27 @@ extern "C" long long stblock_train_bwd_workspace(int n_rows) {
 // rows or the (n_clips, T, 17 * 256) slab; weights: block_elems bf16 in the
 // layout above; dw: block_elems f32, every gradient in the weights' layout;
 // workspace: stblock_train_bwd_workspace(rows) bytes, 256-byte aligned.
-// temporal = 0: the spatial half, n_outer frames of L = 17 joints; 1: the
-// slab, n_outer clips of L frames. block_elems is the caller's idea of the
-// layout's size: a mismatch returns cudaErrorInvalidValue. Launches in a
-// row on `stream`; the first error ends the sequence and is returned.
-// Launches on the calling thread's current device, which must hold the
-// operands.
+// layout = 0 (kSpatial): the spatial half, n_outer frames of L = 17
+// joints; 1 (kSlab): the slab, n_outer clips of L frames; 2 (kSequences):
+// n_outer joint-major sequences of L rows, (n_outer, L, 256). block_elems
+// is the caller's idea of the layout's size: a mismatch, another layout or
+// L > kBwdMaxLen returns cudaErrorInvalidValue. Launches in a row on `stream`; the
+// first error ends the sequence and is returned. Launches on the calling
+// thread's current device, which must hold the operands.
+enum Layout { kSpatial = 0, kSlab = 1, kSequences = 2 };
+
 extern "C" cudaError_t stblock_train_bwd_launch(const void* x, const void* x1, const void* att,
                                                 const void* dout, const void* weights,
                                                 void* workspace, void* dx, void* dw,
-                                                int n_outer, int L, int temporal,
+                                                int n_outer, int L, int layout,
                                                 int block_elems, void* stream) {
-  if (n_outer < 0 || L < 1 || block_elems != kBlockElems || (!temporal && L != kJoints) ||
-      static_cast<long long>(n_outer) * L * (temporal ? kJoints : 1) > (1 << 26) ||
-      attn_bwd_smem(L) > size_t(kSmemLimit) || L > 256)
+  const int per_outer = layout == kSlab ? kJoints : 1;  // sequences per n_outer
+  if (n_outer < 0 || L < 1 || block_elems != kBlockElems || layout < kSpatial ||
+      layout > kSequences || (layout == kSpatial && L != kJoints) ||
+      static_cast<long long>(n_outer) * L * per_outer > (1 << 26) ||
+      attn_bwd_smem(L) > size_t(kSmemLimit) || L > kBwdMaxLen)
     return cudaErrorInvalidValue;
-  const int rows = n_outer * L * (temporal ? kJoints : 1);
+  const int rows = n_outer * L * per_outer;
   if (rows == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
@@ -869,9 +878,11 @@ extern "C" cudaError_t stblock_train_bwd_launch(const void* x, const void* x1, c
   POSE3D_TRY((gemm<false, true, kEpiF32>(  // datt = bf16(dx1) Wp^T
       {ws.dx1b, w + kOffWProj, rows, kDim, kDim, kDim, kDim, kDim, ws.datt, nullptr, kDim, 0,
        nullptr, nullptr}, 1, s)));
-  const SeqRows sr = temporal ? SeqRows{static_cast<long long>(L) * kJoints, 1, kJoints, kJoints}
-                              : SeqRows{kJoints, 0, 1, 1};
-  const int n_seq = temporal ? n_outer * kJoints : n_outer;
+  // sequence s, token t: row (s / inner_n) outer + (s % inner_n) inner + t step
+  const SeqRows sr = layout == kSlab
+                         ? SeqRows{static_cast<long long>(L) * kJoints, 1, kJoints, kJoints}
+                         : SeqRows{L, 0, 1, 1};
+  const int n_seq = n_outer * per_outer;
   const size_t smem = attn_bwd_smem(L);
   POSE3D_TRY(cudaFuncSetAttribute(attention_bwd_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pose3d_tpu_torch.ops.stblock import _LAYOUT, SubBlockWeights
+
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C"))  # a writable C-order copy
@@ -165,6 +167,23 @@ def temporal_lifter_from_flax(params) -> dict[str, torch.Tensor]:
     _dense(params["Dense_1"], "head.0", sd)
     _dense(params["Dense_2"], "head.2", sd)
     return sd
+
+
+def sub_block_from_jax(weights, dtype: torch.dtype = torch.float32):
+    """The 12-tuple of ``pallas_stblock.pack_temporal_weights`` or
+    ``pack_spatial_weights`` (numpy arrays; its ``(1, n)`` rows are
+    flattened) -> ``ops.stblock.SubBlockWeights`` in ``dtype``: the
+    kernels' flat operand, in the same order. Raises ValueError where the
+    tuple does not follow the layout."""
+    if len(weights) != len(_LAYOUT):
+        raise ValueError(f"{len(weights)} arrays, the sub-block layout has {len(_LAYOUT)}")
+    parts = []
+    for a, (name, shape, _, _) in zip(weights, _LAYOUT):
+        a = np.asarray(a, np.float32)
+        if a.shape != shape and a.shape != (1, *shape):
+            raise ValueError(f"{name}: shape {a.shape}, the layout takes {shape}")
+        parts.append(a.reshape(-1))
+    return SubBlockWeights(_t(np.concatenate(parts)).to(dtype))
 
 
 def _conv(p, prefix: str, sd: dict) -> None:

@@ -101,10 +101,12 @@ def library() -> ctypes.CDLL:
                        ("attention_launch", [p, p, i, i, i, i, p]),
                        ("stblock_spatial_launch", [p, p, p, p, p, i, i, i, p]),
                        ("stblock_temporal_launch", [p, p, p, p, p, p, i, i, i, p]),
+                       ("stblock_sequences_launch", [p, p, p, p, p, p, i, i, i, p]),
                        ("stblock_train_bwd_launch", [p] * 8 + [i, i, i, i, p]),
                        ("martinez_launch", [p, p, p, p, p, p, p, p, p, i, i, p]),
                        ("softargmax_nhwc_launch", [p, i, p, p, p] + [i] * 6 + [p]),
                        ("softargmax_nhwc_bwd_launch", [p, i, p, p, p, p] + [i] * 6 + [p]),
+                       ("softargmax_volume_launch", [p, i, p, p] + [i] * 5 + [p]),
                        ("conv_decode_launch", [p] * 6 + [i] * 7 + [p]),
                        ("conv_decode_bwd_launch", [p] * 10 + [i] * 8 + [p])):
         fn = getattr(lib, name)

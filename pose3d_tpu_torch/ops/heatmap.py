@@ -129,6 +129,22 @@ def soft_argmax_3d_nhwc(logits_nhwc: torch.Tensor, num_joints: int = 17,
 
 
 @f32_math
+def volume_expectations(volumes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, D, H, W) logits, W contiguous -> ((N, 3) index expectations [Ex
+    over W, Ey over H, Ez over D], the normalised softmax (N, D, H, W)) of
+    each volume, maximum subtracted, in at least f32 (the JAX package's
+    ``_expectations_xla``)."""
+    n, depth, height, width = volumes.shape
+    flat = volumes.reshape(n, depth * height * width)
+    acc = torch.promote_types(flat.dtype, torch.float32)
+    p = torch.exp(flat.to(acc) - flat.amax(dim=-1, keepdim=True).to(acc))
+    p = (p / p.sum(dim=-1, keepdim=True)).view(n, depth, height, width)
+    ex = p.sum(dim=(1, 2)) @ torch.arange(width, device=p.device, dtype=acc)
+    ey = p.sum(dim=(1, 3)) @ torch.arange(height, device=p.device, dtype=acc)
+    ez = p.sum(dim=(2, 3)) @ torch.arange(depth, device=p.device, dtype=acc)
+    return torch.stack([ex, ey, ez], dim=-1), p
+
+
 def soft_argmax_3d(logits: torch.Tensor, num_joints: int = 17, depth: int = GRID,
                    height: int = GRID, width: int = GRID, z_scale: float = 2.5,
                    xy_scale: float = 2.0, return_heatmap: bool = True):
@@ -137,14 +153,7 @@ def soft_argmax_3d(logits: torch.Tensor, num_joints: int = 17, depth: int = GRID
     logits: (B, J*D, H, W) or (B, J, D, H, W). Returns (coords (B, J*3),
     the normalised heatmap (B, J, D, H, W) in at least f32, or None)."""
     b = logits.shape[0]
-    hm = logits.reshape(b, num_joints, depth * height * width)
-    acc = torch.promote_types(hm.dtype, torch.float32)
-    p = torch.exp(hm.to(acc) - hm.amax(dim=-1, keepdim=True).to(acc))
-    p = p / p.sum(dim=-1, keepdim=True)
-    p5 = p.reshape(b, num_joints, depth, height, width)
-    ex = p5.sum(dim=(2, 3)) @ torch.arange(width, device=p.device, dtype=acc)
-    ey = p5.sum(dim=(2, 4)) @ torch.arange(height, device=p.device, dtype=acc)
-    ez = p5.sum(dim=(3, 4)) @ torch.arange(depth, device=p.device, dtype=acc)
-    coords = coords_from_expectations(torch.stack([ex, ey, ez], dim=-1), height, width,
-                                      depth, z_scale, xy_scale)
-    return coords, (p5 if return_heatmap else None)
+    e, p = volume_expectations(logits.reshape(b * num_joints, depth, height, width))
+    coords = coords_from_expectations(e.view(b, num_joints, 3), height, width, depth,
+                                      z_scale, xy_scale)
+    return coords, (p.view(b, num_joints, depth, height, width) if return_heatmap else None)

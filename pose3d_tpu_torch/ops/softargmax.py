@@ -1,6 +1,8 @@
-"""The volumetric soft-argmax straight off NHWC logits: the port of
-``soft_argmax_3d_nhwc_pallas`` of ``pose3d_tpu/ops/pallas_softargmax.py``
-(kernels 11a, its forward, and 11b, its backward, of PERF.md's table).
+"""The volumetric soft-argmax kernels: the port of
+``pose3d_tpu/ops/pallas_softargmax.py``'s ``soft_argmax_3d_nhwc_pallas``
+(kernels 11a, its forward, and 11b, its backward, of PERF.md's table) and
+of its legacy ``soft_argmax_3d_pallas`` (kernel 12) on contiguous (d, h,
+w) volumes.
 
 ``soft_argmax_3d_nhwc_kernel`` decodes the direct model's (B, H, W, J*D)
 head output, channel ``j*D + d``, to (B, J*3) coordinates: in the Hopper
@@ -15,6 +17,13 @@ whose backward is kernel 11b, ``soft_argmax_3d_nhwc_backward``, or on the
 CPU its plain version ``soft_argmax_3d_nhwc_backward_reference``:
 ``dx = (p/s)·(xi·gx + yi·gy + gz·(d − Ez) − gx·Ex − gy·Ey)`` for the
 gradient g = [gx, gy, gz] of [Ex, Ey, Ez], in the logits' dtype.
+
+``soft_argmax_3d_pallas`` decodes (B, J, D, H, W) logits (any shape that
+reshapes to (B·J, D, H, W), W contiguous) in kernel 12 of
+``csrc/softargmax.cu`` on the card, in ``soft_argmax_3d_expectations_
+reference`` on the CPU. Its backward is the JAX package's XLA formula
+(``_vjp_bwd``), ``soft_argmax_3d_backward_reference``, in PyTorch ops on
+either device: the JAX package has no kernel for it.
 """
 
 from __future__ import annotations
@@ -23,9 +32,11 @@ import torch
 
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops.heatmap import (coords_from_expectations, f32_math, nhwc_expectations,
-                                          soft_argmax_3d_nhwc)
+                                          soft_argmax_3d_nhwc, volume_expectations)
 
 TILE_PIXELS = 128  # pixels per CTA: the partials' tile (csrc/softargmax.cu kTilePixels)
+# bytes of a CTA's tile of one (d, h, w) volume (csrc/softargmax.cu kVolumeTileBytes)
+VOLUME_TILE_BYTES = 16384
 _VECTOR_BYTES = 16
 
 
@@ -179,3 +190,107 @@ def soft_argmax_3d_nhwc_kernel(logits_nhwc: torch.Tensor, num_joints: int = 17,
 
 soft_argmax_3d_nhwc_kernel.launches = 0
 soft_argmax_3d_nhwc_backward.launches = 0
+
+
+def soft_argmax_3d_expectations_reference(logits_flat: torch.Tensor) -> torch.Tensor:
+    """The plain version of kernel 12: (N, D, H, W) logits -> (N, 3) [Ex,
+    Ey, Ez] in at least f32, the math of JAX's ``_expectations_xla``."""
+    return volume_expectations(logits_flat)[0]
+
+
+@f32_math
+def soft_argmax_3d_backward_reference(logits_flat: torch.Tensor, e: torch.Tensor,
+                                      g: torch.Tensor) -> torch.Tensor:
+    """The backward of the (N, D, H, W) decode, JAX's ``_vjp_bwd``
+    (``pallas_softargmax.py:101``): p recomputed in f32 (or wider), dx =
+    p·(gx·(wi − Ex) + gy·(hi − Ey) + gz·(di − Ez)) for the gradient g (N,
+    3) of the expectations e (N, 3), in the logits' dtype."""
+    n, d, h, w = logits_flat.shape
+    acc = torch.promote_types(logits_flat.dtype, torch.float32)
+    p = torch.softmax(logits_flat.reshape(n, -1).to(acc), dim=-1).view(n, d, h, w)
+    g, e = g.to(acc).view(n, 3, 1, 1, 1), e.to(acc).view(n, 3, 1, 1, 1)
+    idx = [torch.arange(k, device=p.device, dtype=acc) for k in (w, h, d)]
+    term = (g[:, 0] * (idx[0].view(1, 1, 1, w) - e[:, 0])
+            + g[:, 1] * (idx[1].view(1, 1, h, 1) - e[:, 1])
+            + g[:, 2] * (idx[2].view(1, d, 1, 1) - e[:, 2]))
+    return (p * term).to(logits_flat.dtype)
+
+
+def soft_argmax_3d_volume_expectations(logits_flat: torch.Tensor) -> torch.Tensor:
+    """Kernel 12: (N, D, H, W) CUDA logits, bf16 or f32, contiguous, W a
+    whole number of 16-byte vectors -> (N, 3) f32 [Ex, Ey, Ez]. Two
+    launches (the tile partials into a scratch allocated here, then their
+    merge) on the current stream, counted in
+    ``soft_argmax_3d_pallas.launches``. Anything else raises (TypeError for
+    the dtype, ValueError for the rest)."""
+    n, d, h, w = logits_flat.shape
+    if logits_flat.device.type != "cuda":
+        raise ValueError(f"no soft-argmax kernel for device {logits_flat.device}")
+    if logits_flat.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the soft-argmax kernel takes bf16 or f32 logits, "
+                        f"got {logits_flat.dtype}")
+    if not logits_flat.is_contiguous() or logits_flat.data_ptr() % _VECTOR_BYTES:
+        raise ValueError("logits must be contiguous volumes that start on a 16-byte boundary")
+    if (w * logits_flat.element_size()) % _VECTOR_BYTES:
+        raise ValueError(f"the soft-argmax kernel takes a width of whole 16-byte vectors, "
+                         f"got {w} x {logits_flat.dtype}")
+    out = torch.empty((n, 3), device=logits_flat.device, dtype=torch.float32)
+    if n == 0:
+        return out
+    n_tiles = -(-(d * h * w * logits_flat.element_size()) // VOLUME_TILE_BYTES)
+    part = torch.empty((n, n_tiles, 5), device=logits_flat.device, dtype=torch.float32)
+    lib = _build.library()
+    with torch.cuda.device(logits_flat.device):  # the launch's current device
+        err = lib.softargmax_volume_launch(
+            logits_flat.data_ptr(), int(logits_flat.dtype == torch.bfloat16), part.data_ptr(),
+            out.data_ptr(), n, d, h, w, VOLUME_TILE_BYTES, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "softargmax_volume_launch")
+    soft_argmax_3d_pallas.launches += 1
+    return out
+
+
+class _VolumeExpectations(torch.autograd.Function):
+    """(N, D, H, W) logits -> (N, 3) f32 [Ex, Ey, Ez]: kernel 12 on the
+    card, its plain version on the CPU; the XLA formula's backward on
+    both."""
+
+    @staticmethod
+    def forward(ctx, logits_flat):
+        if logits_flat.device.type == "cpu":
+            e = soft_argmax_3d_expectations_reference(logits_flat)
+        else:
+            e = soft_argmax_3d_volume_expectations(logits_flat)
+        ctx.save_for_backward(logits_flat, e)
+        return e
+
+    @staticmethod
+    def backward(ctx, g):
+        logits_flat, e = ctx.saved_tensors
+        return soft_argmax_3d_backward_reference(logits_flat, e, g)
+
+
+def soft_argmax_3d_pallas(logits: torch.Tensor, num_joints: int = 17, depth: int = 64,
+                          height: int = 64, width: int = 64, z_scale: float = 2.5,
+                          xy_scale: float = 2.0) -> torch.Tensor:
+    """Logits that reshape to (B·J, D, H, W), W contiguous (the reference's
+    (B, J, D, H, W) heatmap logits or (B, J·D, H, W)) -> (B, J·3) f32
+    coordinates with the reference scaling, differentiable
+    (``pallas_softargmax.soft_argmax_3d_pallas``).
+
+    On the CPU this runs the plain version. On a CUDA device it launches
+    kernel 12 (``soft_argmax_3d_volume_expectations``: bf16 or f32 logits,
+    else TypeError; contiguous, with a width of whole 16-byte vectors,
+    else ValueError). Any other device raises ValueError.
+    """
+    b = logits.shape[0]
+    if logits.numel() != b * num_joints * depth * height * width:
+        raise ValueError(f"logits {tuple(logits.shape)} do not hold {b} x {num_joints} "
+                         f"volumes of {depth} x {height} x {width}")
+    if logits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no soft-argmax kernel for device {logits.device}")
+    e = _VolumeExpectations.apply(logits.reshape(b * num_joints, depth, height, width))
+    return coords_from_expectations(e.view(b, num_joints, 3), height, width, depth, z_scale,
+                                    xy_scale)
+
+
+soft_argmax_3d_pallas.launches = 0

@@ -7,7 +7,10 @@ joint j of frame t of clip c):
 
 - ``spatial_block``: attention over the 17 joints of each frame;
 - ``temporal_slab``: attention over the T frames of each joint, on the
-  (C, T, 17·256) slab, which is the same bytes as the spatial rows.
+  (C, T, 17·256) slab, which is the same bytes as the spatial rows;
+- ``temporal_block_fused``: the same temporal sub-block on (n, L, 256)
+  joint-major sequences, one sequence per row of the first axis (the JAX
+  package's public entry for that layout).
 
 Each runs its CUDA kernel (``csrc/stblock.cu``) when its operands lie on a
 CUDA device and its plain version (``*_reference``) when they lie on the
@@ -136,10 +139,10 @@ def _sub_block(x: torch.Tensor, w: dict, attend, with_residuals: bool = False):
 
 
 def joint_major(rows: torch.Tensor, n_clips: int) -> torch.Tensor:
-    """(C·T·17, w) frame-major rows -> (C·17, T, w) joint sequences."""
+    """(C·T·17, w) frame-major rows -> (C·17, T, w) joint sequences, contiguous."""
     w = rows.shape[-1]
     return rows.view(n_clips, -1, N_JOINTS, w).transpose(1, 2).reshape(
-        n_clips * N_JOINTS, -1, w)
+        n_clips * N_JOINTS, -1, w).contiguous()
 
 
 def frame_major(seqs: torch.Tensor, n_clips: int) -> torch.Tensor:
@@ -169,6 +172,22 @@ def temporal_slab_reference(x_slab: torch.Tensor, w: SubBlockWeights,
     if with_residuals:
         return tuple(o.view(x_slab.shape) for o in outs)
     return outs.view(x_slab.shape)
+
+
+def temporal_block_reference(x3d: torch.Tensor, w: SubBlockWeights,
+                             with_residuals: bool = False):
+    """Plain version of ``temporal_block_fused`` (and, ``with_residuals``,
+    of the training forward): full attention over each sequence's L rows,
+    on any device and dtype."""
+    n, length, _ = x3d.shape
+
+    def attend(qkv):
+        return attention.seq_attention_reference(qkv.view(n, length, -1), HEADS).view(-1, DIM)
+
+    outs = _sub_block(x3d.reshape(-1, DIM), w.parts(), attend, with_residuals)
+    if with_residuals:
+        return tuple(o.view(x3d.shape) for o in outs)
+    return outs.view(x3d.shape)
 
 
 def _check_operands(x: torch.Tensor, w: SubBlockWeights) -> None:
@@ -204,6 +223,17 @@ def check_slab(x_slab: torch.Tensor) -> None:
     t = x_slab.shape[1]
     if x_slab.device.type == "cuda" and attention.smem_bytes(t, DIM_HEAD) > attention.SMEM_LIMIT:
         raise ValueError(f"{t} frames: a joint's K and V do not fit in shared memory")
+
+
+def check_sequences(x3d: torch.Tensor) -> None:
+    """Raises unless x3d is (n, L, 256) joint-major sequences whose L the
+    CUDA attention can hold."""
+    if x3d.dim() != 3 or x3d.shape[2] != DIM or x3d.shape[1] < 1:
+        raise ValueError(f"the sequences must be (n, L, {DIM}), got {tuple(x3d.shape)}")
+    length = x3d.shape[1]
+    if (x3d.device.type == "cuda"
+            and attention.smem_bytes(length, DIM_HEAD) > attention.SMEM_LIMIT):
+        raise ValueError(f"L = {length}: a sequence's K and V do not fit in shared memory")
 
 
 def run_spatial(x: torch.Tensor, w: SubBlockWeights, counter, with_residuals: bool):
@@ -251,6 +281,28 @@ def run_slab(x_slab: torch.Tensor, w: SubBlockWeights, counter, with_residuals: 
     return (out, x1, att) if with_residuals else out
 
 
+def run_sequences(x3d: torch.Tensor, w: SubBlockWeights, counter, with_residuals: bool):
+    """``temporal_block_fused`` and, ``with_residuals``, the training forward
+    (out, x1, att), as ``run_slab`` on (n, L, 256) joint-major sequences."""
+    check_sequences(x3d)
+    _check_operands(x3d, w)
+    if x3d.device.type == "cpu":
+        return temporal_block_reference(x3d, w, with_residuals)
+    n, length, _ = x3d.shape
+    out, att = torch.empty_like(x3d), torch.empty_like(x3d)
+    x1 = torch.empty_like(x3d) if with_residuals else None
+    if n:
+        qkv = torch.empty(n * length, 3 * DIM, dtype=x3d.dtype, device=x3d.device)
+        with torch.cuda.device(x3d.device):  # the launch's current device
+            err = _build.library().stblock_sequences_launch(
+                x3d.data_ptr(), w.flat.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+                x1.data_ptr() if with_residuals else None, out.data_ptr(), n, length,
+                BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "stblock_sequences_launch")
+        counter.launches += 1
+    return (out, x1, att) if with_residuals else out
+
+
 def spatial_block(x: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
     """The spatial sub-block on flat (n_frames·17, 256) rows.
 
@@ -277,6 +329,25 @@ def temporal_slab(x_slab: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
 
 
 temporal_slab.launches = 0
+
+
+def temporal_block_fused(x3d: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
+    """The temporal sub-block on (n, L, 256) joint-major sequences, full
+    attention over each sequence's L rows (``pallas_stblock.
+    temporal_block_fused``).
+
+    On a CUDA device this launches the kernels on the current stream (bf16
+    only; anything else raises; an L whose K and V do not fit in shared
+    memory raises ValueError: three kernels in a row, with a qkv and an
+    attention scratch allocated here) and counts the call in
+    ``temporal_block_fused.launches``; on the CPU it runs
+    ``temporal_block_reference``. Each sequence gives the bits that
+    ``temporal_slab`` gives the same tokens in the frame-major layout.
+    """
+    return run_sequences(x3d, w, temporal_block_fused, with_residuals=False)
+
+
+temporal_block_fused.launches = 0
 
 
 def supports(model) -> bool:

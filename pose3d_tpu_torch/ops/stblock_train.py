@@ -4,15 +4,16 @@ training: the port of ``pose3d_tpu/ops/pallas_stblock_train.py``.
 The two halves of a ``SpatioTemporalBlock`` (``ops/stblock``: spatial
 attention over the 17 joints of each frame on flat (rows, 256) rows, and
 temporal attention over the T frames of each joint on the (C, T, 17·256)
-slab, the same bytes) each get
+slab, the same bytes, or on (n, L, 256) joint-major sequences) each get
 
 - a forward that also returns the two residuals the backward reads:
   ``x1``, the residual stream after the projection, and ``att``, the
-  attention output before it (``spatial_fwd``, ``slab_fwd``);
+  attention output before it (``spatial_fwd``, ``slab_fwd``,
+  ``sequences_fwd``);
 - a backward that recomputes the rest from ``x`` and ``x1`` and returns
   ``dx`` and the 12 weight and bias gradients, f32, summed over every row,
   as one flat tensor in the weights' layout (``spatial_bwd``,
-  ``slab_bwd``).
+  ``slab_bwd``, ``sequences_bwd``).
 
 Each wrapper launches its CUDA kernels (``csrc/stblock.cu`` for the
 forwards, ``csrc/stblock_train.cu`` for the backwards) when its operands
@@ -20,7 +21,9 @@ lie on a CUDA device and runs its plain version (``*_reference``: for the
 forwards, ``ops/stblock``'s serving references with the residuals
 returned; for the backwards, a direct transcription of the JAX
 ``_subblock_bwd``) when they lie on the CPU. ``SpatialBlockTrain`` /
-``TemporalSlabTrain`` are the ``autograd.Function``s around them;
+``TemporalSlabTrain`` / ``TemporalBlockTrain`` are the
+``autograd.Function``s around them (``temporal_block_train`` is the JAX
+package's joint-major entry);
 ``temporal_train_forward_fused`` is the differentiable ``TemporalLifter``
 forward on them (embed + PE and the head stay plain tensor code, as JAX
 leaves them to XLA).
@@ -48,18 +51,25 @@ from pose3d_tpu_torch.ops.stblock import (
     SubBlockWeights,
     _check_operands,
     check_rows,
+    check_sequences,
     check_slab,
     embed_clips,
     frame_major,
     joint_major,
     pack_half,
+    run_sequences,
     run_slab,
     run_spatial,
     spatial_block_reference,
     supports,
+    temporal_block_reference,
     temporal_head,
     temporal_slab_reference,
 )
+
+# the backward launcher's row layouts (csrc/stblock_train.cu enum Layout)
+LAYOUT_SPATIAL, LAYOUT_SLAB, LAYOUT_SEQUENCES = 0, 1, 2
+BWD_MAX_LEN = 256  # the longest sequence the attention backward kernel takes
 
 
 # ---------------------------------------------------------------- plain math
@@ -167,6 +177,24 @@ def slab_bwd_reference(x_slab, x1, att, dout, w: SubBlockWeights):
     return dx.view(x_slab.shape), dw
 
 
+def sequences_fwd_reference(x3d: torch.Tensor, w: SubBlockWeights):
+    """Plain version of ``sequences_fwd``."""
+    return temporal_block_reference(x3d, w, with_residuals=True)
+
+
+def sequences_bwd_reference(x3d, x1, att, dout, w: SubBlockWeights):
+    """Plain version of ``sequences_bwd``."""
+    n, length, _ = x3d.shape
+
+    def attend_bwd(qkv, datt):
+        return attention_bwd(qkv.view(n, length, -1), datt.view(n, length, -1)).view(
+            n * length, -1)
+
+    dx, dw = subblock_bwd(*(t.reshape(-1, DIM) for t in (x3d, x1, att, dout)),
+                          w.parts(), attend_bwd)
+    return dx.view(x3d.shape), dw
+
+
 # ------------------------------------------------------------------ wrappers
 
 def _stream():
@@ -199,8 +227,12 @@ def slab_fwd(x_slab: torch.Tensor, w: SubBlockWeights):
     return run_slab(x_slab, w, slab_fwd, with_residuals=True)
 
 
-def _bwd_launch(x, x1, att, dout, w, n_outer: int, length: int, temporal: bool):
-    """The backward kernels on (rows, 256) operands: (dx, dw f32)."""
+def _bwd_launch(x, x1, att, dout, w, n_outer: int, length: int, layout: int):
+    """The backward kernels on (rows, 256) operands in one of the
+    ``LAYOUT_*`` row layouts: (dx, dw f32)."""
+    if length > BWD_MAX_LEN:
+        raise ValueError(f"sequences of {length}: the attention backward kernel takes "
+                         f"at most {BWD_MAX_LEN}")
     dx = torch.empty_like(x)
     dw = torch.empty(BLOCK_ELEMS, dtype=torch.float32, device=x.device)
     lib = _build.library()
@@ -210,7 +242,7 @@ def _bwd_launch(x, x1, att, dout, w, n_outer: int, length: int, temporal: bool):
     with torch.cuda.device(x.device):
         err = lib.stblock_train_bwd_launch(
             x.data_ptr(), x1.data_ptr(), att.data_ptr(), dout.data_ptr(), w.flat.data_ptr(),
-            work.data_ptr(), dx.data_ptr(), dw.data_ptr(), n_outer, length, int(temporal),
+            work.data_ptr(), dx.data_ptr(), dw.data_ptr(), n_outer, length, layout,
             BLOCK_ELEMS, _stream())
     _build.check(err, "stblock_train_bwd_launch")
     return dx, dw
@@ -230,7 +262,7 @@ def spatial_bwd(x, x1, att, dout, w: SubBlockWeights):
         return spatial_bwd_reference(x, x1, att, dout, w)
     if not x.shape[0]:
         return torch.empty_like(x), torch.zeros(BLOCK_ELEMS, device=x.device)
-    out = _bwd_launch(x, x1, att, dout, w, x.shape[0] // N_JOINTS, N_JOINTS, False)
+    out = _bwd_launch(x, x1, att, dout, w, x.shape[0] // N_JOINTS, N_JOINTS, LAYOUT_SPATIAL)
     spatial_bwd.launches += 1
     return out
 
@@ -246,14 +278,40 @@ def slab_bwd(x_slab, x1, att, dout, w: SubBlockWeights):
     c, t, _ = x_slab.shape
     if not c:
         return torch.empty_like(x_slab), torch.zeros(BLOCK_ELEMS, device=x_slab.device)
-    out = _bwd_launch(x_slab, x1, att, dout, w, c, t, True)
+    out = _bwd_launch(x_slab, x1, att, dout, w, c, t, LAYOUT_SLAB)
     slab_bwd.launches += 1
     return out
 
 
-for _f in (spatial_fwd, spatial_bwd, slab_fwd, slab_bwd):
+def sequences_fwd(x3d: torch.Tensor, w: SubBlockWeights):
+    """Temporal sub-block forward on (n, L, 256) joint-major sequences ->
+    (out, x1, att), each like x3d. On a CUDA device this launches the
+    serving kernels with the x1 store on (three in a row) and counts the
+    call in ``sequences_fwd.launches``; on the CPU it runs
+    ``sequences_fwd_reference``."""
+    return run_sequences(x3d, w, sequences_fwd, with_residuals=True)
+
+
+def sequences_bwd(x3d, x1, att, dout, w: SubBlockWeights):
+    """Backward of ``sequences_fwd``, as ``spatial_bwd`` on joint-major
+    sequences (on a CUDA device L is at most ``BWD_MAX_LEN``, else
+    ValueError); counts the call in ``sequences_bwd.launches``."""
+    check_sequences(x3d)
+    _check_operands(x3d, w)
+    _check_residuals(x3d, x1, att, dout)
+    if x3d.device.type == "cpu":
+        return sequences_bwd_reference(x3d, x1, att, dout, w)
+    n, length, _ = x3d.shape
+    if not n:
+        return torch.empty_like(x3d), torch.zeros(BLOCK_ELEMS, device=x3d.device)
+    out = _bwd_launch(x3d, x1, att, dout, w, n, length, LAYOUT_SEQUENCES)
+    sequences_bwd.launches += 1
+    return out
+
+
+WRAPPERS = (spatial_fwd, spatial_bwd, slab_fwd, slab_bwd, sequences_fwd, sequences_bwd)
+for _f in WRAPPERS:
     _f.launches = 0
-WRAPPERS = (spatial_fwd, spatial_bwd, slab_fwd, slab_bwd)
 
 
 # ------------------------------------------------------------------ autograd
@@ -288,6 +346,33 @@ class TemporalSlabTrain(torch.autograd.Function):
         x, x1, att, flat = ctx.saved_tensors
         dx, dw = slab_bwd(x, x1, att, g.contiguous(), SubBlockWeights(flat))
         return dx, dw.to(flat.dtype)
+
+
+class TemporalBlockTrain(torch.autograd.Function):
+    """Differentiable temporal sub-block on joint-major sequences: (x3d,
+    flat weights) -> out."""
+
+    @staticmethod
+    def forward(ctx, x3d, flat):
+        out, x1, att = sequences_fwd(x3d, SubBlockWeights(flat))
+        ctx.save_for_backward(x3d, x1, att, flat)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x1, att, flat = ctx.saved_tensors
+        dx, dw = sequences_bwd(x, x1, att, g.contiguous(), SubBlockWeights(flat))
+        return dx, dw.to(flat.dtype)
+
+
+def temporal_block_train(x3d: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """Differentiable temporal sub-block on (n, L, 256) joint-major
+    sequences with the flat weights of ``pack_train(block, "temporal",
+    dtype)`` (``pallas_stblock_train.temporal_block_train``): returns out;
+    its backward gives dx like x3d and the flat weight gradient, summed in
+    f32 and handed back in the weights' dtype, as JAX's ``_cast_dws``.
+    Kernels on a CUDA device (bf16), plain versions on the CPU."""
+    return TemporalBlockTrain.apply(x3d, flat)
 
 
 def pack_train(block, half: str, dtype: torch.dtype) -> SubBlockWeights:

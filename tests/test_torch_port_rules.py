@@ -76,10 +76,12 @@ CUDA_SOURCES = sorted((PKG / "csrc").glob("*.cu"))
 LAUNCHERS = {
     "lifter_trunk.cu": ["lifter_trunk_launch"],
     "attention.cu": ["attention_launch"],
-    "stblock.cu": ["stblock_spatial_launch", "stblock_temporal_launch"],
+    "stblock.cu": ["stblock_spatial_launch", "stblock_temporal_launch",
+                   "stblock_sequences_launch"],
     "stblock_train.cu": ["stblock_train_bwd_launch"],
     "martinez.cu": ["martinez_launch"],
-    "softargmax.cu": ["softargmax_nhwc_launch", "softargmax_nhwc_bwd_launch"],
+    "softargmax.cu": ["softargmax_nhwc_launch", "softargmax_nhwc_bwd_launch",
+                      "softargmax_volume_launch"],
     "conv_decode.cu": ["conv_decode_launch"],
     "conv_decode_bwd.cu": ["conv_decode_bwd_launch"],
 }
@@ -136,6 +138,7 @@ def test_kernel_constants_match_the_wrapper(kernel):
     if kernel == "softargmax":
         src = (PKG / "csrc" / "softargmax.cu").read_text()
         assert f"constexpr int kTilePixels = {SA.TILE_PIXELS};" in src
+        assert f"constexpr int kVolumeTileBytes = {SA.VOLUME_TILE_BYTES};" in src
         head = (PKG / "csrc" / "softargmax.cuh").read_text()
         assert "constexpr int kPartial = 5;" in head  # the wrappers' (..., 5) partials
     elif kernel == "conv_decode":  # the tiling both conv-decode sources include
@@ -147,8 +150,13 @@ def test_kernel_constants_match_the_wrapper(kernel):
         src = (PKG / "csrc" / "martinez.cu").read_text()
         assert f"constexpr int kWidth = {M.WIDTH};" in src
     elif kernel == "stblock_train":
+        from pose3d_tpu_torch.ops import stblock_train as ST
+
         src = (PKG / "csrc" / "stblock_train.cu").read_text()
         assert f"constexpr int kHeads = {S.HEADS};" in src
+        assert (f"enum Layout {{ kSpatial = {ST.LAYOUT_SPATIAL}, kSlab = {ST.LAYOUT_SLAB}, "
+                f"kSequences = {ST.LAYOUT_SEQUENCES} }};") in src
+        assert f"constexpr int kBwdMaxLen = {ST.BWD_MAX_LEN};" in src
         assert _layout_offsets(src) == _offset_names(S._LAYOUT)
     elif kernel == "lifter":
         src = (PKG / "csrc" / "lifter_trunk.cu").read_text()

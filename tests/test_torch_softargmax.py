@@ -29,6 +29,19 @@ logits ~100 (the coordinates' spread, std >= 0.1, is asserted):
 - the plain backward against torch.autograd of the plain forward: float64
   atol 1e-12, f32 atol 2^-16·max|want|.
 
+The legacy (B, J, D, H, W) decode ``soft_argmax_3d_pallas`` (kernel 12 on
+the card; on the CPU its plain version ``soft_argmax_3d_expectations_
+reference``) against the JAX ``soft_argmax_3d_pallas`` in interpret mode,
+on N(0, 3) logits and on the logits ~100 with planted peaks above, f32
+and bf16, at the shapes of the JAX suite (16^3 and 8 x 16 x 32), z_scale
+2.5, 2.0 and 1.0: atol 2e-5 as above. Its backward, the XLA formula
+``_vjp_bwd`` in PyTorch ops (``soft_argmax_3d_backward_reference``),
+against ``_vjp_bwd`` on the same expectations: the NHWC backward's limits
+above; end to end against ``jax.grad`` of the JAX function: f32 the same,
+bf16 as accurate as JAX against a float64 gradient (see the test). The
+plain legacy decode against the plain NHWC decode on the same
+volumes: atol 1e-5 (the same f32 expectations, summed in another order).
+
 Tests marked ``cuda`` run the Hopper kernels against their plain versions
 and skip without a card: coordinates within 1e-3 (both sum in f32, in
 another order; measured on the H100 in ``chip_smoke.py``), dx within
@@ -72,6 +85,19 @@ def _logits(b, h, w, j, d, seed=0, offset=100.0, peak=12.0):
         for ji in range(j):
             x[bi, rng.integers(h), rng.integers(w), ji, rng.integers(d)] += peak
     return x.reshape(b, h, w, j * d).astype(np.float32)
+
+
+def _volumes(b, j, d, h, w, kind, seed=0, peak=12.0):
+    """(B, J, D, H, W) f32 logits: "random" N(0, 3) (the JAX suite's), or
+    "peaks" N(0, 3) + 100 with a +``peak`` planted per (sample, joint)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, j, d, h, w)) * 3.0
+    if kind == "peaks":
+        x += 100.0
+        for bi in range(b):
+            for ji in range(j):
+                x[bi, ji, rng.integers(d), rng.integers(h), rng.integers(w)] += peak
+    return x.astype(np.float32)
 
 
 def _jnp(x, dtype):
@@ -210,6 +236,100 @@ def test_backward_hands_a_channels_last_gradient_to_the_conv():
     assert x.grad.is_contiguous(memory_format=torch.channels_last)
 
 
+LEGACY_SHAPES = [(2, 17, 16, 16, 16), (2, 17, 8, 16, 32)]
+
+
+@pytest.mark.parametrize("kind", ["random", "peaks"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("z_scale", [2.5, 2.0, 1.0])
+@pytest.mark.parametrize("shape", LEGACY_SHAPES, ids=["16^3", "8x16x32"])
+def test_plain_legacy_matches_jax_kernel(shape, z_scale, dtype, kind):
+    """``soft_argmax_3d_pallas`` on the CPU (its plain version) vs the JAX
+    ``soft_argmax_3d_pallas`` in interpret mode (kernel ``_kernel``)."""
+    from pose3d_tpu.ops.pallas_softargmax import soft_argmax_3d_pallas
+
+    b, j, d, h, w = shape
+    x = _volumes(*shape, kind, seed=d + h + w)
+    want = np.asarray(soft_argmax_3d_pallas(_jnp(x, dtype), j, d, h, w, z_scale=z_scale,
+                                            interpret=True))
+    before = SA.soft_argmax_3d_pallas.launches
+    got = SA.soft_argmax_3d_pallas(_torch(x, dtype), j, d, h, w, z_scale=z_scale)
+    assert SA.soft_argmax_3d_pallas.launches == before
+    assert got.dtype == torch.float32 and got.shape == (b, j * 3)
+    if kind == "peaks":
+        assert got.std() >= MIN_SPREAD
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "peaks"])
+def test_legacy_backward_matches_jax_vjp(kind, dtype):
+    """``soft_argmax_3d_backward_reference`` vs the JAX backward ``_vjp_bwd``
+    on the same logits, expectations (the JAX kernel's) and gradient, in
+    the logits' dtype."""
+    import jax.numpy as jnp
+
+    from pose3d_tpu.ops import pallas_softargmax as ps
+
+    b, j, d, h, w = LEGACY_SHAPES[1]
+    flat = _jnp(_volumes(b, j, d, h, w, kind, seed=21), dtype).reshape(b * j, d, h, w)
+    e = ps._expectations(flat, True)
+    g = np.random.default_rng(22).standard_normal((b * j, 3)).astype(np.float32)
+    want = np.asarray(ps._vjp_bwd(True, (flat, e), jnp.asarray(g))[0].astype(jnp.float32))
+    got = SA.soft_argmax_3d_backward_reference(
+        _torch(np.array(flat.astype(jnp.float32)), dtype), torch.from_numpy(np.array(e)),
+        torch.from_numpy(g))
+    assert got.dtype == getattr(torch, dtype)
+    assert_grad_close(got.float().numpy(), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "peaks"])
+def test_legacy_backward_matches_jax_grad(kind, dtype):
+    """The gradient of ``soft_argmax_3d_pallas`` vs ``jax.grad`` of the JAX
+    function, end to end, in the logits' dtype. f32: 2^-16·max|want|. bf16:
+    each side's expectations come from its own forward, and the JAX
+    kernel's lie up to 27x farther from float64 than the plain version's
+    (measured 1.5e-4 against 5.5e-6 on the planted peaks), which moves dx
+    where its bracket nearly cancels by ~2^-15.7·max|want|: the port's dx
+    is held to a float64 gradient at most 1.5x as far as JAX's is, plus
+    2^-16·max|want|."""
+    import jax
+    import jax.numpy as jnp
+
+    from pose3d_tpu.ops.pallas_softargmax import soft_argmax_3d_pallas
+
+    b, j, d, h, w = LEGACY_SHAPES[1]
+    x = _volumes(b, j, d, h, w, kind, seed=21)
+    ct = np.random.default_rng(22).standard_normal((b, j * 3)).astype(np.float32)
+    want = jax.grad(lambda a: jnp.vdot(soft_argmax_3d_pallas(a, j, d, h, w, interpret=True),
+                                       jnp.asarray(ct)))(_jnp(x, dtype))
+    want = np.asarray(want.astype(jnp.float32))
+    xt = _torch(x, dtype).requires_grad_()
+    coords = SA.soft_argmax_3d_pallas(xt, j, d, h, w)
+    coords.backward(torch.from_numpy(ct))
+    assert xt.grad.dtype == xt.dtype and xt.grad.shape == xt.shape
+    got = xt.grad.float().numpy()
+    if dtype == "float32":
+        assert_grad_close(got, want, dtype)
+        return
+    x64 = xt.detach().double().requires_grad_()
+    SA.soft_argmax_3d_pallas(x64, j, d, h, w).backward(torch.from_numpy(ct).double())
+    ref = x64.grad.numpy()
+    err_port, err_jax = np.abs(got - ref).max(), np.abs(want - ref).max()
+    assert err_port <= 1.5 * err_jax + 2 ** -16 * np.abs(ref).max(), (err_port, err_jax)
+
+
+@pytest.mark.parametrize("shape", LEGACY_SHAPES, ids=["16^3", "8x16x32"])
+def test_plain_legacy_matches_plain_nhwc(shape):
+    """The same volumes through the legacy and the NHWC plain decodes."""
+    b, j, d, h, w = shape
+    x = torch.from_numpy(_volumes(*shape, "peaks", seed=23))
+    nhwc = x.permute(0, 3, 4, 1, 2).reshape(b, h, w, j * d)
+    torch.testing.assert_close(SA.soft_argmax_3d_pallas(x, j, d, h, w),
+                               SA.soft_argmax_3d_nhwc_reference(nhwc, j, d), atol=1e-5, rtol=0)
+
+
 class TestWrapperRules:
     def test_refuses_grad_and_other_devices(self):
         """Grad is taken (kernel 11b repaired the refusal of the forward-only
@@ -221,6 +341,14 @@ class TestWrapperRules:
             assert SA.soft_argmax_3d_nhwc_kernel(x, 2, 8).shape == (1, 6)
         with pytest.raises(ValueError, match="no soft-argmax kernel for device meta"):
             SA.soft_argmax_3d_nhwc_kernel(torch.zeros(1, 4, 4, 16, device="meta"), 2, 8)
+
+    def test_legacy_rejects_bad_shapes_and_devices(self):
+        with pytest.raises(ValueError, match="do not hold"):
+            SA.soft_argmax_3d_pallas(torch.zeros(2, 17, 8, 8, 7), 17, 8, 8, 8)
+        with pytest.raises(ValueError, match="no soft-argmax kernel for device meta"):
+            SA.soft_argmax_3d_pallas(torch.zeros(1, 2, 8, 8, 8, device="meta"), 2, 8, 8, 8)
+        with pytest.raises(ValueError, match="no soft-argmax kernel for device cpu"):
+            SA.soft_argmax_3d_volume_expectations(torch.zeros(2, 8, 8, 8))
 
     def test_rejects_a_channel_count_that_is_not_j_times_d(self):
         with pytest.raises(ValueError, match="logits must be"):
@@ -291,3 +419,40 @@ def test_backward_kernel_matches_plain_version_on_the_card(shape, dtype):
     assert grads[0].dtype == x.dtype and torch.equal(grads[0], grads[1])
     assert_grad_close(grads[0].float().cpu().numpy(), want.float().cpu().numpy(), dtype,
                       f32_rel=2 ** -14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(2, 17, 16, 16, 16), (3, 3, 8, 16, 32), (2, 17, 64, 64, 64)])
+def test_legacy_kernel_matches_plain_version_on_the_card(shape, dtype):
+    """Kernel 12: coordinates within 1e-3 of the plain version on logits of
+    ~100 with planted peaks of +30 (a +12 peak holds too little of a 64^3
+    volume's mass for the coordinates to spread; 16^3 bf16 is half a 16 KB
+    tile), two calls bitwise equal, one count a call; the backward (the
+    XLA formula) runs on the card and gives finite gradients in the
+    logits' dtype."""
+    dev = cuda_device()
+    b, j, d, h, w = shape
+    x = _torch(_volumes(*shape, "peaks", seed=24, peak=30.0), dtype).to(dev)
+    before = SA.soft_argmax_3d_pallas.launches
+    got = SA.soft_argmax_3d_pallas(x, j, d, h, w)
+    again = SA.soft_argmax_3d_pallas(x, j, d, h, w)
+    torch.cuda.synchronize()
+    assert SA.soft_argmax_3d_pallas.launches == before + 2
+    e = SA.soft_argmax_3d_expectations_reference(x.reshape(b * j, d, h, w))
+    want = H.coords_from_expectations(e.view(b, j, 3), h, w, d)
+    assert torch.isfinite(got).all() and torch.equal(got, again) and got.std() >= MIN_SPREAD
+    torch.testing.assert_close(got, want, atol=KERNEL_ATOL, rtol=0)
+    xr = x.detach().requires_grad_()
+    SA.soft_argmax_3d_pallas(xr, j, d, h, w).sum().backward()
+    assert xr.grad.dtype == x.dtype and torch.isfinite(xr.grad.float()).all()
+
+
+@pytest.mark.cuda
+def test_legacy_kernel_refuses_what_it_cannot_read():
+    dev = cuda_device()
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        SA.soft_argmax_3d_pallas(torch.zeros(1, 2, 8, 8, 8, device=dev, dtype=torch.float16),
+                                 2, 8, 8, 8)
+    with pytest.raises(ValueError, match="whole 16-byte vectors"):
+        SA.soft_argmax_3d_pallas(torch.zeros(1, 2, 8, 8, 6, device=dev), 2, 8, 8, 6)

@@ -13,7 +13,15 @@ Tolerances, the JAX package's own (tests/test_pallas_stblock.py):
   roundings of the residual stream);
 - plain fused forward (bf16) vs the f32 flax apply: 0.1;
 - sub-block rows, which reach |6| where one bf16 step is 2^-5: 5e-2 +
-  2^-5·|want| (measured one step).
+  2^-5·|want| (measured one step);
+- the joint-major ``temporal_block_fused`` (plain) against the JAX
+  ``temporal_block_fused`` in interpret mode, on weights bridged by
+  ``sub_block_from_jax``: f32 atol 1e-4 (the same expression, f32 sums in
+  another order), bf16 2^-6 + 2^-6·|want| (two bf16 steps: a flipped
+  rounding rides the residual stream), as the training slab's limits;
+- the joint-major route against the slab route on the same tokens, re-laid:
+  bitwise, on the CPU as on the card (each sequence is read in the same
+  order).
 
 The tests marked ``cuda`` skip where there is no CUDA device.
 """
@@ -24,6 +32,7 @@ import torch
 
 from torch_port_util import cuda_device, flax_apply, flax_temporal, torch_temporal
 
+from pose3d_tpu_torch.interop.weights import sub_block_from_jax
 from pose3d_tpu_torch.models.temporal import TemporalLifter
 from pose3d_tpu_torch.ops import stblock as S
 
@@ -56,7 +65,13 @@ def setup():
         (CLIPS * CLIP_LEN * 17, 256)).astype(np.float32)
     tok = jnp.asarray(tokens, jnp.bfloat16)
     bp = params["SpatioTemporalBlock_0"]
+    seqs = _joint_major_np(tokens)
     return {
+        "seqs": seqs,
+        "jax_block": {name: np.asarray(ps.temporal_block_fused(
+            jnp.asarray(seqs, jdt), ps.pack_temporal_weights(bp, dtype=jdt),
+            interpret=True).astype(jnp.float32)) for name, jdt in
+            (("f32", jnp.float32), ("bf16", jnp.bfloat16))},
         "flax": fmodel,
         "params": params,
         "bf16": torch_temporal(params, dtype=torch.bfloat16, **FIELDS),
@@ -71,6 +86,12 @@ def setup():
             params, jnp.asarray(clips), n_blocks=N_BLOCKS, clip_len=CLIP_LEN,
             interpret=True)),
     }
+
+
+def _joint_major_np(tokens: np.ndarray) -> np.ndarray:
+    """(C·T·17, 256) frame-major token rows -> (C·17, T, 256) sequences."""
+    return np.ascontiguousarray(tokens.reshape(CLIPS, CLIP_LEN, 17, 256).transpose(
+        0, 2, 1, 3)).reshape(CLIPS * 17, CLIP_LEN, 256)
 
 
 def _fused(model, clips):
@@ -103,6 +124,40 @@ class TestPlainAgainstJax:
         got = S.temporal_slab(slab, w)
         assert got.shape == slab.shape
         _rows_close(got.float().numpy(), setup["jax_temporal"])
+
+    @pytest.mark.parametrize("dname", ["f32", "bf16"])
+    def test_joint_major_reference_matches_jax_kernel(self, setup, dname):
+        """``temporal_block_fused`` (plain) on ``sub_block_from_jax`` weights
+        against the JAX kernel on the same weights and sequences."""
+        import jax.numpy as jnp
+
+        from pose3d_tpu.ops import pallas_stblock as ps
+
+        dt, jdt = {"f32": (torch.float32, jnp.float32),
+                   "bf16": (torch.bfloat16, jnp.bfloat16)}[dname]
+        w = sub_block_from_jax(ps.pack_temporal_weights(
+            setup["params"]["SpatioTemporalBlock_0"], dtype=jdt), dt)
+        x = torch.from_numpy(setup["seqs"]).to(dt)
+        got = S.temporal_block_fused(x, w)
+        assert got.dtype == dt and got.shape == x.shape
+        want = setup["jax_block"][dname]
+        if dname == "f32":
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+        else:
+            excess = np.abs(got.float().numpy() - want) - (2 ** -6 + 2 ** -6 * np.abs(want))
+            assert excess.max() <= 0, f"max abs err {np.abs(got.float().numpy() - want).max()}"
+
+    @pytest.mark.parametrize("half", ["spatial", "temporal"])
+    def test_sub_block_from_jax_equals_the_pack(self, setup, half):
+        """``sub_block_from_jax`` of the JAX pack in f32 is the port's pack of
+        the same block, exactly."""
+        from pose3d_tpu.ops import pallas_stblock as ps
+
+        bp = setup["params"]["SpatioTemporalBlock_1"]
+        got = sub_block_from_jax(getattr(ps, f"pack_{half}_weights")(bp, dtype=np.float32))
+        want = getattr(S, f"pack_{half}_weights")(torch_temporal(setup["params"], **FIELDS)
+                                                   .blocks[1])
+        assert got.flat.dtype == torch.float32 and torch.equal(got.flat, want.flat)
 
     def test_fused_matches_jax_fused(self, setup):
         got = _fused(setup["bf16"], setup["clips"])
@@ -140,10 +195,36 @@ class TestPlainPath:
         ws, wt = S.pack_spatial_weights(blk), S.pack_temporal_weights(blk)
         x = setup["tokens"]
         slab = x.view(CLIPS, CLIP_LEN, -1)
-        before = (S.spatial_block.launches, S.temporal_slab.launches)
+        seqs = S.joint_major(x, CLIPS)
+        counters = (S.spatial_block, S.temporal_slab, S.temporal_block_fused)
+        before = [f.launches for f in counters]
         assert torch.equal(S.spatial_block(x, ws), S.spatial_block_reference(x, ws))
         assert torch.equal(S.temporal_slab(slab, wt), S.temporal_slab_reference(slab, wt))
-        assert (S.spatial_block.launches, S.temporal_slab.launches) == before
+        assert torch.equal(S.temporal_block_fused(seqs, wt),
+                           S.temporal_block_reference(seqs, wt))
+        assert [f.launches for f in counters] == before
+
+    @pytest.mark.parametrize("dname", ["f32", "bf16"])
+    def test_joint_major_equals_the_slab_relaid(self, setup, dname):
+        """The plain joint-major sub-block on the slab's tokens, re-laid, is
+        the plain slab sub-block bit for bit."""
+        dt = torch.float32 if dname == "f32" else torch.bfloat16
+        wt = S.pack_temporal_weights(torch_temporal(setup["params"], dtype=dt, **FIELDS)
+                                     .blocks[0])
+        x = setup["tokens"].to(dt)
+        slab = S.temporal_slab(x.view(CLIPS, CLIP_LEN, -1), wt)
+        got = S.temporal_block_fused(S.joint_major(x, CLIPS), wt)
+        assert torch.equal(got, S.joint_major(slab.view(-1, 256), CLIPS))
+
+    def test_sequence_isolation(self, setup):
+        """Perturbing one sequence leaves every other bit-identical."""
+        wt = S.pack_temporal_weights(setup["bf16"].blocks[0])
+        seqs = S.joint_major(setup["tokens"], CLIPS)
+        pert = seqs.clone()
+        pert[3] += 1.0
+        base, out = S.temporal_block_fused(seqs, wt), S.temporal_block_fused(pert, wt)
+        keep = torch.arange(len(seqs)) != 3
+        assert torch.equal(base[keep], out[keep]) and not torch.equal(base[3], out[3])
 
     def test_pack_rejects_other_widths(self):
         model = TemporalLifter(clip_len=8, hidden=64, heads=4, n_blocks=1, device="cpu")
@@ -152,7 +233,7 @@ class TestPlainPath:
         with pytest.raises(ValueError, match="hidden 256"):
             S.temporal_forward_fused(model, torch.zeros(1, 8, 17, 2))
 
-    @pytest.mark.parametrize("case", ["rows", "slab", "dtype", "clip_len"])
+    @pytest.mark.parametrize("case", ["rows", "slab", "dtype", "clip_len", "sequences"])
     def test_rejects_bad_operands(self, setup, case):
         model = setup["bf16"]
         w = S.pack_spatial_weights(model.blocks[0])
@@ -164,6 +245,8 @@ class TestPlainPath:
                 S.temporal_slab(x.view(-1, 256, 17), w)
             elif case == "dtype":
                 S.spatial_block(x.float(), w)
+            elif case == "sequences":
+                S.temporal_block_fused(x.view(-1, 17, 512), w)
             else:
                 S.temporal_forward_fused(model, torch.zeros(1, CLIP_LEN - 1, 17, 2))
 
@@ -207,6 +290,35 @@ class TestSubBlockKernels:
         torch.cuda.synchronize()
         assert S.temporal_slab.launches == before + 1
         _rows_close(got.float().cpu(), S.temporal_slab_reference(slab, w).float().cpu())
+
+    @pytest.mark.parametrize("clips", [1, 3])
+    def test_joint_major_kernel_matches_plain_and_the_slab(self, clips):
+        """``temporal_block_fused`` on the card: rows against its plain
+        version, one count a call, two calls bitwise equal, and bitwise
+        equal to the slab kernel on the same tokens."""
+        dev = cuda_device()
+        model, _, tokens = self._setup(dev, clips)
+        w = S.pack_temporal_weights(model.blocks[0])
+        seqs = S.joint_major(tokens, clips)
+        before = S.temporal_block_fused.launches
+        got, again = S.temporal_block_fused(seqs, w), S.temporal_block_fused(seqs, w)
+        slab = S.temporal_slab(tokens.view(clips, model.clip_len, -1), w)
+        torch.cuda.synchronize()
+        assert S.temporal_block_fused.launches == before + 2
+        assert torch.equal(got, again)
+        assert torch.equal(got, S.joint_major(slab.view(-1, 256), clips))
+        _rows_close(got.float().cpu(), S.temporal_block_reference(seqs, w).float().cpu())
+
+    def test_joint_major_kernel_refuses_f32_and_long_sequences(self):
+        dev = cuda_device()
+        model = TemporalLifter(n_blocks=1, device=dev)
+        w = S.pack_temporal_weights(model.blocks[0])
+        with pytest.raises(TypeError, match="bfloat16"):
+            S.temporal_block_fused(torch.zeros(2, 16, 256, device=dev), w)
+        wb = S.SubBlockWeights(w.flat.to(torch.bfloat16))
+        with pytest.raises(ValueError, match="do not fit in shared memory"):
+            S.temporal_block_fused(torch.zeros(1, 1000, 256, device=dev, dtype=torch.bfloat16),
+                                   wb)
 
     def test_kernels_isolate_clips_and_frames(self):
         dev = cuda_device()

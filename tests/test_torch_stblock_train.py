@@ -7,7 +7,10 @@ Inputs and weights are drawn with numpy from a seed and rounded to bf16
 first, so the f32 and bf16 runs of both packages see the same values.
 Spatial inputs span 2 x 272 rows and a partial cell (35 frames), so the
 JAX kernels' accumulation across grid cells is part of what is compared;
-the slab has 2 clips of 12 frames. Tolerances, the JAX suite's own
+the slab has 2 clips of 12 frames, and the joint-major sequences
+(``sequences_fwd`` / ``sequences_bwd``, JAX's ``_temporal_fwd_impl`` /
+``_temporal_bwd_impl``: one sequence per grid cell) are the same tokens
+laid out as 34 sequences of 12. Tolerances, the JAX suite's own
 (tests/test_pallas_stblock_train.py:44-81):
 
 - f32 forward outputs and residuals: atol 1e-4 (the same expression, f32
@@ -20,7 +23,14 @@ the slab has 2 clips of 12 frames. Tolerances, the JAX suite's own
   bf16 residual stream carries on);
 - bf16 gradients: the port's error against the JAX f32 run at most 1.5x
   the JAX bf16 kernel's (the two round the same intermediates to bf16, so
-  their gradients differ by flipped roundings, not by a rule).
+  their gradients differ by flipped roundings, not by a rule);
+- ``temporal_block_train``'s autograd gradients against ``jax.grad`` of
+  the JAX one through a vdot loss, f32: atol 1e-4, rtol 2e-3 (the JAX
+  suite's limit for this comparison, test_pallas_stblock_train.py:158);
+- joint-major against the slab on the same tokens, plain versions: out,
+  x1, att and dx bitwise (each sequence is read in the same order); each
+  weight gradient within f32 summation order, 2^-16 of its largest
+  element + 2^-12·|want| (its row slices are summed in another order).
 
 The tests marked ``cuda`` skip where there is no CUDA device.
 """
@@ -43,6 +53,16 @@ N_FRAMES = 35  # 595 rows: two 272-row cells of the JAX kernels and a partial on
 CLIPS, CLIP_LEN = 2, 12
 NAMES = [name for name, *_ in S._LAYOUT]
 GRADS = ["dx"] + [f"d{n}" for n in NAMES]
+HALVES = ["spatial", "slab", "sequences"]
+FNS = {"spatial": (ST.spatial_fwd, ST.spatial_bwd), "slab": (ST.slab_fwd, ST.slab_bwd),
+       "sequences": (ST.sequences_fwd, ST.sequences_bwd)}
+
+
+def _joint_major(slab: np.ndarray) -> np.ndarray:
+    """(C, T, 17·256) frame-major slab -> (C·17, T, 256) joint sequences."""
+    c, t, _ = slab.shape
+    return np.ascontiguousarray(slab.reshape(c, t, 17, 256).transpose(0, 2, 1, 3)).reshape(
+        c * 17, t, 256)
 
 
 def _bf16_exact(a: np.ndarray) -> np.ndarray:
@@ -82,22 +102,28 @@ def cases():
     weights = _weights(rng)
     shapes = {"spatial": (N_FRAMES * 17, 256), "slab": (CLIPS, CLIP_LEN, 17 * 256)}
     out = {}
-    for half, shape in shapes.items():
-        x = _bf16_exact(rng.standard_normal(shape).astype(np.float32))
-        # output gradients of a training loss are small: 2^-4 N(0, 1)
-        g = _bf16_exact((2 ** -4 * rng.standard_normal(shape)).astype(np.float32))
+    for half in HALVES:
+        if half == "sequences":  # the slab's tokens and gradients, joint-major
+            x, g = (_joint_major(out["slab", "f32"][k]) for k in ("x", "g"))
+        else:
+            x = _bf16_exact(rng.standard_normal(shapes[half]).astype(np.float32))
+            # output gradients of a training loss are small: 2^-4 N(0, 1)
+            g = _bf16_exact((2 ** -4 * rng.standard_normal(shapes[half])).astype(np.float32))
         for dname, jdt in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
             jw = tuple(jnp.asarray(w.reshape(1, -1) if w.ndim == 1 else w, jdt)
                        for w in weights)
             if half == "spatial":
                 o, res = st._spatial_fwd_impl(jnp.asarray(x, jdt), jw, True)
                 dx, dws = st._spatial_bwd_impl(res, jnp.asarray(g, jdt), jw, True)
-                n = shape[0]
+                n = shapes[half][0]
                 res = tuple(r[:n] for r in res)
                 dx = dx[:n]
-            else:
+            elif half == "slab":
                 o, res = st._temporal_slab_fwd_impl(jnp.asarray(x, jdt), jw, True)
                 dx, dws = st._temporal_slab_bwd_impl(res, jnp.asarray(g, jdt), jw, True)
+            else:
+                o, res = st._temporal_fwd_impl(jnp.asarray(x, jdt), jw, True)
+                dx, dws = st._temporal_bwd_impl(res, jnp.asarray(g, jdt), jw, True)
             f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))  # noqa: E731
             grads = {"dx": f32(dx), **_split(np.concatenate([f32(d).reshape(-1) for d in dws]))}
             out[half, dname] = {"x": x, "g": g, "fwd": {"out": f32(o), "x1": f32(res[1]),
@@ -110,32 +136,31 @@ def cases():
 def port(cases):
     """The port's plain versions on the same inputs, per (half, dtype)."""
     out = {}
-    for (half, dname) in [("spatial", "f32"), ("spatial", "bf16"), ("slab", "f32"),
-                          ("slab", "bf16")]:
-        dt = torch.float32 if dname == "f32" else torch.bfloat16
-        c = cases[half, dname]
-        w = S.SubBlockWeights(torch.from_numpy(cases["weights"]).to(dt))
-        x = torch.from_numpy(c["x"]).to(dt)
-        g = torch.from_numpy(c["g"]).to(dt)
-        fwd, bwd = (ST.spatial_fwd, ST.spatial_bwd) if half == "spatial" else (
-            ST.slab_fwd, ST.slab_bwd)
-        o, x1, att = fwd(x, w)
-        dx, dw = bwd(x, x1, att, g, w)
-        f32 = lambda t: t.float().numpy()  # noqa: E731
-        out[half, dname] = {"fwd": {"out": f32(o), "x1": f32(x1), "att": f32(att)},
-                            "grads": {"dx": f32(dx), **_split(dw.numpy())}}
+    for half in HALVES:
+        for dname in ("f32", "bf16"):
+            dt = torch.float32 if dname == "f32" else torch.bfloat16
+            c = cases[half, dname]
+            w = S.SubBlockWeights(torch.from_numpy(cases["weights"]).to(dt))
+            x = torch.from_numpy(c["x"]).to(dt)
+            g = torch.from_numpy(c["g"]).to(dt)
+            fwd, bwd = FNS[half]
+            o, x1, att = fwd(x, w)
+            dx, dw = bwd(x, x1, att, g, w)
+            f32 = lambda t: t.float().numpy()  # noqa: E731
+            out[half, dname] = {"fwd": {"out": f32(o), "x1": f32(x1), "att": f32(att)},
+                                "grads": {"dx": f32(dx), **_split(dw.numpy())}}
     return out
 
 
 class TestPlainAgainstJax:
     @pytest.mark.parametrize("what", ["out", "x1", "att"])
-    @pytest.mark.parametrize("half", ["spatial", "slab"])
+    @pytest.mark.parametrize("half", HALVES)
     def test_forward_f32(self, cases, port, half, what):
         np.testing.assert_allclose(port[half, "f32"]["fwd"][what],
                                    cases[half, "f32"]["fwd"][what], atol=1e-4, rtol=0)
 
     @pytest.mark.parametrize("what", ["out", "x1", "att"])
-    @pytest.mark.parametrize("half", ["spatial", "slab"])
+    @pytest.mark.parametrize("half", HALVES)
     def test_forward_bf16(self, cases, port, half, what):
         got = port[half, "bf16"]["fwd"][what]
         want = cases[half, "bf16"]["fwd"][what]
@@ -143,18 +168,64 @@ class TestPlainAgainstJax:
         assert excess.max() <= 0, f"max abs err {np.abs(got - want).max():.3g}"
 
     @pytest.mark.parametrize("what", GRADS)
-    @pytest.mark.parametrize("half", ["spatial", "slab"])
+    @pytest.mark.parametrize("half", HALVES)
     def test_backward_f32(self, cases, port, half, what):
         np.testing.assert_allclose(port[half, "f32"]["grads"][what],
                                    cases[half, "f32"]["grads"][what], atol=2e-5, rtol=2e-3)
 
     @pytest.mark.parametrize("what", GRADS)
-    @pytest.mark.parametrize("half", ["spatial", "slab"])
+    @pytest.mark.parametrize("half", HALVES)
     def test_backward_bf16_as_accurate_as_jax(self, cases, port, half, what):
         ref = cases[half, "f32"]["grads"][what]
         err_port = np.abs(port[half, "bf16"]["grads"][what] - ref).max()
         err_jax = np.abs(cases[half, "bf16"]["grads"][what] - ref).max()
         assert err_port <= 1.5 * err_jax + 1e-6 * np.abs(ref).max(), (err_port, err_jax)
+
+
+class TestJointMajor:
+    @pytest.mark.parametrize("dname", ["f32", "bf16"])
+    def test_sequences_equal_the_slab_relaid(self, port, dname):
+        """The plain joint-major route on the slab's tokens, joint-major:
+        out, x1, att and dx bitwise; each weight gradient within f32
+        summation order (see the module docstring)."""
+        seq, slab = port["sequences", dname], port["slab", dname]
+        for what in ("out", "x1", "att"):
+            np.testing.assert_array_equal(seq["fwd"][what], _joint_major(slab["fwd"][what]))
+        np.testing.assert_array_equal(seq["grads"]["dx"], _joint_major(slab["grads"]["dx"]))
+        for what in GRADS[1:]:
+            want = slab["grads"][what]
+            np.testing.assert_allclose(seq["grads"][what], want, rtol=2 ** -12,
+                                       atol=2 ** -16 * np.abs(want).max(), err_msg=what)
+
+    def test_autograd_matches_jax_grad(self, cases):
+        """``temporal_block_train``'s gradients of a vdot loss, dx and the 12
+        weight gradients, against ``jax.grad`` of the JAX
+        ``temporal_block_train`` (interpret mode), f32: atol 1e-4, rtol
+        2e-3 (the module docstring)."""
+        import jax
+        import jax.numpy as jnp
+
+        from pose3d_tpu.ops import pallas_stblock_train as st
+
+        c = cases["sequences", "f32"]
+        parts = S.SubBlockWeights(torch.from_numpy(cases["weights"])).parts().values()
+        jw = [jnp.asarray(w.numpy().reshape(1, -1) if w.dim() == 1 else w.numpy())
+              for w in parts]
+        dout = jnp.asarray(c["g"])
+
+        def loss(x, *ws):
+            return jnp.vdot(st.temporal_block_train(x, *ws, True), dout)
+
+        want = jax.grad(loss, argnums=tuple(range(13)))(jnp.asarray(c["x"]), *jw)
+        x = torch.from_numpy(c["x"]).requires_grad_(True)
+        flat = torch.from_numpy(cases["weights"]).requires_grad_(True)
+        out = ST.temporal_block_train(x, flat)
+        (out * torch.from_numpy(c["g"])).sum().backward()
+        assert flat.grad.dtype == torch.float32 and x.grad.shape == x.shape
+        got = [x.grad] + list(S.SubBlockWeights(flat.grad).parts().values())
+        for name, a, b in zip(GRADS, got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b).reshape(a.shape), atol=1e-4,
+                                       rtol=2e-3, err_msg=name)
 
 
 class TestNumerics:
@@ -216,20 +287,25 @@ def _model(seed=0, n_blocks=1, clip_len=CLIP_LEN):
 
 
 class TestAutograd:
-    @pytest.mark.parametrize("half", ["spatial", "temporal"])
+    @pytest.mark.parametrize("half", ["spatial", "temporal", "sequences"])
     def test_pack_is_differentiable(self, half):
         """Every parameter of the block's half gets a nonzero gradient
         through the training Function (a pack built from the state dict
-        would give none)."""
+        would give none); "sequences" is the temporal half through
+        ``temporal_block_train``."""
         model = _model()
         blk = model.blocks[0]
         rng = np.random.default_rng(1)
         x = torch.from_numpy(rng.standard_normal((2 * CLIP_LEN * 17, 256)).astype(np.float32))
-        flat = ST.pack_train(blk, half, torch.float32).flat
-        if half == "spatial":
-            out = ST.SpatialBlockTrain.apply(x, flat)
+        if half == "sequences":
+            half = "temporal"
+            out = ST.temporal_block_train(x.view(2 * 17, CLIP_LEN, -1),
+                                          ST.pack_train(blk, half, torch.float32).flat)
+        elif half == "spatial":
+            out = ST.SpatialBlockTrain.apply(x, ST.pack_train(blk, half, torch.float32).flat)
         else:
-            out = ST.TemporalSlabTrain.apply(x.view(2, CLIP_LEN, -1), flat)
+            out = ST.TemporalSlabTrain.apply(x.view(2, CLIP_LEN, -1),
+                                             ST.pack_train(blk, half, torch.float32).flat)
         (out.float() * torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
          ).sum().backward()
         for name, p in blk.named_parameters():
@@ -262,10 +338,17 @@ class TestAutograd:
         with torch.no_grad():
             got = ST.spatial_fwd(x, w)
             want = ST.spatial_fwd_reference(x, w)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+            seqs = x.view(1, 17, 256)
+            got_seq = ST.sequences_fwd(seqs, w)
+            want_seq = ST.sequences_fwd_reference(seqs, w)
+            got_bwd = ST.sequences_bwd(seqs, *got_seq[1:], seqs, w)
+            want_bwd = ST.sequences_bwd_reference(seqs, *got_seq[1:], seqs, w)
+        for a, b in zip((*got, *got_seq, *got_bwd), (*want, *want_seq, *want_bwd)):
+            assert torch.equal(a, b)
         assert [f.launches for f in ST.WRAPPERS] == before
 
-    @pytest.mark.parametrize("case", ["rows", "slab", "residual", "widths"])
+    @pytest.mark.parametrize("case", ["rows", "slab", "residual", "widths", "sequences",
+                                      "sequence_residual"])
     def test_rejects_bad_operands(self, case):
         model = _model()
         w = ST.pack_train(model.blocks[0], "spatial", torch.float32)
@@ -277,6 +360,11 @@ class TestAutograd:
                 ST.slab_fwd(x.view(2, 17, 256), w)
             elif case == "residual":
                 ST.spatial_bwd(x, x, x[:17], x, w)
+            elif case == "sequences":
+                ST.sequences_fwd(x.view(2, 34, 128), w)
+            elif case == "sequence_residual":
+                seqs = x.view(2, 17, 256)
+                ST.sequences_bwd(seqs, seqs, seqs[:1], seqs, w)
             else:
                 ST.temporal_train_forward_fused(
                     TemporalLifter(clip_len=4, hidden=64, heads=4, n_blocks=1, device="cpu"),
@@ -286,7 +374,8 @@ class TestAutograd:
 @pytest.mark.cuda
 class TestTrainKernels:
     """The CUDA kernels against their plain versions on the card, at T = 243
-    on one clip (243 frames, a ragged last spatial tile) and two. Forward
+    on one clip (243 frames, a ragged last spatial tile; 17 joint-major
+    sequences) and two. Forward
     rows: 5e-2 + 2^-5·|want| (the serving kernels' bound); gradients:
     2^-7 of the tensor's largest element + 2^-7·|want| (flipped bf16
     roundings of dh, dqkv and dx1, measured ~0.1% of the largest element)."""
@@ -300,10 +389,13 @@ class TestTrainKernels:
         kp = torch.rand(clips, model.clip_len, 17, 2, generator=gen).to(dev)
         with torch.no_grad():
             x = ST.embed_clips(model, kp, torch.bfloat16)
-            w = ST.pack_train(model.blocks[0], half, torch.bfloat16)
+            w = ST.pack_train(model.blocks[0], "spatial" if half == "spatial" else "temporal",
+                              torch.bfloat16)
         g = (torch.randn(x.shape, generator=gen) * 2 ** -6).to(dev, torch.bfloat16)
         if half == "temporal":
             x, g = x.view(clips, model.clip_len, -1), g.view(clips, model.clip_len, -1)
+        elif half == "sequences":
+            x, g = S.joint_major(x, clips), S.joint_major(g, clips)
         return x, g, w
 
     @staticmethod
@@ -311,10 +403,13 @@ class TestTrainKernels:
         if half == "spatial":
             return ST.spatial_fwd, ST.spatial_bwd, ST.spatial_fwd_reference, \
                 ST.spatial_bwd_reference
+        if half == "sequences":
+            return ST.sequences_fwd, ST.sequences_bwd, ST.sequences_fwd_reference, \
+                ST.sequences_bwd_reference
         return ST.slab_fwd, ST.slab_bwd, ST.slab_fwd_reference, ST.slab_bwd_reference
 
     @pytest.mark.parametrize("clips", [1, 2])
-    @pytest.mark.parametrize("half", ["spatial", "temporal"])
+    @pytest.mark.parametrize("half", ["spatial", "temporal", "sequences"])
     def test_forward_matches_plain(self, half, clips):
         x, _, w = self._setup(clips, half)
         fwd, _, fref, _ = self._fns(half)
@@ -328,7 +423,7 @@ class TestTrainKernels:
             assert ((a - b).abs() - (5e-2 + 2 ** -5 * b.abs())).max() <= 0
 
     @pytest.mark.parametrize("clips", [1, 2])
-    @pytest.mark.parametrize("half", ["spatial", "temporal"])
+    @pytest.mark.parametrize("half", ["spatial", "temporal", "sequences"])
     def test_backward_matches_plain_and_is_deterministic(self, half, clips):
         x, g, w = self._setup(clips, half)
         _, bwd, fref, bref = self._fns(half)
@@ -347,6 +442,42 @@ class TestTrainKernels:
             tol = 2 ** -7 * b.abs().max() + 2 ** -7 * b.abs()
             assert ((a - b).abs() - tol).max() <= 0, name
 
+    def test_sequences_match_the_slab_kernels(self):
+        """The joint-major kernels on the slab's tokens, re-laid: out, x1,
+        att and dx bitwise; each weight gradient within f32 summation order
+        (relative L2 below 1e-5)."""
+        x, g, w = self._setup(2, "temporal")
+        xs, gs = (S.joint_major(t.reshape(-1, 256), 2) for t in (x, g))
+        with torch.no_grad():
+            slab = ST.slab_fwd(x, w)
+            seq = ST.sequences_fwd(xs, w)
+            dx, dw = ST.slab_bwd(x, *slab[1:], g, w)
+            dxs, dws = ST.sequences_bwd(xs, *seq[1:], gs, w)
+        torch.cuda.synchronize()
+        for a, b in zip((*slab, dx), (*seq, dxs)):
+            assert torch.equal(S.joint_major(a.reshape(-1, 256), 2), b)
+        for k in GRADS[1:]:
+            a, b = (torch.from_numpy(_split(t.cpu().numpy())[k]) for t in (dws, dw))
+            assert ((a - b).norm() / b.norm()).item() < 1e-5, k
+
+    def test_temporal_block_train_reaches_the_weights(self):
+        """On the card the output has a grad_fn, one backward launches the
+        backward kernels once and reaches the flat weights; f32 is refused."""
+        x, g, w = self._setup(1, "sequences")
+        flat = w.flat.detach().requires_grad_(True)
+        xr = x.detach().requires_grad_(True)
+        before = (ST.sequences_fwd.launches, ST.sequences_bwd.launches)
+        out = ST.temporal_block_train(xr, flat)
+        assert out.grad_fn is not None
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert (ST.sequences_fwd.launches, ST.sequences_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert flat.grad.dtype == torch.bfloat16 and torch.isfinite(flat.grad.float()).all()
+        assert flat.grad.abs().max() > 0 and xr.grad.shape == x.shape
+        with pytest.raises(TypeError, match="bfloat16"):
+            ST.temporal_block_train(x.float(), w.flat.float())
+
     def test_train_forward_launches_each_wrapper_per_block(self):
         dev = cuda_device()
         model = TemporalLifter(n_blocks=2, device="cpu").init_weights(
@@ -355,6 +486,6 @@ class TestTrainKernels:
         before = [f.launches for f in ST.WRAPPERS]
         ST.temporal_train_forward_fused(model, kp.to(dev)).square().mean().backward()
         torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(ST.WRAPPERS, before)] == [2, 2, 2, 2]
+        assert [f.launches - b for f, b in zip(ST.WRAPPERS, before)] == [2, 2, 2, 2, 0, 0]
         assert all(p.grad is not None and torch.isfinite(p.grad).all()
                    for p in model.parameters())
