@@ -48,7 +48,8 @@ heads x 32, MLP 1024, 5 blocks, clips of 243 frames, bf16):
    each kernel, its plain version and, for the attention, PyTorch's
    ``scaled_dot_product_attention`` on the same head-split inputs (a
    yardstick only; the port never calls it); the fused forward, its plain
-   path and the eager bf16 module.
+   path and the eager bf16 module; a torch.profiler device-time split of
+   the fused forward by kernel.
 
 The Martinez path, the default MartinezLifter (the reference LinearModel:
 34 -> 1024, 2 residual blocks of 1024, -> 51, BatchNorm, bf16):
@@ -85,7 +86,9 @@ weights (bf16 compute in the kernels), 16 clips x 243 frames a step
     of the eager bf16 module's forward + backward through torch autograd
     (a yardstick only; the port never calls it), of each training wrapper
     and its plain version, and a torch.profiler device-time split of one
-    step by kernel.
+    step by kernel; each launch of one ``spatial_bwd`` and one ``slab_bwd``
+    call with its device ms (torch.profiler) and the bytes it reads and
+    writes (reckoned from the shapes, each operand once).
 
 The direct image->3D path, the default PoseNet3D (the reference Model_3D:
 ResNet-50, three 4x4 stride-2 deconvs of 256, a 1x1 conv to 17 x 64
@@ -661,6 +664,9 @@ def temporal_timing_phase(model) -> dict:
     for k in ("fused_forward", "plain_forward", "eager_bf16_module"):
         log(f"time C={CLIPS} x {model.clip_len} {k}: {t[k]:.4f} ms = "
             f"{frames / t[k] * 1e3:.1f} frames/s")
+    split = device_ms_by_kernel(lambda: S.temporal_forward_fused(model, kp, weights=weights), n=5)
+    log(f"device time C={CLIPS} x {model.clip_len} fused_forward: {sum(split.values()):.4f} ms "
+        "per call: " + top_kernels(split, 8))
     for k, ms in t.items():
         if "forward" not in k and "module" not in k:
             log(f"time C={CLIPS} x {model.clip_len} {k}: {ms:.4f} ms")
@@ -974,6 +980,130 @@ def train_loop_phase(model) -> tuple[dict, dict]:
         log(f"time C={TRAIN_CLIPS} x {model.clip_len} {f.__name__}: {t[f.__name__]:.4f} ms, "
             f"plain {t[f.__name__ + '_plain']:.4f} ms")
     return launches, t
+
+
+def device_launches(fn) -> list[tuple[str, float]]:
+    """Each kernel that one call of fn() launches, in launch order: (its
+    full name, its device ms), from torch.profiler's CUDA activity. The
+    recorded call follows a warm-up call inside the profiler (a step of
+    its schedule): in a process that has profiled before, the first
+    kernels after the profiler starts can go unrecorded."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation), key=lambda e: e.time_range.start)
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no kernel")
+    return [(e.name.removeprefix("void ").replace("(anonymous namespace)::", ""),
+             e.time_range.elapsed_us() / 1e3) for e in kernels]
+
+
+def _split_k_slices(m: int, n: int, rows: int) -> int:
+    """The row slices of csrc/stblock_train.cu's weight_grad for an m x n
+    gradient."""
+    tiles = (m // 128) * (n // 128)
+    want = min(-(-264 // tiles), -(-rows // 256))
+    chunk = -(-(-(-rows // want)) // 32) * 32
+    return -(-rows // chunk)
+
+
+def bwd_launch_bytes(rows: int, n_seq: int, design: str) -> list[tuple[str, float]]:
+    """(kernel name key, bytes it reads and writes) of each launch of one
+    sub-block backward on `rows` rows in n_seq sequences, in launch order,
+    each operand counted once: "first" the sub-block backward's first design
+    (26 launches, f32 h, dy and dqkv through device memory; kept so that
+    this script reckons that design's split on a commit that has it),
+    "fused" this one (21 launches: those kept in registers and shared
+    memory)."""
+    e, f = 2, 4  # bytes of bf16, f32
+    d, q, hid = 256, 768, 1024
+    rd, rq, rh = rows * d, rows * q, rows * hid
+
+    def wgrad(m, n):
+        s = _split_k_slices(m, n, rows)
+        return [("gemm_kernel<true, false", rows * (m + n) * e + s * m * n * f),
+                ("sum_slices", s * m * n * f + m * n * f)]
+
+    def fold(slices, count):
+        return ("sum_slices", slices * count * f + count * f)
+
+    head = [("ln_rows", 2 * rd * e), ("ln_rows", 2 * rd * e),
+            ("gemm_kernel<false, false, 1", rd * e + d * q * e + q * e + rq * e)]
+    if design == "first":
+        p = -(-rows // -(-rows // 256))  # the 256 row slices of every column sum
+        return head + [
+            ("gemm_kernel<false, false, 2", rd * e + d * hid * e + hid * e + rh * (f + e)),
+            ("gemm_kernel<false, true, 3", rd * e + hid * d * e + rh * (f + e)),
+            ("gemm_kernel<false, true, 0", rh * e + d * hid * e + rd * f),
+            ("ln_bwd_kernel<true", rd * (3 * e + 2 * f) + p * 4 * d * f),
+            fold(p, 3 * d), fold(p, d),
+            ("colsum_kernel", rh * e + p * hid * f), fold(p, hid),
+            *wgrad(hid, d), *wgrad(d, hid), *wgrad(d, d),
+            ("gemm_kernel<false, true, 0", rd * e + d * d * e + rd * f),
+            ("attention_bwd", rq * (2 * e + f) + rd * f),
+            ("colsum_kernel", rq * f + p * q * f), fold(p, q),
+            *wgrad(d, q),
+            ("gemm_kernel<false, true, 0", rq * e + d * q * e + rd * f),
+            ("ln_bwd_kernel<false", rd * (2 * e + 2 * f) + p * 2 * d * f), fold(p, 2 * d)]
+    t128 = -(-rows // 128)  # the row tiles of the MLP and LayerNorm products
+    return head + [
+        ("mlp_bwd", 2 * rd * e + 2 * d * hid * e + hid * e + 2 * rh * e + t128 * hid * f),
+        fold(t128, hid),
+        ("ln_gemm_kernel<true", rh * e + d * hid * e + rd * (3 * e + f) + d * e
+         + t128 * 4 * d * f),
+        fold(t128, 3 * d), fold(t128, d),
+        *wgrad(hid, d), *wgrad(d, hid), *wgrad(d, d),
+        ("gemm_kernel<false, true, 0", rd * e + d * d * e + rd * f),
+        ("attention_bwd", 2 * rq * e + rd * f + n_seq * q * f), fold(n_seq, q),
+        *wgrad(d, q),
+        ("ln_gemm_kernel<false", rq * e + d * q * e + rd * (2 * e + f) + d * e
+         + t128 * 2 * d * f),
+        fold(t128, 2 * d)]
+
+
+def backward_split_phase(model) -> dict:
+    """Each launch of one spatial_bwd and one slab_bwd call at TRAIN_CLIPS
+    x 243 frames: its name, device ms (torch.profiler) and reckoned bytes,
+    by the launch sequence it finds (this design's or the first). Returns the
+    bytes a call moves, by wrapper."""
+    blk = model.blocks[0]
+    y1, _ = synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 25)
+    moved = {}
+    with torch.no_grad():
+        tokens = ST.embed_clips(model, y1, torch.bfloat16)
+        dout = (torch.randn(tokens.shape, generator=torch.Generator().manual_seed(SEED + 26))
+                * 2 ** -6).to("cuda", torch.bfloat16)
+        rows = tokens.shape[0]
+        for half, fwd, bwd, shape, n_seq in (
+                ("spatial", ST.spatial_fwd, ST.spatial_bwd, tokens.shape, rows // 17),
+                ("temporal", ST.slab_fwd, ST.slab_bwd,
+                 (TRAIN_CLIPS, model.clip_len, 17 * 256), TRAIN_CLIPS * 17)):
+            w = ST.pack_train(blk, half, torch.bfloat16)
+            x, g = tokens.view(shape), dout.view(shape)
+            _, x1, att = fwd(x, w)
+            launches = device_launches(lambda: bwd(x, x1, att, g, w))
+            design = "first" if len(launches) == 26 else "fused"
+            table = bwd_launch_bytes(rows, n_seq, design)
+            if len(table) != len(launches) or any(
+                    key not in name for (key, _), (name, _) in zip(table, launches)):
+                raise AssertionError(f"{bwd.__name__}: launches {[n for n, _ in launches]} "
+                                     f"are not the {design} design's")
+            for i, ((name, ms), (_, nbytes)) in enumerate(zip(launches, table)):
+                log(f"launch split {bwd.__name__} ({design}) {i + 1:2d} "
+                    f"{name.split('(')[0][:70]}: {ms:.4f} ms, {nbytes / 1e6:.1f} MB")
+            moved[bwd.__name__] = sum(b for _, b in table)
+            log(f"launch split {bwd.__name__} ({design}): {len(launches)} launches, "
+                f"{sum(ms for _, ms in launches):.4f} ms of device time, "
+                f"{moved[bwd.__name__] / 1e9:.3f} GB reckoned")
+    return moved
 
 
 def seeded_posenet(device, dtype):
@@ -1815,6 +1945,7 @@ def main() -> None:
     errs.update(train_kernel_phase(train_model))
     train_step_phase(train_model)
     trlaunches, trt = train_loop_phase(train_model)
+    backward_split_phase(train_model)
     del train_model
     torch.cuda.empty_cache()
     dtrlaunches, _ = direct_train_phase()

@@ -13,17 +13,17 @@
 
 namespace pose3d {
 
-constexpr int kAttnWarps = 4;  // of one (sequence, head) block
+constexpr int kAttnWarps = 8;  // the most warps of one (sequence, head) block
 constexpr int kAttnThreads = kAttnWarps * 32;
 
-// Q, K and V of one head, each seq rows padded to whole 16-row MMA tiles,
-// at a pitch of dh + 8 bf16 (16 bytes of skew keep the 8 rows of an
-// ldmatrix on distinct banks): ops/attention.py::smem_bytes computes the
-// same.
+// K and V of one head (Q stays in registers), each seq rows padded to whole
+// 16-row MMA tiles, at a pitch of dh + 8 bf16 (16 bytes of skew keep the 8
+// rows of an ldmatrix on distinct banks): ops/attention.py::smem_bytes
+// computes the same.
 __host__ __device__ constexpr int attn_ld(int dh) { return dh + 8; }
 __host__ __device__ constexpr int attn_rows(int seq) { return (seq + 15) / 16 * 16; }
 __host__ __device__ constexpr size_t attn_smem_bytes(int seq, int dh) {
-  return size_t(3) * attn_rows(seq) * attn_ld(dh) * 2;
+  return size_t(2) * attn_rows(seq) * attn_ld(dh) * 2;
 }
 
 // One query row of one head against L keys: q (global or shared memory),

@@ -24,42 +24,57 @@
 // cell and accumulate the weight gradients across cells, which is exact
 // there because the TPU's grid runs in order. Here blocks run in no order,
 // and an SM holds neither the weights nor a cell's backward live set, so
-// the backward is a sequence of launches through a global workspace that
-// the wrapper allocates:
-// - row passes: LayerNorm rows (one warp a row), and a tiled mma.sync GEMM
-//   (128 x 128 tiles of 4 warps, a 4-slice cp.async ring; martinez.cu's
-//   tile) whose operands may each be stored transposed, so that the W^T
-//   products read the weights as they are and the weight gradients read
-//   the row operands as they are (ldmatrix.trans where needed), with the
-//   recompute's bias, GELU and gelu' in its epilogue;
+// the backward is a sequence of 21 launches through a global workspace
+// that the wrapper allocates:
+// - LayerNorm rows (one warp a row) for the recomputed y and y2, and a
+//   tiled mma.sync GEMM (128 x 128 tiles of 4 warps, a 4-slice cp.async
+//   ring; martinez.cu's tile) whose operands may each be stored
+//   transposed, so that the W^T products read the weights as they are and
+//   the weight gradients read the row operands as they are (ldmatrix.trans
+//   where needed): the recomputed qkv, datt = bf16(dx1) Wp^T and the
+//   weight gradients;
+// - mlp_bwd_kernel: the fc1 recompute and dout W2^T side by side, a block
+//   per 128-row tile (held in shared memory) over all 1024 hidden columns,
+//   h = y2 W1 + b1 kept in registers, hg and dh stored bf16, db1's column
+//   partials of the tile;
+// - ln_gemm_kernel: dy2 = dh W1^T and dy = bf16(dqkv) W_qkv^T per 128-row
+//   tile of all 256 columns, the f32 product staged in shared memory and
+//   the LayerNorm backward (LN_2's: dx1; LN_1's: dx) run on it with its
+//   column partials (dbp, dg2, db2, db2f; dg1, db1);
 // - the attention backward: one block per (sequence, head), Q, K, V and
 //   dO of that head in shared memory, on the tensor cores: a pass over
 //   16-query tiles (r, c, dq), then one over 16-key tiles (dk, dv), each
-//   recomputing the scores, so nothing of size L x L is stored;
+//   recomputing the scores, so nothing of size L x L is stored; it stores
+//   dqkv as bf16 and its own column partials of the f32 dq, dk, dv;
 // - the weight gradients contract over ALL rows (66,096 at 16 clips x 243
 //   frames): a split-K GEMM writes a fixed number of row slices as f32
-//   partials, and a second pass sums them in a fixed order. Bias and
-//   LayerNorm gradients are column sums over fixed row slices, reduced the
-//   same way (the LayerNorm backwards sum theirs as they go). No atomics:
-//   two calls on the same inputs give bitwise equal gradients.
+//   partials, and a second pass sums them in a fixed order; the bias and
+//   LayerNorm gradients are summed in order from the partials their
+//   producers wrote (per row tile, per sequence). No atomics: two calls on
+//   the same inputs give bitwise equal gradients.
 // Rounding points are the JAX backward's: gelu' of the f32 h, dh rounded
 // to bf16 before db1 sums it, dx1 kept f32 (rounded only for dWp and datt),
-// dqkv f32 (rounded for dWqkv and dy), and in the attention backward e =
-// exp(min(s, 80)) with no row max, r = 1/sum(e), dv = bf16(e)^T bf16(r do),
-// ds = bf16(t - c e) with t = da e and c = r sum(t), dq = (ds k)(r scale),
-// dk = ds^T bf16(bf16(r) q) scale.
+// dqkv f32 for db_qkv (rounded for dWqkv and dy), and in the attention
+// backward e = exp(min(s, 80)) with no row max, r = 1/sum(e), dv = bf16(e)^T
+// bf16(r do), ds = bf16(t - c e) with t = da e and c = r sum(t), dq = (ds
+// k)(r scale), dk = ds^T bf16(bf16(r) q) scale.
 //
 // What bounds it on this card. ~4 x 1.57 MFLOP per row of matrix products
-// (recomputed qkv and fc1, then six products of the forward's size) against
-// ~20 KB of workspace traffic per row: the products are above the H100's
-// ~295 bf16 flops per byte, so in the bound the tensor cores set the pace.
-// This first version pays for its simplicity in bytes: f32 intermediates
-// round-trip device memory between launches, and the GEMM epilogues store
-// straight from the accumulators (only the gelu' epilogue stages a tile, of
-// its f32 input h, in shared memory). PERF.md has its times.
+// (recomputed qkv and fc1, then six products of the forward's size), 0.313
+// ms at 16 clips x 243 frames on the tensor cores; its bytes, each operand
+// once (174 MB), take 0.052 ms. What a launch sequence really costs is the
+// workspace traffic between launches: this file's first design moved
+// 3.57 GB a call at that shape, 1.07 ms at 3.35 TB/s before any stall,
+// of which ~1.4 GB were four f32 intermediates (h, dqkv and the two dy)
+// that each came back only for an epilogue or a column sum. This design
+// keeps those in registers or shared memory and moves 2.22 GB (slab) or
+// 2.24 GB (spatial, one db_qkv partial per frame), in 21 launches where
+// the first design took 26. PERF.md has its times and its per-launch split.
 //
 // The launcher runs on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -134,16 +149,10 @@ constexpr size_t kGemmSmem = size_t(kStages) * kStageElems * sizeof(bf16);
 static_assert(kBK * kLdCol <= kSliceMax, "a column slice fits the slot");
 static_assert(kGemmSmem <= kSmemLimit, "exceeds the per-block shared memory");
 constexpr int kTargetCtas = 264;  // split-K: about two CTAs per SM in all
-// pitch of the epilogue's staged f32 tile: a half-warp's float2 reads of
-// rows g = 0..3 fall on distinct banks
-constexpr int kLdAux = kBN + 8;
-static_assert(size_t(kBM) * kLdAux * sizeof(float) <= kGemmSmem, "the aux tile fits the ring");
 
 enum Epi {
   kEpiF32,       // c32 = acc (per K slice at c32 + z * c_slice)
   kEpiBiasBf16,  // c16 = bf16(acc + bias)
-  kEpiMlp,       // c32 = h = acc + bias; c16 = bf16(gelu(bf16(h)))
-  kEpiGeluGrad,  // c16 = bf16(acc * gelu'(aux))
 };
 
 // C (M x N) = A (M x K) @ B (K x N), bf16 in, f32 accumulate. kAT: A is
@@ -159,7 +168,6 @@ struct GemmArgs {
   int ldc;
   size_t c_slice;
   const bf16* bias;
-  const float* aux;
 };
 
 // Starts the copies of contraction rows [k0, k0 + kBK) (clipped at kend,
@@ -270,52 +278,26 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(GemmArgs p) {
     }
   }
   cp_async_wait<0>();
-  // kEpiGeluGrad reads a 128 x 128 f32 tile of aux: staged whole over the
-  // ring with 16-byte copies, so that the epilogue does not wait on a
-  // device-memory load per element
-  float* aux_tile = reinterpret_cast<float*>(smem);
-  if (kEpi == kEpiGeluGrad) {
-    __syncthreads();  // every warp is done with the ring
-    for (int i = threadIdx.x; i < kBM * (kBN / 4); i += kGemmThreads) {
-      const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
-      if (m0 + r < p.M)
-        cp_async16(aux_tile + r * kLdAux + c, p.aux + size_t(m0 + r) * p.ldc + n0 + c);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-  }
 
   const int g = lane / 4;
   const int q = lane % 4;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n0 + wn * 64 + n * 8 + 2 * q;
-    float2 bv = make_float2(0.f, 0.f);
-    if (kEpi == kEpiBiasBf16 || kEpi == kEpiMlp) bv = load2(p.bias + c);
+    const float2 bv = kEpi == kEpiBiasBf16 ? load2(p.bias + c) : make_float2(0.f, 0.f);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = m0 + wm * 64 + m * 16 + g + half * 8;
         if (r >= p.M) continue;
-        float v0 = acc[m][n][2 * half];
-        float v1 = acc[m][n][2 * half + 1];
+        const float v0 = acc[m][n][2 * half];
+        const float v1 = acc[m][n][2 * half + 1];
         const size_t o = size_t(r) * p.ldc + c;
-        if (kEpi == kEpiF32) {
+        if (kEpi == kEpiF32)
           *reinterpret_cast<float2*>(p.c32 + blockIdx.z * p.c_slice + o) = make_float2(v0, v1);
-        } else if (kEpi == kEpiBiasBf16) {
+        else
           store2(p.c16 + o, v0 + bv.x, v1 + bv.y);
-        } else if (kEpi == kEpiMlp) {
-          v0 += bv.x;
-          v1 += bv.y;
-          *reinterpret_cast<float2*>(p.c32 + o) = make_float2(v0, v1);
-          store2(p.c16 + o, gelu_poly(round_bf16(v0)), gelu_poly(round_bf16(v1)));
-        } else {
-          const float2 h =
-              *reinterpret_cast<const float2*>(aux_tile + (r - m0) * kLdAux + c - n0);
-          store2(p.c16 + o, v0 * gelu_grad_poly(h.x), v1 * gelu_grad_poly(h.y));
-        }
       }
     }
   }
@@ -356,150 +338,389 @@ __device__ __forceinline__ void store8f(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-constexpr int kColSlices = 256;  // row slices of every column sum
-
-// The LayerNorm backward over one slice of rows, one warp a row, 8 columns
-// a lane: xhat and r recomputed from src (the LayerNorm's input), dya = dy
-// g, res = resid + r (dya - mean(dya) - xhat mean(dya xhat)). kLn2: resid
-// is dout (bf16), res goes out as f32 (dx1) and bf16; else resid is dx1
-// (f32) and res goes out as bf16 (dx). The slice's column sums go to
-// part[slice][k][256]: each warp sums its rows in order, then the warps
-// are summed in order. kLn2 sums dx1, dy xhat, dy (dbp, dg2, db2, adjacent
-// in the weights' layout) and dout (db2f); else dy xhat, dy (dg1, db1).
+// The LayerNorm backward of one row, one warp, 8 columns a lane: xhat and
+// r recomputed from src (the LayerNorm's input, row r), dya = dy g, res =
+// resid + r (dya - mean(dya) - xhat mean(dya xhat)). kLn2: resid is dout
+// (bf16), res goes out as f32 (dx1) and bf16; else resid is dx1 (f32) and
+// res goes out as bf16 (dx). The row's terms of the column sums are added
+// to acc: kLn2 dx1, dy xhat, dy (dbp, dg2, db2, adjacent in the weights'
+// layout) and dout (db2f); else dy xhat, dy (dg1, db1).
 template <bool kLn2>
-__global__ void __launch_bounds__(kRowWarps * 32)
-ln_bwd_kernel(const bf16* __restrict__ src, const float* __restrict__ dy,
-              const bf16* __restrict__ g, const void* __restrict__ resid,
-              float* __restrict__ out32, bf16* __restrict__ out16, int rows,
-              int rows_per_slice, float* __restrict__ part) {
+__device__ __forceinline__ void ln_bwd_row(const bf16* __restrict__ src, const float* dy,
+                                           const float (&gg)[8], const void* __restrict__ resid,
+                                           float* __restrict__ out32, bf16* __restrict__ out16,
+                                           size_t r, int lane, float (&acc)[kLn2 ? 4 : 2][8]) {
   constexpr int kSums = kLn2 ? 4 : 2;
   constexpr int kG = kLn2 ? 1 : 0;  // where dy xhat and dy go
-  __shared__ float red[kRowWarps][kSums][kDim];
+  const size_t o = r * kDim + lane * 8;
+  float v[8], d[8], res[8];
+  load8(src + o, v);
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum += v[j];
+  const float mu = warp_sum(sum) * (1.f / kDim);
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float t = v[j] - mu;
+    sq += t * t;
+  }
+  const float rstd = rsqrtf(warp_sum(sq) * (1.f / kDim) + kLnEps);
+  load8f(dy + lane * 8, d);
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    v[j] = (v[j] - mu) * rstd;  // xhat
+    acc[kG][j] += d[j] * v[j];
+    acc[kG + 1][j] += d[j];
+    d[j] *= gg[j];  // dya
+    s1 += d[j];
+    s2 += d[j] * v[j];
+  }
+  const float m1 = warp_sum(s1) * (1.f / kDim);
+  const float m2 = warp_sum(s2) * (1.f / kDim);
+  if (kLn2) load8(static_cast<const bf16*>(resid) + o, res);
+  else load8f(static_cast<const float*>(resid) + o, res);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (kLn2) acc[kSums - 1][j] += res[j];
+    res[j] += rstd * (d[j] - m1 - v[j] * m2);
+    if (kLn2) acc[0][j] += res[j];
+  }
+  if (kLn2) store8f(out32 + o, res);
+  store8(out16 + o, res);
+}
+
+// ------------------------------------------- the MLP recompute and dh
+
+// One block per 128-row tile computes two products of K = 256 for all 1024
+// hidden columns, 128 at a time, in the K order of a plain 16-deep mma
+// chain: acc1 = y2 @ W1[:, tile] and acc2 = dout @ W2[tile, :]^T. Its
+// epilogue forms h = acc1 + b1 in registers and stores hg =
+// bf16(gelu(bf16(h))) and dh = bf16(acc2 gelu'(h)); h never reaches device
+// memory. db1's partial of the row tile (the column sums of the bf16 dh
+// over its rows, each warp's 32 rows by shuffles, then the 4 row warps in
+// order) goes to part[tile][1024]. The row tile's y2 and dout stay in
+// shared memory while W1 and W2 stream through a cp.async ring, so each
+// operand crosses from L2 once a block (0.58 GB a call at 16 clips x 243
+// frames, where blocks of 128 hidden columns that reload their row tile
+// move 1.3 GB). 16 warps, 4 (rows) x 4 (columns) of 32 x 32 outputs per
+// product, one block an SM.
+constexpr int kMlpBM = 128;
+constexpr int kMlpBN = 128;
+constexpr int kMlpStages = 4;
+constexpr int kMlpThreads = 512;
+constexpr int kMlpSteps = (kMlp / kMlpBN) * (kDim / kBK);  // ring slices of a block
+constexpr int kLdMlpA = kDim + 8;   // y2 and dout rows: [128][256]
+constexpr int kLdB1 = kMlpBN + 8;   // W1 slice [32][128]: (k, n)
+constexpr int kMlpA = kMlpBM * kLdMlpA;
+constexpr int kMlpB1 = kBK * kLdB1;
+constexpr int kMlpB2 = kMlpBN * kLdRow;  // W2 slice [128][32]: (n, k)
+constexpr int kMlpStageElems = kMlpB1 + kMlpB2;
+constexpr size_t kMlpRed = size_t(4) * kMlp * sizeof(float);  // db1 sums of the 4 row warps
+constexpr size_t kMlpSmem =
+    (size_t(2) * kMlpA + size_t(kMlpStages) * kMlpStageElems) * sizeof(bf16) + kMlpRed;
+static_assert(kMlpSmem <= kSmemLimit, "the row tiles, the weight ring and the db1 sums");
+
+// W1[:, n0 + 128) and W2[n0 + 128, :] at contraction rows [k0, k0 + 32)
+__device__ __forceinline__ void mlp_load_weights(bf16* slot, const bf16* __restrict__ w1,
+                                                 const bf16* __restrict__ w2, int n0, int k0) {
+  for (int i = threadIdx.x; i < kBK * (kMlpBN / 8); i += kMlpThreads) {
+    const int r = i / (kMlpBN / 8), c = (i % (kMlpBN / 8)) * 8;
+    cp_async16(slot + r * kLdB1 + c, w1 + size_t(k0 + r) * kMlp + n0 + c);
+  }
+  bf16* b2 = slot + kMlpB1;
+  for (int i = threadIdx.x; i < kMlpBN * (kBK / 8); i += kMlpThreads) {
+    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+    cp_async16(b2 + r * kLdRow + c, w2 + size_t(n0 + r) * kDim + k0 + c);
+  }
+}
+
+__global__ void __launch_bounds__(kMlpThreads, 1)
+mlp_bwd_kernel(const bf16* __restrict__ y2, const bf16* __restrict__ dout,
+               const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+               const bf16* __restrict__ w2, bf16* __restrict__ hg, bf16* __restrict__ dh,
+               float* __restrict__ part, int rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* as = reinterpret_cast<bf16*>(smem);  // [y2, dout][128][kLdMlpA]
+  bf16* ring = as + 2 * kMlpA;
+  float* red = reinterpret_cast<float*>(ring + kMlpStages * kMlpStageElems);  // [4][1024]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float acc[kSums][8];
-#pragma unroll
-  for (int k = 0; k < kSums; ++k)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[k][j] = 0.f;
-  float gg[8];
-  load8(g + lane * 8, gg);
-  const int r0 = blockIdx.x * rows_per_slice;
-  const int r1 = min(r0 + rows_per_slice, rows);
-  for (int r = r0 + warp; r < r1; r += kRowWarps) {
-    const size_t o = size_t(r) * kDim + lane * 8;
-    float v[8], d[8], res[8];
-    load8(src + o, v);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sum += v[j];
-    const float mu = warp_sum(sum) * (1.f / kDim);
-    float sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float t = v[j] - mu;
-      sq += t * t;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) * (1.f / kDim) + kLnEps);
-    load8f(dy + o, d);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] = (v[j] - mu) * rstd;  // xhat
-      acc[kG][j] += d[j] * v[j];
-      acc[kG + 1][j] += d[j];
-      d[j] *= gg[j];  // dya
-      s1 += d[j];
-      s2 += d[j] * v[j];
-    }
-    const float m1 = warp_sum(s1) * (1.f / kDim);
-    const float m2 = warp_sum(s2) * (1.f / kDim);
-    if (kLn2) load8(static_cast<const bf16*>(resid) + o, res);
-    else load8f(static_cast<const float*>(resid) + o, res);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (kLn2) acc[kSums - 1][j] += res[j];
-      res[j] += rstd * (d[j] - m1 - v[j] * m2);
-      if (kLn2) acc[0][j] += res[j];
-    }
-    if (kLn2) store8f(out32 + o, res);
-    store8(out16 + o, res);
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+  const int m0 = blockIdx.x * kMlpBM;
+
+  // the row tiles (one commit group, rows past the end zero), then the
+  // first slices of the weights
+  const uint4 zero16 = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < 2 * kMlpBM * (kDim / 8); i += kMlpThreads) {
+    const int a = i / (kMlpBM * (kDim / 8));  // 0: y2, 1: dout
+    const int t = i % (kMlpBM * (kDim / 8));
+    const int r = t / (kDim / 8), c = (t % (kDim / 8)) * 8;
+    bf16* d = as + a * kMlpA + r * kLdMlpA + c;
+    if (m0 + r < rows) cp_async16(d, (a ? dout : y2) + size_t(m0 + r) * kDim + c);
+    else *reinterpret_cast<uint4*>(d) = zero16;
   }
+  cp_async_commit();
+  constexpr int kSlices = kDim / kBK;
+  for (int s = 0; s < kMlpStages - 1; ++s) {
+    mlp_load_weights(ring + s * kMlpStageElems, w1, w2, (s / kSlices) * kMlpBN,
+                     (s % kSlices) * kBK);
+    cp_async_commit();
+  }
+
+  // ldmatrix row addresses of this lane, in bytes (as in gemm_kernel): A
+  // rows at (lane % 16, (lane / 16) * 8); W1 (k, n) read with .trans; W2
+  // (n, k) read as the B^T operand
+  const unsigned a_lane =
+      smem_u32(as) + ((wm * 32 + lane % 16) * kLdMlpA + (lane / 16) * 8) * 2;
+  const unsigned b1_lane = ((lane % 16) * kLdB1 + wn * 32 + (lane / 16) * 8) * 2;
+  const unsigned b2_lane =
+      (kMlpB1 + (wn * 32 + (lane / 16) * 8 + lane % 8) * kLdRow + ((lane / 8) % 2) * 8) * 2;
+  const int g = lane / 4;
+  const int q = lane % 4;
+  float acc1[2][4][4] = {}, acc2[2][4][4] = {};
+  for (int step = 0; step < kMlpSteps; ++step) {
+    cp_async_wait<kMlpStages - 2>();
+    __syncthreads();
+    const int next = step + kMlpStages - 1;
+    if (next < kMlpSteps)
+      mlp_load_weights(ring + (next % kMlpStages) * kMlpStageElems, w1, w2,
+                       (next / kSlices) * kMlpBN, (next % kSlices) * kBK);
+    cp_async_commit();
+    const int k0 = (step % kSlices) * kBK;
+    const unsigned base = smem_u32(ring + (step % kMlpStages) * kMlpStageElems);
+#pragma unroll
+    for (int u = 0; u < kBK / 16; ++u) {
+      unsigned f1[2][4], f2[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ldsm_x4_trans(f1[h], base + b1_lane + (u * 16 * kLdB1 + h * 16) * 2);
+        ldsm_x4(f2[h], base + b2_lane + (h * 16 * kLdRow + u * 16) * 2);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        unsigned a1[4], a2[4];
+        ldsm_x4(a1, a_lane + (m * 16 * kLdMlpA + k0 + u * 16) * 2);
+        ldsm_x4(a2, a_lane + (kMlpA + m * 16 * kLdMlpA + k0 + u * 16) * 2);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          mma_bf16(acc1[m][n], a1, f1[n / 2][(n % 2) * 2], f1[n / 2][(n % 2) * 2 + 1]);
+          mma_bf16(acc2[m][n], a2, f2[n / 2][(n % 2) * 2], f2[n / 2][(n % 2) * 2 + 1]);
+        }
+      }
+    }
+    if (step % kSlices != kSlices - 1) continue;
+
+    // the epilogue of hidden columns [n0, n0 + 128)
+    const int n0 = (step / kSlices) * kMlpBN;
+    float csum[4][2] = {};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = n0 + wn * 32 + n * 8 + 2 * q;
+      const float2 bv = load2(b1 + c);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = m0 + wm * 32 + m * 16 + g + half * 8;
+          const float h0 = acc1[m][n][2 * half] + bv.x;
+          const float h1 = acc1[m][n][2 * half + 1] + bv.y;
+          acc1[m][n][2 * half] = acc1[m][n][2 * half + 1] = 0.f;
+          const float d0 = round_bf16(acc2[m][n][2 * half] * gelu_grad_poly(h0));
+          const float d1 = round_bf16(acc2[m][n][2 * half + 1] * gelu_grad_poly(h1));
+          acc2[m][n][2 * half] = acc2[m][n][2 * half + 1] = 0.f;
+          if (r >= rows) continue;
+          const size_t o = size_t(r) * kMlp + c;
+          store2(hg + o, gelu_poly(round_bf16(h0)), gelu_poly(round_bf16(h1)));
+          store2(dh + o, d0, d1);
+          csum[n][0] += d0;
+          csum[n][1] += d1;
+        }
+      }
+    }
+    // the lanes of one q hold the same columns: sum the warp's rows
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          csum[n][i] += __shfl_xor_sync(0xffffffffu, csum[n][i], off);
+        if (g == 0) red[wm * kMlp + n0 + wn * 32 + n * 8 + 2 * q + i] = csum[n][i];
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int c = threadIdx.x; c < kMlp; c += kMlpThreads) {
+    float t = 0.f;
+    for (int w = 0; w < 4; ++w) t += red[w * kMlp + c];
+    part[size_t(blockIdx.x) * kMlp + c] = t;
+  }
+}
+
+// ------------------------------------- W^T products with a LayerNorm backward
+
+// dy (128 rows x all 256 columns) = A (rows x K) @ W^T, W stored (256, K)
+// row-major (W1 for dy2 = dh W1^T, W_qkv for dy = dqkv W_qkv^T), in the K
+// order of a plain 16-deep mma chain; then, on the f32 tile staged in
+// shared memory, the LayerNorm backward of each row (ln_bwd_row: one warp
+// a row, as a row pass would) and the tile's partial of its column sums
+// (each warp's rows in order, then the 8 warps in order) at
+// part[tile][kSums][256]. The f32 dy never reaches device memory. 16
+// warps, 4 (rows) x 4 (columns) of 32 x 64 outputs, one block an SM: each
+// block streams all of W from L2, so the taller the tile the fewer times.
+constexpr int kLnBM = 128;
+constexpr int kLnStages = 4;
+constexpr int kLnWarps = 16;
+constexpr int kLnThreads = kLnWarps * 32;
+constexpr int kLnA = kLnBM * kLdRow;          // A slice [128][32]
+constexpr int kLnStageElems = kLnA + kDim * kLdRow;  // + W slice [256][32]: (n, k)
+constexpr int kLdDy = kDim + 8;  // f32 pitch: a half-warp's float2 stores of rows g hit distinct banks
+constexpr size_t kLnSmem = size_t(kLnStages) * kLnStageElems * sizeof(bf16);
+constexpr size_t kLnSmemEpi = size_t(kLnBM) * kLdDy * 4 + size_t(kLnWarps) * 4 * kDim * 4;
+constexpr size_t kLnSmemAll = kLnSmem > kLnSmemEpi ? kLnSmem : kLnSmemEpi;
+static_assert(kLnSmemAll <= kSmemLimit, "the ring, or the staged dy tile and the column sums");
+
+__device__ __forceinline__ void ln_load_stage(bf16* slot, const bf16* __restrict__ a,
+                                              const bf16* __restrict__ w, int rows, int K,
+                                              int m0, int k0) {
+  const uint4 zero16 = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < (kLnBM + kDim) * (kBK / 8); i += kLnThreads) {
+    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+    bf16* d = slot + r * kLdRow + c;
+    if (r >= kLnBM) cp_async16(d, w + size_t(r - kLnBM) * K + k0 + c);
+    else if (m0 + r < rows) cp_async16(d, a + size_t(m0 + r) * K + k0 + c);
+    else *reinterpret_cast<uint4*>(d) = zero16;
+  }
+}
+
+template <bool kLn2>
+__global__ void __launch_bounds__(kLnThreads, 1)
+ln_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, int K,
+               const bf16* __restrict__ src, const bf16* __restrict__ ln_g,
+               const void* __restrict__ resid, float* __restrict__ out32,
+               bf16* __restrict__ out16, float* __restrict__ part, int rows) {
+  constexpr int kSums = kLn2 ? 4 : 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+  const int m0 = blockIdx.x * kLnBM;
+  const int n_slices = K / kBK;
+
+  for (int s = 0; s < kLnStages - 1; ++s) {
+    ln_load_stage(ring + s * kLnStageElems, a, w, rows, K, m0, s * kBK);
+    cp_async_commit();
+  }
+  float acc[2][8][4] = {};
+  const unsigned a_lane = ((wm * 32 + lane % 16) * kLdRow + (lane / 16) * 8) * 2;
+  const unsigned b_lane =
+      (kLnA + (wn * 64 + (lane / 16) * 8 + lane % 8) * kLdRow + ((lane / 8) % 2) * 8) * 2;
+  for (int ks = 0; ks < n_slices; ++ks) {
+    cp_async_wait<kLnStages - 2>();
+    __syncthreads();
+    const int next = ks + kLnStages - 1;
+    if (next < n_slices)
+      ln_load_stage(ring + (next % kLnStages) * kLnStageElems, a, w, rows, K, m0, next * kBK);
+    cp_async_commit();
+    const unsigned base = smem_u32(ring + (ks % kLnStages) * kLnStageElems);
+#pragma unroll
+    for (int u = 0; u < kBK / 16; ++u) {
+      unsigned b[4][4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) ldsm_x4(b[h], base + b_lane + (h * 16 * kLdRow + u * 16) * 2);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        unsigned af[4];
+        ldsm_x4(af, base + a_lane + (m * 16 * kLdRow + u * 16) * 2);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mma_bf16(acc[m][n], af, b[n / 2][(n % 2) * 2], b[n / 2][(n % 2) * 2 + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  float* dy = reinterpret_cast<float*>(smem);  // [64][kLdDy]
+  float* red = dy + kLnBM * kLdDy;             // [16 warps][kSums][256]
+  const int g = lane / 4;
+  const int q = lane % 4;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(dy + (wm * 32 + m * 16 + g + half * 8) * kLdDy + wn * 64 +
+                                   n * 8 + 2 * q) =
+            make_float2(acc[m][n][2 * half], acc[m][n][2 * half + 1]);
+  __syncthreads();
+
+  float sums[kSums][8] = {};
+  float gg[8];
+  load8(ln_g + lane * 8, gg);
+  const int n_rows = min(kLnBM, rows - m0);
+#pragma unroll 2
+  for (int r = warp; r < n_rows; r += kLnWarps)
+    ln_bwd_row<kLn2>(src, dy + r * kLdDy, gg, resid, out32, out16, size_t(m0 + r), lane, sums);
 #pragma unroll
   for (int k = 0; k < kSums; ++k)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) red[warp][k][lane * 8 + j] = acc[k][j];
+    for (int j = 0; j < 8; ++j) red[(warp * kSums + k) * kDim + lane * 8 + j] = sums[k][j];
   __syncthreads();
-  for (int i = threadIdx.x; i < kSums * kDim; i += kRowWarps * 32) {
+  for (int i = threadIdx.x; i < kSums * kDim; i += kLnThreads) {
     float t = 0.f;
-    for (int w = 0; w < kRowWarps; ++w) t += red[w][i / kDim][i % kDim];
+    for (int w = 0; w < kLnWarps; ++w) t += red[w * kSums * kDim + i];
     part[size_t(blockIdx.x) * kSums * kDim + i] = t;
   }
 }
 
 // ---------------------------------------------------- column sums
 
-constexpr int kColThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-// part[z][c] = sum of src[r][c] over the rows of slice z (n % 256 == 0)
-template <typename T>
-__global__ void __launch_bounds__(kColThreads)
-colsum_kernel(const T* __restrict__ src, int rows, int n, int rows_per_slice,
-              float* __restrict__ part) {
-  const int c = blockIdx.x * kColThreads + threadIdx.x;
-  const int r0 = blockIdx.y * rows_per_slice;
-  const int r1 = min(r0 + rows_per_slice, rows);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += to_f32(src[size_t(r) * n + c]);
-  part[size_t(blockIdx.y) * n + c] = s;
-}
-
-// out[i] = sum over z = 0, 1, ... of part[z * stride + i], in that order
+// out[i] = sum over z < slices of part[z * stride + i]. Thread (c, j) of a
+// (256 / ways) x ways block sums slices [j per, (j + 1) per) in order, and
+// the ways' sums are added in order j = 0, 1, ...; ways depends on the
+// shape only, so two calls sum in the same order. Few slices (the split-K
+// weight gradients) take one way; many (a partial per row tile or per
+// sequence) take 32, so that a column's loads are spread over 32 threads.
 __global__ void __launch_bounds__(256)
 sum_slices_kernel(const float* __restrict__ part, int slices, int stride, int count,
                   float* __restrict__ out) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= count) return;
+  __shared__ float red[256];
+  const int ways = blockDim.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int per = (slices + ways - 1) / ways;
+  const int z1 = min(slices, (threadIdx.y + 1) * per);
   float s = 0.f;
-  for (int z = 0; z < slices; ++z) s += part[size_t(z) * stride + i];
-  out[i] = s;
+  if (i < count) {
+#pragma unroll 4
+    for (int z = threadIdx.y * per; z < z1; ++z) s += part[size_t(z) * stride + i];
+  }
+  if (ways == 1) {
+    if (i < count) out[i] = s;
+    return;
+  }
+  red[threadIdx.y * blockDim.x + threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < count) {
+    float t = 0.f;
+    for (int w = 0; w < ways; ++w) t += red[w * blockDim.x + threadIdx.x];
+    out[i] = t;
+  }
 }
 
 cudaError_t sum_slices(const float* part, int slices, int stride, int count, float* out,
                        cudaStream_t s) {
-  sum_slices_kernel<<<(count + 255) / 256, 256, 0, s>>>(part, slices, stride, count, out);
+  const int ways = slices >= 64 ? 32 : 1;
+  const dim3 block(256 / ways, ways);
+  sum_slices_kernel<<<(count + block.x - 1) / block.x, block, 0, s>>>(part, slices, stride,
+                                                                      count, out);
   return cudaGetLastError();
-}
-
-// The LayerNorm backward (see ln_bwd_kernel) and its column sums, reduced
-// into the gradients at grads (the weights' layout).
-template <bool kLn2>
-cudaError_t ln_bwd(const bf16* src, const float* dy, const bf16* g, const void* resid,
-                   float* out32, bf16* out16, int rows, float* part, float* grads,
-                   cudaStream_t s) {
-  const int per = (rows + kColSlices - 1) / kColSlices;
-  const int slices = (rows + per - 1) / per;
-  ln_bwd_kernel<kLn2><<<slices, kRowWarps * 32, 0, s>>>(src, dy, g, resid, out32, out16, rows,
-                                                         per, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (!kLn2) return sum_slices(part, slices, 2 * kDim, 2 * kDim, grads + kOffLn1G, s);
-  err = sum_slices(part, slices, 4 * kDim, 3 * kDim, grads + kOffBProj, s);
-  if (err != cudaSuccess) return err;
-  return sum_slices(part + 3 * kDim, slices, 4 * kDim, kDim, grads + kOffB2, s);
-}
-
-template <typename T>
-cudaError_t colsum(const T* src, int rows, int n, float* part, float* out, cudaStream_t s) {
-  const int per = (rows + kColSlices - 1) / kColSlices;
-  const int slices = (rows + per - 1) / per;
-  colsum_kernel<T><<<dim3(n / kColThreads, slices), kColThreads, 0, s>>>(src, rows, n, per, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return sum_slices(part, slices, n, n, out, s);
 }
 
 // out (M x N, f32) = a^T @ b over all `rows` rows: a stored rows x M, b
@@ -511,7 +732,7 @@ cudaError_t weight_grad(const bf16* a, int M, const bf16* b, int N, int rows, fl
   const int want = min((kTargetCtas + tiles - 1) / tiles, (rows + 255) / 256);
   const int chunk = ((rows + want - 1) / want + kBK - 1) / kBK * kBK;
   const int slices = (rows + chunk - 1) / chunk;
-  GemmArgs p{a, b, M, N, rows, M, N, chunk, part, nullptr, N, size_t(M) * N, nullptr, nullptr};
+  GemmArgs p{a, b, M, N, rows, M, N, chunk, part, nullptr, N, size_t(M) * N, nullptr};
   cudaError_t err = gemm<true, false, kEpiF32>(p, slices, s);
   if (err != cudaSuccess) return err;
   return sum_slices(part, slices, M * N, M * N, out, s);
@@ -519,7 +740,6 @@ cudaError_t weight_grad(const bf16* a, int M, const bf16* b, int N, int rows, fl
 
 // Floats of the split-K partials: slices x tiles <= kTargetCtas + tiles.
 constexpr size_t kPartFloats = size_t(kTargetCtas + 16) * kBM * kBN;
-constexpr size_t kColPartFloats = size_t(kColSlices) * kMlp;
 
 // ------------------------------------------------- attention backward
 
@@ -532,12 +752,14 @@ constexpr float kAttnScale = 0.17677669529663687f;  // 32^-0.5
 constexpr int kBwdMaxLen = 256;  // the longest sequence attention_bwd_kernel takes
 constexpr int kLdA = kDimHead + 8;  // shared row pitch: 16 bytes of skew
 
+constexpr int kBwdWarps = 8;  // the most warps of one (sequence, head) block
+
 // Shared memory of one (sequence, head): Q, K, V, bf16(do), bf16(bf16(r) q)
 // and bf16(r do), each L rows padded to whole 16-row tiles at pitch kLdA,
-// then c per query (f32).
+// then c per query (f32), then each warp's column sums of dq, dk and dv.
 size_t attn_bwd_smem(int L) {
   const int rows = (L + 15) / 16 * 16;
-  return size_t(rows) * (6 * kLdA * 2 + 4);
+  return size_t(rows) * (6 * kLdA * 2 + 4) + size_t(kBwdWarps) * 3 * kDimHead * 4;
 }
 
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
@@ -583,7 +805,7 @@ __device__ __forceinline__ void pv_product(const unsigned (&p)[4], const bf16* b
 
 // One block per (sequence, head), L <= 256, dh = 32, on the tensor cores
 // (mma.sync m16n8k16, bf16 in, f32 accumulate), up to 8 warps: the block
-// needs ~124 KB of shared memory at L = 243, so it is alone on its SM, and
+// needs ~127 KB of shared memory at L = 243, so it is alone on its SM, and
 // its warps are all the SM has to hide latency with.
 // Pass 1, warp by warp over 16-query tiles: sweep the keys once for
 // sum(e) and sum(da e) (r and c), then again for ds = bf16(t - c e) and
@@ -592,10 +814,13 @@ __device__ __forceinline__ void pv_product(const unsigned (&p)[4], const bf16* b
 // transposed tiles s^T = k q^T and da^T = v do^T, then dv += bf16(e)^T
 // bf16(r do) and dk += ds^T bf16(bf16(r) q), times scale. Padded rows are
 // zero; a query past L gets e = 0. Each pass recomputes e from the scores,
-// so nothing of size L x L is stored.
-__global__ void __launch_bounds__(256)
+// so nothing of size L x L is stored. dqkv leaves as bf16 only; db_qkv's
+// partial of the block, the column sums of the f32 dq, dk and dv over the
+// sequence's rows (each warp's tiles in order, its lanes by shuffles, then
+// the warps in order), goes to part[sequence][768] at the head's columns.
+__global__ void __launch_bounds__(kBwdWarps * 32)
 attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ datt,
-                     float* __restrict__ dqkv32, bf16* __restrict__ dqkv16, int L, SeqRows sr) {
+                     bf16* __restrict__ dqkv16, float* __restrict__ part, int L, SeqRows sr) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = (L + 15) / 16 * 16;
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -605,6 +830,7 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
   bf16* rqs = dos + rows * kLdA;
   bf16* rdos = rqs + rows * kLdA;
   float* cs = reinterpret_cast<float*>(rdos + rows * kLdA);
+  float* red = cs + rows;  // [warp][dq, dk, dv][32]
   const int seq = blockIdx.x;
   const int hq = blockIdx.y * kDimHead;
   const long long base = (seq / sr.inner_n) * sr.outer + (seq % sr.inner_n) * sr.inner;
@@ -637,6 +863,8 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
   const int q4 = lane % 4;
   const int a_off = (lane % 16) * kLdA + (lane / 16) * 8;
   const int n_off = ((lane / 16) * 8 + lane % 8) * kLdA + ((lane / 8) % 2) * 8;
+  // this lane's column sums: columns nb * 8 + 2 q4 (+ 1) over its rows
+  float cq[4][2] = {}, ck[4][2] = {}, cv[4][2] = {};
 
   for (int qt = warp; qt < rows / 16; qt += n_warps) {
     unsigned qa[2][4], da_a[2][4];
@@ -700,7 +928,8 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
       for (int nb = 0; nb < 4; ++nb) {
         const int col = nb * 8 + 2 * q4;
         const float v0 = dq[nb][2 * h] * rs, v1 = dq[nb][2 * h + 1] * rs;
-        *reinterpret_cast<float2*>(dqkv32 + row * kQkv + hq + col) = make_float2(v0, v1);
+        cq[nb][0] += v0;
+        cq[nb][1] += v1;
         store2(dqkv16 + row * kQkv + hq + col, v0, v1);
         const float2 qv = load2(qs + row_i * kLdA + col);
         store2(rqs + row_i * kLdA + col, rb * qv.x, rb * qv.y);
@@ -752,25 +981,64 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
         const int col = nb * 8 + 2 * q4;
         const float k0 = dk[nb][2 * h] * kAttnScale, k1 = dk[nb][2 * h + 1] * kAttnScale;
         const float v0 = dv[nb][2 * h], v1 = dv[nb][2 * h + 1];
-        *reinterpret_cast<float2*>(dqkv32 + row * kQkv + kDim + hq + col) = make_float2(k0, k1);
+        ck[nb][0] += k0;
+        ck[nb][1] += k1;
+        cv[nb][0] += v0;
+        cv[nb][1] += v1;
         store2(dqkv16 + row * kQkv + kDim + hq + col, k0, k1);
-        *reinterpret_cast<float2*>(dqkv32 + row * kQkv + 2 * kDim + hq + col) =
-            make_float2(v0, v1);
         store2(dqkv16 + row * kQkv + 2 * kDim + hq + col, v0, v1);
       }
     }
   }
+
+  // the lanes of one q4 hold the same columns: sum the warp's rows, then
+  // the warps in order
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        cq[nb][i] += __shfl_xor_sync(0xffffffffu, cq[nb][i], off);
+        ck[nb][i] += __shfl_xor_sync(0xffffffffu, ck[nb][i], off);
+        cv[nb][i] += __shfl_xor_sync(0xffffffffu, cv[nb][i], off);
+      }
+  if (g == 0)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int col = nb * 8 + 2 * q4 + i;
+        red[(warp * 3 + 0) * kDimHead + col] = cq[nb][i];
+        red[(warp * 3 + 1) * kDimHead + col] = ck[nb][i];
+        red[(warp * 3 + 2) * kDimHead + col] = cv[nb][i];
+      }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * kDimHead; i += blockDim.x) {
+    float t = 0.f;
+    for (int w = 0; w < n_warps; ++w) t += red[w * 3 * kDimHead + i];
+    const int which = i / kDimHead;  // 0: q, 1: k, 2: v
+    part[size_t(seq) * kQkv + which * kDim + hq + i % kDimHead] = t;
+  }
 }
 
-// The workspace, carved in this order, each region 256-byte aligned.
+// The workspace, carved in this order, each region 256-byte aligned. The
+// column partials hold, in turn, db1's, LN_2's, db_qkv's (per sequence) and
+// LN_1's (per 128-row tile).
 struct Workspace {
   bf16 *y, *y2, *qkv, *hg, *dh, *dx1b, *dqkvb;
-  float *h, *dy, *dx1, *datt, *dqkv, *part, *colpart;
+  float *dx1, *datt, *part, *colpart;
 };
 
 size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
-size_t carve(Workspace* w, unsigned char* base, size_t rows) {
+size_t col_part_floats(size_t rows, size_t n_seq) {
+  const size_t mlp = (rows + kMlpBM - 1) / kMlpBM * kMlp;
+  const size_t ln = (rows + kLnBM - 1) / kLnBM * 4 * kDim;
+  return std::max(std::max(mlp, ln), n_seq * kQkv);
+}
+
+size_t carve(Workspace* w, unsigned char* base, size_t rows, size_t n_seq) {
   size_t off = 0;
   auto take = [&](size_t bytes) {
     unsigned char* p = base ? base + off : nullptr;
@@ -786,15 +1054,18 @@ size_t carve(Workspace* w, unsigned char* base, size_t rows) {
   t.dh = reinterpret_cast<bf16*>(take(rows * kMlp * b16));
   t.dx1b = reinterpret_cast<bf16*>(take(rows * kDim * b16));
   t.dqkvb = reinterpret_cast<bf16*>(take(rows * kQkv * b16));
-  t.h = reinterpret_cast<float*>(take(rows * kMlp * b32));
-  t.dy = reinterpret_cast<float*>(take(rows * kDim * b32));
   t.dx1 = reinterpret_cast<float*>(take(rows * kDim * b32));
   t.datt = reinterpret_cast<float*>(take(rows * kDim * b32));
-  t.dqkv = reinterpret_cast<float*>(take(rows * kQkv * b32));
   t.part = reinterpret_cast<float*>(take(kPartFloats * b32));
-  t.colpart = reinterpret_cast<float*>(take(kColPartFloats * b32));
+  t.colpart = reinterpret_cast<float*>(take(col_part_floats(rows, n_seq) * b32));
   if (w) *w = t;
   return off;
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
@@ -805,15 +1076,17 @@ size_t carve(Workspace* w, unsigned char* base, size_t rows) {
     if (e_ != cudaSuccess) return e_;     \
   } while (0)
 
-// Bytes of the workspace stblock_train_bwd_launch needs for n_rows rows.
-extern "C" long long stblock_train_bwd_workspace(int n_rows) {
-  return n_rows < 0 ? -1 : static_cast<long long>(carve(nullptr, nullptr, n_rows));
+// Bytes of the workspace stblock_train_bwd_launch needs for n_rows rows in
+// sequences of L (n_rows / L sequences).
+extern "C" long long stblock_train_bwd_workspace(int n_rows, int L) {
+  if (n_rows < 0 || L < 1) return -1;
+  return static_cast<long long>(carve(nullptr, nullptr, n_rows, n_rows / L));
 }
 
 // x, x1, att, dout, dx: (rows, 256) bf16, the same bytes as the spatial
 // rows or the (n_clips, T, 17 * 256) slab; weights: block_elems bf16 in the
 // layout above; dw: block_elems f32, every gradient in the weights' layout;
-// workspace: stblock_train_bwd_workspace(rows) bytes, 256-byte aligned.
+// workspace: stblock_train_bwd_workspace(rows, L) bytes, 256-byte aligned.
 // layout = 0 (kSpatial): the spatial half, n_outer frames of L = 17
 // joints; 1 (kSlab): the slab, n_outer clips of L frames; 2 (kSequences):
 // n_outer joint-major sequences of L rows, (n_outer, L, 256). block_elems
@@ -836,6 +1109,7 @@ extern "C" cudaError_t stblock_train_bwd_launch(const void* x, const void* x1, c
     return cudaErrorInvalidValue;
   const int rows = n_outer * L * per_outer;
   if (rows == 0) return cudaSuccess;
+  const int n_seq = n_outer * per_outer;
   const auto s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* x1b = static_cast<const bf16*>(x1);
@@ -844,10 +1118,11 @@ extern "C" cudaError_t stblock_train_bwd_launch(const void* x, const void* x1, c
   const bf16* w = static_cast<const bf16*>(weights);
   float* g = static_cast<float*>(dw);
   Workspace ws;
-  carve(&ws, static_cast<unsigned char*>(workspace), rows);
+  carve(&ws, static_cast<unsigned char*>(workspace), rows, n_seq);
   const int row_blocks = (rows + kRowWarps - 1) / kRowWarps;
+  const int ln_tiles = (rows + kLnBM - 1) / kLnBM;
 
-  // recompute: y, y2, qkv, h and hg
+  // recompute: y, y2, qkv
   ln_rows_kernel<<<row_blocks, kRowWarps * 32, 0, s>>>(xb, w + kOffLn1G, w + kOffLn1B, ws.y, rows);
   POSE3D_TRY(cudaGetLastError());
   ln_rows_kernel<<<row_blocks, kRowWarps * 32, 0, s>>>(x1b, w + kOffLn2G, w + kOffLn2B, ws.y2,
@@ -855,21 +1130,22 @@ extern "C" cudaError_t stblock_train_bwd_launch(const void* x, const void* x1, c
   POSE3D_TRY(cudaGetLastError());
   POSE3D_TRY((gemm<false, false, kEpiBiasBf16>(
       {ws.y, w + kOffWQkv, rows, kQkv, kDim, kDim, kQkv, kDim, nullptr, ws.qkv, kQkv, 0,
-       w + kOffBQkv, nullptr}, 1, s)));
-  POSE3D_TRY((gemm<false, false, kEpiMlp>(
-      {ws.y2, w + kOffW1, rows, kMlp, kDim, kDim, kMlp, kDim, ws.h, ws.hg, kMlp, 0, w + kOffB1,
-       nullptr}, 1, s)));
+       w + kOffBQkv}, 1, s)));
 
-  // MLP half
-  POSE3D_TRY((gemm<false, true, kEpiGeluGrad>(  // dh = bf16(dout W2^T * gelu'(h))
-      {doutb, w + kOffW2, rows, kMlp, kDim, kDim, kDim, kDim, nullptr, ws.dh, kMlp, 0, nullptr,
-       ws.h}, 1, s)));
-  POSE3D_TRY((gemm<false, true, kEpiF32>(  // dy2 = dh W1^T
-      {ws.dh, w + kOffW1, rows, kDim, kMlp, kMlp, kMlp, kMlp, ws.dy, nullptr, kDim, 0, nullptr,
-       nullptr}, 1, s)));
-  POSE3D_TRY(ln_bwd<true>(x1b, ws.dy, w + kOffLn2G, doutb, ws.dx1, ws.dx1b, rows, ws.colpart,
-                          g, s));  // dx1; dbp, dg2, db2, db2f
-  POSE3D_TRY(colsum(ws.dh, rows, kMlp, ws.colpart, g + kOffB1, s));
+  // MLP half: hg and dh with db1's partials, then dy2 = dh W1^T with LN_2's
+  // backward: dx1 (f32 and bf16); dbp, dg2, db2, db2f
+  POSE3D_TRY(set_smem(mlp_bwd_kernel, kMlpSmem));
+  const int mlp_tiles = (rows + kMlpBM - 1) / kMlpBM;
+  mlp_bwd_kernel<<<mlp_tiles, kMlpThreads, kMlpSmem, s>>>(
+      ws.y2, doutb, w + kOffW1, w + kOffB1, w + kOffW2, ws.hg, ws.dh, ws.colpart, rows);
+  POSE3D_TRY(cudaGetLastError());
+  POSE3D_TRY(sum_slices(ws.colpart, mlp_tiles, kMlp, kMlp, g + kOffB1, s));
+  POSE3D_TRY(set_smem(ln_gemm_kernel<true>, kLnSmemAll));
+  ln_gemm_kernel<true><<<ln_tiles, kLnThreads, kLnSmemAll, s>>>(
+      ws.dh, w + kOffW1, kMlp, x1b, w + kOffLn2G, doutb, ws.dx1, ws.dx1b, ws.colpart, rows);
+  POSE3D_TRY(cudaGetLastError());
+  POSE3D_TRY(sum_slices(ws.colpart, ln_tiles, 4 * kDim, 3 * kDim, g + kOffBProj, s));
+  POSE3D_TRY(sum_slices(ws.colpart + 3 * kDim, ln_tiles, 4 * kDim, kDim, g + kOffB2, s));
   POSE3D_TRY(weight_grad(ws.hg, kMlp, doutb, kDim, rows, ws.part, g + kOffW2, s));
   POSE3D_TRY(weight_grad(ws.y2, kDim, ws.dh, kMlp, rows, ws.part, g + kOffW1, s));
   POSE3D_TRY(weight_grad(attb, kDim, ws.dx1b, kDim, rows, ws.part, g + kOffWProj, s));
@@ -877,26 +1153,24 @@ extern "C" cudaError_t stblock_train_bwd_launch(const void* x, const void* x1, c
   // attention half
   POSE3D_TRY((gemm<false, true, kEpiF32>(  // datt = bf16(dx1) Wp^T
       {ws.dx1b, w + kOffWProj, rows, kDim, kDim, kDim, kDim, kDim, ws.datt, nullptr, kDim, 0,
-       nullptr, nullptr}, 1, s)));
+       nullptr}, 1, s)));
   // sequence s, token t: row (s / inner_n) outer + (s % inner_n) inner + t step
   const SeqRows sr = layout == kSlab
                          ? SeqRows{static_cast<long long>(L) * kJoints, 1, kJoints, kJoints}
                          : SeqRows{L, 0, 1, 1};
-  const int n_seq = n_outer * per_outer;
   const size_t smem = attn_bwd_smem(L);
-  POSE3D_TRY(cudaFuncSetAttribute(attention_bwd_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(smem)));
-  const int warps = min(8, (L + 15) / 16);  // one 16-row tile per warp and pass
+  POSE3D_TRY(set_smem(attention_bwd_kernel, smem));
+  const int warps = min(kBwdWarps, (L + 15) / 16);  // one 16-row tile per warp and pass
   attention_bwd_kernel<<<dim3(n_seq, kHeads), warps * 32, smem, s>>>(
-      ws.qkv, ws.datt, ws.dqkv, ws.dqkvb, L, sr);
+      ws.qkv, ws.datt, ws.dqkvb, ws.colpart, L, sr);
   POSE3D_TRY(cudaGetLastError());
-  POSE3D_TRY(colsum(ws.dqkv, rows, kQkv, ws.colpart, g + kOffBQkv, s));
+  POSE3D_TRY(sum_slices(ws.colpart, n_seq, kQkv, kQkv, g + kOffBQkv, s));
   POSE3D_TRY(weight_grad(ws.y, kDim, ws.dqkvb, kQkv, rows, ws.part, g + kOffWQkv, s));
-  POSE3D_TRY((gemm<false, true, kEpiF32>(  // dy = bf16(dqkv) W_qkv^T
-      {ws.dqkvb, w + kOffWQkv, rows, kDim, kQkv, kQkv, kQkv, kQkv, ws.dy, nullptr, kDim, 0,
-       nullptr, nullptr}, 1, s)));
-  POSE3D_TRY(ln_bwd<false>(xb, ws.dy, w + kOffLn1G, ws.dx1, nullptr, static_cast<bf16*>(dx),
-                           rows, ws.colpart, g, s));  // dx; dg1, db1
-  return cudaGetLastError();
+  // dy = bf16(dqkv) W_qkv^T with LN_1's backward: dx; dg1, db1
+  POSE3D_TRY(set_smem(ln_gemm_kernel<false>, kLnSmemAll));
+  ln_gemm_kernel<false><<<ln_tiles, kLnThreads, kLnSmemAll, s>>>(
+      ws.dqkvb, w + kOffWQkv, kQkv, xb, w + kOffLn1G, ws.dx1, nullptr, static_cast<bf16*>(dx),
+      ws.colpart, rows);
+  POSE3D_TRY(cudaGetLastError());
+  return sum_slices(ws.colpart, ln_tiles, 2 * kDim, 2 * kDim, g + kOffLn1G, s);
 }

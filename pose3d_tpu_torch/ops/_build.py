@@ -112,7 +112,7 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i
-    lib.stblock_train_bwd_workspace.argtypes = [i]
+    lib.stblock_train_bwd_workspace.argtypes = [i, i]
     lib.stblock_train_bwd_workspace.restype = ctypes.c_longlong
     lib.pose3d_cuda_error_string.argtypes = [i]
     lib.pose3d_cuda_error_string.restype = ctypes.c_char_p

@@ -79,10 +79,20 @@ def seq_attention_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def smem_bytes(seq: int, dh: int) -> int:
-    """Shared memory of one CUDA block at sequence length ``seq``: Q, K and
-    V of one head, padded to whole 16-row tiles, at a pitch of dh + 8 bf16.
-    ``csrc/attention.cuh`` computes the same."""
-    return 3 * (-(-seq // 16) * 16) * (dh + 8) * 2
+    """Shared memory of one CUDA block at sequence length ``seq``: K and V
+    of one head (Q stays in registers), padded to whole 16-row tiles, at a
+    pitch of dh + 8 bf16. ``csrc/attention.cuh`` computes the same."""
+    return 2 * (-(-seq // 16) * 16) * (dh + 8) * 2
+
+
+def check_length(seq: int, dh: int) -> None:
+    """Raises unless the K and V of a ``seq``-row sequence at head width
+    ``dh`` fit in one CUDA block's shared memory (at most 1440 rows at
+    dh = 32): the limit of every CUDA attention launch, the sub-blocks'
+    included."""
+    if smem_bytes(seq, dh) > SMEM_LIMIT:
+        raise ValueError(f"sequence length {seq} at head width {dh}: K and V need "
+                         f"{smem_bytes(seq, dh)} bytes and do not fit in shared memory")
 
 
 def _head_dim(qkv: torch.Tensor, heads: int, seq: int) -> int:
@@ -100,9 +110,7 @@ def _head_dim(qkv: torch.Tensor, heads: int, seq: int) -> int:
         raise TypeError(f"the attention kernel takes bfloat16, got {qkv.dtype}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head width {dh}: the attention kernel takes {HEAD_DIMS}")
-    if smem_bytes(seq, dh) > SMEM_LIMIT:
-        raise ValueError(f"sequence length {seq} at head width {dh} needs "
-                         f"{smem_bytes(seq, dh)} bytes of shared memory")
+    check_length(seq, dh)
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and start on a 16-byte boundary")
     return dh

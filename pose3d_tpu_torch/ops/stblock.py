@@ -220,9 +220,8 @@ def check_slab(x_slab: torch.Tensor) -> None:
     if x_slab.dim() != 3 or x_slab.shape[2] != N_JOINTS * DIM or x_slab.shape[1] < 1:
         raise ValueError(f"the slab must be (C, T, {N_JOINTS * DIM}), "
                          f"got {tuple(x_slab.shape)}")
-    t = x_slab.shape[1]
-    if x_slab.device.type == "cuda" and attention.smem_bytes(t, DIM_HEAD) > attention.SMEM_LIMIT:
-        raise ValueError(f"{t} frames: a joint's K and V do not fit in shared memory")
+    if x_slab.device.type == "cuda":
+        attention.check_length(x_slab.shape[1], DIM_HEAD)
 
 
 def check_sequences(x3d: torch.Tensor) -> None:
@@ -230,10 +229,8 @@ def check_sequences(x3d: torch.Tensor) -> None:
     CUDA attention can hold."""
     if x3d.dim() != 3 or x3d.shape[2] != DIM or x3d.shape[1] < 1:
         raise ValueError(f"the sequences must be (n, L, {DIM}), got {tuple(x3d.shape)}")
-    length = x3d.shape[1]
-    if (x3d.device.type == "cuda"
-            and attention.smem_bytes(length, DIM_HEAD) > attention.SMEM_LIMIT):
-        raise ValueError(f"L = {length}: a sequence's K and V do not fit in shared memory")
+    if x3d.device.type == "cuda":
+        attention.check_length(x3d.shape[1], DIM_HEAD)
 
 
 def run_spatial(x: torch.Tensor, w: SubBlockWeights, counter, with_residuals: bool):

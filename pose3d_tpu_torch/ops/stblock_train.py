@@ -237,7 +237,7 @@ def _bwd_launch(x, x1, att, dout, w, n_outer: int, length: int, layout: int):
     dw = torch.empty(BLOCK_ELEMS, dtype=torch.float32, device=x.device)
     lib = _build.library()
     rows = x.numel() // DIM
-    work = torch.empty(lib.stblock_train_bwd_workspace(rows), dtype=torch.uint8,
+    work = torch.empty(lib.stblock_train_bwd_workspace(rows, length), dtype=torch.uint8,
                        device=x.device)
     with torch.cuda.device(x.device):
         err = lib.stblock_train_bwd_launch(

@@ -140,6 +140,19 @@ class TestWrappers:
         assert A.smem_bytes(243, 64) <= A.SMEM_LIMIT
         assert A.smem_bytes(5000, 64) > A.SMEM_LIMIT
 
+    def test_smem_bytes_holds_k_and_v_only(self):
+        # Q stays in registers: K and V of one head, rows padded to 16, pitch dh + 8
+        assert A.smem_bytes(243, 32) == 2 * 256 * 40 * 2
+        assert A.smem_bytes(17, 32) == 2 * 32 * 40 * 2
+        assert A.smem_bytes(1, 64) == 2 * 16 * 72 * 2
+
+    # the longest L each head width's K and V leave in 232,448 bytes
+    @pytest.mark.parametrize("dh,limit", [(16, 2416), (32, 1440), (64, 800)])
+    def test_length_limit(self, dh, limit):
+        A.check_length(limit, dh)
+        with pytest.raises(ValueError, match="do not fit in shared memory"):
+            A.check_length(limit + 1, dh)
+
 
 @pytest.mark.cuda
 class TestAttentionKernel:
@@ -180,6 +193,15 @@ class TestAttentionKernel:
         out = A.packed_flat_attention(pert, 17, 8)
         assert torch.equal(base[17:], out[17:])
         assert not torch.equal(base[:17], out[:17])
+
+    def test_seq_kernel_takes_the_longest_sequence(self):
+        dev = cuda_device()
+        qkv = torch.from_numpy(_qkv((2, 1440), 8, 32, seed=3)).to(dev, torch.bfloat16)
+        got = A.seq_attention(qkv, 8)
+        _bf16_close(got.float().cpu().numpy(),
+                    A.seq_attention_reference(qkv, 8).float().cpu().numpy(), atol=2 ** -6)
+        with pytest.raises(ValueError, match="do not fit in shared memory"):
+            A.seq_attention(torch.zeros(1, 1441, 768, device=dev, dtype=torch.bfloat16), 8)
 
     def test_kernel_rejects_other_head_widths(self):
         dev = cuda_device()

@@ -317,8 +317,19 @@ class TestSubBlockKernels:
             S.temporal_block_fused(torch.zeros(2, 16, 256, device=dev), w)
         wb = S.SubBlockWeights(w.flat.to(torch.bfloat16))
         with pytest.raises(ValueError, match="do not fit in shared memory"):
-            S.temporal_block_fused(torch.zeros(1, 1000, 256, device=dev, dtype=torch.bfloat16),
+            S.temporal_block_fused(torch.zeros(1, 1441, 256, device=dev, dtype=torch.bfloat16),
                                    wb)
+
+    def test_slab_kernel_takes_the_longest_clip(self):
+        dev = cuda_device()
+        model = TemporalLifter(n_blocks=1, device=dev)
+        w = S.SubBlockWeights(S.pack_temporal_weights(model.blocks[0]).flat.to(torch.bfloat16))
+        x = torch.randn(1, 1440, 17 * 256, generator=torch.Generator().manual_seed(0)).to(
+            dev, torch.bfloat16)
+        out = S.temporal_slab(x, w)
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        with pytest.raises(ValueError, match="do not fit in shared memory"):
+            S.temporal_slab(torch.zeros(1, 1441, 17 * 256, device=dev, dtype=torch.bfloat16), w)
 
     def test_kernels_isolate_clips_and_frames(self):
         dev = cuda_device()
