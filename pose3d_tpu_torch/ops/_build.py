@@ -99,7 +99,6 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (("lifter_trunk_launch", [p, p, p, p, i, i, i, i, p]),
                        ("attention_launch", [p, p, i, i, i, i, p]),
-                       ("stblock_spatial_launch", [p, p, p, p, p, i, i, i, p]),
                        ("stblock_temporal_launch", [p, p, p, p, p, p, i, i, i, p]),
                        ("stblock_sequences_launch", [p, p, p, p, p, p, i, i, i, p]),
                        ("stblock_train_bwd_launch", [p] * 8 + [i, i, i, i, p]),

@@ -12,7 +12,7 @@ joint j of frame t of clip c):
   joint-major sequences, one sequence per row of the first axis (the JAX
   package's public entry for that layout).
 
-Each runs its CUDA kernel (``csrc/stblock.cu``) when its operands lie on a
+Each runs its CUDA kernels (``csrc/stblock.cu``) when its operands lie on a
 CUDA device and its plain version (``*_reference``) when they lie on the
 CPU. ``temporal_forward_fused`` is the whole ``TemporalLifter`` inference
 on them; the embed + PE and the LN -> 128 -> ReLU -> 3 head stay plain
@@ -42,9 +42,6 @@ DIM = 256
 HEADS = 8
 DIM_HEAD = DIM // HEADS
 MLP = 4 * DIM
-# frames per CUDA thread block of the spatial kernel: whole frames, since
-# each attends within itself; a last partial tile runs with zero frames
-FRAMES_PER_CTA = 4
 
 # One sub-block's weights in the kernels' flat operand, in this order (the
 # order of pallas_stblock.pack_spatial_weights / pack_temporal_weights);
@@ -233,79 +230,73 @@ def check_sequences(x3d: torch.Tensor) -> None:
         attention.check_length(x3d.shape[1], DIM_HEAD)
 
 
+def _launch(launcher: str, x: torch.Tensor, w: SubBlockWeights, counter,
+            with_residuals: bool, *shape) -> torch.Tensor | tuple:
+    """The sub-block kernels' three launches (``csrc/stblock.cu``: LN_1 +
+    qkv, the attention, projection + MLP) on x's rows through the C
+    ``launcher``, with a qkv and an attention scratch allocated here;
+    ``shape`` is the launcher's layout arguments. Counts the call in
+    ``counter.launches``. Returns out, or (out, x1, att) for the training
+    forward: the attention scratch is its att."""
+    out, att = torch.empty_like(x), torch.empty_like(x)
+    x1 = torch.empty_like(x) if with_residuals else None
+    rows = x.numel() // DIM
+    if rows:
+        qkv = torch.empty(rows, 3 * DIM, dtype=x.dtype, device=x.device)
+        with torch.cuda.device(x.device):  # the launch's current device
+            err = getattr(_build.library(), launcher)(
+                x.data_ptr(), w.flat.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+                x1.data_ptr() if with_residuals else None, out.data_ptr(), *shape,
+                BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, launcher)
+        counter.launches += 1
+    return (out, x1, att) if with_residuals else out
+
+
 def run_spatial(x: torch.Tensor, w: SubBlockWeights, counter, with_residuals: bool):
     """``spatial_block`` and, ``with_residuals``, the training forward
-    (out, x1, att): the kernel on a CUDA device, counted in
+    (out, x1, att): the kernels on a CUDA device (each frame one sequence
+    of 17 rows of the sequences launcher), counted in
     ``counter.launches``, the plain version on the CPU."""
     check_rows(x)
     _check_operands(x, w)
     if x.device.type == "cpu":
         return spatial_block_reference(x, w, with_residuals)
-    outs = [torch.empty_like(x) for _ in range(3 if with_residuals else 1)]
-    n_frames = x.shape[0] // N_JOINTS
-    if n_frames:
-        x1, att = (outs[1].data_ptr(), outs[2].data_ptr()) if with_residuals else (None, None)
-        with torch.cuda.device(x.device):  # the launch's current device
-            err = _build.library().stblock_spatial_launch(
-                x.data_ptr(), w.flat.data_ptr(), outs[0].data_ptr(), x1, att, n_frames,
-                FRAMES_PER_CTA, BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "stblock_spatial_launch")
-        counter.launches += 1
-    return tuple(outs) if with_residuals else outs[0]
+    return _launch("stblock_sequences_launch", x, w, counter, with_residuals,
+                   x.shape[0] // N_JOINTS, N_JOINTS)
 
 
 def run_slab(x_slab: torch.Tensor, w: SubBlockWeights, counter, with_residuals: bool):
     """``temporal_slab`` and, ``with_residuals``, the training forward
-    (out, x1, att), as ``run_spatial``. The kernels run three in a row with
-    a qkv and an attention scratch allocated here; the training forward
-    returns the attention scratch as att."""
+    (out, x1, att), as ``run_spatial``, the attention over each joint's T
+    frames of the slab."""
     check_slab(x_slab)
     _check_operands(x_slab, w)
     if x_slab.device.type == "cpu":
         return temporal_slab_reference(x_slab, w, with_residuals)
     c, t, _ = x_slab.shape
-    out, att = torch.empty_like(x_slab), torch.empty_like(x_slab)
-    x1 = torch.empty_like(x_slab) if with_residuals else None
-    if c:
-        qkv = torch.empty(c * t * N_JOINTS, 3 * DIM, dtype=x_slab.dtype, device=x_slab.device)
-        with torch.cuda.device(x_slab.device):  # the launch's current device
-            err = _build.library().stblock_temporal_launch(
-                x_slab.data_ptr(), w.flat.data_ptr(), qkv.data_ptr(), att.data_ptr(),
-                x1.data_ptr() if with_residuals else None, out.data_ptr(), c, t,
-                BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "stblock_temporal_launch")
-        counter.launches += 1
-    return (out, x1, att) if with_residuals else out
+    return _launch("stblock_temporal_launch", x_slab, w, counter, with_residuals, c, t)
 
 
 def run_sequences(x3d: torch.Tensor, w: SubBlockWeights, counter, with_residuals: bool):
     """``temporal_block_fused`` and, ``with_residuals``, the training forward
-    (out, x1, att), as ``run_slab`` on (n, L, 256) joint-major sequences."""
+    (out, x1, att), as ``run_spatial`` on (n, L, 256) joint-major sequences."""
     check_sequences(x3d)
     _check_operands(x3d, w)
     if x3d.device.type == "cpu":
         return temporal_block_reference(x3d, w, with_residuals)
     n, length, _ = x3d.shape
-    out, att = torch.empty_like(x3d), torch.empty_like(x3d)
-    x1 = torch.empty_like(x3d) if with_residuals else None
-    if n:
-        qkv = torch.empty(n * length, 3 * DIM, dtype=x3d.dtype, device=x3d.device)
-        with torch.cuda.device(x3d.device):  # the launch's current device
-            err = _build.library().stblock_sequences_launch(
-                x3d.data_ptr(), w.flat.data_ptr(), qkv.data_ptr(), att.data_ptr(),
-                x1.data_ptr() if with_residuals else None, out.data_ptr(), n, length,
-                BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "stblock_sequences_launch")
-        counter.launches += 1
-    return (out, x1, att) if with_residuals else out
+    return _launch("stblock_sequences_launch", x3d, w, counter, with_residuals, n, length)
 
 
 def spatial_block(x: torch.Tensor, w: SubBlockWeights) -> torch.Tensor:
     """The spatial sub-block on flat (n_frames·17, 256) rows.
 
-    On a CUDA device this launches the kernel on the current stream (bf16
-    only; anything else raises) and counts it in ``spatial_block.launches``;
-    on the CPU it runs ``spatial_block_reference``.
+    On a CUDA device this launches the kernels on the current stream (bf16
+    only; anything else raises: three kernels in a row, each frame a
+    sequence of 17 rows, with a qkv and an attention scratch allocated
+    here) and counts the call in ``spatial_block.launches``; on the CPU it
+    runs ``spatial_block_reference``.
     """
     return run_spatial(x, w, spatial_block, with_residuals=False)
 

@@ -214,8 +214,9 @@ def _check_residuals(x: torch.Tensor, *others: torch.Tensor) -> None:
 def spatial_fwd(x: torch.Tensor, w: SubBlockWeights):
     """Spatial sub-block forward on flat (n_frames·17, 256) rows -> (out,
     x1, att), each like x. On a CUDA device this launches the serving
-    kernel with its residual stores on (bf16 only) and counts it in
-    ``spatial_fwd.launches``; on the CPU it runs ``spatial_fwd_reference``."""
+    kernels with the x1 store on (three in a row; the attention scratch is
+    att; bf16 only) and counts the call in ``spatial_fwd.launches``; on the
+    CPU it runs ``spatial_fwd_reference``."""
     return run_spatial(x, w, spatial_fwd, with_residuals=True)
 
 

@@ -76,8 +76,7 @@ CUDA_SOURCES = sorted((PKG / "csrc").glob("*.cu"))
 LAUNCHERS = {
     "lifter_trunk.cu": ["lifter_trunk_launch"],
     "attention.cu": ["attention_launch"],
-    "stblock.cu": ["stblock_spatial_launch", "stblock_temporal_launch",
-                   "stblock_sequences_launch"],
+    "stblock.cu": ["stblock_temporal_launch", "stblock_sequences_launch"],
     "stblock_train.cu": ["stblock_train_bwd_launch"],
     "martinez.cu": ["martinez_launch"],
     "softargmax.cu": ["softargmax_nhwc_launch", "softargmax_nhwc_bwd_launch",
@@ -118,6 +117,10 @@ def test_kernel_source_calls_no_library(path):
 # main path's shape and the bytes a call moves there, and says what the
 # design does about them.
 REDESIGNED = {
+    "stblock.cu": ("pallas_stblock.py", "_spatial_kernel", "_temporal_slab_kernel",
+                   "_temporal_kernel", "_spatial_fwd_kernel", "_temporal_slab_fwd_kernel",
+                   "What bounds it on this card", "104 GFLOP", "0.37 GB",
+                   "230,448 bytes", "230,464 bytes", "does not fit", "rowtile_sm90.cuh"),
     "attention.cu": ("pallas_attention.py", "_packed_kernel", "_seq_kernel",
                      "What bounds it on this card", "0.040 ms", "101.5 MB",
                      "Q never enters shared memory", "cp.async"),
@@ -136,6 +139,27 @@ def test_redesigned_kernel_keeps_its_header_note(name):
     assert "Replaces" in header
     for phrase in REDESIGNED[name]:
         assert phrase in header, phrase
+
+
+def test_rowtile_engine_header():
+    """The sub-block forwards' engine (csrc/rowtile_sm90.cuh): its note says
+    what it is and what it replaces; it is wgmma on TMA-loaded weight
+    chunks behind mbarriers with a producer warp, and nothing of JAX; the
+    sub-block kernels run on it and not on common.cuh's 80-row engine."""
+    src = (PKG / "csrc" / "rowtile_sm90.cuh").read_text()
+    note = " ".join(line.removeprefix("//").strip()
+                    for line in src[:src.index("#pragma once")].splitlines())
+    for phrase in ("row-tile engine", "common.cuh's 80-row engine", "producer warpgroup",
+                   "setmaxnreg", "TMA", "mbarrier", "wgmma", "transpose flag"):
+        assert phrase in note, phrase
+    for instr in ("cp.async.bulk.tensor.2d", "wgmma.mma_async", "mbarrier.try_wait",
+                  "setmaxnreg.dec", "setmaxnreg.inc", "cudaGetDriverEntryPoint"):
+        assert instr in src, instr
+    assert "jax" not in src.lower() and "pose3d_tpu/" not in src
+    stblock = (PKG / "csrc" / "stblock.cu").read_text()
+    assert '#include "rowtile_sm90.cuh"' in stblock
+    for old_engine in ("mma_pass", "WeightStream", "mlp_residual", "attend_row"):
+        assert old_engine not in stblock, old_engine
 
 
 def _layout_offsets(src: str) -> list[str]:
@@ -190,7 +214,6 @@ def test_kernel_constants_match_the_wrapper(kernel):
         assert _layout_offsets(src) == _offset_names(L._BLOCK_LAYOUT)
     else:
         src = (PKG / "csrc" / "stblock.cu").read_text()
-        assert f"constexpr int kFrames = {S.FRAMES_PER_CTA};" in src
         assert f"constexpr int kHeads = {S.HEADS};" in src
         assert _layout_offsets(src) == _offset_names(S._LAYOUT)
         head = (PKG / "csrc" / "attention.cuh").read_text()

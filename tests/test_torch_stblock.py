@@ -35,6 +35,7 @@ from torch_port_util import cuda_device, flax_apply, flax_temporal, torch_tempor
 from pose3d_tpu_torch.interop.weights import sub_block_from_jax
 from pose3d_tpu_torch.models.temporal import TemporalLifter
 from pose3d_tpu_torch.ops import stblock as S
+from pose3d_tpu_torch.ops import stblock_train as ST
 
 torch.set_num_threads(2)
 
@@ -355,6 +356,62 @@ class TestSubBlockKernels:
         want = _plain_fused(model, kp)
         err = (got - want).abs().max().item()
         assert err < 5e-2, f"max abs err {err}"
+
+    @pytest.mark.parametrize("frames", [1, 7, 8, 486])
+    def test_ragged_tiles_match_plain(self, frames):
+        """Row counts that are not a multiple of the 128-row tile (17, 119,
+        136, 8262 rows): the spatial half on frames, the slab on one clip of
+        that many frames and the joint-major route on its re-laid tokens,
+        each against its plain version; the joint-major route bitwise equal
+        to the slab; the serving and training forwards bitwise equal in
+        out."""
+        dev = cuda_device()
+        model = TemporalLifter(n_blocks=1, clip_len=frames, device="cpu").init_weights(
+            torch.Generator().manual_seed(frames))
+        model = model.to(device=dev, dtype=torch.bfloat16).eval().requires_grad_(False)
+        x = torch.randn(frames * 17, 256, generator=torch.Generator().manual_seed(1)).to(
+            dev, torch.bfloat16)
+        ws, wt = S.pack_spatial_weights(model.blocks[0]), S.pack_temporal_weights(model.blocks[0])
+        got = S.spatial_block(x, ws)
+        _rows_close(got.float().cpu(), S.spatial_block_reference(x, ws).float().cpu())
+        assert torch.equal(got, ST.spatial_fwd(x, ws)[0])
+        slab = x.view(1, frames, -1)
+        got = S.temporal_slab(slab, wt)
+        _rows_close(got.float().cpu(), S.temporal_slab_reference(slab, wt).float().cpu())
+        assert torch.equal(got, ST.slab_fwd(slab, wt)[0])
+        jm = S.temporal_block_fused(S.joint_major(x, 1), wt)
+        assert torch.equal(jm, S.joint_major(got.view(-1, 256), 1))
+
+    @pytest.mark.parametrize("half", ["spatial", "slab"])
+    def test_training_forward_residuals_match_plain(self, half):
+        """The kSave forward's out, x1 and att against the plain version's at
+        3 clips (12,393 rows, a ragged last tile): rows 5e-2 + 2^-5·|want|."""
+        dev = cuda_device()
+        model, _, tokens = self._setup(dev, 3)
+        blk = model.blocks[0]
+        if half == "spatial":
+            w, x = S.pack_spatial_weights(blk), tokens
+            got, want = ST.spatial_fwd(x, w), ST.spatial_fwd_reference(x, w)
+        else:
+            w, x = S.pack_temporal_weights(blk), tokens.view(3, model.clip_len, -1)
+            got, want = ST.slab_fwd(x, w), ST.slab_fwd_reference(x, w)
+        for g, t in zip(got, want):
+            assert g.shape == x.shape
+            _rows_close(g.float().cpu(), t.float().cpu())
+
+    def test_two_calls_give_the_same_bits(self):
+        """No atomics and no order that depends on scheduling: every output
+        and residual of both halves, serving and training, twice."""
+        dev = cuda_device()
+        model, _, tokens = self._setup(dev, 2)
+        ws = S.pack_spatial_weights(model.blocks[0])
+        wt = S.pack_temporal_weights(model.blocks[0])
+        slab = tokens.view(2, model.clip_len, -1)
+        for fn, x, w in ((S.spatial_block, tokens, ws), (S.temporal_slab, slab, wt)):
+            assert torch.equal(fn(x, w), fn(x, w))
+        for fn, x, w in ((ST.spatial_fwd, tokens, ws), (ST.slab_fwd, slab, wt)):
+            for a, b in zip(fn(x, w), fn(x, w)):
+                assert torch.equal(a, b)
 
     def test_kernels_reject_f32(self):
         dev = cuda_device()

@@ -378,7 +378,12 @@ class TestTrainKernels:
     sequences) and two. Forward
     rows: 5e-2 + 2^-5·|want| (the serving kernels' bound); gradients:
     2^-7 of the tensor's largest element + 2^-7·|want| (flipped bf16
-    roundings of dh, dqkv and dx1, measured ~0.1% of the largest element)."""
+    roundings of dh, dqkv and dx1, measured ~0.1% of the largest element).
+    The backward recomputes y, qkv and the hidden with its own products,
+    not the forward kernels' (a wgmma engine since the forward's redesign),
+    so a step's gradients may differ from a step on plain forwards by such
+    flipped roundings too; the whole-step limits of PERF.md §2 (relative L2
+    5e-2, checked by chip_smoke.py) cover that."""
 
     @staticmethod
     def _setup(clips, half, seed=0):
