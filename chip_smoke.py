@@ -13,19 +13,28 @@ any phase fails:
 The lifter path, the default JointTransformerLifter (the reference MyViT:
 17 tokens, hidden 256, 2 blocks, 4 heads, bf16):
 
-3. kernel vs plain: the trunk kernel against ``trunk_reference`` at B=64
-   and B=8192 on the embedded tokens of seeded keypoints, and frame
-   isolation. Tolerances: the fused forward's (B, 17, 3) outputs within
-   atol 5e-2 (the JAX package's bf16 budget); the trunk's own outputs,
-   which reach |7| where one bf16 step is 2^-5, within 5e-2 + 2^-5 |want|;
-   and the kernel's error against an f32 trunk at most 1.5x the plain
-   version's;
+3. kernel vs plain: the trunk kernels against ``trunk_reference`` at B=64
+   and B=8192 on the embedded tokens of seeded keypoints, two calls
+   bitwise equal, and frame isolation. Tolerances: the fused forward's (B,
+   17, 3) outputs within atol 5e-2 (the JAX package's bf16 budget); the
+   trunk's own outputs, which reach |7| where one bf16 step is 2^-5,
+   within 5e-2 + 2^-5 |want|; and the kernel's error against an f32 trunk
+   at most 1.5x the plain version's. Then each of the trunk's six launches
+   (per block ``qkv_kernel``, the attention, ``rest_kernel``) against its
+   plain version (``trunk_qkv_reference``, ``trunk_attention_reference``,
+   ``trunk_rest_reference``) on the inputs the kernels gave it, at 4, 8,
+   12 and 8192 frames (a batch is a multiple of 4 frames): rows as above,
+   the attention as in phase 6, the first block's bf16(tokens + pe)
+   bitwise;
 4. serving: ``LifterService(...).warmup()`` then requests of N = 1, 33,
    200, 8192, 10000, each checked against the f32 module (atol 0.1) and
    the plain path (atol 5e-2); the trunk's launches over these requests
    must be the number of batches they make;
 5. times at B=8192 (every time below: ms per call, the median of 3 runs
-   of 20 back-to-back calls, each run fenced by CUDA events, after warm-up).
+   of 20 back-to-back calls, each run fenced by CUDA events, after
+   warm-up); each trunk launch by device ms (torch.profiler), and the
+   trunk's eight products as bare bf16 ``torch.matmul`` (a yardstick; the
+   port never calls it).
 
 The temporal path, the default TemporalLifter (17 joints, hidden 256, 8
 heads x 32, MLP 1024, 5 blocks, clips of 243 frames, bf16):
@@ -94,7 +103,8 @@ weights (bf16 compute in the kernels), 16 clips x 243 frames a step
     LN_1 + qkv, the attention, projection + MLP) by device ms, and a
     sub-block's four products alone as bf16 ``torch.matmul`` at the same
     shapes (a yardstick; the port never calls it). ``python3 chip_smoke.py
-    --forward-split`` runs this forward split alone, after phases 1-2.
+    --forward-split`` runs this forward split and the trunk's of phase 5
+    alone, after phases 1-2.
 
 The direct image->3D path, the default PoseNet3D (the reference Model_3D:
 ResNet-50, three 4x4 stride-2 deconvs of 256, a 1x1 conv to 17 x 64
@@ -149,7 +159,9 @@ step (bench.py's ``direct_train``), the final conv x8 as above:
     route's step by kind and its busy share (device time over event time);
     each backward kernel, its plain version and, for the conv decode, its
     three products as bf16 ``torch.matmul`` (a yardstick; the port never
-    calls it);
+    calls it); the conv-decode backward launch by launch (A: dfeats, B:
+    the dW and db partials, C: their fold) by device ms. ``python3
+    chip_smoke.py --decode-backward-split`` runs that split alone;
 20. ``cli.train_direct.train`` for one epoch on the fused route (256
     synthetic frames, 2 optimizer steps a chunk), then ``infer`` on its
     checkpoint.
@@ -329,11 +341,14 @@ def kernel_phase(model) -> float:
         kp = torch.rand(batch, 17, 2, generator=gen).to("cuda")
         tokens = L.embed_tokens(model, kp)
         got = L.trunk(tokens, model.pe, w)
+        again = L.trunk(tokens, model.pe, w)
         want = L.trunk_reference(tokens, model.pe, w)
         ref32 = L.trunk_reference(tokens.float(), model.pe.float(), w32)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise AssertionError(f"kernel output not finite at B={batch}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"two trunk calls at B={batch} differ")
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         excess = (diff - (KERNEL_ATOL + TRUNK_RTOL * want.float().abs())).max().item()
@@ -359,6 +374,60 @@ def kernel_phase(model) -> float:
         raise AssertionError("frame isolation: perturbing frame 0 moved other frames")
     log("kernel frame isolation: ok")
     return err_top
+
+
+TRUNK_LAUNCH_FRAMES = (4, 8, 12, TOP)  # the trunk takes multiples of 4 frames (FRAMES_PER_CTA)
+
+
+def _attn_check(what, got, want, ref32) -> float:
+    """Attention rows: 2^-6 + 2^-7 |want| and the f32-yardstick ratio."""
+    diff = (got.float() - want.float()).abs()
+    excess = (diff - (ATTN_ATOL + ATTN_RTOL * want.float().abs())).max().item()
+    err32 = (got.float() - ref32.view_as(got)).abs().max().item()
+    plain32 = (want.float() - ref32.view_as(want)).abs().max().item()
+    log(f"kernel vs plain, {what}: max abs err {diff.max().item():.6g} (worst excess over "
+        f"2^-6 + 2^-7|want| {excess:.4g}); vs f32: kernel {err32:.6g}, plain {plain32:.6g}")
+    if not torch.isfinite(got).all() or excess > 0 or err32 > F32_ERR_RATIO * plain32:
+        raise AssertionError(f"{what} disagrees with its plain version")
+    return diff.max().item()
+
+
+def trunk_launch_phase(model) -> None:
+    """Each of the trunk's launches against its plain version on the inputs
+    the kernels gave it (``L.trunk_scratch``: a call's q|k|v, attention
+    and residual scratch), at 4, 8, 12 and TOP frames: block 0 from a
+    one-block call (its residual stream bf16(tokens + pe) bitwise), block 1
+    from the two-block call, whose block-0 output must equal the one-block
+    call's bitwise; q|k|v and the block's output as rows (5e-2 + 2^-5
+    |want|, the f32-yardstick ratio 1.5), the attention within 2^-6 + 2^-7
+    |want| and the ratio."""
+    w = L.pack_weights(model)
+    w32 = L.TrunkWeights(w.flat.float(), w.n_blocks)
+    one = L.TrunkWeights(w.flat[:L.BLOCK_ELEMS], 1)
+    pe = model.pe
+    gen = torch.Generator().manual_seed(SEED + 50)
+    for frames in TRUNK_LAUNCH_FRAMES:
+        tokens = L.embed_tokens(model, torch.rand(frames, 17, 2, generator=gen).to("cuda"))
+        out1, resid1, qkv1, att1 = L.trunk_scratch(tokens, pe, one)
+        out2, resid2, qkv2, att2 = L.trunk_scratch(tokens, pe, w)
+        torch.cuda.synchronize()
+        if not torch.equal(resid1, L.trunk_qkv_reference(tokens, w.block(0), pe)[1]):
+            raise AssertionError(f"trunk block 0, {frames} frames: bf16(tokens + pe) differs")
+        if not torch.equal(resid2, out1):
+            raise AssertionError(f"trunk, {frames} frames: block 0's output differs between "
+                                 "a one-block and a two-block call")
+        for blk, x_in, x, qkv, att, out in ((0, tokens, resid1, qkv1, att1, out1),
+                                            (1, resid2, resid2, qkv2, att2, out2)):
+            wb, wb32 = w.block(blk), w32.block(blk)
+            pe_b = pe if blk == 0 else None
+            what = f"trunk block {blk}, {frames} frames"
+            _rows_check(f"{what}, qkv_kernel", qkv, L.trunk_qkv_reference(x_in, wb, pe_b)[0],
+                        L.trunk_qkv_reference(x_in.float(), wb32,
+                                              None if pe_b is None else pe_b.float())[0])
+            _attn_check(f"{what}, attention", att, L.trunk_attention_reference(qkv),
+                        L.trunk_attention_reference(qkv.float()))
+            _rows_check(f"{what}, rest_kernel", out, L.trunk_rest_reference(x, att, wb),
+                        L.trunk_rest_reference(x.float(), att.float(), wb32))
 
 
 def serving_phase(model, model_f32):
@@ -578,16 +647,8 @@ def attention_phase() -> dict:
             got = A.seq_attention(qkv, heads)
             want = A.seq_attention_reference(qkv, heads)
             ref32 = A.seq_attention_reference(qkv.float(), heads)
-        diff = (got.float() - want.float()).abs()
-        excess = (diff - (ATTN_ATOL + ATTN_RTOL * want.float().abs())).max().item()
-        err32 = (got.float() - ref32.view_as(got)).abs().max().item()
-        plain32 = (want.float() - ref32.view_as(want)).abs().max().item()
-        log(f"kernel vs plain, {name} {n} x {length}, {heads} x {dh}: max abs err "
-            f"{diff.max().item():.6g} (worst excess over 2^-6 + 2^-7|want| {excess:.4g}); "
-            f"vs f32: kernel {err32:.6g}, plain {plain32:.6g}")
-        if not torch.isfinite(got).all() or excess > 0 or err32 > F32_ERR_RATIO * plain32:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        errs[name] = max(errs[name], diff.max().item())
+        err = _attn_check(f"{name} {n} x {length}, {heads} x {dh}", got, want, ref32)
+        errs[name] = max(errs[name], err)
     return errs
 
 
@@ -1165,6 +1226,32 @@ def forward_split_phase(model) -> None:
             "TFLOP/s)")
 
 
+def trunk_split_phase(model) -> float:
+    """Logs each launch of one trunk call at B = TOP by device ms
+    (torch.profiler), and times row 1's yardstick: the trunk's eight
+    products (qkv, projection, W1, W2 of each block) as bf16
+    ``torch.matmul`` on the same weights at TOP x 17 rows (the port never
+    calls it). Returns the yardstick's ms."""
+    w = L.pack_weights(model)
+    kp = torch.rand(TOP, 17, 2, generator=torch.Generator().manual_seed(SEED + 51))
+    tokens = L.embed_tokens(model, kp.to("cuda"))
+    launches = device_launches(lambda: L.trunk(tokens, model.pe, w))
+    for i, (name, ms) in enumerate(launches):
+        log(f"forward split lifter trunk {i + 1} {name.split('(')[0][:70]}: {ms:.4f} ms")
+    log(f"forward split lifter trunk: {len(launches)} launches, "
+        f"{sum(ms for _, ms in launches):.4f} ms of device time")
+    rows = tokens.shape[0]
+    gen = torch.Generator().manual_seed(SEED + 52)
+    ins = {k: torch.randn(rows, k, generator=gen).to("cuda", torch.bfloat16) for k in (256, 1024)}
+    mats = [w.block(i)[name] for i in range(w.n_blocks)
+            for name in ("w_qkv", "w_proj", "w1", "w2")]
+    ms = cuda_ms(lambda: [ins[m.shape[0]] @ m for m in mats])
+    flops = 2 * rows * sum(m.numel() for m in mats)
+    log(f"forward split torch.matmul, the trunk's {len(mats)} products at {rows} rows: "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+    return ms
+
+
 def seeded_posenet(device, dtype):
     """The default PoseNet3D from the seed, its final conv x FINAL_SCALE."""
     model = PoseNet3D(device="cpu").init_weights(torch.Generator().manual_seed(SEED))
@@ -1484,6 +1571,28 @@ def direct_backward_timing_phase(model) -> dict:
     for k, ms in t.items():
         log(f"time direct B={DIRECT_B} {k}: {ms:.4f} ms")
     return t
+
+
+def decode_backward_split_phase(model) -> None:
+    """Logs each launch of one conv-decode backward (kernel 13b: A, the
+    dfeats launch; B, the dW and db partials; C, their fold) at B =
+    DIRECT_B on the model's own head features, by device ms
+    (torch.profiler)."""
+    j, d = model.num_joints, model.depth
+    with torch.inference_mode():
+        nhwc = model.features(direct_frames(DIRECT_B, SEED + 44)).permute(0, 2, 3, 1)
+        weight = model.final_layer.weight.view(j * d, -1)
+        bias = model.final_layer.bias.float()
+        g = torch.randn(DIRECT_B, j, 3,
+                        generator=torch.Generator().manual_seed(SEED + 45)).to("cuda")
+        e, stats = CD.conv_soft_argmax_3d_expectations(nhwc, weight, bias, j, d, with_stats=True)
+        launches = device_launches(
+            lambda: CD.conv_soft_argmax_3d_backward(nhwc, weight, bias, e, stats, g))
+    for i, (name, ms) in enumerate(launches):
+        log(f"launch split conv_decode_bwd {'ABC'[i] if i < 3 else i + 1} "
+            f"{name.split('(')[0][:60]}: {ms:.4f} ms")
+    log(f"launch split conv_decode_bwd: {len(launches)} launches, "
+        f"{sum(ms for _, ms in launches):.4f} ms of device time")
 
 
 # route: (PoseNet3D's flags, the kernel wrappers a step launches: forward, backward)
@@ -1980,8 +2089,10 @@ def main() -> None:
         model = seeded_model("cuda", torch.bfloat16)
         model_f32 = seeded_model("cuda", torch.float32)
         err = kernel_phase(model)
+        trunk_launch_phase(model)
         svc, launches = serving_phase(model, model_f32)
         t = timing_phase(model, svc)
+        t["trunk_matmuls"] = trunk_split_phase(model)
 
         tmodel = seeded_temporal("cuda", torch.bfloat16)
         errs = {**sub_block_phase(tmodel), **attention_phase()}
@@ -1999,6 +2110,7 @@ def main() -> None:
         dt = direct_timing_phase(dmodel)
         derrs.update(direct_backward_phase(dmodel))
         dt.update(direct_backward_timing_phase(dmodel))
+    decode_backward_split_phase(dmodel)
 
     train_model = seeded_train_model()
     errs.update(train_kernel_phase(train_model))
@@ -2101,9 +2213,15 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--forward-split"]:  # the forward split alone
+    if sys.argv[1:] == ["--forward-split"]:  # the forward splits alone
         device_phase()
         build_phase()
         forward_split_phase(seeded_train_model())
+        with torch.inference_mode():
+            trunk_split_phase(seeded_model("cuda", torch.bfloat16))
+    elif sys.argv[1:] == ["--decode-backward-split"]:  # kernel 13b's launch split alone
+        device_phase()
+        build_phase()
+        decode_backward_split_phase(seeded_posenet("cuda", torch.bfloat16))
     else:
         main()

@@ -1,12 +1,15 @@
-// The tiling shared by the fused 1x1-conv decode (conv_decode.cu) and its
-// backward (conv_decode_bwd.cu). A CTA holds a tile of kTilePixels feature
-// rows (kFeat bf16 each) and a joint's weight slab (kDepth x kFeat, the
-// rows of the conv's (out, in) matrix that belong to the joint) in shared
-// memory at a pitch of kLd, and its 8 warps (4 x 2, 32 x 32 logits each)
-// compute the tile's kTilePixels x kDepth logits of the joint with
-// ldmatrix + mma.sync m16n8k16 (bf16 in, f32 accumulate). The forward and
-// both backward launches run this one product, so the backward's
-// recomputed logits are the forward's, bit for bit.
+// The widths of the fused 1x1-conv decode (conv_decode.cu) and its
+// backward (conv_decode_bwd.cu), and the forward's logits product. A CTA
+// of the forward holds a tile of kTilePixels feature rows (kFeat bf16
+// each) and a joint's weight slab (kDepth x kFeat, the rows of the conv's
+// (out, in) matrix that belong to the joint) in shared memory at a pitch
+// of kLd, and its 8 warps (4 x 2, 32 x 32 logits each) compute the tile's
+// kTilePixels x kDepth logits of the joint with ldmatrix + mma.sync
+// m16n8k16 (bf16 in, f32 accumulate). The backward recomputes the same
+// logits on wgmma, which sums the 256 products in another order: its
+// logits differ from the forward's by f32 rounding (a few ulps of |l|), so
+// its p / s = exp(l - m) / s, with m and s from the forward, carries that
+// relative error; chip_smoke.py holds its outputs to a float64 run.
 
 #pragma once
 

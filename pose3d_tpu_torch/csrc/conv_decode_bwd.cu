@@ -1,8 +1,8 @@
 // The backward of the fused 1x1-conv decode (conv_decode.cu), for Hopper
 // (sm_90a). From the gradient g (B, J, 3) f32 of the expectations [Ex, Ey,
 // Ez], the expectations e and the forward's per-joint maximum m and sum s
-// (softargmax.cuh), with the logits l = feats @ W^T + b recomputed as the
-// forward computes them and p / s = exp(l - m) / s:
+// (softargmax.cuh), with the logits l = feats @ W^T + b recomputed and
+// p / s = exp(l - m) / s:
 //
 //   dslab  = p / s * (gx (xi - Ex) + gy (yi - Ey) + gz (d - Ez))   f32
 //   dfeats = sum_j bf16(dslab_j) @ W_j      f32 sums, written bf16 once
@@ -18,309 +18,505 @@
 //
 // What bounds it on this card: operations. Three products of 2 * B * H *
 // W * 256 * J * 64 flops each (the recompute, dfeats and dW: 146 GFLOP
-// each at B = 64, H = W = 64, J = 17; 0.44 ms at 989 TFLOP/s), against
-// 134 MB of features read and 134 MB of dfeats written (0.08 ms).
+// each at B = 64, H = W = 64, J = 17; 0.443 ms at 989 TFLOP/s), against
+// 134 MB of features read and 134 MB of dfeats written (0.08 ms). This
+// design computes the logits twice, four products: 0.59 ms at the peak.
 //
 // Why not the TPU's design: the TPU walks the batch in order on one core
 // (grid (B,)) and keeps dW and db in VMEM across its steps. Here blocks
 // run side by side, and a partial of the whole dW (1.1 MB f32) per CTA of
-// 128 pixels would be 2.3 GB. So three launches, no atomics, bitwise
+// 128 pixels would be 2.3 GB. Nor does one recompute shared by dfeats and
+// dW fit: all of W (17 x 64 x 256 bf16, 557 KB) is past the 227 KB of
+// shared memory a block can have, and dslab written to device memory (570
+// MB in bf16 at B = 64, written and read) costs more than the second
+// recompute (0.15 ms at the peak). So three launches, no atomics, bitwise
 // repeatable:
 //
-// A (dfeats_kernel): a CTA per (sample, 128-pixel tile), as the forward.
-//   For each joint it recomputes the tile's 128 x 64 logits (the slabs
-//   stream through a two-slab cp.async ring), forms dslab in registers,
-//   rounds it to bf16 into shared memory and adds dslab @ W_j to a 128 x
-//   256 f32 accumulator held in registers (8 warps, 32 x 128 each, 128
-//   registers a thread); it writes dfeats once.
-// B (dweight_kernel): a CTA per (joint, group of tiles). W_j stays in
-//   shared memory; the group's feature tiles stream through two cp.async
-//   buffers; per tile it recomputes the joint's logits and dslab, adds
-//   bf16(dslab)^T @ feats to a 64 x 256 f32 accumulator (8 warps, 32 x 64
-//   each) and dslab's column sums to db; it writes one partial per
-//   (group, joint). The wrapper picks the groups: about four CTAs an SM.
+// A (dfeats_kernel), a persistent CTA an SM walking (sample, 128-pixel)
+//   tiles, two warpgroups of 64 pixels each and no producer warpgroup:
+//   ptxas budgets registers for the launch bound, so a third warpgroup
+//   caps every thread at 168, where the 128-register dfeats accumulator
+//   beside the logits' made ptxas serialise the wgmmas (1.5 ms; 0.72 ms
+//   at 256 threads and up to 255 registers, H100 80GB HBM3, 700 W). Its
+//   thread 0 loads each tile's features by TMA (zeros past the sample's
+//   last pixel) and feeds the J weight slabs W_j (64 x 256, 32 KB) by TMA
+//   through a 4-stage mbarrier ring. Per joint each warpgroup computes the
+//   logits (wgmma m64n64k16, A the feature tile, B the slab K-major),
+//   forms dslab in the accumulator registers, rounds it to bf16 into a
+//   swizzled A buffer, and adds dslab @ W_j (m64n256k16, B the same slab
+//   N-major, taken with the transpose flag) to a 64 x 256 f32
+//   accumulator; joint j + 1's logits run while joint j's product does.
+//   dfeats is staged over the feature tile and leaves by TMA stores.
+// B (dweight_kernel), a CTA per (joint, group of 64-pixel chunks), on the
+//   row-tile engine's three warpgroups: W_j stays in shared memory; the
+//   producer warp streams the group's chunks by TMA through a 4-stage
+//   ring. One chunk serves as A of the logits (K-major)
+//   and as B of dW_j += dslab^T @ feats (N-major, transpose flag); dslab^T
+//   is A with the transpose flag. The warpgroups split the work by N:
+//   warpgroup w computes depth columns [32w, 32w + 32) of the logits
+//   (m64n32k16) into a shared dslab buffer (three, in turn), and, once
+//   both halves are in (one barrier of the two warpgroups a chunk), dW_j's
+//   channels [128w, 128w + 128) (m64n128k16). It writes one partial per
+//   (group, joint); the wrapper picks about four waves of CTAs.
 // C (fold_kernel): folds the groups' partials in group order and casts
 //   dW to bf16.
 //
-// So it computes four products where the TPU computes three (the logits
-// twice): the price of keeping dslab (1.1 GB in f32 at B = 64) out of
-// device memory.
+// The recomputed logits sum in another order than the forward's (13a,
+// mma.sync), while m and s come from the forward: p / s is off by the
+// logits' f32 summation error (a few ulps of |l|), which the float64
+// yardstick of chip_smoke.py measures.
 //
 // The launcher runs on the caller's stream, does not synchronise,
 // allocates nothing (the wrapper allocates the outputs and the partials),
 // and returns cudaGetLastError().
 
 #include "conv_decode.cuh"
+#include "rowtile_sm90.cuh"
 
 namespace {
 
 using namespace pose3d;
+namespace rt = pose3d::rowtile;
 
-constexpr int kLdS = kDepth + 8;  // pitch of the bf16 dslab tile (kTilePixels x kDepth)
-constexpr int kDslabElems = kTilePixels * kLdS;
-// A: dfeats, warp (wm, wn) of the 4 x 2 owns rows 32 wm.. and columns 128 wn..
-constexpr int kDfCols = kFeat / kDecodeWarpsN;
-constexpr int kDfFragN = kDfCols / 8;
-// B: dW_j, warp (wm, wn) of 2 x 4 owns depth rows 32 wm.. and columns 64 wn..
-constexpr int kDwWarpsN = 4;
-constexpr int kDwRows = kDepth / (kDecodeWarps / kDwWarpsN);
-constexpr int kDwCols = kFeat / kDwWarpsN;
-constexpr int kDwFragM = kDwRows / 16;
-constexpr int kDwFragN = kDwCols / 8;
-
-constexpr size_t kSmemA = size_t(kTileElems + 2 * kSlabElems + kDslabElems) * sizeof(bf16);
-constexpr size_t kSmemB = size_t(2 * kTileElems + kSlabElems + kDslabElems) * sizeof(bf16) +
-                          size_t(kDecodeWarpsM) * kDepth * sizeof(float);
+constexpr int kStages = 4;
+constexpr int kChunkPixels = 64;  // launch B's chunk: one wgmma M (ops/conv_decode.py CHUNK_PIXELS)
+constexpr int kDsBytes = rt::kWgRows * kDepth * 2;    // a 64 x 64 bf16 dslab: 8 KB
+constexpr int kDsBufs = 3;                            // launch B's dslab buffers
+constexpr int kHalfDepth = kDepth / rt::kConsumers;   // launch B's logits columns a warpgroup
+constexpr int kHalfFeat = kFeat / rt::kConsumers;     // launch B's dW columns a warpgroup
 constexpr int kFoldThreads = 256;
-
+constexpr int kThreadsA = rt::kConsumers * 128;  // launch A: no producer warpgroup
+constexpr size_t kSmemA = 1024 + size_t(kStages) * rt::kStageBytes + rt::kActBytes +
+                          2 * rt::kConsumers * kDsBytes + 8 * (2 * kStages + 2);
+constexpr size_t kSmemB = 1024 + rt::kStageBytes + size_t(kStages) * rt::kStageBytes +
+                          kDsBufs * kDsBytes + 4 * rt::kConsumers * 4 * kHalfDepth +
+                          8 * (2 * kStages + 1);
 static_assert(kSmemA <= size_t(kSmemLimit) && kSmemB <= size_t(kSmemLimit), "shared memory");
-static_assert(kDwRows == 32 && kDfFragN % 2 == 0 && kDwFragN % 2 == 0, "tiling");
+static_assert(kFeat == 4 * rt::kBox && kDepth == rt::kBox && kTilePixels == rt::kTileRows &&
+                  kChunkPixels == rt::kWgRows,
+              "a slab is one wide chunk, a depth row one swizzled 128-byte row");
 
-// dslab of warp (wm, wn)'s 32 x 32 logits of joint j on the tile at pixel
-// p0 -> bf16 into ds; rows past the last pixel give 0. Where kColSums, the
-// unrounded values are also added to colsum[n][i], the thread's columns 32
-// wn + 8 n + 2 (lane % 4) + i.
-template <bool kColSums>
-__device__ __forceinline__ void form_dslab(const LogitAcc& acc, const float* __restrict__ bias_j,
-                                           const GradCoef& c, int p0, int pixels, int width,
-                                           int wm, int wn, int lane, bf16* ds,
-                                           float (&colsum)[kFragN][2]) {
-  const int g = lane / 4;
-  const int q = lane % 4;
-#pragma unroll
-  for (int n = 0; n < kFragN; ++n) {
-    const int d = wn * kWarpCols + n * 8 + 2 * q;
-    const float2 bv = *reinterpret_cast<const float2*>(bias_j + d);
-#pragma unroll
-    for (int m = 0; m < kFragM; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm * kWarpRows + m * 16 + g + h * 8;
-        const int pix = p0 + row;
-        float v0 = 0.f, v1 = 0.f;
-        if (pix < pixels) {
-          const float xi = float(pix % width);
-          const float yi = float(pix / width);
-          v0 = c.grad(acc[m][n][2 * h] + bv.x, xi, yi, float(d));
-          v1 = c.grad(acc[m][n][2 * h + 1] + bv.y, xi, yi, float(d + 1));
-        }
-        if (kColSums) {
-          colsum[n][0] += v0;
-          colsum[n][1] += v1;
-        }
-        store2(ds + row * kLdS + d, v0, v1);
-      }
-  }
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
-// grid (n_tiles, B), kDecodeThreads threads: launch A.
-__global__ void __launch_bounds__(kDecodeThreads, 1)
-dfeats_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ weight,
-              const float* __restrict__ bias, const float* __restrict__ g,
-              const float* __restrict__ e, const float* __restrict__ stats,
-              bf16* __restrict__ dfeats, int pixels, int width, int joints) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);
-  bf16* w_s = a_s + kTileElems;  // two slabs
-  bf16* ds = w_s + 2 * kSlabElems;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / kDecodeWarpsN;
-  const int wn = warp % kDecodeWarpsN;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kTilePixels;
+// The pixel coordinates of this thread's two accumulator rows, ra and ra + 8
+// of the 64 from pixel p0 of one sample; ok says a row is a real pixel.
+struct Rows {
+  float xi[2], yi[2];
+  bool ok[2];
 
-  load_feature_tile(a_s, feats + size_t(b) * pixels * kFeat, p0, pixels);
-  load_slab(w_s, weight, 0);
-  cp_async_commit();
-  if (joints > 1) load_slab(w_s + kSlabElems, weight, 1);
-  cp_async_commit();
-
-  float df[kFragM][kDfFragN][4];
-#pragma unroll
-  for (int m = 0; m < kFragM; ++m)
-#pragma unroll
-    for (int n = 0; n < kDfFragN; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) df[m][n][i] = 0.f;
-  // ldmatrix row addresses of this lane: dslab rows lane % 16 (+ 16 m) at
-  // depth offset (lane / 16) * 8; slab rows (depth) lane % 16 at feature
-  // column 128 wn + (lane / 16) * 8 (+ 16 h), transposed: K x N rows give
-  // the column fragments
-  const unsigned ds_lane =
-      smem_u32(ds) + ((wm * kWarpRows + lane % 16) * kLdS + (lane / 16) * 8) * 2;
-  const unsigned wt_lane = ((lane % 16) * kLd + wn * kDfCols + (lane / 16) * 8) * 2;
-  float unused[kFragN][2];
-
-  for (int j = 0; j < joints; ++j) {
-    cp_async_wait<1>();  // slab j (and, for j = 0, the feature tile) has landed
-    __syncthreads();
-    const bf16* slab = w_s + (j % 2) * kSlabElems;
-    {
-      LogitAcc acc;
-      slab_logits(a_s, slab, wm, wn, lane, acc);
-      form_dslab<false>(acc, bias + j * kDepth, GradCoef::load(g, e, stats, b * joints + j), p0,
-                        pixels, width, wm, wn, lane, ds, unused);
-    }
-    __syncthreads();  // the tile's dslab is whole
-    const unsigned wt = smem_u32(slab) + wt_lane;
-#pragma unroll
-    for (int k = 0; k < kDepth / 16; ++k) {
-      unsigned af[kFragM][4];
-#pragma unroll
-      for (int m = 0; m < kFragM; ++m) ldsm_x4(af[m], ds_lane + (m * 16 * kLdS + k * 16) * 2);
-#pragma unroll
-      for (int h = 0; h < kDfFragN / 2; ++h) {
-        unsigned bfr[4];
-        ldsm_x4_trans(bfr, wt + (k * 16 * kLd + h * 16) * 2);
-#pragma unroll
-        for (int m = 0; m < kFragM; ++m) {
-          mma_bf16(df[m][2 * h], af[m], bfr[0], bfr[1]);
-          mma_bf16(df[m][2 * h + 1], af[m], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with dslab and this slab's buffer
-    if (j + 2 < joints) load_slab(w_s + (j % 2) * kSlabElems, weight, j + 2);
-    cp_async_commit();  // an empty group past the end keeps the count
-  }
-
-  const int gr = lane / 4;
-  const int q = lane % 4;
-  bf16* out = dfeats + size_t(b) * pixels * kFeat;
-#pragma unroll
-  for (int m = 0; m < kFragM; ++m)
+  __device__ __forceinline__ Rows(int p0, int ra, int pixels, int width) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int pix = p0 + wm * kWarpRows + m * 16 + gr + h * 8;
-      if (pix >= pixels) continue;
-#pragma unroll
-      for (int n = 0; n < kDfFragN; ++n)
-        store2(out + size_t(pix) * kFeat + wn * kDfCols + n * 8 + 2 * q, df[m][n][2 * h],
-               df[m][n][2 * h + 1]);
+      const int p = p0 + ra + 8 * h;
+      ok[h] = p < pixels;
+      xi[h] = float(p % width);
+      yi[h] = float(p / width);
     }
+  }
+};
+
+// One (sample, joint)'s gradient g, expectations e and forward statistics
+// [m, s], as loaded (ahead of their use: the loads' latency then overlaps
+// the products in flight).
+struct CoefIn {
+  float gx, gy, gz, ex, ey, ez, m, s;
+
+  static __device__ __forceinline__ CoefIn load(const float* __restrict__ g,
+                                                const float* __restrict__ e,
+                                                const float* __restrict__ stats, int i) {
+    return {g[i * 3], g[i * 3 + 1], g[i * 3 + 2], e[i * 3], e[i * 3 + 1], e[i * 3 + 2],
+            stats[i * 2], stats[i * 2 + 1]};
+  }
+};
+
+// The same at this thread's two rows: dslab at depth d of row h is
+// exp2((l - m) log2 e) / s * (t[h] + gz (d - ez)), with t[h] = gx (xi -
+// ex) + gy (yi - ey) (GradCoef's terms, folded per row so that six
+// registers carry them through the dslab pass).
+struct RowCoef {
+  float m, inv_s, gz, ez, t[2];
+
+  __device__ __forceinline__ RowCoef(const CoefIn& c, const Rows& rows) {
+    m = c.m;
+    inv_s = __frcp_rn(c.s);  // 1 / s, correctly rounded, without a division's call
+    gz = c.gz;
+    ez = c.ez;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) t[h] = fmaf(c.gx, rows.xi[h] - c.ex, c.gy * (rows.yi[h] - c.ey));
+  }
+
+  // dslab of logit l in row h at a depth d whose d - ez is dz
+  __device__ __forceinline__ float grad(float l, int h, float dz) const {
+    return ex2((l - m) * kLog2e) * inv_s * fmaf(gz, dz, t[h]);
+  }
+
+  // 2^x on the SFU: exp2f's value wherever it is not subnormal (it flushes
+  // those to 0), without exp2f's subnormal handling
+  static __device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+  }
+};
+
+// The bias of depth columns d0 + 8j + 2q and + 1, j < kBlocks, of one joint.
+template <int kBlocks>
+__device__ __forceinline__ void load_bias(float2 (&bv)[kBlocks], const float* __restrict__ bias_j,
+                                          int d0, int q) {
+#pragma unroll
+  for (int j = 0; j < kBlocks; ++j)
+    bv[j] = *reinterpret_cast<const float2*>(bias_j + d0 + 8 * j + 2 * q);
 }
 
-// grid (J, groups), kDecodeThreads threads: launch B. Group `grp` takes
-// tiles [grp * total / groups, (grp + 1) * total / groups) of the batch's
-// tiles, tile t being sample t / n_tiles, pixels from (t % n_tiles) *
-// kTilePixels. part_w: (groups, J * kDepth, kFeat); part_b: (groups, J *
-// kDepth).
-__global__ void __launch_bounds__(kDecodeThreads, 1)
-dweight_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ weight,
-               const float* __restrict__ bias, const float* __restrict__ g,
-               const float* __restrict__ e, const float* __restrict__ stats,
-               float* __restrict__ part_w, float* __restrict__ part_b, int pixels, int width,
-               int joints, int n_tiles, int total) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* f_s = reinterpret_cast<bf16*>(smem);  // two feature tiles
-  bf16* w_s = f_s + 2 * kTileElems;
-  bf16* ds = w_s + kSlabElems;
-  float* red = reinterpret_cast<float*>(ds + kDslabElems);  // (kDecodeWarpsM, kDepth)
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / kDecodeWarpsN;  // the logits' 4 x 2
-  const int wn = warp % kDecodeWarpsN;
-  const int dm = warp / kDwWarpsN;      // dW's 2 x 4
-  const int dn = warp % kDwWarpsN;
+// dslab of a 64 x N logits accumulator (N = 8 kBlocks columns: depth d0 +
+// 8j + 2q and + 1, biases bv) -> bf16 into the swizzled 64 x 64 buffer ds,
+// at the accumulator's rows and depth columns; rows that are not pixels
+// give 0.
+// Where kColSums, the unrounded values are also added to colsum[2j + i].
+template <int kBlocks, bool kColSums>
+__device__ __forceinline__ void form_dslab(const float (&acc)[4 * kBlocks], unsigned char* ds,
+                                           const float2 (&bv)[kBlocks], const RowCoef& c,
+                                           const Rows& rows, int d0, int ra, int q,
+                                           float (&colsum)[2 * kBlocks]) {
+#pragma unroll
+  for (int j = 0; j < kBlocks; ++j) {
+    const int d = d0 + 8 * j + 2 * q;
+    const float dz0 = float(d) - c.ez, dz1 = float(d + 1) - c.ez;  // once for both rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = 0.f, v1 = 0.f;
+      if (rows.ok[h]) {
+        v0 = c.grad(acc[4 * j + 2 * h] + bv[j].x, h, dz0);
+        v1 = c.grad(acc[4 * j + 2 * h + 1] + bv[j].y, h, dz1);
+      }
+      if (kColSums) {
+        colsum[2 * j] += v0;
+        colsum[2 * j + 1] += v1;
+      }
+      rt::st_shared2(ds + rt::swz(ra + 8 * h, d / 8) + 4 * q, v0, v1);
+    }
+  }
+}
+
+// acc = a warpgroup's 64 x 64 logits: A (64 x 256, K-major at a) @ the
+// slab at w (64 depth rows x 256, K-major: no transpose); issues and
+// commits only.
+__device__ __forceinline__ void issue_logits(float (&acc)[32], uint32_t a, uint32_t w) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // overwritten: free until here
+  const uint64_t da = rt::desc_a(a), dw = rt::desc_a(w);
+  rt::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < kFeat / 16; ++k) {
+    const uint32_t off = (k / 4) * rt::kKBlockBytes + (k % 4) * 32;
+    rt::wgmma_m64n64<0, 0>(acc, rt::desc_off(da, off), rt::desc_off(dw, off), k);
+  }
+  rt::wgmma_commit();
+}
+
+// Launch A's slab stream as its thread 0 feeds it: chunk c is the slab of
+// joint c % joints (of this CTA's tile c / joints), loaded by TMA into
+// stage c % kStages once both warpgroups have released chunk c - kStages.
+struct SlabFeed {
+  rt::Ring<kStages> ring;  // the producer's view
+  const CUtensorMap* map;
+  int joints, total;
+
+  __device__ __forceinline__ void issue() {
+    const int c = ring.next;
+    rt::load_wide(ring, map, 0, (c % joints) * kDepth);
+  }
+
+  // Loads every chunk up to c, waiting for stages where it must, then those
+  // after it whose stages are already free.
+  __device__ __forceinline__ void feed(int c) {
+    while (ring.next <= c && ring.next < total) issue();
+    while (ring.next < total &&
+           rt::mbar_test(ring.empty(ring.next % kStages), ((ring.next / kStages) & 1) ^ 1))
+      issue();
+  }
+};
+
+// grid: persistent, kThreadsA threads: launch A over n_tiles (sample,
+// 128-pixel) tiles, tiles_per_sample a sample. No producer warpgroup:
+// thread 0 also feeds the slab ring and loads each tile's features, so
+// that the block's 256 threads may hold 255 registers each (a third
+// warpgroup caps them at 168, where ptxas serialised the wgmmas).
+__global__ void __launch_bounds__(kThreadsA, 1)
+dfeats_kernel(const __grid_constant__ CUtensorMap feat_map,
+              const __grid_constant__ CUtensorMap w_map,
+              const __grid_constant__ CUtensorMap dfeat_map, const float* __restrict__ bias,
+              const float* __restrict__ g, const float* __restrict__ e,
+              const float* __restrict__ stats, int pixels, int width, int joints,
+              int tiles_per_sample, int n_tiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring_p = align1024(smem_raw);
+  unsigned char* feat = ring_p + kStages * rt::kStageBytes;
+  unsigned char* ds = feat + rt::kActBytes;  // buffer k of warpgroup w: + (2w + k) * kDsBytes
+  const uint32_t bars = smem_u32(ds + 2 * rt::kConsumers * kDsBytes);
+  const uint32_t feat_full = bars + 16 * kStages, feat_empty = feat_full + 8;
+  if (threadIdx.x == 0) {
+    rt::mbar_init(feat_full, 1);
+    rt::mbar_init(feat_empty, rt::kConsumers);
+    rt::ring_init<kStages>(bars);
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int ra = 16 * warp + lane / 4, q = lane % 4;
+  const bool issuer = threadIdx.x % 128 == 0;
+  const bool feeder = threadIdx.x == 0;
+  const int my_tiles = (n_tiles - int(blockIdx.x) + int(gridDim.x) - 1) / int(gridDim.x);
+  rt::Ring<kStages> ring{smem_u32(ring_p), bars, 0};
+  SlabFeed slabs{{smem_u32(ring_p), bars, 0}, &w_map, joints, my_tiles * joints};
+  // warp 0 waits while its thread 0 feeds the ring up to the chunk it takes
+  auto acquire = [&]() {
+    if (feeder) slabs.feed(ring.next);
+    __syncwarp();
+    return ring.acquire();
+  };
+  unsigned char* fa = feat + wg * rt::kWgActBytes;
+  const uint32_t fa_s = smem_u32(fa);
+  unsigned char* dsw = ds + 2 * wg * kDsBytes;  // this warpgroup's two dslab buffers
+  float df[128], al[32], unused[16];  // unused: launch A sums no columns
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int b = tile / tiles_per_sample;
+    const int p0 = (tile % tiles_per_sample) * kTilePixels;
+    const int r0 = p0 + wg * rt::kWgRows;
+    const Rows rows(r0, ra, pixels, width);
+    if (feeder) {  // both warpgroups' stores have read the last tile's features
+      rt::mbar_wait(feat_empty, (it & 1) ^ 1);
+      rt::mbar_expect_tx(feat_full, rt::kActBytes);
+      for (int w = 0; w < rt::kConsumers; ++w)
+        for (int kb = 0; kb < kFeat / rt::kBox; ++kb)
+          rt::tma_load3(smem_u32(feat) + w * rt::kWgActBytes + kb * rt::kKBlockBytes,
+                        &feat_map, feat_full, kb * rt::kBox, p0 + w * rt::kWgRows, b);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) df[i] = 0.f;
+    rt::mbar_wait(feat_full, it & 1);
+
+    // joint 0's logits and dslab; then per joint j: joint j + 1's logits
+    // and joint j's dfeats product in flight together, joint j + 1's
+    // dslab formed while the tensor cores finish j's product
+    float2 bv[8];
+    load_bias(bv, bias, 0, q);
+    CoefIn cin = CoefIn::load(g, e, stats, b * joints);
+    uint32_t cur_s = acquire();
+    issue_logits(al, fa_s, cur_s);
+    rt::wgmma_wait<0>();
+    rt::fence_acc(al);
+    form_dslab<8, false>(al, dsw, bv, RowCoef(cin, rows), rows, 0, ra, q, unused);
+    rt::fence_proxy_async();
+    rt::wg_sync(wg);
+#pragma unroll 1
+    for (int j = 0; j < joints; ++j) {
+      uint32_t nxt_s = 0;
+      if (j + 1 < joints) {  // joint j + 1's bias and coefficients load under the products
+        load_bias(bv, bias + (j + 1) * kDepth, 0, q);
+        cin = CoefIn::load(g, e, stats, b * joints + j + 1);
+        nxt_s = acquire();
+        issue_logits(al, fa_s, nxt_s);
+      }
+      rt::issue_wide64(df, smem_u32(dsw + (j % 2) * kDsBytes), cur_s, true);
+      if (j + 1 < joints) {
+        rt::wgmma_wait<1>();  // joint j + 1's logits and joint j - 1's product are done
+        if (j > 0) ring.release(ring.next - 3);
+        rt::fence_acc(al);
+        form_dslab<8, false>(al, dsw + ((j + 1) % 2) * kDsBytes, bv, RowCoef(cin, rows), rows,
+                             0, ra, q, unused);
+        rt::fence_proxy_async();
+        rt::wg_sync(wg);
+      }
+      cur_s = nxt_s;
+    }
+    rt::wgmma_wait<0>();
+    if (joints > 1) ring.release(ring.next - 2);
+    ring.release(ring.next - 1);
+    rt::fence_acc(df);
+
+    // dfeats over this warpgroup's rows of the feature tile (its last
+    // reader, joint J - 1's logits, has completed), then TMA stores; the
+    // next tile's features load once both warpgroups' stores have read it
+    rt::stage_acc<false>(df, fa, nullptr, ra, q);
+    rt::fence_proxy_async();
+    rt::wg_sync(wg);
+    if (issuer) {
+      if (r0 < pixels)
+        for (int kb = 0; kb < kFeat / rt::kBox; ++kb)
+          rt::tma_store3(&dfeat_map, fa_s + kb * rt::kKBlockBytes, kb * rt::kBox, r0, b);
+      rt::tma_store_commit();
+      rt::tma_store_wait_read();
+      rt::mbar_arrive(feat_empty);
+    }
+  }
+  if (issuer) rt::tma_store_wait();
+}
+
+// grid (J, groups), rt::kThreads threads: launch B. Group `grp` takes
+// chunks [grp * total / groups, (grp + 1) * total / groups) of the batch's
+// 64-pixel chunks, chunk t being sample t / chunks_per_sample, pixels from
+// (t % chunks_per_sample) * 64. part_w: (groups, J * kDepth, kFeat);
+// part_b: (groups, J * kDepth).
+__global__ void __launch_bounds__(rt::kThreads, 1)
+dweight_kernel(const __grid_constant__ CUtensorMap feat_map,
+               const __grid_constant__ CUtensorMap w_map, const float* __restrict__ bias,
+               const float* __restrict__ g, const float* __restrict__ e,
+               const float* __restrict__ stats, float* __restrict__ part_w,
+               float* __restrict__ part_b, int pixels, int width, int joints,
+               int chunks_per_sample, int total) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* wsm = align1024(smem_raw);
+  unsigned char* ring_p = wsm + rt::kStageBytes;
+  unsigned char* ds = ring_p + kStages * rt::kStageBytes;  // kDsBufs buffers
+  float* red = reinterpret_cast<float*>(ds + kDsBufs * kDsBytes);  // (2, 4 warps, 32)
+  const uint32_t bars = smem_u32(red + rt::kConsumers * 4 * kHalfDepth);
+  const uint32_t w_full = bars + 16 * kStages;
   const int j = blockIdx.x;
   const int grp = blockIdx.y;
   const int t0 = int(static_cast<long long>(grp) * total / gridDim.y);
-  const int t1 = int(static_cast<long long>(grp + 1) * total / gridDim.y);
-  auto load_tile = [&](int t, bf16* dst) {
-    load_feature_tile(dst, feats + size_t(t / n_tiles) * pixels * kFeat,
-                      (t % n_tiles) * kTilePixels, pixels);
-  };
-
-  load_slab(w_s, weight, j);
-  if (t0 < t1) load_tile(t0, f_s);
-  cp_async_commit();
-  if (t0 + 1 < t1) load_tile(t0 + 1, f_s + kTileElems);
-  cp_async_commit();
-
-  float dw[kDwFragM][kDwFragN][4];
-#pragma unroll
-  for (int m = 0; m < kDwFragM; ++m)
-#pragma unroll
-    for (int n = 0; n < kDwFragN; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dw[m][n][i] = 0.f;
-  float colsum[kFragN][2] = {};
-  // ldmatrix row addresses of this lane: dslab^T's A fragments from the
-  // (pixel x depth) tile, transposed: pixel rows lane % 8 + (lane / 16) *
-  // 8 at depth column 32 dm + ((lane / 8) % 2) * 8 (+ 16 m); feature rows
-  // (pixels) lane % 16 at column 64 dn + (lane / 16) * 8 (+ 16 h),
-  // transposed
-  const unsigned ds_lane =
-      smem_u32(ds) +
-      ((lane % 8 + (lane / 16) * 8) * kLdS + dm * kDwRows + ((lane / 8) % 2) * 8) * 2;
-  const unsigned ft_lane = ((lane % 16) * kLd + dn * kDwCols + (lane / 16) * 8) * 2;
-
-  for (int t = t0; t < t1; ++t) {
-    cp_async_wait<1>();  // tile t (and, for t0, the slab) has landed
-    __syncthreads();
-    const bf16* ft = f_s + ((t - t0) % 2) * kTileElems;
-    {
-      LogitAcc acc;
-      slab_logits(ft, w_s, wm, wn, lane, acc);
-      form_dslab<true>(acc, bias + j * kDepth,
-                       GradCoef::load(g, e, stats, (t / n_tiles) * joints + j),
-                       (t % n_tiles) * kTilePixels, pixels, width, wm, wn, lane, ds, colsum);
-    }
-    __syncthreads();  // the tile's dslab is whole
-    const unsigned fb = smem_u32(ft) + ft_lane;
-#pragma unroll 2
-    for (int k = 0; k < kTilePixels / 16; ++k) {
-      unsigned af[kDwFragM][4];
-#pragma unroll
-      for (int m = 0; m < kDwFragM; ++m)
-        ldsm_x4_trans(af[m], ds_lane + (k * 16 * kLdS + m * 16) * 2);
-#pragma unroll
-      for (int h = 0; h < kDwFragN / 2; ++h) {
-        unsigned bfr[4];
-        ldsm_x4_trans(bfr, fb + (k * 16 * kLd + h * 16) * 2);
-#pragma unroll
-        for (int m = 0; m < kDwFragM; ++m) {
-          mma_bf16(dw[m][2 * h], af[m], bfr[0], bfr[1]);
-          mma_bf16(dw[m][2 * h + 1], af[m], bfr[2], bfr[3]);
-        }
+  const int n = int(static_cast<long long>(grp + 1) * total / gridDim.y) - t0;
+  if (threadIdx.x == 0) {
+    rt::mbar_init(w_full, 1);
+    rt::ring_init<kStages>(bars);
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  rt::Ring<kStages> ring{smem_u32(ring_p), bars, 0};
+  if (wg == rt::kConsumers) {
+    rt::regs_dec<rt::kProducerRegs>();
+    if (threadIdx.x == rt::kConsumers * 128) {
+      rt::mbar_expect_tx(w_full, rt::kStageBytes);
+      for (int kb = 0; kb < kFeat / rt::kBox; ++kb)
+        rt::tma_load(smem_u32(wsm) + kb * rt::kKBlockBytes, &w_map, w_full, kb * rt::kBox,
+                     j * kDepth);
+      for (int i = 0; i < n; ++i) {
+        const int t = t0 + i;
+        uint32_t bar;
+        const uint32_t dst = ring.claim(&bar);
+        for (int kb = 0; kb < kFeat / rt::kBox; ++kb)
+          rt::tma_load3(dst + kb * rt::kKBlockBytes, &feat_map, bar, kb * rt::kBox,
+                        (t % chunks_per_sample) * kChunkPixels, t / chunks_per_sample);
       }
     }
-    __syncthreads();  // every warp is done with dslab and this tile's buffer
-    if (t + 2 < t1) load_tile(t + 2, f_s + ((t - t0) % 2) * kTileElems);
-    cp_async_commit();  // an empty group past the end keeps the count
-  }
+  } else {
+    rt::regs_inc<rt::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int ra = 16 * warp + lane / 4, q = lane % 4;
+    float2 bv[4];  // this warpgroup's depth columns of b_j
+    load_bias(bv, bias + j * kDepth, wg * kHalfDepth, q);
+    CoefIn cin = CoefIn::load(g, e, stats, (t0 / chunks_per_sample) * joints + j);
+    int cin_sample = t0 / chunks_per_sample;
+    // this warpgroup's rows of the slab (depth 32 wg ...) as the logits' B,
+    // and its columns of a chunk (channels 128 wg ...) as dW's B
+    const uint32_t w_half = smem_u32(wsm) + wg * kHalfDepth * 128;
+    const uint32_t b_off = wg * (kHalfFeat / rt::kBox) * rt::kKBlockBytes;
+    float dw[64], al[16], colsum[8] = {};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dw[i] = 0.f;
 
-  const int gr = lane / 4;
-  const int q = lane % 4;
-  float* pw = part_w + (size_t(grp) * joints + j) * kDepth * kFeat;
+    // the logits' depth columns of this warpgroup for a chunk
+    const uint64_t dwh = rt::desc_a(w_half);
+    auto issue = [&](uint32_t chunk) {
 #pragma unroll
-  for (int m = 0; m < kDwFragM; ++m)
+      for (int i = 0; i < 16; ++i) al[i] = 0.f;  // overwritten: free until here
+      const uint64_t dc = rt::desc_a(chunk);
+      rt::wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int d = dm * kDwRows + m * 16 + gr + h * 8;
+      for (int k = 0; k < kFeat / 16; ++k) {
+        const uint32_t off = (k / 4) * rt::kKBlockBytes + (k % 4) * 32;
+        rt::wgmma_m64n32<0, 0>(al, rt::desc_off(dc, off), rt::desc_off(dwh, off), k);
+      }
+      rt::wgmma_commit();
+    };
+    // chunk i's dslab, this warpgroup's half, into buffer i % kDsBufs
+    auto form = [&](int i) {
+      const int t = t0 + i;
+      if (t / chunks_per_sample != cin_sample) {  // a new sample: once in 64 chunks at 64 x 64
+        cin_sample = t / chunks_per_sample;
+        cin = CoefIn::load(g, e, stats, cin_sample * joints + j);
+      }
+      const Rows rows((t % chunks_per_sample) * kChunkPixels, ra, pixels, width);
+      form_dslab<4, true>(al, ds + (i % kDsBufs) * kDsBytes, bv, RowCoef(cin, rows), rows,
+                          wg * kHalfDepth, ra, q, colsum);
+    };
+
+    // chunk 0's logits and dslab; then per chunk i: chunk i + 1's logits and
+    // chunk i's dW product in flight together, chunk i + 1's dslab formed
+    // while the tensor cores finish i's product; one barrier of both
+    // warpgroups a chunk
+    rt::mbar_wait(w_full, 0);
+    uint32_t cur_s = ring.acquire();
+    issue(cur_s);
+    rt::wgmma_wait<0>();
+    rt::fence_acc(al);
+    form(0);
+    rt::fence_proxy_async();
+    rt::consumers_sync();  // both halves of chunk 0's dslab are in
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      uint32_t nxt_s = 0;
+      if (i + 1 < n) {
+        nxt_s = ring.acquire();
+        issue(nxt_s);
+      }
+      // dW_j[:, this warpgroup's channels] += dslab^T (A, M-major: transpose
+      // flag) @ the chunk's channels (B, N-major: transpose flag)
+      const uint64_t da = rt::smem_desc(smem_u32(ds + (i % kDsBufs) * kDsBytes),
+                                        rt::kBoxBytes, 1024);
+      const uint64_t db = rt::desc_b(cur_s + b_off);
+      rt::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kDwFragN; ++n)
-        *reinterpret_cast<float2*>(pw + d * kFeat + dn * kDwCols + n * 8 + 2 * q) =
-            make_float2(dw[m][n][2 * h], dw[m][n][2 * h + 1]);
+      for (int k = 0; k < kChunkPixels / 16; ++k)
+        rt::wgmma_m64n128<1, 1>(dw, rt::desc_off(da, k * 2048), rt::desc_off(db, k * 2048), 1);
+      rt::wgmma_commit();
+      if (i + 1 < n) {
+        // chunk i + 1's logits and chunk i - 1's product are done; buffer
+        // (i + 1) % 3 was last read by chunk i - 2's products, which both
+        // warpgroups finished before the last barrier
+        rt::wgmma_wait<1>();
+        if (i > 0) ring.release(i - 1);
+        rt::fence_acc(al);
+        form(i + 1);
+        rt::fence_proxy_async();
+        rt::consumers_sync();
+      }
+      cur_s = nxt_s;
     }
-  // db: the column sums over the lanes of a column (lane / 4), then over
-  // the four row warps in order
+    rt::wgmma_wait<0>();
+    if (n > 1) ring.release(n - 2);
+    ring.release(n - 1);
+    rt::fence_acc(dw);
+
+    // the partials: dW_j's rows (depth) ra, ra + 8, this warpgroup's
+    // channels; db's column sums over the lanes of a column, then over the
+    // four warps in order
+    float* pw = part_w + (size_t(grp) * joints + j) * kDepth * kFeat + wg * kHalfFeat;
 #pragma unroll
-  for (int n = 0; n < kFragN; ++n)
+    for (int c = 0; c < kHalfFeat / 8; ++c)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float v = colsum[n][i];
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(pw + (ra + 8 * h) * kFeat + 8 * c + 2 * q) =
+            make_float2(dw[4 * c + 2 * h], dw[4 * c + 2 * h + 1]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v = colsum[i];
       v += __shfl_xor_sync(0xffffffffu, v, 4);
       v += __shfl_xor_sync(0xffffffffu, v, 8);
       v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (gr == 0) red[wm * kDepth + wn * kWarpCols + n * 8 + 2 * q + i] = v;
+      if (lane < 4) red[(wg * 4 + warp) * kHalfDepth + 8 * (i / 2) + 2 * q + i % 2] = v;
     }
-  __syncthreads();
-  if (threadIdx.x < kDepth) {
-    float s = 0.f;
-    for (int w = 0; w < kDecodeWarpsM; ++w) s += red[w * kDepth + threadIdx.x];
-    part_b[(size_t(grp) * joints + j) * kDepth + threadIdx.x] = s;
+    rt::consumers_sync();
+    if (threadIdx.x < kDepth) {
+      const int w = threadIdx.x / kHalfDepth, d = threadIdx.x % kHalfDepth;
+      float s = 0.f;
+      for (int k = 0; k < 4; ++k) s += red[(w * 4 + k) * kHalfDepth + d];
+      part_b[(size_t(grp) * joints + j) * kDepth + threadIdx.x] = s;
+    }
   }
 }
 
@@ -344,6 +540,26 @@ __global__ void __launch_bounds__(kFoldThreads) fold_kernel(const float* __restr
   }
 }
 
+// The TMA map of (batch, pixels, kFeat) bf16 rows at f, in boxes of 64
+// pixels x 64 channels of one sample, 128-byte swizzle: rows past a
+// sample's last pixel load as zeros and are not stored.
+cudaError_t pixel_map(CUtensorMap* map, const bf16* f, int batch, int pixels) {
+  EncodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(f) % 16) return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {cuuint64_t(kFeat), cuuint64_t(pixels), cuuint64_t(batch)};
+  const cuuint64_t strides[2] = {cuuint64_t(kFeat) * sizeof(bf16),
+                                 cuuint64_t(pixels) * kFeat * sizeof(bf16)};
+  const cuuint32_t box[3] = {cuuint32_t(rt::kBox), cuuint32_t(rt::kWgRows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(f), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // feats: (batch, height, width, channels) bf16; weight: (joints * depth,
@@ -354,9 +570,10 @@ __global__ void __launch_bounds__(kFoldThreads) fold_kernel(const float* __restr
 // partials: (groups, joints * depth * (channels + 1)) f32 scratch. Every
 // pointer contiguous and 16-byte aligned. channels, depth and tile_pixels
 // are the caller's idea of the kernel's widths: a mismatch, a batch past
-// the grid's limit or groups outside [1, the batch's tiles] returns
-// cudaErrorInvalidValue. Three launches in a row on the calling thread's
-// current device; the first error ends the sequence and is returned.
+// the grid's limit or groups outside [1, the batch's 64-pixel chunks]
+// returns cudaErrorInvalidValue. Three launches in a row on the calling
+// thread's current device; the first error ends the sequence and is
+// returned.
 extern "C" cudaError_t conv_decode_bwd_launch(const void* feats, const void* weight,
                                               const void* bias, const void* g, const void* e,
                                               const void* stats, void* dfeats, void* dweight,
@@ -364,34 +581,46 @@ extern "C" cudaError_t conv_decode_bwd_launch(const void* feats, const void* wei
                                               int height, int width, int channels, int joints,
                                               int depth, int tile_pixels, void* stream) {
   const int pixels = height * width;
-  const int n_tiles = (pixels + kTilePixels - 1) / kTilePixels;
+  const int tiles_per_sample = (pixels + kTilePixels - 1) / kTilePixels;
+  const int chunks_per_sample = (pixels + kChunkPixels - 1) / kChunkPixels;
   if (channels != kFeat || depth != kDepth || tile_pixels != kTilePixels || batch < 1 ||
       batch > 65535 || height < 1 || width < 1 || joints < 1 || joints > 65535 || groups < 1 ||
-      groups > batch * n_tiles || groups > 65535)
+      static_cast<long long>(batch) * chunks_per_sample > (1 << 30) ||
+      groups > batch * chunks_per_sample || groups > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      dfeats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemA));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dweight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemB));
+  const auto* f = static_cast<const bf16*>(feats);
+  CUtensorMap m_feat, m_dfeat, m_w;
+  cudaError_t err = pixel_map(&m_feat, f, batch, pixels);
+  if (err == cudaSuccess)
+    err = pixel_map(&m_dfeat, static_cast<const bf16*>(dfeats), batch, pixels);
+  if (err == cudaSuccess)
+    err = tile_map(&m_w, static_cast<const bf16*>(weight), joints * kDepth, kFeat, kDepth);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dfeats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemA));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dweight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemB));
+  const int n_tiles = batch * tiles_per_sample;
+  int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(n_tiles, &grid);
   if (err != cudaSuccess) return err;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* f = static_cast<const bf16*>(feats);
-  const auto* w = static_cast<const bf16*>(weight);
   const auto* bs = static_cast<const float*>(bias);
   const auto* gp = static_cast<const float*>(g);
   const auto* ep = static_cast<const float*>(e);
   const auto* st = static_cast<const float*>(stats);
-  dfeats_kernel<<<dim3(n_tiles, batch), kDecodeThreads, kSmemA, s>>>(
-      f, w, bs, gp, ep, st, static_cast<bf16*>(dfeats), pixels, width, joints);
+  dfeats_kernel<<<grid, kThreadsA, kSmemA, s>>>(m_feat, m_w, m_dfeat, bs, gp, ep, st, pixels,
+                                                   width, joints, tiles_per_sample, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_w = joints * kDepth * kFeat;
   const int n_b = joints * kDepth;
   auto* part_w = static_cast<float*>(partials);
   float* part_b = part_w + size_t(groups) * n_w;
-  dweight_kernel<<<dim3(joints, groups), kDecodeThreads, kSmemB, s>>>(
-      f, w, bs, gp, ep, st, part_w, part_b, pixels, width, joints, n_tiles, batch * n_tiles);
+  dweight_kernel<<<dim3(joints, groups), rt::kThreads, kSmemB, s>>>(
+      m_feat, m_w, bs, gp, ep, st, part_w, part_b, pixels, width, joints, chunks_per_sample,
+      batch * chunks_per_sample);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   fold_kernel<<<(n_w + n_b + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0, s>>>(

@@ -18,7 +18,7 @@
 // Why not the TPU's design. The TPU kernel keeps both 2 MB weight matrices
 // and its tile's intermediate in VMEM. An SM's 227 KB of shared memory
 // holds neither matrix, and a row-tile kernel that streams all 4 MB of
-// weights through every tile (common.cuh's WeightStream) is bounded by
+// weights through every tile (the lifter trunk's first design) is bounded by
 // that L2 stream: ~1 GB per block call at B = 8192 with 32-row tiles.
 //
 // The design: two output-stationary tiled GEMMs per block, one launch
@@ -142,7 +142,7 @@ gemm_bn_relu_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
 
   // ldmatrix row addresses of this lane, in bytes from a slice's A and W
   // parts: A rows lane % 16 (+ 16 m) at k offset (lane / 16) * 8; W rows
-  // lane % 16 at column offset (lane / 16) * 8 (+ 16 h), as in common.cuh
+  // lane % 16 at column offset (lane / 16) * 8 (+ 16 h), read with .trans
   const unsigned a_lane = ((wm * kWarpRows + lane % 16) * kLdA + (lane / 16) * 8) * 2;
   const unsigned w_lane = ((lane % 16) * kLdB + wn * kWarpCols + (lane / 16) * 8) * 2;
   for (int ks = 0; ks < kKSlices; ++ks) {

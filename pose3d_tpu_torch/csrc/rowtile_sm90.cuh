@@ -1,9 +1,11 @@
-// The row-tile engine of the sub-block forward kernels (csrc/stblock.cu)
-// for Hopper (sm_90a): the product of a 128-row tile of activations, held
-// in shared memory, by a weight matrix that does not fit there, on wgmma
-// fed by TMA. It takes the place, for those kernels, of common.cuh's
-// 80-row engine (ldmatrix + mma.sync, a cp.async ring with a block-wide
-// barrier per chunk), which the lifter trunk and the Martinez block keep.
+// The row-tile engine of the sub-block forward kernels and the lifter trunk
+// (csrc/subblock_sm90.cuh, run by stblock.cu and lifter_trunk.cu) for
+// Hopper (sm_90a): the product of a 128-row tile of activations, held in
+// shared memory, by a weight matrix that does not fit there, on wgmma fed
+// by TMA. It took the place of common.cuh's 80-row engine (ldmatrix +
+// mma.sync, a cp.async ring with a block-wide barrier per chunk), on which
+// both first ran; that engine is gone. The conv-decode backward
+// (conv_decode_bwd.cu) builds on its primitives too.
 //
 // Roles. A block is three warpgroups, one CTA an SM:
 // - the producer warpgroup (setmaxnreg down to kProducerRegs): one thread
@@ -93,6 +95,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Whether the phase of parity `parity` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
@@ -106,6 +121,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 // The 128 threads of consumer warpgroup wg (named barriers 1, 2, ...).
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// The 256 threads of both consumer warpgroups (named barrier kConsumers + 1).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kConsumers + 1), "n"(kConsumers * 128) : "memory");
 }
 
 // Generic-proxy writes to shared memory, made visible to wgmma's reads.
@@ -132,6 +152,28 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// Box (col, row, plane) of a rank-3 map into shared memory at dst; rows
+// past the map's end arrive as zeros (and count their bytes).
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int col, int row, int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(plane)
+      : "memory");
+}
+
+// Shared memory at src to box (col, row, plane) of a rank-3 map; rows past
+// the map's end are not written.
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map, uint32_t src, int col, int row,
+                                           int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row), "r"(plane)
       : "memory");
 }
 
@@ -177,6 +219,17 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
   return smem_desc(addr, kBoxBytes, 1024);
 }
 
+// d + off bytes (a multiple of 16, the sum within shared memory), added in
+// an asm volatile statement right where it is used: the compiler keeps one
+// base descriptor live in a k-step loop, not a register pair per k-step
+// hoisted out of it (conv_decode_bwd.cu, whose accumulators leave little
+// room).
+__device__ __forceinline__ uint64_t desc_off(uint64_t d, uint32_t off) {
+  uint64_t r;
+  asm volatile("add.s64 %0, %1, %2;\n" : "=l"(r) : "l"(d), "l"(uint64_t(off >> 4)));
+  return r;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -198,8 +251,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A (64 x 16, shared, K-major) @ B (16 x 256, shared, N-major:
-// imm-trans-b 1); bf16 in, f32 accumulate; scale_d 0 overwrites d.
+// d (+)= A (64 x 16, shared) @ B (16 x 256, shared); bf16 in, f32
+// accumulate; scale_d 0 overwrites d. kTransA 0: A K-major, 1: M-major;
+// kTransB 1 (the default): B N-major, 0: K-major.
+template <int kTransA = 0, int kTransB = 1>
 __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -214,7 +269,7 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -231,11 +286,11 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a,
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
-// d (+)= A (64 x 16, shared, K-major) @ B (16 x 64, shared, N-major:
-// imm-trans-b 1); bf16 in, f32 accumulate; scale_d 0 overwrites d.
+// As wgmma_m64n256, N = 64.
+template <int kTransA = 0, int kTransB = 1>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -244,12 +299,51 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// As wgmma_m64n256, N = 128.
+template <int kTransA = 0, int kTransB = 1>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// As wgmma_m64n256, N = 32.
+template <int kTransA = 0, int kTransB = 1>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // ---------------------------------------------------------------- layout
@@ -263,6 +357,29 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 // blocks of 64 columns, kKBlockBytes apart.
 __device__ __forceinline__ uint32_t a_offset(int r, int k) {
   return (k / 64) * kKBlockBytes + swz(r, (k % 64) / 8) + (k % 8) * 2;
+}
+
+__device__ __forceinline__ void st_shared2(unsigned char* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// The accumulator layout of m64nNk16 (per warpgroup): warp w, lane l holds
+// rows ra = 16w + l/4 and ra + 8, columns 8j + 2(l%4) and + 1, in
+// acc[4j], acc[4j + 1] (row ra) and acc[4j + 2], acc[4j + 3] (row ra + 8).
+
+// bf16(acc (+ bias where kBias)) of a 64 x 256 accumulator into
+// 128-byte-swizzled boxes of 64 columns, kKBlockBytes apart: a warpgroup's
+// A layout, and TMA's.
+template <bool kBias>
+__device__ __forceinline__ void stage_acc(const float (&acc)[128], unsigned char* dst,
+                                          const bf16* __restrict__ bias, int ra, int q) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float2 bv = kBias ? load2(bias + 8 * j + 2 * q) : make_float2(0.f, 0.f);
+    unsigned char* p = dst + (j / 8) * kKBlockBytes + 4 * q;
+    st_shared2(p + swz(ra, j % 8), acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
+    st_shared2(p + swz(ra + 8, j % 8), acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
+  }
 }
 
 // ---------------------------------------------------------------- the ring

@@ -54,8 +54,11 @@
 // (one CTA an SM walking tiles), so a tile's loads and stores overlap the
 // next tile's first chunks.
 //
-// Shared memory of a 128-row tile (1 KB of alignment slack, the ring of 32
-// KB stages, the 64 KB A operand, the mbarriers):
+// qkv_kernel and rest_kernel live in subblock_sm90.cuh, which the lifter
+// trunk (lifter_trunk.cu) shares; this file gives them its layout (one LN,
+// biases on qkv and the projection). Shared memory of a 128-row tile (1 KB
+// of alignment slack, the ring of 32 KB stages, the 64 KB A operand, the
+// mbarriers):
 // - qkv_kernel: A holds y = LN_1(x). Each 256-column pass of q|k|v goes
 //   from the accumulators (+ bias, bf16) to a 64 KB staging buffer in the
 //   swizzled box layout and leaves by TMA stores, which overlap the next
@@ -80,12 +83,12 @@
 // that could not be built, or of a refused configuration).
 
 #include "attention.cuh"
-#include "rowtile_sm90.cuh"
+#include "subblock_sm90.cuh"
 
 namespace {
 
 using namespace pose3d;
-namespace rt = pose3d::rowtile;
+namespace sb = pose3d::subblock;
 
 constexpr int kHeads = 8;
 constexpr int kDimHead = kDim / kHeads;
@@ -107,375 +110,17 @@ constexpr int kOffB1 = kOffW1 + kDim * kMlp;
 constexpr int kOffW2 = kOffB1 + kMlp;
 constexpr int kOffB2 = kOffW2 + kMlp * kDim;
 constexpr int kBlockElems = kOffB2 + kDim;
-static_assert(kOffWQkv * 2 % 16 == 0 && kOffWProj * 2 % 16 == 0 && kOffW1 * 2 % 16 == 0 &&
-                  kOffW2 * 2 % 16 == 0 && kBlockElems * 2 % 16 == 0,
-              "every weight matrix of every block starts on a 16-byte boundary (TMA)");
 
-constexpr int kQkvStages = 3;  // qkv_kernel's ring: its output staging takes the fourth
-constexpr int kRestStages = 4;
-constexpr int kHidBytes = rt::kWgRows * 128;        // a warpgroup's 64 x 64 hidden chunk
-constexpr int kHidBuf = rt::kConsumers * kHidBytes;  // one of the two hidden buffers
-constexpr int kMlpChunks = kMlp / rt::kBox;          // 16
-constexpr size_t kSmemQkv = 1024 + size_t(kQkvStages) * rt::kStageBytes + 2 * rt::kActBytes +
-                            16 * kQkvStages;
-constexpr size_t kSmemRest = 1024 + size_t(kRestStages) * rt::kStageBytes + rt::kActBytes +
-                             2 * kHidBuf + 16 * kRestStages;
-static_assert(kSmemQkv == 230448 && kSmemRest == 230464, "the plan in the note above");
-static_assert(kSmemQkv <= kSmemLimit && kSmemRest <= kSmemLimit,
-              "exceeds the per-block shared memory");
-
-// The regions of a tile's shared memory, 1 KB aligned (the 128-byte
-// swizzle repeats every 8 rows of 128 bytes): the ring, the A operand, then
-// qkv_kernel's output staging (kActBytes) or rest_kernel's two hidden
-// buffers, then the mbarriers.
-struct Smem {
-  unsigned char* ring;
-  unsigned char* act;
-  unsigned char* extra;
-  uint32_t bars;
+// The sub-block's traits for subblock_sm90.cuh: one LN before qkv, biases
+// on qkv and the projection.
+struct Layout {
+  static constexpr bool kDoubleLn = false, kQkvBias = true, kProjBias = true;
+  static constexpr int kLn1G = kOffLn1G, kLn1B = kOffLn1B, kLnbG = 0, kLnbB = 0;
+  static constexpr int kWQkv = kOffWQkv, kBQkv = kOffBQkv, kWProj = kOffWProj,
+                       kBProj = kOffBProj;
+  static constexpr int kLn2G = kOffLn2G, kLn2B = kOffLn2B, kW1 = kOffW1, kB1 = kOffB1,
+                       kW2 = kOffW2, kB2 = kOffB2, kElems = kBlockElems;
 };
-
-template <int kStages>
-__device__ __forceinline__ Smem carve(unsigned char* raw, int extra_bytes) {
-  unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-  Smem s;
-  s.ring = base;
-  s.act = base + kStages * rt::kStageBytes;
-  s.extra = s.act + rt::kActBytes;
-  s.bars = smem_u32(s.extra + extra_bytes);
-  return s;
-}
-
-__device__ __forceinline__ uint4 ld16(const bf16* p) { return *reinterpret_cast<const uint4*>(p); }
-
-__device__ __forceinline__ void st16(bf16* p, uint4 v) { *reinterpret_cast<uint4*>(p) = v; }
-
-// Warp w's 16 rows of a warpgroup's 64 (those past the tile's `rows` as
-// zeros): lane l its 16 bytes at column 8l of each.
-__device__ __forceinline__ void load_rows(uint4 (&v)[16], const bf16* src, int r0,
-                                          int rows, int warp, int lane) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int r = 16 * warp + i;
-    v[i] = r < rows ? ld16(src + size_t(r0 + r) * kDim + 8 * lane) : make_uint4(0, 0, 0, 0);
-  }
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
-
-// v = LN(v) * g + b in place for one 256-wide row held 8 elements a lane
-// (common.cuh's layer_norm_row): f32 statistics, biased variance.
-__device__ __forceinline__ void ln8(float (&v)[8], const float (&g)[8], const float (&b)[8]) {
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) sum += v[j];
-  const float mu = warp_sum(sum) * (1.f / kDim);
-  float sq = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float d = v[j] - mu;
-    sq += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(sq) * (1.f / kDim) + kLnEps);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = (v[j] - mu) * rstd * g[j] + b[j];
-}
-
-__device__ __forceinline__ void st_shared2(unsigned char* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-// The accumulator layout of m64nNk16 (per warpgroup): warp w, lane l holds
-// rows ra = 16w + l/4 and ra + 8, columns 8j + 2(l%4) and + 1, in
-// acc[4j], acc[4j + 1] (row ra) and acc[4j + 2], acc[4j + 3] (row ra + 8).
-
-// bf16(acc + bias) of a 64 x 256 accumulator into 128-byte-swizzled boxes of
-// 64 columns, kKBlockBytes apart: a warpgroup's A layout, and TMA's.
-__device__ __forceinline__ void stage_acc(const float (&acc)[128], unsigned char* dst,
-                                          const bf16* __restrict__ bias, int ra, int q) {
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const float2 bv = load2(bias + 8 * j + 2 * q);
-    unsigned char* p = dst + (j / 8) * rt::kKBlockBytes + 4 * q;
-    st_shared2(p + rt::swz(ra, j % 8), acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
-    st_shared2(p + rt::swz(ra + 8, j % 8), acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
-  }
-}
-
-// common.cuh's gelu_poly with its x / sqrt(2) as a multiply and two FMAs:
-// the division's value (the residual x - q·sqrt(2) is exact in an FMA),
-// without the division's ~10 instructions and slow-path branch, which cost
-// rest_kernel a third of its time.
-__device__ __forceinline__ float gelu(float x) {
-  constexpr float kInvSqrt2 = 0.70710678118654752f;
-  const float q = x * kInvSqrt2;
-  return x * 0.5f * (1.f + erf_poly(fmaf(fmaf(-q, kSqrt2, x), kInvSqrt2, q)));
-}
-
-// h = bf16(gelu(bf16(acc + b1))) of a 64 x 64 hidden chunk into its
-// swizzled buffer hb, as the A operand of the W2 product.
-__device__ __forceinline__ void gelu_hidden(const float (&acc)[32], unsigned char* hb,
-                                            const bf16* __restrict__ b1, int ra, int q) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float2 bv = load2(b1 + 8 * j + 2 * q);
-    st_shared2(hb + rt::swz(ra, j) + 4 * q, gelu(round_bf16(acc[4 * j] + bv.x)),
-               gelu(round_bf16(acc[4 * j + 1] + bv.y)));
-    st_shared2(hb + rt::swz(ra + 8, j) + 4 * q, gelu(round_bf16(acc[4 * j + 2] + bv.x)),
-               gelu(round_bf16(acc[4 * j + 3] + bv.y)));
-  }
-}
-
-// Row passes: warp w walks its own 16 rows of the warpgroup's 64 (the rows
-// its wgmma reads and writes), lane l columns 8l ... 8l + 7, which lie in
-// 16-byte chunk l % 8 of K block l / 8 of the swizzled A layout. The row
-// loads are issued together, so their latency is paid once.
-
-// LN_1 + qkv on 128-row tiles: x (n_rows, 256) -> q|k|v (n_rows, 768) bf16,
-// stored by TMA through `out` (boxes of 64 x 64) from a staging buffer.
-__global__ void __launch_bounds__(rt::kThreads, 1)
-qkv_kernel(const __grid_constant__ CUtensorMap w_qkv, const __grid_constant__ CUtensorMap out,
-           const bf16* __restrict__ x, const bf16* __restrict__ weights, int n_rows) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const Smem sm = carve<kQkvStages>(smem_raw, rt::kActBytes);
-  if (threadIdx.x == 0) rt::ring_init<kQkvStages>(sm.bars);
-  __syncthreads();
-  const int n_tiles = (n_rows + rt::kTileRows - 1) / rt::kTileRows;
-  const int wg = threadIdx.x / 128;
-  rt::Ring<kQkvStages> ring{smem_u32(sm.ring), sm.bars, 0};
-  if (wg == rt::kConsumers) {
-    rt::regs_dec<rt::kProducerRegs>();
-    if (threadIdx.x == rt::kConsumers * 128) {
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
-        for (int pass = 0; pass < kQkv / kDim; ++pass)
-          for (int kc = 0; kc < kDim / rt::kBox; ++kc)
-            rt::load_wide(ring, &w_qkv, pass * kDim, kc * rt::kBox);
-    }
-  } else {
-    rt::regs_inc<rt::kConsumerRegs>();
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int ra = 16 * warp + lane / 4, q = lane % 4;
-    const bool issuer = threadIdx.x % 128 == 0;
-    unsigned char* a = sm.act + wg * rt::kWgActBytes;
-    unsigned char* stage = sm.extra + wg * rt::kWgActBytes;
-    const uint32_t stage_s = smem_u32(stage);
-    float acc[128];  // one array for every pass: HGMMA takes it as one register block
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int r0 = tile * rt::kTileRows + wg * rt::kWgRows;
-      const int rows = min(rt::kWgRows, max(0, n_rows - r0));
-      // y = LN_1(x) into A (a missing row normalises zeros: no shuffle
-      // sits in a divergent branch)
-      float g[8], b[8];
-      load8(weights + kOffLn1G + 8 * lane, g);
-      load8(weights + kOffLn1B + 8 * lane, b);
-      uint4 xv[16];
-      load_rows(xv, x, r0, rows, warp, lane);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        float v[8];
-        unpack8(xv[i], v);
-        ln8(v, g, b);
-        st16(reinterpret_cast<bf16*>(a + rt::a_offset(16 * warp + i, 8 * lane)), pack8(v));
-      }
-      rt::fence_proxy_async();
-      rt::wg_sync(wg);
-      for (int pass = 0; pass < kQkv / kDim; ++pass) {
-        rt::gemm_wide<kDim / rt::kBox>(acc, smem_u32(a), ring);
-        if (issuer) rt::tma_store_wait_read();  // the last pass's stores have read the staging
-        rt::wg_sync(wg);
-        stage_acc(acc, stage, weights + kOffBQkv + pass * kDim, ra, q);
-        rt::fence_proxy_async();
-        rt::wg_sync(wg);
-        if (issuer && rows > 0) {
-          for (int bx = 0; bx < kDim / rt::kBox; ++bx)
-            rt::tma_store(&out, stage_s + bx * rt::kKBlockBytes, pass * kDim + bx * rt::kBox, r0);
-          rt::tma_store_commit();
-        }
-      }
-    }
-    if (issuer) rt::tma_store_wait();
-  }
-}
-
-// Projection + residual, LN_2 + MLP + residual on 128-row tiles: x, attn
-// (n_rows, 256) -> out; kSave also keeps x1 in x1_out (serving parks x1 in
-// out, which the last residual overwrites: the same thread reads and
-// writes each element).
-template <bool kSave>
-__global__ void __launch_bounds__(rt::kThreads, 1)
-rest_kernel(const __grid_constant__ CUtensorMap w_proj, const __grid_constant__ CUtensorMap w1,
-            const __grid_constant__ CUtensorMap w2, const bf16* __restrict__ x,
-            const bf16* __restrict__ weights, const bf16* __restrict__ attn, bf16* out,
-            bf16* x1_out, int n_rows) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const Smem sm = carve<kRestStages>(smem_raw, 2 * kHidBuf);
-  if (threadIdx.x == 0) rt::ring_init<kRestStages>(sm.bars);
-  __syncthreads();
-  const int n_tiles = (n_rows + rt::kTileRows - 1) / rt::kTileRows;
-  const int wg = threadIdx.x / 128;
-  rt::Ring<kRestStages> ring{smem_u32(sm.ring), sm.bars, 0};
-  if (wg == rt::kConsumers) {
-    rt::regs_dec<rt::kProducerRegs>();
-    if (threadIdx.x == rt::kConsumers * 128) {
-      // per tile, in consumption order: W_proj by 64 rows; W1's first 64
-      // columns; then W1's next 64 columns beside W2's previous 64 rows
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        for (int kc = 0; kc < kDim / rt::kBox; ++kc)
-          rt::load_wide(ring, &w_proj, 0, kc * rt::kBox);
-        rt::load_tall(ring, &w1, 0);
-        for (int h = 0; h < kMlpChunks; ++h) {
-          if (h + 1 < kMlpChunks) rt::load_tall(ring, &w1, (h + 1) * rt::kBox);
-          rt::load_wide(ring, &w2, 0, h * rt::kBox);
-        }
-      }
-    }
-  } else {
-    rt::regs_inc<rt::kConsumerRegs>();
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int ra = 16 * warp + lane / 4, q = lane % 4;
-    unsigned char* a = sm.act + wg * rt::kWgActBytes;
-    const uint32_t a_s = smem_u32(a);
-    unsigned char* hid = sm.extra + wg * kHidBytes;  // buffer k at hid + k * kHidBuf
-    bf16* x1 = kSave ? x1_out : out;
-    // one 64 x 256 accumulator for the projection and the W2 product: HGMMA
-    // takes it as one block of 128 registers, and two such blocks do not fit
-    float acc[128], acch[32];
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int r0 = tile * rt::kTileRows + wg * rt::kWgRows;
-      const int rows = min(rt::kWgRows, max(0, n_rows - r0));
-      uint4 xv[16];
-      load_rows(xv, attn, r0, rows, warp, lane);  // the attention rows into A
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        st16(reinterpret_cast<bf16*>(a + rt::a_offset(16 * warp + i, 8 * lane)), xv[i]);
-      rt::fence_proxy_async();
-      rt::wg_sync(wg);
-      load_rows(xv, x, r0, rows, warp, lane);  // x, in flight during the projection
-
-      // p = bf16(o @ W_proj + b_proj) into A; then, row by row, x1 = bf16(x +
-      // p) to global and y2 = LN_2(x1) into A in its place
-      rt::gemm_wide<kDim / rt::kBox>(acc, a_s, ring);
-      stage_acc(acc, a, weights + kOffBProj, ra, q);
-      __syncwarp();
-      {
-        float g[8], b[8];
-        load8(weights + kOffLn2G + 8 * lane, g);
-        load8(weights + kOffLn2B + 8 * lane, b);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int r = 16 * warp + i;
-          bf16* pa = reinterpret_cast<bf16*>(a + rt::a_offset(r, 8 * lane));
-          float v[8], pv[8];
-          unpack8(xv[i], v);
-          unpack8(ld16(pa), pv);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = round_bf16(v[j] + pv[j]);
-          if (r < rows) st16(x1 + size_t(r0 + r) * kDim + 8 * lane, pack8(v));
-          ln8(v, g, b);
-          st16(pa, pack8(v));
-        }
-      }
-      rt::fence_proxy_async();
-      rt::wg_sync(wg);
-
-      // the MLP, 64 hidden columns at a time: chunk h + 1's W1 product and
-      // chunk h's W2 product in flight together; the GELU of h + 1 runs
-      // while the tensor cores finish h's
-      rt::issue_tall(acch, a_s, ring.acquire());
-      rt::wgmma_wait<0>();
-      ring.release(ring.next - 1);
-      rt::fence_acc(acch);
-      gelu_hidden(acch, hid, weights + kOffB1, ra, q);
-      rt::fence_proxy_async();
-      rt::wg_sync(wg);
-      int w_prev = -1;
-#pragma unroll 1
-      for (int h = 0; h + 1 < kMlpChunks; ++h) {
-        const int t_chunk = ring.next;
-        rt::issue_tall(acch, a_s, ring.acquire());
-        const int w_chunk = ring.next;
-        rt::issue_wide64(acc, smem_u32(hid + (h % 2) * kHidBuf), ring.acquire(), h > 0);
-        rt::wgmma_wait<1>();  // W1 chunk h + 1 and W2 chunk h - 1 are done
-        ring.release(t_chunk);
-        if (h > 0) ring.release(w_prev);
-        rt::fence_acc(acch);
-        gelu_hidden(acch, hid + ((h + 1) % 2) * kHidBuf, weights + kOffB1 + (h + 1) * rt::kBox,
-                    ra, q);
-        rt::fence_proxy_async();
-        rt::wg_sync(wg);
-        w_prev = w_chunk;
-      }
-      const int w_last = ring.next;
-      rt::issue_wide64(acc, smem_u32(hid + ((kMlpChunks - 1) % 2) * kHidBuf), ring.acquire(),
-                       true);
-      rt::wgmma_wait<0>();
-      ring.release(w_prev);
-      ring.release(w_last);
-      rt::fence_acc(acc);
-
-      // out = x1 + bf16(h @ W2 + b2): staged in A (every wgmma reading it
-      // has completed), added row by row to x1 where this thread stored it
-      stage_acc(acc, a, weights + kOffB2, ra, q);
-      __syncwarp();
-      load_rows(xv, x1, r0, rows, warp, lane);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int r = 16 * warp + i;
-        float v[8], sv[8];
-        unpack8(xv[i], v);
-        unpack8(ld16(reinterpret_cast<const bf16*>(a + rt::a_offset(r, 8 * lane))), sv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] += sv[j];
-        if (r < rows) st16(out + size_t(r0 + r) * kDim + 8 * lane, pack8(v));
-      }
-      // the next tile's attention rows overwrite this warp's rows of A only
-      // after the warp has read them back (program order)
-    }
-  }
-}
-
-int n_tiles(int n_rows) { return (n_rows + rt::kTileRows - 1) / rt::kTileRows; }
-
-cudaError_t launch_qkv(const CUtensorMap& w_qkv, const CUtensorMap& out, const bf16* x,
-                       const bf16* w, int n_rows, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemQkv));
-  int grid = 0;
-  if (err == cudaSuccess) err = persistent_grid(n_tiles(n_rows), &grid);
-  if (err != cudaSuccess) return err;
-  qkv_kernel<<<grid, rt::kThreads, kSmemQkv, stream>>>(w_qkv, out, x, w, n_rows);
-  return cudaGetLastError();
-}
-
-template <bool kSave>
-cudaError_t launch_rest(const CUtensorMap& w_proj, const CUtensorMap& w1, const CUtensorMap& w2,
-                        const bf16* x, const bf16* w, const bf16* attn, bf16* out, bf16* x1,
-                        int n_rows, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      rest_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemRest));
-  int grid = 0;
-  if (err == cudaSuccess) err = persistent_grid(n_tiles(n_rows), &grid);
-  if (err != cudaSuccess) return err;
-  rest_kernel<kSave><<<grid, rt::kThreads, kSmemRest, stream>>>(w_proj, w1, w2, x, w, attn, out,
-                                                                 x1, n_rows);
-  return cudaGetLastError();
-}
 
 // The sub-block's three launches on n_rows rows that hold n_seq sequences
 // of L rows, laid out for the attention as `in` (qkv) and `o` (attn) say; a
@@ -488,22 +133,18 @@ cudaError_t launch_sequences(const void* x, const void* weights, void* qkv, void
   const bf16* wb = static_cast<const bf16*>(weights);
   bf16* qkvb = static_cast<bf16*>(qkv);
   bf16* attnb = static_cast<bf16*>(attn);
-  // W1 in tall 256 x 64 boxes, the other maps in 64 x 64 boxes
-  CUtensorMap m_qkv, m_out, m_proj, m_w1, m_w2;
-  cudaError_t err = tile_map(&m_qkv, wb + kOffWQkv, kDim, kQkv, rt::kBox);
-  if (err == cudaSuccess) err = tile_map(&m_out, qkvb, n_rows, kQkv, rt::kBox);
-  if (err == cudaSuccess) err = tile_map(&m_proj, wb + kOffWProj, kDim, kDim, rt::kBox);
-  if (err == cudaSuccess) err = tile_map(&m_w1, wb + kOffW1, kDim, kMlp, kDim);
-  if (err == cudaSuccess) err = tile_map(&m_w2, wb + kOffW2, kMlp, kDim, rt::kBox);
-  if (err == cudaSuccess) err = launch_qkv(m_qkv, m_out, xb, wb, n_rows, s);
+  sb::Maps m;
+  cudaError_t err = sb::make_maps<Layout>(&m, wb, qkvb, n_rows);
+  if (err == cudaSuccess)
+    err = sb::launch_qkv<Layout, false>(m, xb, wb, nullptr, nullptr, n_rows, s);
   if (err == cudaSuccess)
     err = launch_attention(qkvb, attnb, n_seq, L, kHeads, kDimHead, inner_n, in, o, s);
   if (err != cudaSuccess) return err;
   if (x1 == nullptr)
-    return launch_rest<false>(m_proj, m_w1, m_w2, xb, wb, attnb, static_cast<bf16*>(out),
-                              nullptr, n_rows, s);
-  return launch_rest<true>(m_proj, m_w1, m_w2, xb, wb, attnb, static_cast<bf16*>(out),
-                           static_cast<bf16*>(x1), n_rows, s);
+    return sb::launch_rest<Layout, false>(m, xb, wb, attnb, static_cast<bf16*>(out), nullptr,
+                                          n_rows, s);
+  return sb::launch_rest<Layout, true>(m, xb, wb, attnb, static_cast<bf16*>(out),
+                                       static_cast<bf16*>(x1), n_rows, s);
 }
 
 }  // namespace

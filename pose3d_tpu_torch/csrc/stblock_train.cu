@@ -240,7 +240,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(GemmArgs p) {
   // parts. Fragments: A (m16 x k16) is matrices (m 0-7, k 0-7), (m 8-15,
   // k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15); B (k16 x n16) is (k 0-7, n
   // 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15). A slice stored
-  // the other way round is read with .trans, as in common.cuh.
+  // the other way round is read with .trans.
   const unsigned a_lane =
       kAT ? (((lane / 16) * 8 + lane % 8) * kLdCol + wm * 64 + ((lane / 8) % 2) * 8) * 2
           : ((wm * 64 + lane % 16) * kLdRow + (lane / 16) * 8) * 2;

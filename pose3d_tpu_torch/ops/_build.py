@@ -97,7 +97,7 @@ def library() -> ctypes.CDLL:
         _compile(so)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("lifter_trunk_launch", [p, p, p, p, i, i, i, i, p]),
+    for name, args in (("lifter_trunk_launch", [p] * 7 + [i, i, i, i, p]),
                        ("attention_launch", [p, p, i, i, i, i, p]),
                        ("stblock_temporal_launch", [p, p, p, p, p, p, i, i, i, p]),
                        ("stblock_sequences_launch", [p, p, p, p, p, p, i, i, i, p]),

@@ -36,7 +36,8 @@ from pose3d_tpu_torch.ops.softargmax import soft_argmax_3d_nhwc_backward_referen
 FEATURES = 256     # C: the deconv head's width (csrc/conv_decode.cuh kFeat)
 DEPTH = 64         # D: a joint's channels (kDepth)
 TILE_PIXELS = 128  # pixels per CTA: the partials' tile (kTilePixels)
-CTAS_PER_SM = 4    # the backward's dW launch: about this many (joint, group) CTAs an SM
+CHUNK_PIXELS = 64  # the backward's dW launch: pixels a chunk (conv_decode_bwd.cu kChunkPixels)
+DW_WAVES = 4       # the backward's dW launch: about this many waves of (joint, group) CTAs
 
 
 @f32_math
@@ -166,8 +167,8 @@ def conv_soft_argmax_3d_backward(feats_nhwc, weight, bias, e, stats, g):
     dw, db = torch.empty_like(weight), torch.empty_like(bias)
     if b == 0:
         return dfeats, dw.zero_(), db.zero_()
-    tiles = b * -(-(h * w) // TILE_PIXELS)
-    groups = max(1, min(tiles, CTAS_PER_SM * _sm_count(dev.index or 0) // num_joints))
+    chunks = b * -(-(h * w) // CHUNK_PIXELS)
+    groups = max(1, min(chunks, DW_WAVES * _sm_count(dev.index or 0) // num_joints))
     part = torch.empty((groups, num_joints * DEPTH * (c + 1)), device=dev, dtype=torch.float32)
     g, e, stats = (t.detach().float().contiguous() for t in (g, e, stats))
     lib = _build.library()

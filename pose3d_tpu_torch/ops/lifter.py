@@ -2,9 +2,14 @@
 
 ``trunk`` runs both transformer blocks of the default
 ``JointTransformerLifter`` (17 tokens, dim 256, 4 heads x 64, MLP 1024)
-on flat (B*17, 256) bf16 rows in one CUDA kernel written for Hopper
-(``csrc/lifter_trunk.cu``) when its operands lie on a CUDA device, and in
-its plain PyTorch version ``trunk_reference`` when they lie on the CPU.
+on flat (B*17, 256) bf16 rows in CUDA kernels written for Hopper
+(``csrc/lifter_trunk.cu``: per block the ``qkv_kernel``, the attention and
+the ``rest_kernel`` of ``csrc/subblock_sm90.cuh`` and ``csrc/attention.cu``,
+six launches from one C call) when its operands lie on a CUDA device, and
+in its plain PyTorch version ``trunk_reference`` (composed of the three
+launches' plain versions, ``trunk_qkv_reference``,
+``trunk_attention_reference`` and ``trunk_rest_reference``) when they lie
+on the CPU.
 ``lifter_forward_fused`` wraps it with the embed and the 256 -> 128 -> 3
 head, which stay plain tensor code, as the JAX package leaves them to XLA.
 
@@ -31,8 +36,9 @@ N_JOINTS = 17
 DIM = 256
 HEADS = 4
 MLP = 4 * DIM
-# frames per CUDA thread block: the kernel keeps this tile's activations
-# in shared memory for both blocks, so a batch must be a multiple of it
+# the batch granularity: a batch must be a multiple of this many frames
+# (the first kernel's frame tile; LifterService's buckets keep to it, and
+# the launcher checks it)
 FRAMES_PER_CTA = 4
 
 # One block's weights in the kernel's flat operand, in this order;
@@ -98,27 +104,54 @@ def pack_weights(src) -> TrunkWeights:
     return TrunkWeights(torch.cat(parts).contiguous(), n_blocks)
 
 
+def trunk_qkv_reference(x: torch.Tensor, w: dict[str, torch.Tensor],
+                        pe: torch.Tensor | None = None):
+    """Plain version of one block's first launch (``qkv_kernel``), on any
+    device and dtype: with ``pe`` (the first block) the rows become
+    ``x + pe[row % 17]``, rounded to ``x.dtype``; then ``qkv =
+    dtype(LN_b(LN_a(x)) @ W_qkv)``, each LN rounded to ``x.dtype``.
+    ``w`` is one block of ``TrunkWeights``. Returns (qkv, the residual
+    stream x)."""
+    if pe is not None:
+        x = (x.view(-1, N_JOINTS, DIM) + pe).view(x.shape)
+    y = ln(ln(x, w["lna_g"], w["lna_b"]), w["lnb_g"], w["lnb_b"])
+    return dot(y, w["w_qkv"]).to(x.dtype), x
+
+
+def trunk_attention_reference(qkv: torch.Tensor) -> torch.Tensor:
+    """Plain version of one block's second launch: 4-head x 64 attention
+    within each frame of 17 rows (the clamped softmax of ``ops/attention``)."""
+    return packed_flat_attention_reference(qkv, N_JOINTS, HEADS)
+
+
+def trunk_rest_reference(x: torch.Tensor, att: torch.Tensor,
+                         w: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Plain version of one block's third launch (``rest_kernel``), on any
+    device and dtype: ``x1 = x + dtype(att @ W_proj)``, then ``x1 +
+    dtype(gelu(dtype(LN_2(x1) @ W1 + b1)) @ W2 + b2)``."""
+    dt = x.dtype
+    x = x + dot(att, w["w_proj"]).to(dt)
+    y = ln(x, w["ln2_g"], w["ln2_b"])
+    y = gelu((dot(y, w["w1"]) + w["b1"].float()).to(dt))
+    return x + (dot(y, w["w2"]) + w["b2"].float()).to(dt)
+
+
 def trunk_reference(tokens: torch.Tensor, pe: torch.Tensor,
                     weights: TrunkWeights) -> torch.Tensor:
-    """Plain PyTorch version of the trunk kernel, on any device and dtype.
+    """Plain version of the trunk kernels, on any device and dtype: each
+    block's three launches' plain versions in turn, the PE added by the
+    first block's.
 
     tokens (B*17, 256), pe (17, 256). Rounds to ``tokens.dtype`` where
     the JAX kernel rounds to bf16: the PE add, each LN, qkv, the
     attention output, each residual add, the MLP pre-activation and its
     GELU.
     """
-    dt = tokens.dtype
-    rows = tokens.shape[0]
-    x = (tokens.view(-1, N_JOINTS, DIM) + pe).view(rows, DIM)
+    x = tokens
     for i in range(weights.n_blocks):
         w = weights.block(i)
-        y = ln(ln(x, w["lna_g"], w["lna_b"]), w["lnb_g"], w["lnb_b"])
-        qkv = dot(y, w["w_qkv"]).to(dt)
-        att = packed_flat_attention_reference(qkv, N_JOINTS, HEADS)
-        x = x + dot(att, w["w_proj"]).to(dt)
-        y = ln(x, w["ln2_g"], w["ln2_b"])
-        y = gelu((dot(y, w["w1"]) + w["b1"].float()).to(dt))
-        x = x + (dot(y, w["w2"]) + w["b2"].float()).to(dt)
+        qkv, x = trunk_qkv_reference(x, w, pe if i == 0 else None)
+        x = trunk_rest_reference(x, trunk_attention_reference(qkv), w)
     return x
 
 
@@ -142,37 +175,58 @@ def _check_operands(tokens, pe, weights: TrunkWeights) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def trunk(tokens: torch.Tensor, pe: torch.Tensor,
-          weights: TrunkWeights) -> torch.Tensor:
-    """Both transformer blocks on flat (B*17, 256) token rows.
-
-    On a CUDA device this launches the Hopper kernel on the current stream
-    (bf16 only; anything else raises) and counts the launch in
-    ``trunk.launches``; on the CPU it runs ``trunk_reference``.
-    """
-    _check_operands(tokens, pe, weights)
-    if tokens.device.type == "cpu":
-        return trunk_reference(tokens, pe, weights)
+def _check_kernel_operands(tokens, pe, weights: TrunkWeights) -> None:
     if tokens.device.type != "cuda":
         raise ValueError(f"no trunk kernel for device {tokens.device}")
     if tokens.dtype != torch.bfloat16:
         raise TypeError(f"the trunk kernel takes bfloat16, got {tokens.dtype}")
     for name, t in (("tokens", tokens), ("pe", pe), ("weights", weights.flat)):
-        if t.data_ptr() % 32:  # 16-byte vector loads, 32-byte MMA tiles
+        if t.data_ptr() % 32:  # 16-byte vector loads and TMA boxes (kept at 32)
             raise ValueError(f"{name} must start on a 32-byte boundary")
+
+
+def trunk_scratch(tokens: torch.Tensor, pe: torch.Tensor, weights: TrunkWeights):
+    """``trunk`` on a CUDA device, returning (out, resid, qkv, attn): the
+    output and the kernels' scratch as the call leaves it. qkv and attn hold
+    the last block's q|k|v and attention output, resid that block's input
+    rows (with one block, bf16(tokens + pe)), so that each launch can be
+    held to its plain version on the inputs it was given. Counts the call in
+    ``trunk.launches``."""
+    _check_operands(tokens, pe, weights)
+    _check_kernel_operands(tokens, pe, weights)
     out = torch.empty_like(tokens)
+    # the kernels' scratch: the residual stream between blocks, q|k|v and
+    # the attention output (71, 214 and 71 MB at B = 8192)
+    resid, attn = torch.empty_like(tokens), torch.empty_like(tokens)
+    qkv = torch.empty(tokens.shape[0], 3 * DIM, dtype=tokens.dtype, device=tokens.device)
     n_frames = tokens.shape[0] // N_JOINTS
     if n_frames == 0:
-        return out
+        return out, resid, qkv, attn
     lib = _build.library()
     with torch.cuda.device(tokens.device):  # the launch's current device
         err = lib.lifter_trunk_launch(
             tokens.data_ptr(), pe.data_ptr(), weights.flat.data_ptr(),
-            out.data_ptr(), n_frames, weights.n_blocks, FRAMES_PER_CTA,
-            BLOCK_ELEMS, torch.cuda.current_stream().cuda_stream)
+            resid.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
+            n_frames, weights.n_blocks, FRAMES_PER_CTA, BLOCK_ELEMS,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "lifter_trunk_launch")
     trunk.launches += 1
-    return out
+    return out, resid, qkv, attn
+
+
+def trunk(tokens: torch.Tensor, pe: torch.Tensor,
+          weights: TrunkWeights) -> torch.Tensor:
+    """Both transformer blocks on flat (B*17, 256) token rows.
+
+    On a CUDA device this launches the Hopper kernels on the current stream
+    (bf16 only; anything else raises), with their scratch allocated here,
+    and counts the call in ``trunk.launches``; on the CPU it runs
+    ``trunk_reference``.
+    """
+    _check_operands(tokens, pe, weights)
+    if tokens.device.type == "cpu":
+        return trunk_reference(tokens, pe, weights)
+    return trunk_scratch(tokens, pe, weights)[0]
 
 
 trunk.launches = 0

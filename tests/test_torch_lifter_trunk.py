@@ -124,6 +124,63 @@ class TestPlainTrunkParity:
             assert torch.equal(L.lifter_forward_fused(model, kp, weights=w), plain)
 
 
+class TestPerLaunchPlainVersions:
+    """The trunk's plain version is the composition of its three launches'
+    plain versions (``trunk_qkv_reference``, ``trunk_attention_reference``,
+    ``trunk_rest_reference``), each of which equals the matching slice of
+    the JAX kernel's body (``_trunk_kernel``: the PE add and the double LN
+    into qkv, the frame-chunked attention, the projection and the MLP) at
+    f32 on the same inputs, atol 1e-4: the same expression, f32 sums in
+    another order."""
+
+    def test_reference_is_the_composition(self, setup):
+        for dtype in ("f32", "bf16"):
+            w = L.pack_weights(setup[dtype])
+            dt = w.flat.dtype
+            tokens = torch.randn(8 * 17, 256, generator=torch.Generator().manual_seed(4))
+            tokens, pe = tokens.to(dt), setup[dtype].pe
+            x = tokens
+            for i in range(w.n_blocks):
+                qkv, x = L.trunk_qkv_reference(x, w.block(i), pe if i == 0 else None)
+                x = L.trunk_rest_reference(x, L.trunk_attention_reference(qkv), w.block(i))
+            assert torch.equal(L.trunk_reference(tokens, pe, w), x)
+
+    @pytest.mark.parametrize("block", [0, 1])
+    def test_each_launch_matches_the_jax_slice(self, setup, block):
+        import jax.numpy as jnp
+
+        from pose3d_tpu.ops import pallas_attention as pa
+        from pose3d_tpu.ops.pallas_lifter import _gelu, _ln
+
+        w = L.pack_weights(setup["f32"]).block(block)
+        wj = {k: jnp.asarray(v.numpy()) for k, v in w.items()}
+        rng = np.random.default_rng(20 + block)
+        x = rng.standard_normal((8 * 17, 256)).astype(np.float32)
+        pe = rng.standard_normal((17, 256)).astype(np.float32) if block == 0 else None
+
+        def f32dot(a, b):
+            return jnp.dot(a, b, preferred_element_type=jnp.float32)
+
+        # the JAX kernel's body, f32, one block
+        xj = jnp.asarray(x) if pe is None else jnp.asarray(x) + jnp.tile(jnp.asarray(pe), (8, 1))
+        y = _ln(_ln(xj, wj["lna_g"], wj["lna_b"]), wj["lnb_g"], wj["lnb_b"])
+        qkv_j = f32dot(y, wj["w_qkv"])
+        att_j = pa.frame_chunked_attention(qkv_j, 17, 4, 64, 136)
+        x1 = xj + f32dot(att_j, wj["w_proj"])
+        h = _gelu(f32dot(_ln(x1, wj["ln2_g"], wj["ln2_b"]), wj["w1"]) + wj["b1"])
+        out_j = x1 + f32dot(h, wj["w2"]) + wj["b2"]
+
+        qkv, xr = L.trunk_qkv_reference(torch.from_numpy(x), w,
+                                        None if pe is None else torch.from_numpy(pe))
+        np.testing.assert_allclose(xr.numpy(), np.asarray(xj), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(qkv.numpy(), np.asarray(qkv_j), atol=1e-4, rtol=0)
+        att = L.trunk_attention_reference(torch.from_numpy(np.asarray(qkv_j)))
+        np.testing.assert_allclose(att.numpy(), np.asarray(att_j), atol=1e-4, rtol=0)
+        out = L.trunk_rest_reference(torch.from_numpy(np.asarray(xj)),
+                                     torch.from_numpy(np.asarray(att_j)), w)
+        np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=1e-4, rtol=0)
+
+
 class TestTrunkOperands:
     def test_pack_weights_layout(self, setup):
         model = setup["bf16"]
@@ -165,6 +222,16 @@ class TestTrunkOperands:
             tokens = torch.zeros(256, rows, dtype=torch.bfloat16).t()
         with pytest.raises(ValueError):
             L.trunk(tokens, pe, w)
+
+    def test_scratch_launch_is_cuda_only(self, setup):
+        """``trunk_scratch`` (the kernels with their scratch, for per-launch
+        checks) launches or raises: it has no plain fallback on the CPU."""
+        model = setup["bf16"]
+        tokens = torch.zeros(L.FRAMES_PER_CTA * 17, 256, dtype=torch.bfloat16)
+        before = L.trunk.launches
+        with pytest.raises(ValueError, match="no trunk kernel"):
+            L.trunk_scratch(tokens, model.pe, L.pack_weights(model))
+        assert L.trunk.launches == before
 
     def test_fused_forward_rejects_other_architectures(self):
         model = JointTransformerLifter(heads=8, device="cpu")
@@ -282,6 +349,31 @@ class TestTrunkKernel:
         out = L.trunk(pert, model.pe, w)
         assert torch.equal(base[17:], out[17:])
         assert not torch.equal(base[:17], out[:17])
+
+    @pytest.mark.parametrize("frames", [4, 12, 256])
+    def test_each_launch_matches_its_plain_version(self, frames):
+        """Each of the six launches on the inputs the kernels gave it (the
+        scratch of ``trunk_scratch``): rows within 5e-2 + 2^-5 |want|, the
+        attention within 2^-6 + 2^-7 |want|, bf16(tokens + pe) bitwise."""
+        dev = cuda_device()
+        model, w = self._setup(3, dev)
+        kp = torch.rand(frames, 17, 2, generator=torch.Generator().manual_seed(frames))
+        tokens = L.embed_tokens(model, kp.to(dev))
+        one = L.TrunkWeights(w.flat[:L.BLOCK_ELEMS], 1)
+        out1, resid1, qkv1, att1 = L.trunk_scratch(tokens, model.pe, one)
+        out2, resid2, qkv2, att2 = L.trunk_scratch(tokens, model.pe, w)
+        torch.cuda.synchronize()
+        assert torch.equal(resid1, L.trunk_qkv_reference(tokens, w.block(0), model.pe)[1])
+        assert torch.equal(resid2, out1)
+        for blk, x_in, x, qkv, att, out in ((0, tokens, resid1, qkv1, att1, out1),
+                                            (1, resid2, resid2, qkv2, att2, out2)):
+            pe = model.pe if blk == 0 else None
+            for got, want, atol, rtol in (
+                    (qkv, L.trunk_qkv_reference(x_in, w.block(blk), pe)[0], 5e-2, 2 ** -5),
+                    (att, L.trunk_attention_reference(qkv), 2 ** -6, 2 ** -7),
+                    (out, L.trunk_rest_reference(x, att, w.block(blk)), 5e-2, 2 ** -5)):
+                excess = (got.float() - want.float()).abs() - (atol + rtol * want.float().abs())
+                assert excess.max().item() <= 0
 
     def test_kernel_rejects_f32(self):
         dev = cuda_device()

@@ -98,18 +98,34 @@ def test_kernel_build_is_nvcc_for_sm90a_from_repo_sources():
     assert "pose3d_tpu_torch/_build/" in gitignore
 
 
+def _with_local_headers(path: Path) -> str:
+    """A source and, recursively, the package's headers it includes."""
+    seen, todo, text = set(), [path], []
+    while todo:
+        p = todo.pop()
+        if p in seen or not p.exists():
+            continue
+        seen.add(p)
+        src = p.read_text()
+        text.append(src)
+        todo += [p.parent / line.split('"')[1] for line in src.splitlines()
+                 if line.startswith('#include "')]
+    return "\n".join(text)
+
+
 @pytest.mark.parametrize("path", CUDA_SOURCES + sorted((PKG / "csrc").glob("*.cuh")),
                          ids=lambda p: p.name)
 def test_kernel_source_calls_no_library(path):
     """Hand-written kernels: no cuBLAS, cuDNN or CUTLASS device GEMM, and
-    every C launcher returns the launch's error to the caller."""
+    every C launcher returns the launch's error to the caller (from its
+    source or the launch helpers of a header it includes)."""
     src = path.read_text()
     for lib_call in ("cublas", "cudnn", "cutlass::gemm::device", "scaled_dot_product"):
         assert lib_call not in src.lower()
     for name in LAUNCHERS.get(path.name, []):
         assert f'extern "C" cudaError_t {name}(' in src
     if path.suffix == ".cu":
-        assert "return cudaGetLastError();" in src
+        assert "return cudaGetLastError();" in _with_local_headers(path)
 
 
 # The kernels redesigned for the H100 after their first versions: each
@@ -128,6 +144,12 @@ REDESIGNED = {
                          "_temporal_bwd_kernel", "_temporal_slab_bwd_kernel",
                          "What bounds it on this card", "0.313", "2.22 GB", "3.57 GB",
                          "registers or shared memory"),
+    "lifter_trunk.cu": ("pallas_lifter.py", "_trunk_kernel", "What bounds it on this card",
+                        "438 GFLOP", "0.443 ms", "6.44 GB", "1.9 GB", "double LN",
+                        "subblock_sm90.cuh", "rowtile_sm90.cuh", "persistent grid"),
+    "conv_decode_bwd.cu": ("pallas_conv_decode.py", "_bwd_kernel",
+                           "What bounds it on this card", "146 GFLOP", "0.443 ms", "0.59 ms",
+                           "557 KB", "wgmma", "TMA", "transpose flag", "no atomics"),
 }
 
 
@@ -142,10 +164,13 @@ def test_redesigned_kernel_keeps_its_header_note(name):
 
 
 def test_rowtile_engine_header():
-    """The sub-block forwards' engine (csrc/rowtile_sm90.cuh): its note says
-    what it is and what it replaces; it is wgmma on TMA-loaded weight
-    chunks behind mbarriers with a producer warp, and nothing of JAX; the
-    sub-block kernels run on it and not on common.cuh's 80-row engine."""
+    """The sub-block forwards' and the lifter trunk's engine
+    (csrc/rowtile_sm90.cuh): its note says what it is and what it replaces;
+    it is wgmma on TMA-loaded weight chunks behind mbarriers with a producer
+    warp, and nothing of JAX; the sub-block kernels and the trunk run on it
+    (through csrc/subblock_sm90.cuh, which both include), the conv-decode
+    backward's products are wgmma on TMA-loaded operands, and common.cuh's
+    80-row engine is gone."""
     src = (PKG / "csrc" / "rowtile_sm90.cuh").read_text()
     note = " ".join(line.removeprefix("//").strip()
                     for line in src[:src.index("#pragma once")].splitlines())
@@ -156,10 +181,21 @@ def test_rowtile_engine_header():
                   "setmaxnreg.dec", "setmaxnreg.inc", "cudaGetDriverEntryPoint"):
         assert instr in src, instr
     assert "jax" not in src.lower() and "pose3d_tpu/" not in src
-    stblock = (PKG / "csrc" / "stblock.cu").read_text()
-    assert '#include "rowtile_sm90.cuh"' in stblock
-    for old_engine in ("mma_pass", "WeightStream", "mlp_residual", "attend_row"):
-        assert old_engine not in stblock, old_engine
+    csrc = PKG / "csrc"
+    assert '#include "rowtile_sm90.cuh"' in (csrc / "subblock_sm90.cuh").read_text()
+    for name in ("stblock.cu", "lifter_trunk.cu"):
+        assert '#include "subblock_sm90.cuh"' in (csrc / name).read_text(), name
+    for name in ("stblock.cu", "lifter_trunk.cu", "subblock_sm90.cuh", "common.cuh"):
+        text = (csrc / name).read_text()
+        for old_engine in ("mma_pass", "WeightStream", "mlp_residual", "attend_row"):
+            assert old_engine not in text, (name, old_engine)
+    bwd = (csrc / "conv_decode_bwd.cu").read_text()
+    assert '#include "rowtile_sm90.cuh"' in bwd
+    assert "rt::wgmma_m64n" in bwd and "rt::tma_load3" in bwd
+    bwd_all = _with_local_headers(csrc / "conv_decode_bwd.cu")
+    for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait"):
+        assert instr in bwd_all, instr
+    assert "mma_bf16(" not in bwd and "atomicAdd" not in bwd
 
 
 def _layout_offsets(src: str) -> list[str]:
@@ -195,6 +231,8 @@ def test_kernel_constants_match_the_wrapper(kernel):
         assert f"constexpr int kTilePixels = {CD.TILE_PIXELS};" in src
         assert f"constexpr int kFeat = {CD.FEATURES};" in src
         assert f"constexpr int kDepth = {CD.DEPTH};" in src
+        bwd = (PKG / "csrc" / "conv_decode_bwd.cu").read_text()
+        assert f"constexpr int kChunkPixels = {CD.CHUNK_PIXELS};" in bwd
     elif kernel == "martinez":
         src = (PKG / "csrc" / "martinez.cu").read_text()
         assert f"constexpr int kWidth = {M.WIDTH};" in src
