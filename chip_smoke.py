@@ -130,7 +130,10 @@ spread (std >= 0.1 is asserted):
     1x1 conv alone as one bf16 ``torch.matmul`` (a yardstick; the port
     never calls it); the forward on each route (frames/s), and a
     torch.profiler device-time split of the fused route (decode,
-    convolutions, batch norm, casts and copies, the rest).
+    convolutions, batch norm, casts and copies, the rest); each decode
+    forward launch by launch (the tile partials, their merge) by device
+    ms. ``python3 chip_smoke.py --decode-forward-split`` runs that split
+    alone.
 
 The direct training path, the default PoseNet3D with f32 master weights
 computing in bf16 under ``torch.autocast`` (``image_steps.bf16_apply``),
@@ -1057,28 +1060,88 @@ def train_loop_phase(model) -> tuple[dict, dict]:
     return launches, t
 
 
-def device_launches(fn) -> list[tuple[str, float]]:
-    """Each kernel that one call of fn() launches, in launch order: (its
-    full name, its device ms), from torch.profiler's CUDA activity. The
-    recorded call follows a warm-up call inside the profiler (a step of
-    its schedule): in a process that has profiled before, the first
-    kernels after the profiler starts can go unrecorded."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+DEVICE_LAUNCH_CALLS = 4  # calls of fn() in device_launches' recorded step
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not e.is_user_annotation), key=lambda e: e.time_range.start)
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no kernel")
-    return [(e.name.removeprefix("void ").replace("(anonymous namespace)::", ""),
-             e.time_range.elapsed_us() / 1e3) for e in kernels]
+
+def calls_kernels(call_starts: list[float], kernels: list[tuple[float, str, float]]
+                  ) -> list[list[tuple[str, float]]]:
+    """Sorts kernels ((start, name, ms), one clock with call_starts) into
+    the calls that launched them: a kernel belongs to the last call that
+    started before it (each call ends with a synchronize, and a 1 ms pause
+    stands on either side of each call's start)."""
+    calls = [[] for _ in call_starts]
+    for start, name, ms in sorted(kernels):
+        owner = [i for i, s in enumerate(call_starts) if s <= start]
+        if owner:
+            calls[owner[-1]].append((name, ms))
+    return calls
+
+
+def complete_call(calls: list[list[tuple[str, float]]], expected: int | None
+                  ) -> list[tuple[str, float]] | None:
+    """The calls that hold `expected` kernels (by default the count that
+    most calls hold, the larger on a tie), all with the first such call's
+    kernel names: each kernel's name and its median ms over them; None
+    when no call does."""
+    counts = [len(c) for c in calls if c]
+    if not counts:
+        return None
+    want = expected if expected is not None else max(statistics.multimode(counts))
+    whole = [c for c in calls if c and len(c) == want]
+    if not whole:
+        return None
+    names = [n for n, _ in whole[0]]
+    same = [c for c in whole if [n for n, _ in c] == names]
+    return [(n, statistics.median(c[i][1] for c in same)) for i, n in enumerate(names)]
+
+
+def device_launches(fn, expected: int | None = None) -> list[tuple[str, float]]:
+    """Each kernel that one call of fn() launches, in launch order: (its
+    full name, its device ms, the median over the calls recorded whole),
+    from torch.profiler's CUDA activity. The recorded step follows a
+    warm-up call inside the profiler (a step of its schedule) and holds
+    DEVICE_LAUNCH_CALLS calls, each in a record_function range. In a
+    process that has profiled before, a kernel at the edge of a window can
+    go unrecorded, or a window can come back empty, so the kernels are
+    sorted into their calls by the ranges' starts and only calls with
+    `expected` kernels are kept; a step with none is taken again, three
+    times at most."""
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    tags = [f"device_launches call {i}" for i in range(DEVICE_LAUNCH_CALLS)]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for tag in tags:
+                time.sleep(1e-3)  # 1 ms between one call's kernels and the next range
+                with record_function(tag):
+                    time.sleep(1e-3)  # and between the range's start and its kernels
+                    fn()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        starts = sorted(e.time_range.start for e in events
+                        if e.device_type == cpu and e.name in tags)
+        kernels = [(e.time_range.start,
+                    e.name.removeprefix("void ").replace("(anonymous namespace)::", ""),
+                    e.time_range.elapsed_us() / 1e3)
+                   for e in events if e.device_type == cuda and not e.is_user_annotation]
+        calls = calls_kernels(starts, kernels)
+        got = complete_call(calls, expected)
+        if got:
+            if len({len(c) for c in calls}) > 1:
+                log(f"device_launches: the calls held {[len(c) for c in calls]} kernels; "
+                    f"kept those with {len(got)}")
+            return got
+        log(f"device_launches: torch.profiler recorded {len(kernels)} kernels, "
+            f"{[len(c) for c in calls]} a call"
+            + (f", not {expected}" if expected else "") + "; recording again")
+    raise AssertionError(f"torch.profiler recorded no call of fn() whole: {len(kernels)} "
+                         f"kernels, {[len(c) for c in calls]} a call"
+                         + (f", not {expected}" if expected else ""))
 
 
 def _split_k_slices(m: int, n: int, rows: int) -> int:
@@ -1381,7 +1444,8 @@ def _plain_route(model, route, x):
 def direct_forward_phase(model, model_f32) -> dict:
     """PoseNet3D's forward on each route at B = DIRECT_B, each route's
     kernel launches counted from 0, and the eval chunk step on the fused
-    route. Returns each decode kernel's launches on its route."""
+    route (its count from 0 as well). Returns each decode kernel's
+    launches on its route and, for the conv decode, in the chunk step."""
     x = direct_frames(DIRECT_B, SEED + 32)
     expected = {"heatmap": (0, 0), "nhwc": (1, 0), "fused": (0, 1)}
     launches = {}
@@ -1431,6 +1495,7 @@ def direct_forward_phase(model, model_f32) -> dict:
             or not torch.allclose(out["loss"], want_loss, rtol=1e-5, atol=0)
             or not torch.allclose(out["mpjpe_sums"], want_sums, rtol=1e-5, atol=0)):
         raise AssertionError("the eval chunk step is not the mean of its batches' eval steps")
+    launches[CD.conv_soft_argmax_3d_fused.__name__] += n
     return launches
 
 
@@ -1587,12 +1652,34 @@ def decode_backward_split_phase(model) -> None:
                         generator=torch.Generator().manual_seed(SEED + 45)).to("cuda")
         e, stats = CD.conv_soft_argmax_3d_expectations(nhwc, weight, bias, j, d, with_stats=True)
         launches = device_launches(
-            lambda: CD.conv_soft_argmax_3d_backward(nhwc, weight, bias, e, stats, g))
+            lambda: CD.conv_soft_argmax_3d_backward(nhwc, weight, bias, e, stats, g), 3)
     for i, (name, ms) in enumerate(launches):
         log(f"launch split conv_decode_bwd {'ABC'[i] if i < 3 else i + 1} "
             f"{name.split('(')[0][:60]}: {ms:.4f} ms")
     log(f"launch split conv_decode_bwd: {len(launches)} launches, "
         f"{sum(ms for _, ms in launches):.4f} ms of device time")
+
+
+def decode_forward_split_phase(model) -> None:
+    """Logs each launch of one NHWC soft-argmax forward (kernel 11a: the
+    tile partials, their merge) on the model's logits and of one
+    conv-decode forward (13a: the same two) on its head features, at B =
+    DIRECT_B, by device ms (torch.profiler)."""
+    j, d = model.num_joints, model.depth
+    with torch.inference_mode():
+        feats = model.features(direct_frames(DIRECT_B, SEED + 46))
+        logits = model.final_layer(feats).permute(0, 2, 3, 1)
+        nhwc = feats.permute(0, 2, 3, 1)
+        weight = model.final_layer.weight.view(j * d, -1)
+        bias = model.final_layer.bias.float()
+        both = device_launches(  # one profiler window for both: two launches each
+            lambda: (SA.soft_argmax_3d_nhwc_expectations(logits, j, d),
+                     CD.conv_soft_argmax_3d_expectations(nhwc, weight, bias, j, d)), 4)
+    for what, launches in (("soft_argmax_nhwc", both[:2]), ("conv_decode", both[2:])):
+        for i, (name, ms) in enumerate(launches):
+            log(f"launch split {what} {i + 1} {name.split('(')[0][:60]}: {ms:.4f} ms")
+        log(f"launch split {what}: {len(launches)} launches, "
+            f"{sum(ms for _, ms in launches):.4f} ms of device time")
 
 
 # route: (PoseNet3D's flags, the kernel wrappers a step launches: forward, backward)
@@ -1607,7 +1694,7 @@ DECODE_WRAPPERS = (SA.soft_argmax_3d_nhwc_kernel, SA.soft_argmax_3d_nhwc_backwar
                    CD.conv_soft_argmax_3d_fused, CD.conv_soft_argmax_3d_backward)
 TRAIN_KINDS = (
     ("decode", ("decode_kernel", "merge_kernel", "dfeats_kernel", "dweight_kernel",
-                "fold_kernel", "tile_kernel", "bwd_kernel")),
+                "fold_kernel", "nhwc_stream_kernel", "bwd_kernel")),
     ("convolutions", ("conv", "gemm", "xmma", "fprop", "dgrad", "wgrad", "nvjet", "cutlass",
                       "sm90")),
     ("batch norm", ("bn_", "batch_norm", "batchnorm")),
@@ -1720,7 +1807,7 @@ def direct_train_phase() -> tuple[dict, dict]:
     (``direct_step_check``), then TRAIN_STEPS steps on one fixed batch
     with the decode wrappers' counts set to 0 before them (one forward and
     one backward launch of the route's kernels a step), and times.
-    Returns (the backward wrappers' launches, times)."""
+    Returns (the route's wrappers' launches, forward and backward, times)."""
     frames, kp3d = direct_train_batch(SEED + 50)
     launches, t = {}, {}
     for route, (flags, wrappers) in DIRECT_TRAIN_ROUTES.items():
@@ -1742,7 +1829,7 @@ def direct_train_phase() -> tuple[dict, dict]:
         if not all(math.isfinite(v) for v in losses) or not (
                 statistics.mean(losses[-3:]) < losses[0]):
             raise AssertionError(f"the {route} training loss did not fall")
-        launches.update({f.__name__: made[f.__name__] for f in wrappers[1:]})
+        launches.update({f.__name__: made[f.__name__] for f in wrappers})
         if any(p.dtype != torch.float32 for p in model.parameters()):
             raise AssertionError("Adam stepped parameters that are not f32")
 
@@ -2110,6 +2197,7 @@ def main() -> None:
         dt = direct_timing_phase(dmodel)
         derrs.update(direct_backward_phase(dmodel))
         dt.update(direct_backward_timing_phase(dmodel))
+    decode_forward_split_phase(dmodel)
     decode_backward_split_phase(dmodel)
 
     train_model = seeded_train_model()
@@ -2170,16 +2258,20 @@ def main() -> None:
     kernels += [record(k, f"{csrc}/{src}", f"pose3d_tpu/ops/pallas_stblock_train.py{line}",
                        trlaunches[k], errs[k], trt[k], trt[f"{k}_plain"], None)
                 for k, src, line in train_rows]
+    # the forwards' launches: the route's forward and eval chunk step
+    # (phase 16) and the TRAIN_STEPS train steps of the route (phase 19)
+    fwd_launches = {k: dlaunches[k] + dtrlaunches[k]
+                    for k in ("soft_argmax_3d_nhwc_kernel", "conv_soft_argmax_3d_fused")}
     kernels += [
         # no one PyTorch call computes the soft-argmax
         record("soft_argmax_nhwc", f"{csrc}/softargmax.cu",
                "pose3d_tpu/ops/pallas_softargmax.py:138",
-               dlaunches["soft_argmax_3d_nhwc_kernel"], derrs["soft_argmax_nhwc"],
+               fwd_launches["soft_argmax_3d_nhwc_kernel"], derrs["soft_argmax_nhwc"],
                dt["soft_argmax_nhwc"], dt["soft_argmax_nhwc_plain"], None),
         # the 1x1 conv alone as one bf16 torch.matmul: a yardstick only
         record("conv_decode", f"{csrc}/conv_decode.cu", "pose3d_tpu/ops/pallas_conv_decode.py:98",
-               dlaunches["conv_soft_argmax_3d_fused"], derrs["conv_decode"], dt["conv_decode"],
-               dt["conv_decode_plain"], dt["conv_decode_matmul"]),
+               fwd_launches["conv_soft_argmax_3d_fused"], derrs["conv_decode"],
+               dt["conv_decode"], dt["conv_decode_plain"], dt["conv_decode_matmul"]),
         # the backwards: launches in the TRAIN_STEPS steps of their routes;
         # no one PyTorch call computes either (the conv decode's three
         # products as torch.matmul are logged above, a yardstick only)
@@ -2223,5 +2315,9 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         decode_backward_split_phase(seeded_posenet("cuda", torch.bfloat16))
+    elif sys.argv[1:] == ["--decode-forward-split"]:  # kernels 11a's and 13a's launches alone
+        device_phase()
+        build_phase()
+        decode_forward_split_phase(seeded_posenet("cuda", torch.bfloat16))
     else:
         main()

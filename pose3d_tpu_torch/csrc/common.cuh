@@ -2,8 +2,9 @@
 // the transformer blocks, bf16 helpers, the LayerNorm row and the
 // polynomial GELU of the JAX kernels, and the ldmatrix / mma.sync / cp.async
 // primitives of the kernels that run on them (attention.cu, martinez.cu,
-// stblock_train.cu and the conv-decode forward). The row-tile products of
-// the sub-block forwards and the lifter trunk run on rowtile_sm90.cuh.
+// stblock_train.cu; the NHWC soft-argmax forward streams by cp.async). The
+// row-tile products of the sub-block forwards, the lifter trunk and the
+// conv decodes run on rowtile_sm90.cuh.
 
 #pragma once
 

@@ -1,101 +1,134 @@
-// The widths of the fused 1x1-conv decode (conv_decode.cu) and its
-// backward (conv_decode_bwd.cu), and the forward's logits product. A CTA
-// of the forward holds a tile of kTilePixels feature rows (kFeat bf16
-// each) and a joint's weight slab (kDepth x kFeat, the rows of the conv's
-// (out, in) matrix that belong to the joint) in shared memory at a pitch
-// of kLd, and its 8 warps (4 x 2, 32 x 32 logits each) compute the tile's
-// kTilePixels x kDepth logits of the joint with ldmatrix + mma.sync
-// m16n8k16 (bf16 in, f32 accumulate). The backward recomputes the same
-// logits on wgmma, which sums the 256 products in another order: its
-// logits differ from the forward's by f32 rounding (a few ulps of |l|), so
-// its p / s = exp(l - m) / s, with m and s from the forward, carries that
-// relative error; chip_smoke.py holds its outputs to a float64 run.
+// The widths of the fused 1x1-conv decode (conv_decode.cu, kernel 13a) and
+// its backward (conv_decode_bwd.cu, 13b), and the device code both run:
+// the logits product, the slab stream that feeds it, the pixel coordinates
+// of a thread's accumulator rows, and the TMA map of the features.
+//
+// The logits of one joint over a 128-pixel tile: each of two warpgroups
+// holds 64 feature rows (kFeat bf16 each) in shared memory, K-major in
+// 128-byte-swizzled boxes of 64 channels as TMA lays them out, and the
+// joint's weight slab (kDepth x kFeat, the rows of the conv's (out, in)
+// matrix that belong to the joint) arrives by TMA in one 32 KB stage of a
+// ring (rowtile_sm90.cuh); issue_logits computes the warpgroup's 64 x 64
+// logits with 16 wgmma m64n64k16 (bf16 in, f32 accumulate), the slab taken
+// K-major. Both kernels call it on the same layouts, so the forward's
+// logits and the backward's recompute are the same instructions on the
+// same operands, summed in one order: bitwise equal. The backward's p / s
+// = exp(l - m) / s, with m and s from the forward, therefore sees the
+// logits the forward's m and s were taken over. (The forward's first
+// version, ldmatrix + mma.sync m16n8k16, summed them in another order, and
+// the backward's p / s carried a few ulps of |l| of relative error.)
 
 #pragma once
 
 #include "common.cuh"
+#include "rowtile_sm90.cuh"
 #include "softargmax.cuh"
 
 namespace pose3d {
 
+namespace rt = rowtile;
+
 constexpr int kFeat = 256;        // C: feature channels, the logits' K
 constexpr int kDepth = 64;        // D: a joint's channels, a slab's N
-constexpr int kTilePixels = 128;  // a CTA's pixels, the logits' M
-constexpr int kDecodeWarpsM = 4;
-constexpr int kDecodeWarpsN = 2;
-constexpr int kDecodeWarps = kDecodeWarpsM * kDecodeWarpsN;
-constexpr int kDecodeThreads = 32 * kDecodeWarps;
-constexpr int kWarpRows = kTilePixels / kDecodeWarpsM;  // 32
-constexpr int kWarpCols = kDepth / kDecodeWarpsN;       // 32
-constexpr int kFragM = kWarpRows / 16;
-constexpr int kFragN = kWarpCols / 8;
-// shared-memory row pitch in bf16 elements: 16 bytes of skew per row keep
-// the 8 rows of an ldmatrix on distinct banks
-constexpr int kLd = kFeat + 8;
-constexpr int kSlabElems = kDepth * kLd;
-constexpr int kTileElems = kTilePixels * kLd;
-constexpr int kChunks = kFeat / 8;  // 16-byte copies per row
+constexpr int kTilePixels = 128;  // pixels of a tile: two warpgroups' 64 rows
 
-static_assert(kFragN % 2 == 0 && kFeat % 16 == 0, "tiling");
+static_assert(kFeat == 4 * rt::kBox && kDepth == rt::kBox &&
+                  kTilePixels == rt::kTileRows,
+              "a slab is one wide chunk, a depth row one swizzled 128-byte row");
 
-using LogitAcc = float[kFragM][kFragN][4];
+// The pixel coordinates of this thread's two accumulator rows, ra and ra + 8
+// of the 64 from pixel p0 of one sample; ok says a row is a real pixel.
+struct Rows {
+  float xi[2], yi[2];
+  bool ok[2];
 
-// cp.async of the feature rows p0, ..., p0 + kTilePixels - 1 of one
-// sample's (pixels x kFeat) features into dst; rows past the last pixel
-// repeat it (their results are masked). All threads call it.
-__device__ __forceinline__ void load_feature_tile(bf16* dst, const bf16* __restrict__ f, int p0,
-                                                  int pixels) {
-  for (int i = threadIdx.x; i < kTilePixels * kChunks; i += kDecodeThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    cp_async16(dst + r * kLd + c, f + size_t(min(p0 + r, pixels - 1)) * kFeat + c);
+  __device__ __forceinline__ Rows(int p0, int ra, int pixels, int width) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + ra + 8 * h;
+      ok[h] = p < pixels;
+      xi[h] = float(p % width);
+      yi[h] = float(p / width);
+    }
   }
-}
+};
 
-// cp.async of joint `joint`'s weight slab into dst. All threads call it.
-__device__ __forceinline__ void load_slab(bf16* dst, const bf16* __restrict__ weight, int joint) {
-  const bf16* src = weight + size_t(joint) * kDepth * kFeat;
-  for (int i = threadIdx.x; i < kDepth * kChunks; i += kDecodeThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    cp_async16(dst + r * kLd + c, src + size_t(r) * kFeat + c);
-  }
-}
-
-// acc = warp (wm, wn)'s 32 x 32 block of tile @ slab^T (rows 32 wm + ...,
-// depth columns 32 wn + ...). The m16n8 accumulators: acc[m][n][i] is row
-// 32 wm + 16 m + lane / 4 + 8 (i / 2), column 32 wn + 8 n + 2 (lane % 4) +
-// i % 2.
-__device__ __forceinline__ void slab_logits(const bf16* tile, const bf16* slab, int wm, int wn,
-                                            int lane, LogitAcc& acc) {
-  // ldmatrix row addresses of this lane: feature rows lane % 16 (+ 16 m)
-  // at k offset (lane / 16) * 8; weight rows (lane / 16) * 8 + lane % 8
-  // (+ 16 h) at k offset ((lane / 8) % 2) * 8 (non-transposed: N x K rows
-  // give the column fragments)
-  const unsigned a_lane =
-      smem_u32(tile) + ((wm * kWarpRows + lane % 16) * kLd + (lane / 16) * 8) * 2;
-  const unsigned w_lane =
-      smem_u32(slab) +
-      ((wn * kWarpCols + (lane / 16) * 8 + lane % 8) * kLd + ((lane / 8) % 2) * 8) * 2;
+// acc = a warpgroup's 64 x 64 logits: A (64 x 256, K-major at a) @ the
+// slab at w (64 depth rows x 256, K-major: no transpose); issues and
+// commits only.
+__device__ __forceinline__ void issue_logits(float (&acc)[32], uint32_t a, uint32_t w) {
 #pragma unroll
-  for (int m = 0; m < kFragM; ++m)
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // overwritten: free until here
+  const uint64_t da = rt::desc_a(a), dw = rt::desc_a(w);
+  rt::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < kFragN; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-#pragma unroll 4
   for (int k = 0; k < kFeat / 16; ++k) {
-    unsigned af[kFragM][4], bfr[kFragN / 2][4];
-#pragma unroll
-    for (int m = 0; m < kFragM; ++m) ldsm_x4(af[m], a_lane + (m * 16 * kLd + k * 16) * 2);
-#pragma unroll
-    for (int h = 0; h < kFragN / 2; ++h) ldsm_x4(bfr[h], w_lane + (h * 16 * kLd + k * 16) * 2);
-#pragma unroll
-    for (int m = 0; m < kFragM; ++m)
-#pragma unroll
-      for (int n = 0; n < kFragN; ++n)
-        mma_bf16(acc[m][n], af[m], bfr[n / 2][(n % 2) * 2], bfr[n / 2][(n % 2) * 2 + 1]);
+    const uint32_t off = (k / 4) * rt::kKBlockBytes + (k % 4) * 32;
+    rt::wgmma_m64n64<0, 0>(acc, rt::desc_off(da, off), rt::desc_off(dw, off), k);
   }
+  rt::wgmma_commit();
+}
+
+// A persistent CTA's slab stream as its thread 0 feeds it: chunk c is the
+// slab of joint c % joints (of the CTA's tile c / joints), loaded by TMA
+// into stage c % S once both warpgroups have released chunk c - S.
+template <int S>
+struct SlabFeed {
+  rt::Ring<S> ring;  // the producer's view
+  const CUtensorMap* map;
+  int joints, total;
+
+  __device__ __forceinline__ void issue() {
+    const int c = ring.next;
+    rt::load_wide(ring, map, 0, (c % joints) * kDepth);
+  }
+
+  // Loads every chunk up to c, waiting for stages where it must, then those
+  // after it whose stages are already free.
+  __device__ __forceinline__ void feed(int c) {
+    while (ring.next <= c && ring.next < total) issue();
+    while (ring.next < total &&
+           rt::mbar_test(ring.empty(ring.next % S), ((ring.next / S) & 1) ^ 1))
+      issue();
+  }
+};
+
+// The 128-pixel tile at pixel p0 of sample b into the two warpgroups' A
+// buffers at dst (kActBytes), by TMA, completing on bar: rows past the
+// sample's last pixel arrive as zeros. One thread calls it.
+__device__ __forceinline__ void load_feature_tile(uint32_t dst, const CUtensorMap* map,
+                                                  uint32_t bar, int p0, int b) {
+  rt::mbar_expect_tx(bar, rt::kActBytes);
+#pragma unroll
+  for (int w = 0; w < rt::kConsumers; ++w)
+#pragma unroll
+    for (int kb = 0; kb < kFeat / rt::kBox; ++kb)
+      rt::tma_load3(dst + w * rt::kWgActBytes + kb * rt::kKBlockBytes, map, bar,
+                   kb * rt::kBox, p0 + w * rt::kWgRows, b);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// The TMA map of (batch, pixels, kFeat) bf16 rows at f, in boxes of 64
+// pixels x 64 channels of one sample, 128-byte swizzle: rows past a
+// sample's last pixel load as zeros and are not stored.
+inline cudaError_t pixel_map(CUtensorMap* map, const bf16* f, int batch, int pixels) {
+  EncodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(f) % 16) return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {cuuint64_t(kFeat), cuuint64_t(pixels), cuuint64_t(batch)};
+  const cuuint64_t strides[2] = {cuuint64_t(kFeat) * sizeof(bf16),
+                                 cuuint64_t(pixels) * kFeat * sizeof(bf16)};
+  const cuuint32_t box[3] = {cuuint32_t(rt::kBox), cuuint32_t(rt::kWgRows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(f), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace pose3d

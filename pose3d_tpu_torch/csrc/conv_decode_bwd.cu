@@ -61,10 +61,11 @@
 // C (fold_kernel): folds the groups' partials in group order and casts
 //   dW to bf16.
 //
-// The recomputed logits sum in another order than the forward's (13a,
-// mma.sync), while m and s come from the forward: p / s is off by the
-// logits' f32 summation error (a few ulps of |l|), which the float64
-// yardstick of chip_smoke.py measures.
+// Launch A's recompute of the logits is the forward's (conv_decode.cu)
+// product: conv_decode.cuh's issue_logits on the same swizzled operands,
+// so its logits are bitwise the forward's, and p / s = exp(l - m) / s is
+// taken over the logits that m and s came from. chip_smoke.py still holds
+// the outputs to a float64 run.
 //
 // The launcher runs on the caller's stream, does not synchronise,
 // allocates nothing (the wrapper allocates the outputs and the partials),
@@ -75,8 +76,7 @@
 
 namespace {
 
-using namespace pose3d;
-namespace rt = pose3d::rowtile;
+using namespace pose3d;  // rt: conv_decode.cuh's alias of pose3d::rowtile
 
 constexpr int kStages = 4;
 constexpr int kChunkPixels = 64;  // launch B's chunk: one wgmma M (ops/conv_decode.py CHUNK_PIXELS)
@@ -92,30 +92,7 @@ constexpr size_t kSmemB = 1024 + rt::kStageBytes + size_t(kStages) * rt::kStageB
                           kDsBufs * kDsBytes + 4 * rt::kConsumers * 4 * kHalfDepth +
                           8 * (2 * kStages + 1);
 static_assert(kSmemA <= size_t(kSmemLimit) && kSmemB <= size_t(kSmemLimit), "shared memory");
-static_assert(kFeat == 4 * rt::kBox && kDepth == rt::kBox && kTilePixels == rt::kTileRows &&
-                  kChunkPixels == rt::kWgRows,
-              "a slab is one wide chunk, a depth row one swizzled 128-byte row");
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
-
-// The pixel coordinates of this thread's two accumulator rows, ra and ra + 8
-// of the 64 from pixel p0 of one sample; ok says a row is a real pixel.
-struct Rows {
-  float xi[2], yi[2];
-  bool ok[2];
-
-  __device__ __forceinline__ Rows(int p0, int ra, int pixels, int width) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = p0 + ra + 8 * h;
-      ok[h] = p < pixels;
-      xi[h] = float(p % width);
-      yi[h] = float(p / width);
-    }
-  }
-};
+static_assert(kChunkPixels == rt::kWgRows, "a chunk is one wgmma M");
 
 // One (sample, joint)'s gradient g, expectations e and forward statistics
 // [m, s], as loaded (ahead of their use: the loads' latency then overlaps
@@ -150,14 +127,6 @@ struct RowCoef {
   // dslab of logit l in row h at a depth d whose d - ez is dz
   __device__ __forceinline__ float grad(float l, int h, float dz) const {
     return ex2((l - m) * kLog2e) * inv_s * fmaf(gz, dz, t[h]);
-  }
-
-  // 2^x on the SFU: exp2f's value wherever it is not subnormal (it flushes
-  // those to 0), without exp2f's subnormal handling
-  static __device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
   }
 };
 
@@ -200,45 +169,6 @@ __device__ __forceinline__ void form_dslab(const float (&acc)[4 * kBlocks], unsi
   }
 }
 
-// acc = a warpgroup's 64 x 64 logits: A (64 x 256, K-major at a) @ the
-// slab at w (64 depth rows x 256, K-major: no transpose); issues and
-// commits only.
-__device__ __forceinline__ void issue_logits(float (&acc)[32], uint32_t a, uint32_t w) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // overwritten: free until here
-  const uint64_t da = rt::desc_a(a), dw = rt::desc_a(w);
-  rt::wgmma_fence();
-#pragma unroll
-  for (int k = 0; k < kFeat / 16; ++k) {
-    const uint32_t off = (k / 4) * rt::kKBlockBytes + (k % 4) * 32;
-    rt::wgmma_m64n64<0, 0>(acc, rt::desc_off(da, off), rt::desc_off(dw, off), k);
-  }
-  rt::wgmma_commit();
-}
-
-// Launch A's slab stream as its thread 0 feeds it: chunk c is the slab of
-// joint c % joints (of this CTA's tile c / joints), loaded by TMA into
-// stage c % kStages once both warpgroups have released chunk c - kStages.
-struct SlabFeed {
-  rt::Ring<kStages> ring;  // the producer's view
-  const CUtensorMap* map;
-  int joints, total;
-
-  __device__ __forceinline__ void issue() {
-    const int c = ring.next;
-    rt::load_wide(ring, map, 0, (c % joints) * kDepth);
-  }
-
-  // Loads every chunk up to c, waiting for stages where it must, then those
-  // after it whose stages are already free.
-  __device__ __forceinline__ void feed(int c) {
-    while (ring.next <= c && ring.next < total) issue();
-    while (ring.next < total &&
-           rt::mbar_test(ring.empty(ring.next % kStages), ((ring.next / kStages) & 1) ^ 1))
-      issue();
-  }
-};
-
 // grid: persistent, kThreadsA threads: launch A over n_tiles (sample,
 // 128-pixel) tiles, tiles_per_sample a sample. No producer warpgroup:
 // thread 0 also feeds the slab ring and loads each tile's features, so
@@ -270,7 +200,7 @@ dfeats_kernel(const __grid_constant__ CUtensorMap feat_map,
   const bool feeder = threadIdx.x == 0;
   const int my_tiles = (n_tiles - int(blockIdx.x) + int(gridDim.x) - 1) / int(gridDim.x);
   rt::Ring<kStages> ring{smem_u32(ring_p), bars, 0};
-  SlabFeed slabs{{smem_u32(ring_p), bars, 0}, &w_map, joints, my_tiles * joints};
+  SlabFeed<kStages> slabs{{smem_u32(ring_p), bars, 0}, &w_map, joints, my_tiles * joints};
   // warp 0 waits while its thread 0 feeds the ring up to the chunk it takes
   auto acquire = [&]() {
     if (feeder) slabs.feed(ring.next);
@@ -289,11 +219,7 @@ dfeats_kernel(const __grid_constant__ CUtensorMap feat_map,
     const Rows rows(r0, ra, pixels, width);
     if (feeder) {  // both warpgroups' stores have read the last tile's features
       rt::mbar_wait(feat_empty, (it & 1) ^ 1);
-      rt::mbar_expect_tx(feat_full, rt::kActBytes);
-      for (int w = 0; w < rt::kConsumers; ++w)
-        for (int kb = 0; kb < kFeat / rt::kBox; ++kb)
-          rt::tma_load3(smem_u32(feat) + w * rt::kWgActBytes + kb * rt::kKBlockBytes,
-                        &feat_map, feat_full, kb * rt::kBox, p0 + w * rt::kWgRows, b);
+      load_feature_tile(smem_u32(feat), &feat_map, feat_full, p0, b);
     }
     __syncwarp();
 #pragma unroll
@@ -538,26 +464,6 @@ __global__ void __launch_bounds__(kFoldThreads) fold_kernel(const float* __restr
     for (int k = 0; k < groups; ++k) s += part_b[size_t(k) * n_b + k0];
     db[k0] = s;
   }
-}
-
-// The TMA map of (batch, pixels, kFeat) bf16 rows at f, in boxes of 64
-// pixels x 64 channels of one sample, 128-byte swizzle: rows past a
-// sample's last pixel load as zeros and are not stored.
-cudaError_t pixel_map(CUtensorMap* map, const bf16* f, int batch, int pixels) {
-  EncodeTiled encode;
-  const cudaError_t err = tensor_map_encoder(&encode);
-  if (err != cudaSuccess) return err;
-  if (reinterpret_cast<uintptr_t>(f) % 16) return cudaErrorInvalidValue;
-  const cuuint64_t dims[3] = {cuuint64_t(kFeat), cuuint64_t(pixels), cuuint64_t(batch)};
-  const cuuint64_t strides[2] = {cuuint64_t(kFeat) * sizeof(bf16),
-                                 cuuint64_t(pixels) * kFeat * sizeof(bf16)};
-  const cuuint32_t box[3] = {cuuint32_t(rt::kBox), cuuint32_t(rt::kWgRows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(f), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

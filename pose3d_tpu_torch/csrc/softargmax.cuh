@@ -31,6 +31,14 @@ namespace pose3d {
 constexpr int kPartial = 5;  // floats per partial: m, s, sx, sy, sz
 constexpr float kLog2e = 1.4426950408889634f;
 
+// 2^x on the SFU: exp2f's value wherever it is not subnormal (it flushes
+// those to 0), without exp2f's subnormal handling
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 struct Partial {
   float m = -INFINITY, s = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
 
@@ -75,6 +83,18 @@ struct Partial {
 
   static __device__ __forceinline__ Partial load(const float* p) { return load_strided(p, 1); }
 };
+
+// acc = acc (+) the partial of lane (lane ^ offset), for a shuffle tree in
+// a fixed order; every lane of the warp calls it
+__device__ __forceinline__ void merge_lane(Partial& acc, int offset) {
+  Partial o;
+  o.m = __shfl_xor_sync(0xffffffffu, acc.m, offset);
+  o.s = __shfl_xor_sync(0xffffffffu, acc.s, offset);
+  o.sx = __shfl_xor_sync(0xffffffffu, acc.sx, offset);
+  o.sy = __shfl_xor_sync(0xffffffffu, acc.sy, offset);
+  o.sz = __shfl_xor_sync(0xffffffffu, acc.sz, offset);
+  acc.merge(o);
+}
 
 constexpr int kMergeThreads = 128;
 

@@ -35,7 +35,8 @@ from pose3d_tpu_torch.ops.softargmax import soft_argmax_3d_nhwc_backward_referen
 
 FEATURES = 256     # C: the deconv head's width (csrc/conv_decode.cuh kFeat)
 DEPTH = 64         # D: a joint's channels (kDepth)
-TILE_PIXELS = 128  # pixels per CTA: the partials' tile (kTilePixels)
+TILE_PIXELS = 128  # pixels of a tile: the partials' tile (kTilePixels)
+MAX_JOINTS = 128   # the forward's joints: 4 partials a lane (conv_decode.cu kMaxJoints)
 CHUNK_PIXELS = 64  # the backward's dW launch: pixels a chunk (conv_decode_bwd.cu kChunkPixels)
 DW_WAVES = 4       # the backward's dW launch: about this many waves of (joint, group) CTAs
 
@@ -114,7 +115,7 @@ def _check_kernel_operands(feats_nhwc, weight, bias, depth) -> None:
         raise ValueError(f"the conv-decode kernel takes {FEATURES} features and depth "
                          f"{DEPTH}, got {feats_nhwc.shape[3]} and {depth}")
     for name, t in (("feats", feats_nhwc), ("weight", weight), ("bias", bias)):
-        if not t.is_contiguous() or t.data_ptr() % 16:  # 16-byte cp.async copies
+        if not t.is_contiguous() or t.data_ptr() % 16:  # TMA boxes and 8-byte bias loads
             raise ValueError(f"{name} must be contiguous and start on a 16-byte boundary")
 
 
@@ -126,6 +127,9 @@ def conv_soft_argmax_3d_expectations(feats_nhwc, weight, bias, num_joints: int,
     merge) on the current stream, counted in
     ``conv_soft_argmax_3d_fused.launches``."""
     _check_kernel_operands(feats_nhwc, weight, bias, depth)
+    if num_joints > MAX_JOINTS:
+        raise ValueError(f"the conv-decode kernel takes at most {MAX_JOINTS} joints, "
+                         f"got {num_joints}")
     b, h, w, _ = feats_nhwc.shape
     dev = feats_nhwc.device
     out = torch.empty((b, num_joints, 3), device=dev, dtype=torch.float32)
@@ -221,8 +225,9 @@ def conv_soft_argmax_3d_fused(feats_nhwc: torch.Tensor, weight: torch.Tensor,
     On the CPU this runs the plain versions. On a CUDA device it launches
     kernel 13a (``conv_soft_argmax_3d_expectations``) and, in the
     backward, kernel 13b: it takes feats and weight in bf16 and the bias
-    in f32 (else TypeError), C = 256, D = 64 and contiguous operands on
-    16-byte boundaries (else ValueError); the channels_last deconv output,
+    in f32 (else TypeError), C = 256, D = 64, at most ``MAX_JOINTS``
+    joints and contiguous operands on 16-byte boundaries (else
+    ValueError); the channels_last deconv output,
     ``.permute(0, 2, 3, 1)``, is such a feats tensor. Any other device
     raises ValueError.
     """

@@ -34,7 +34,7 @@ from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops.heatmap import (coords_from_expectations, f32_math, nhwc_expectations,
                                           soft_argmax_3d_nhwc, volume_expectations)
 
-TILE_PIXELS = 128  # pixels per CTA: the partials' tile (csrc/softargmax.cu kTilePixels)
+TILE_PIXELS = 128  # pixels of a tile: the partials' tile (csrc/softargmax.cu kTilePixels)
 # bytes of a CTA's tile of one (d, h, w) volume (csrc/softargmax.cu kVolumeTileBytes)
 VOLUME_TILE_BYTES = 16384
 _VECTOR_BYTES = 16

@@ -230,11 +230,14 @@ class TestWrapperRules:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 8, 8, 17), (3, 13, 11, 3), (2, 64, 64, 17)])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 17), (3, 13, 11, 3), (2, 64, 64, 17),
+                                   (5, 61, 67, 17)])
 def test_kernel_matches_plain_version_on_the_card(shape):
     """C = 256, D = 64, bf16: coordinates within 1e-3 of the plain version
-    (143 pixels: a ragged second tile; +150 on the bias), two calls
-    bitwise equal, one count per call."""
+    (143 pixels: a ragged second tile; 5 x 4087 pixels: 160 tiles, more
+    than the card's SMs, so that a persistent CTA takes several, each
+    sample's last tile ragged; +150 on the bias), two calls bitwise equal,
+    one count per call."""
     dev = cuda_device()
     b, h, w, j = shape
     feats, weight, bias = _port(*_operands(b, h, w, 256, j, 64, seed=11, bias_offset=150.0),
@@ -259,13 +262,19 @@ def test_kernel_rejects_f32_operands_and_other_widths():
     feats, weight, bias = _port(*_operands(1, 8, 8, 128, 2, 64), "bfloat16", dev)
     with pytest.raises(ValueError, match="256 features"):
         CD.conv_soft_argmax_3d_fused(feats, weight, bias.float(), 2, 64)
+    j = CD.MAX_JOINTS + 1
+    feats, weight, bias = _port(*_operands(1, 8, 8, 256, j, 64), "bfloat16", dev)
+    with pytest.raises(ValueError, match=f"at most {CD.MAX_JOINTS} joints"):
+        CD.conv_soft_argmax_3d_fused(feats, weight, bias.float(), j, 64)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 8, 8, 17), (3, 13, 11, 3), (2, 64, 64, 1)])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 17), (3, 13, 11, 3), (2, 64, 64, 1),
+                                   (5, 61, 67, 17)])
 def test_backward_kernel_matches_plain_version_on_the_card(shape):
     """Kernel 13b through the wrapper's backward (+100 on the bias, a
-    ragged second tile at 143 pixels): dfeats (bf16, channels_last), dW
+    ragged second tile at 143 pixels, 160 tiles of which each sample's
+    last is ragged at 5 x 4087 pixels): dfeats (bf16, channels_last), dW
     (bf16) and db (f32) against the plain backward, one backward count
     per backward, two backward calls bitwise equal."""
     dev = cuda_device()

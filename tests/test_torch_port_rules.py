@@ -150,6 +150,16 @@ REDESIGNED = {
     "conv_decode_bwd.cu": ("pallas_conv_decode.py", "_bwd_kernel",
                            "What bounds it on this card", "146 GFLOP", "0.443 ms", "0.59 ms",
                            "557 KB", "wgmma", "TMA", "transpose flag", "no atomics"),
+    "conv_decode.cu": ("pallas_conv_decode.py", "_fwd_kernel", "What bounds it on this card",
+                       "146 GFLOP", "0.148 ms", "wgmma", "TMA", "issue_logits",
+                       "persistent CTA", "bitwise these logits",
+                       "while the other warpgroup's product runs", "fixed order", "no atomics",
+                       "mma.sync", "0.92 ms"),
+    "softargmax.cu": ("pallas_softargmax.py", "_kernel_nhwc_fwd", "_kernel_nhwc_pair_fwd",
+                      "What bounds it on this card", "570 MB", "persistent grid",
+                      "16-byte cp.async copies in flight a thread", "cp.async.wait_group",
+                      "no barrier couples", "shuffle tree", "fixed order", "no atomics",
+                      "0.369 ms"),
 }
 
 
@@ -198,6 +208,37 @@ def test_rowtile_engine_header():
     assert "mma_bf16(" not in bwd and "atomicAdd" not in bwd
 
 
+def test_decode_forwards_are_wgmma_and_cp_async_rings():
+    """Kernel 13a computes its logits on wgmma fed by TMA, with the
+    backward's own product (conv_decode.cuh issue_logits, which both
+    sources call), and nothing of the first version's ldmatrix + mma.sync
+    engine is left in it or its header; kernel 11a streams its logits
+    through each thread's own ring of cp.async copies; neither uses
+    atomics."""
+    csrc = PKG / "csrc"
+    fwd = (csrc / "conv_decode.cu").read_text()
+    head = (csrc / "conv_decode.cuh").read_text()
+    for text in (fwd, head):
+        for old in ("mma_bf16(", "ldsm_x4", "cp_async16", "slab_logits", "LogitAcc",
+                    "kDecodeWarps", "kLd"):
+            assert old not in text, old
+    assert "rt::wgmma_m64n" in fwd + head
+    assert "rt::wgmma_m64n64<0, 0>(" in head
+    for name in ("conv_decode.cu", "conv_decode_bwd.cu"):
+        assert "issue_logits(" in (csrc / name).read_text(), name
+    fwd_all = _with_local_headers(csrc / "conv_decode.cu")
+    for instr in ("wgmma.mma_async", "cp.async.bulk.tensor.3d", "mbarrier.try_wait"):
+        assert instr in fwd_all, instr
+    assert "rt::tma_load3" in head and "load_feature_tile(" in fwd
+    soft = (csrc / "softargmax.cu").read_text()
+    start = soft.index("nhwc_stream_kernel(const T*")
+    kernel = soft[start:soft.index("bwd_kernel(const T*", start)]
+    assert "cp_async16(" in soft and "cp_async_wait<kFwdDepth - 1>()" in kernel
+    assert "tile_kernel(" not in soft.replace("volume_tile_kernel(", "")
+    for text in (fwd, head, soft):
+        assert "atomicAdd" not in text and "atom." not in text and "red.global" not in text
+
+
 def _layout_offsets(src: str) -> list[str]:
     return [line.split("constexpr int ")[1].split(" =")[0]
             for line in src.splitlines() if line.startswith("constexpr int kOff")]
@@ -231,6 +272,8 @@ def test_kernel_constants_match_the_wrapper(kernel):
         assert f"constexpr int kTilePixels = {CD.TILE_PIXELS};" in src
         assert f"constexpr int kFeat = {CD.FEATURES};" in src
         assert f"constexpr int kDepth = {CD.DEPTH};" in src
+        fwd = (PKG / "csrc" / "conv_decode.cu").read_text()
+        assert f"constexpr int kMaxJoints = {CD.MAX_JOINTS};" in fwd
         bwd = (PKG / "csrc" / "conv_decode_bwd.cu").read_text()
         assert f"constexpr int kChunkPixels = {CD.CHUNK_PIXELS};" in bwd
     elif kernel == "martinez":
