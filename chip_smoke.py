@@ -65,9 +65,13 @@ The Martinez path, the default MartinezLifter (the reference LinearModel:
 34 -> 1024, 2 residual blocks of 1024, -> 51, BatchNorm, bf16):
 
 9. kernel vs plain: the block kernel against ``fused_residual_block_reference``
-   at B = 64, 200 (a ragged last tile) and 8192 on the first block's input
-   rows of seeded keypoints (rows: 5e-2 + 2^-5 |want| and the f32-yardstick
-   ratio 1.5, as for the trunk); row isolation;
+   at B = 1, 64, 127, 128, 129 (partial tiles on both sides of a 128-row
+   tile edge), 200 (a ragged last tile), 8192 and 10000 on the first
+   block's input rows of seeded keypoints (rows: 5e-2 + 2^-5 |want| and
+   the f32-yardstick ratio 1.5, as for the trunk; the kernel's error
+   against a float64 run at most 1.5x the plain version's + 2^-16 of the
+   largest float64 value); two calls bitwise equal; row isolation inside
+   a tile and across tile edges in a persistent CTA's second tile;
 10. serving: ``LifterService`` on the same requests as the lifter path, each
     checked against the f32 module (atol 0.1) and the plain route (atol
     5e-2); the block's launches must be 2 blocks x the 6 batches;
@@ -75,7 +79,9 @@ The Martinez path, the default MartinezLifter (the reference LinearModel:
     GEMMs as bare ``torch.matmul`` (a yardstick only; the port never calls
     it), the eager bf16 module, the fused forward and ``LifterService.lift``
     host to host; and the device time of the fused forward and of the
-    block by kernel (torch.profiler over 20 calls).
+    block by kernel (torch.profiler over 20 calls). ``python3 chip_smoke.py
+    --martinez-split`` logs the block's two launches (GEMM 1, GEMM 2) by
+    device ms at B = 64, 256 and 8192, after phases 1-2.
 
 The temporal training path, the default TemporalLifter with f32 master
 weights (bf16 compute in the kernels), 16 clips x 243 frames a step
@@ -287,6 +293,14 @@ DIRECT_ATOL = 5e-2   # direct routes vs plain routes and vs the f32 module (bf16
 DIRECT_LR = 1e-3     # DirectConfig.lr
 DIRECT_WD = 1e-8     # the phase-3 Adam's weight decay (cli/train_direct._weight_decay)
 CLI_FRAMES = 256     # the CLI phase's synthetic training frames
+# the block kernel's batches: one row, partial tiles on both sides of a
+# 128-row tile edge, a ragged last tile, the serving bucket and two buckets'
+# worth; rows across tile edges that a persistent CTA's second tile holds
+# at B = TOP (row tiles 40 and 63: the first round of 132 CTAs on 128 x
+# 256 tiles covers row tiles 0-33 at most)
+MARTINEZ_BATCHES = (1, 64, 127, 128, 129, 200, TOP, 10000)
+MARTINEZ_EDGE_ROWS = (5119, 5120, 8063, 8064)
+MARTINEZ_SPLIT_BATCHES = (64, 256, TOP)
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA's data sheet)
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_HBM = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -503,25 +517,29 @@ def device_ms_by_kernel(fn, n=N_TIMED) -> dict[str, float]:
     torch.profiler's CUDA activity over n calls after one warm-up call.
     User annotations (``record_function`` ranges, such as the
     optimizer's step) are left out: their device time is that of the
-    kernels inside them."""
+    kernels inside them. In a process that has profiled before, a window
+    can come back empty (device_launches): it is taken again, three times
+    at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
-                and not e.is_user_annotation):
-            name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-            out[name] = out.get(name, 0.0) + us / n / 1e3
-    if not out:
-        raise AssertionError("torch.profiler recorded no device time")
-    return out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = e.self_device_time_total
+            if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                    and not e.is_user_annotation):
+                name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+                out[name] = out.get(name, 0.0) + us / n / 1e3
+        if out:
+            return out
+        log("device_ms_by_kernel: torch.profiler recorded no device time; recording again")
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def top_kernels(split: dict[str, float], n: int) -> str:
@@ -754,28 +772,53 @@ def seeded_martinez(device, dtype):
     return model.to(device=device, dtype=dtype).eval()
 
 
+def _martinez_f64(h, w1, s1, b1, w2, s2, b2):
+    """The block in float64 throughout (h not rounded): the yardstick."""
+    x = h.double()
+    hh = torch.relu(x @ w1.double() * s1.double() + b1.double())
+    return x + torch.relu(hh @ w2.double() * s2.double() + b2.double())
+
+
 def martinez_kernel_phase(model) -> float:
     """The block kernel vs its plain version on the first block's input rows
-    of seeded keypoints; returns the max abs error at B=TOP."""
+    of seeded keypoints at every batch of MARTINEZ_BATCHES: rows, the f32
+    and float64 yardsticks, two calls bitwise equal; row isolation inside
+    a tile and across tile edges in a persistent CTA's second tile. Returns
+    the max abs error at B=TOP."""
     fused = Mz.pack_martinez(model)
     w1, s1, b1, w2, s2, b2 = block = fused.blocks[0]
     gen = torch.Generator().manual_seed(SEED + 10)
     err = None
-    for batch in (64, 200, TOP):
+    for batch in MARTINEZ_BATCHES:
         h = Mz.martinez_input(fused, torch.rand(batch, 17, 2, generator=gen).to("cuda"))
-        err = _rows_check(f"martinez_block B={batch}", Mz.fused_residual_block(h, *block),
-                          Mz.fused_residual_block_reference(h, *block),
-                          Mz.fused_residual_block_reference(h.float(), w1.float(), s1, b1,
-                                                            w2.float(), s2, b2))
-    h = Mz.martinez_input(fused, torch.rand(200, 17, 2, generator=gen).to("cuda"))
-    pert = h.clone()
-    pert[131] += 1.0  # a row of the second row tile
-    base, out = Mz.fused_residual_block(h, *block), Mz.fused_residual_block(pert, *block)
-    torch.cuda.synchronize()
-    if (not torch.equal(base[:131], out[:131]) or not torch.equal(base[132:], out[132:])
-            or torch.equal(base[131], out[131])):
-        raise AssertionError("row isolation: perturbing row 131 moved other rows")
-    log("martinez_block row isolation: ok")
+        got, want = Mz.fused_residual_block(h, *block), Mz.fused_residual_block_reference(h, *block)
+        e = _rows_check(f"martinez_block B={batch}", got, want,
+                        Mz.fused_residual_block_reference(h.float(), w1.float(), s1, b1,
+                                                          w2.float(), s2, b2))
+        ref64 = _martinez_f64(h, *block)
+        e64, p64 = ((t.double() - ref64).abs().max().item() for t in (got, want))
+        floor = 2 ** -16 * ref64.abs().max().item()
+        log(f"martinez_block B={batch} vs float64: kernel {e64:.6g}, plain {p64:.6g} "
+            f"(limit {F32_ERR_RATIO} x plain + {floor:.3g})")
+        if e64 > F32_ERR_RATIO * p64 + floor:
+            raise AssertionError(f"martinez_block B={batch}: farther from float64 than plain")
+        if not torch.equal(got, Mz.fused_residual_block(h, *block)):
+            raise AssertionError(f"martinez_block B={batch}: two calls differ")
+        if batch == TOP:
+            err = e
+    log("martinez_block: two calls bitwise equal at every batch")
+    for batch, rows in ((200, (131,)), (TOP, MARTINEZ_EDGE_ROWS)):
+        h = Mz.martinez_input(fused, torch.rand(batch, 17, 2, generator=gen).to("cuda"))
+        pert = h.clone()
+        for r in rows:
+            pert[r] += 1.0
+        base, out = Mz.fused_residual_block(h, *block), Mz.fused_residual_block(pert, *block)
+        torch.cuda.synchronize()
+        moved = (base != out).any(dim=1).nonzero().flatten().tolist()
+        if moved != list(rows):
+            raise AssertionError(f"row isolation B={batch}: perturbing rows {rows} moved "
+                                 f"rows {moved[:10]}")
+        log(f"martinez_block row isolation B={batch}, rows {rows}: ok")
     return err
 
 
@@ -851,6 +894,23 @@ def martinez_timing_phase(model, svc) -> dict:
         log(f"device time martinez B={TOP} {what}: {sum(split.values()):.4f} ms per call: "
             + top_kernels(split, 12))
     return t
+
+
+def martinez_split_phase(model) -> None:
+    """Logs each launch of one block call (GEMM 1 into h, GEMM 2 with the
+    residual) at B = 64, 256 and TOP on the first block's input rows of
+    seeded keypoints, by device ms (torch.profiler)."""
+    fused = Mz.pack_martinez(model)
+    block = fused.blocks[0]
+    gen = torch.Generator().manual_seed(SEED + 13)
+    for batch in MARTINEZ_SPLIT_BATCHES:
+        h = Mz.martinez_input(fused, torch.rand(batch, 17, 2, generator=gen).to("cuda"))
+        launches = device_launches(lambda: Mz.fused_residual_block(h, *block), 2)
+        for i, (name, ms) in enumerate(launches):
+            log(f"launch split martinez_block B={batch} GEMM {i + 1} "
+                f"{name.split('(')[0][:60]}: {ms:.4f} ms")
+        log(f"launch split martinez_block B={batch}: {len(launches)} launches, "
+            f"{sum(ms for _, ms in launches):.4f} ms of device time")
 
 
 def seeded_train_model():
@@ -2319,5 +2379,10 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         decode_forward_split_phase(seeded_posenet("cuda", torch.bfloat16))
+    elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
+        device_phase()
+        build_phase()
+        with torch.inference_mode():
+            martinez_split_phase(seeded_martinez("cuda", torch.bfloat16))
     else:
         main()

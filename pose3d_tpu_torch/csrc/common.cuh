@@ -1,10 +1,10 @@
 // Device code shared by the port's Hopper kernels (sm_90a): the widths of
 // the transformer blocks, bf16 helpers, the LayerNorm row and the
 // polynomial GELU of the JAX kernels, and the ldmatrix / mma.sync / cp.async
-// primitives of the kernels that run on them (attention.cu, martinez.cu,
+// primitives of the kernels that run on them (attention.cu,
 // stblock_train.cu; the NHWC soft-argmax forward streams by cp.async). The
-// row-tile products of the sub-block forwards, the lifter trunk and the
-// conv decodes run on rowtile_sm90.cuh.
+// row-tile products of the sub-block forwards, the lifter trunk, the conv
+// decodes and the Martinez block run on rowtile_sm90.cuh.
 
 #pragma once
 

@@ -4,8 +4,9 @@
 // shared memory, by a weight matrix that does not fit there, on wgmma fed
 // by TMA. It took the place of common.cuh's 80-row engine (ldmatrix +
 // mma.sync, a cp.async ring with a block-wide barrier per chunk), on which
-// both first ran; that engine is gone. The conv-decode backward
-// (conv_decode_bwd.cu) builds on its primitives too.
+// both first ran; that engine is gone. The conv decodes (conv_decode.cu,
+// conv_decode_bwd.cu) and the Martinez block (martinez.cu, whose ring
+// stages carry A beside W: Ring's kBytes) build on its primitives too.
 //
 // Roles. A block is three warpgroups, one CTA an SM:
 // - the producer warpgroup (setmaxnreg down to kProducerRegs): one thread
@@ -384,10 +385,11 @@ __device__ __forceinline__ void stage_acc(const float (&acc)[128], unsigned char
 
 // ---------------------------------------------------------------- the ring
 
-// One side's view of a ring of kStages stages: stages at `ring`, full
-// barrier s at bars + 8s, empty barrier s at bars + 8 (kStages + s); chunk
-// c of the stream lives in stage c % kStages, in round c / kStages.
-template <int kStages>
+// One side's view of a ring of kStages stages of kBytes each: stages at
+// `ring`, full barrier s at bars + 8s, empty barrier s at bars + 8 (kStages
+// + s); chunk c of the stream lives in stage c % kStages, in round c /
+// kStages. Every stage expects kBytes (the default: one wide or tall chunk).
+template <int kStages, int kBytes = kStageBytes>
 struct Ring {
   uint32_t ring, bars;
   int next;  // chunks taken so far
@@ -400,7 +402,7 @@ struct Ring {
     const int s = next % kStages;
     mbar_wait(full(s), (next / kStages) & 1);
     ++next;
-    return ring + s * kStageBytes;
+    return ring + s * kBytes;
   }
 
   // Consumer: chunk c's stage is free again (one arrival a warpgroup, by its
@@ -416,8 +418,8 @@ struct Ring {
     mbar_wait(empty(s), ((next / kStages) & 1) ^ 1);
     ++next;
     *bar = full(s);
-    mbar_expect_tx(*bar, kStageBytes);
-    return ring + s * kStageBytes;
+    mbar_expect_tx(*bar, kBytes);
+    return ring + s * kBytes;
   }
 };
 

@@ -140,7 +140,7 @@ def fused_residual_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
                          f"got {x.shape[1]}")
     for name, t in (("x", x), ("w1", w1), ("w2", w2), ("s1", s1), ("b1", b1),
                     ("s2", s2), ("b2", b2)):
-        if not t.is_contiguous() or t.data_ptr() % 16:  # 16-byte cp.async copies
+        if not t.is_contiguous() or t.data_ptr() % 16:  # TMA's 16-byte aligned bases
             raise ValueError(f"{name} must be contiguous and start on a 16-byte boundary")
     out = torch.empty_like(x)
     n_rows = x.shape[0]

@@ -321,11 +321,20 @@ def _tolerance_excess(got, want):
             - (5e-2 + 2 ** -5 * want.float().abs())).max().item()
 
 
+def _block_f64(x, w1, s1, b1, w2, s2, b2):
+    """The block in float64 throughout (h not rounded): a yardstick."""
+    x = x.double()
+    h = torch.relu(x @ w1.double() * s1.double() + b1.double())
+    return x + torch.relu(h @ w2.double() * s2.double() + b2.double())
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_the_card():
-    """Rows: 5e-2 + 2^-5 |want| (chip_smoke.py's bound for bf16 rows) and
-    the kernel's error against an f32 block at most 1.5x the plain
-    version's; a ragged batch; row isolation; one count per call."""
+    """Rows: 5e-2 + 2^-5 |want| (chip_smoke.py's bound for bf16 rows), the
+    kernel's error against an f32 block at most 1.5x the plain version's,
+    and against a float64 block at most 1.5x the plain version's + 2^-16
+    of the largest float64 value; a ragged batch; row isolation; one count
+    per call."""
     dev = cuda_device()
     for batch in (64, 200):
         ops = [t.to(dev) for t in _torch_operands(_block_operands(M.WIDTH, batch, seed=5),
@@ -340,6 +349,10 @@ def test_kernel_matches_plain_version_on_the_card():
         assert torch.isfinite(got).all() and _tolerance_excess(got, want) <= 0
         err = (got.float() - ref32).abs().max().item()
         assert err <= 1.5 * (want.float() - ref32).abs().max().item()
+        ref64 = _block_f64(*ops)
+        err64 = (got.double() - ref64).abs().max().item()
+        assert err64 <= (1.5 * (want.double() - ref64).abs().max().item()
+                         + 2 ** -16 * ref64.abs().max().item())
     pert = ops[0].clone()
     pert[3] += 1.0
     out = M.fused_residual_block(pert, *ops[1:])

@@ -155,6 +155,12 @@ REDESIGNED = {
                        "persistent CTA", "bitwise these logits",
                        "while the other warpgroup's product runs", "fixed order", "no atomics",
                        "mma.sync", "0.92 ms"),
+    "martinez.cu": ("pallas_martinez.py", "_block_kernel", "fused_residual_block",
+                    "What bounds it on this card", "34.4 GFLOP", "0.035 ms", "~88 MB",
+                    "0.026 ms", "The L2 stream", "11.5 TB/s", "multicast",
+                    "Why h goes through device memory", "128 KB", "0.5 GB", "wgmma", "TMA",
+                    "transpose flag", "persistent grid", "rowtile_sm90.cuh", "mma.sync",
+                    "0.128 ms", "No atomics"),
     "softargmax.cu": ("pallas_softargmax.py", "_kernel_nhwc_fwd", "_kernel_nhwc_pair_fwd",
                       "What bounds it on this card", "570 MB", "persistent grid",
                       "16-byte cp.async copies in flight a thread", "cp.async.wait_group",
@@ -237,6 +243,35 @@ def test_decode_forwards_are_wgmma_and_cp_async_rings():
     assert "tile_kernel(" not in soft.replace("volume_tile_kernel(", "")
     for text in (fwd, head, soft):
         assert "atomicAdd" not in text and "atom." not in text and "red.global" not in text
+
+
+def test_martinez_block_is_wgmma_fed_by_tma():
+    """Row 2 (csrc/martinez.cu) runs its two GEMMs on wgmma fed by TMA
+    through an mbarrier ring of its own stage size, on rowtile_sm90.cuh's
+    primitives; nothing of the first version's ldmatrix + mma.sync +
+    cp.async engine is left in its code; it uses no atomics; its row width
+    is the wrapper's."""
+    from pose3d_tpu_torch.ops import martinez as M
+
+    csrc = PKG / "csrc"
+    src = (csrc / "martinez.cu").read_text()
+    code = src[src.index("#include"):]
+    assert '#include "rowtile_sm90.cuh"' in src
+    for instr in ("wgmma.mma_async", "cp.async.bulk.tensor.2d", "mbarrier.try_wait",
+                  "setmaxnreg.dec", "setmaxnreg.inc"):
+        assert instr in _with_local_headers(csrc / "martinez.cu"), instr
+    for old in ("mma_bf16(", "ldsm_x4", "cp_async16(", "cp_async_wait", "cp_async_commit",
+                "ldmatrix", "mma.sync"):
+        assert old not in code, old
+    for used in ("rt::wgmma_m64n256(", "rt::tma_load(", "rt::tma_store(", "rt::Ring<",
+                 "rt::regs_dec<", "rt::regs_inc<", "rt::swz(", "__grid_constant__ CUtensorMap",
+                 "tile_map(", "t += gridDim.x"):
+        assert used in code, used
+    assert "atomicAdd" not in src and "atom." not in src and "red.global" not in src
+    assert f"constexpr int kWidth = {M.WIDTH};" in src
+    # the ring's stage size is a parameter whose default the other users keep
+    rowtile = (csrc / "rowtile_sm90.cuh").read_text()
+    assert "template <int kStages, int kBytes = kStageBytes>\nstruct Ring {" in rowtile
 
 
 def _layout_offsets(src: str) -> list[str]:
