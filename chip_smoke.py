@@ -202,6 +202,30 @@ PoseNet3D's head output at B = 64, permuted to (B, 17, 64, 64, 64):
 23. times of the four kernels and their plain versions, and of the
     legacy decode's backward.
 
+The phase-1 lifter path (``cli/train_lift.py``, ``data/h36m.py``,
+``cli/predict.py``), in a temporary directory, with f32 modules as the
+JAX package trains and predicts: no kernel of ``csrc/`` runs on it:
+
+24. a fabricated Human3.6M export (seeded; subjects S1, S5-S9, S11;
+    actions that the ``Posing`` filter keeps and drops; the mono and
+    4-camera files); ``train_lift.train`` of the ViT at full width
+    (hidden 256, 2 blocks, 4 heads, MLP 1024), B = 64, 16,384 synthetic
+    frames (256 steps an epoch), 3 epochs, flip TTA: every metric finite
+    and the validation MPJPE of epoch 3 below epoch 1's; one more epoch
+    timed by CUDA events (seconds, frames/s) and profiled (device time,
+    busy share, kernel launches a step); the Martinez lifter (hidden
+    1024, 2 stages, BatchNorm, dropout 0.5) and the AE for 2 epochs, the
+    training loss falling; the ViT for 1 epoch on the export (its frame
+    count that of the tree's arrays, the statistics under
+    ``run_time_utils``); ``predict.main`` on each checkpoint with 10,000
+    frames (chunks of 4096, the third padded) against the restored module
+    in one batch on the card and on the CPU (atol 1e-4), timed;
+    ``predict.main --model temporal`` on a 600-frame video JSON from a
+    checkpoint of the seeded f32 TemporalLifter, bitwise equal to
+    ``lift_sequence`` on the card and within 1e-4 of the CPU's;
+    ``train_temporal.train`` for 1 epoch on the export. ``python3
+    chip_smoke.py --lift-cli`` runs this phase alone, after phases 1-2.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
 peak, or for the soft-argmax and its backward their f32 operations over
@@ -215,12 +239,14 @@ and ``pose3d_tpu_torch`` only.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -228,8 +254,8 @@ import numpy as np
 import torch
 
 import pose3d_tpu_torch
-from pose3d_tpu_torch.cli import train_direct
-from pose3d_tpu_torch.config import DataConfig, DirectConfig
+from pose3d_tpu_torch.cli import predict, train_direct, train_lift, train_temporal
+from pose3d_tpu_torch.config import DataConfig, DirectConfig, LiftConfig, TemporalConfig
 from pose3d_tpu_torch.data.feed import batch_iterator
 from pose3d_tpu_torch.data.synthetic import synthetic_frames, synthetic_h36m
 from pose3d_tpu_torch.models.heads import PoseNet3D
@@ -246,6 +272,8 @@ from pose3d_tpu_torch.ops import stblock as S
 from pose3d_tpu_torch.ops import stblock_train as ST
 from pose3d_tpu_torch.pipeline.lift import lift_sequence
 from pose3d_tpu_torch.serving import LifterService
+from pose3d_tpu_torch.train import checkpoint as ckpt
+from pose3d_tpu_torch.train.epoch import make_lifter_epoch_fn, stack_batches
 from pose3d_tpu_torch.train.image_steps import (bf16_apply, make_direct_eval_chunk_step,
                                                 make_direct_eval_step, make_direct_train_step)
 from pose3d_tpu_torch.train.state import create_train_state
@@ -301,6 +329,17 @@ CLI_FRAMES = 256     # the CLI phase's synthetic training frames
 MARTINEZ_BATCHES = (1, 64, 127, 128, 129, 200, TOP, 10000)
 MARTINEZ_EDGE_ROWS = (5119, 5120, 8063, 8064)
 MARTINEZ_SPLIT_BATCHES = (64, 256, TOP)
+LIFT_FRAMES = 16384  # LiftConfig's synthetic split: 256 steps of B = 64 an epoch
+LIFT_EPOCHS = 3
+LIFT_B = 64          # LiftConfig.batch_size
+PREDICT_FRAMES = 10000  # cli.predict's 4096-frame chunks: two whole and a padded third
+PREDICT_ATOL = 1e-4  # f32 vs f32 (PERF.md §2): sums in another order or on another device
+VIDEO_FRAMES = 600
+# the fabricated Human3.6M export: every calibrated subject, two actions
+# that the "Posing" filter keeps and two it drops
+H36M_SUBJECTS = ("S1", "S5", "S6", "S7", "S8", "S9", "S11")
+H36M_ACTIONS = ("Posing", "Posing 1", "Walking", "Directions 1")
+H36M_CAMS = (".54138969", ".55011271", ".58860488", ".60457274")
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA's data sheet)
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_HBM = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -2156,6 +2195,213 @@ def joint_major_timing_phase(model, dmodel) -> dict:
     return t
 
 
+def write_fake_h36m(root: Path, seed: int) -> dict:
+    """A fabricated Human3.6M export in the VideoPose3D schema under
+    ``root/npz`` (the mono and the 4-camera 3D files and the 2D file of
+    every camera, 32 joints, float32), 64-160 seeded frames for each
+    subject and action; returns the frame count of each (subject, action)."""
+    rng = np.random.default_rng(seed)
+    (root / "npz").mkdir(parents=True)
+    pos3d, mono, pos2d, frames = {}, {}, {}, {}
+    for s in H36M_SUBJECTS:
+        pos3d[s], mono[s], pos2d[s] = {}, {}, {}
+        for a in H36M_ACTIONS:
+            n = frames[s, a] = int(rng.integers(64, 161))
+            pos3d[s][a] = rng.standard_normal((n, 32, 3)).astype(np.float32)
+            mono[s][a] = rng.standard_normal((n, 32, 3)).astype(np.float32)
+            pos2d[s][a] = rng.random((n, 32, 2)).astype(np.float32)
+            for c in H36M_CAMS:
+                pos2d[s][a + c] = rng.random((n, 32, 2)).astype(np.float32)
+    np.savez(root / "npz" / "data_3d_h36m.npz", positions_3d=pos3d)
+    np.savez(root / "npz" / "data_3d_h36m_mono.npz", positions_3d_mono=mono)
+    np.savez(root / "npz" / "data_2d_h36m.npz", positions_2d=pos2d)
+    return frames
+
+
+def _epochs(log_dir: Path, run_name: str) -> list[dict]:
+    """The epoch records of a run's JSONL log."""
+    lines = (log_dir / "runs" / f"{run_name}.jsonl").read_text().splitlines()
+    return [r for r in map(json.loads, lines) if "epoch" in r]
+
+
+def _check_run(name: str, records: list[dict], n_epochs: int) -> None:
+    if len(records) != n_epochs:
+        raise AssertionError(f"{name}: {len(records)} epoch records, expected {n_epochs}")
+    for r in records:
+        for k in ("train_loss", "train_mpjpe", "val_loss", "val_mpjpe"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"{name}: epoch {r['epoch']} {k} = {r[k]}")
+    log(f"cli train_lift {name}: " + "; ".join(
+        f"epoch {r['epoch']} loss {r['train_loss']:.5f} val MPJPE {r['val_mpjpe']:.2f} mm"
+        for r in records))
+
+
+def lift_epoch_timing(state, cfg: LiftConfig) -> None:
+    """One more training epoch of the trained ViT (LIFT_FRAMES synthetic
+    frames, B = 64), CUDA-event timed: seconds an epoch and frames/s; its
+    device time and kernel launches by torch.profiler (a second epoch), so
+    the busy share (device time over event time) and launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ds = train_lift.load_split(cfg, is_train=True)
+    y1, y2 = (torch.from_numpy(a).cuda() for a in stack_batches(
+        (ds.kp2d, ds.kp3d), LIFT_B, np.random.default_rng(SEED)))
+    epoch_fn = make_lifter_epoch_fn(cfg.loss)
+    epoch_fn(state, y1, y2, 1)  # warm-up
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    epoch_fn(state, y1, y2, 2)
+    b.record()
+    b.synchronize()
+    host_s, ms = time.perf_counter() - t0, a.elapsed_time(b)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch_fn(state, y1, y2, 3)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    steps = y1.shape[0]
+    log(f"time lift train epoch vit B={LIFT_B} ({steps} steps, {steps * LIFT_B} frames): "
+        f"{ms / 1e3:.4f} s by CUDA events ({host_s:.4f} s host), "
+        f"{steps * LIFT_B / ms * 1e3:.1f} frames/s, {ms / steps:.4f} ms a step; device "
+        f"{device_ms:.2f} ms an epoch (profiled), busy {device_ms / ms:.1%}; "
+        f"{launches / steps:.1f} kernel launches a step; by kernel: "
+        + top_kernels({e.key: e.self_device_time_total / 1e3 for e in kernels}, 6))
+    # where the host's time goes: self CPU time of each op and runtime
+    # call, a step (under the profiler, which adds its own cost to each)
+    host = {e.key: (e.self_cpu_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0}
+    log(f"host time lift train step (profiled): {sum(v[0] for v in host.values()):.4f} ms a "
+        f"step in {sum(v[1] for v in host.values()):.0f} calls; by call (ms a step, calls "
+        "a step): " + ", ".join(f"{k} {t:.4f} ({c:.0f})" for k, (t, c) in
+                                sorted(host.items(), key=lambda kv: -kv[1][0])[:14]))
+
+
+def _predict_check(name: str, got: np.ndarray, model, kp: np.ndarray) -> None:
+    """cli.predict's output against the restored module's forward in one
+    batch on the card and on the CPU."""
+    x = torch.from_numpy(kp)
+    with torch.inference_mode():
+        card = model(x.cuda()).float().cpu().numpy().reshape(-1, 17, 3)
+        cpu = model.cpu()(x).float().numpy().reshape(-1, 17, 3)
+    model.cuda()
+    errs = (np.abs(got - card).max(), np.abs(got - cpu).max())
+    log(f"cli predict {name}: {got.shape}, vs the module on the card in one batch "
+        f"{errs[0]:.3e}, vs the CPU {errs[1]:.3e} (limit {PREDICT_ATOL})")
+    if got.shape != (len(kp), 17, 3) or got.dtype != np.float32 or max(errs) > PREDICT_ATOL:
+        raise AssertionError(f"cli predict {name} disagrees with its module")
+
+
+def lift_cli_phase() -> None:
+    """The phase-1 trainer, the Human3.6M reader and the predict CLI at full
+    width, on the card, in a temporary directory; no kernel of ``csrc/``
+    is on this path (the f32 modules, as the JAX package runs them)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lift_") as tmp:
+        tmp = Path(tmp)
+        frames = write_fake_h36m(tmp / "h36m", SEED + 20)
+        log_dir = tmp / "logs"
+
+        # the ViT at full width: 3 epochs of LIFT_FRAMES, flip TTA
+        cfg = LiftConfig(model="vit", n_epochs=LIFT_EPOCHS, flip=True, log_dir=str(log_dir),
+                         run_name="vit", data=DataConfig(action="Posing",
+                                                         synthetic_frames=LIFT_FRAMES))
+        t0 = time.perf_counter()
+        state = train_lift.train(cfg)
+        torch.cuda.synchronize()
+        records = _epochs(log_dir, "vit")
+        _check_run("vit", records, LIFT_EPOCHS)
+        log(f"cli train_lift vit: {LIFT_EPOCHS} epochs in {time.perf_counter() - t0:.2f} s "
+            f"host to host, epoch ends at " + ", ".join(f"{r['_runtime']:.2f}" for r in records)
+            + " s (logger clock, 0.01 s steps)")
+        if not records[-1]["val_mpjpe"] < records[0]["val_mpjpe"]:
+            raise AssertionError("the ViT's validation MPJPE did not fall over 3 epochs")
+        lift_epoch_timing(state, cfg)
+        del state
+
+        # the Martinez lifter (hidden 1024, 2 stages, BatchNorm, dropout 0.5)
+        # and the AE, 2 epochs each
+        for name in ("martinez", "ae"):
+            run = train_lift.train(dataclasses.replace(cfg, model=name, n_epochs=2,
+                                                        flip=False, run_name=name))
+            records = _epochs(log_dir, name)
+            _check_run(name, records, 2)
+            if not records[1]["train_loss"] < records[0]["train_loss"]:
+                raise AssertionError(f"the {name} training loss did not fall")
+            del run
+
+        # the ViT for one epoch on the fabricated export
+        real = dataclasses.replace(cfg, n_epochs=1, flip=False, run_name="vit_h36m",
+                                   data=DataConfig(data_dir=str(tmp / "h36m"), action="Posing"))
+        want = sum(n for (s, a), n in frames.items()
+                   if s in real.data.train_subjects and "Posing" in a)
+        got = len(train_lift.load_split(real, is_train=True))
+        state = train_lift.train(real)
+        stats_files = sorted(p.name for p in (log_dir / "run_time_utils").iterdir())
+        log(f"cli train_lift on the fabricated export: {got} training frames (the tree's "
+            f"arrays: {want}), {state.step} steps; {stats_files}")
+        if got != want or state.step != want // LIFT_B or len(stats_files) != 6:
+            raise AssertionError("train_lift did not read the fabricated export")
+        _check_run("vit_h36m", _epochs(log_dir, "vit_h36m"), 1)
+
+        # cli.predict on each checkpoint, 10,000 frames
+        kp = np.random.default_rng(SEED + 21).random((PREDICT_FRAMES, 17, 2)).astype(np.float32)
+        np.save(tmp / "kp.npy", kp)
+        for name in ("vit", "martinez", "ae"):
+            out = tmp / f"{name}.npy"
+            argv = ["--model", name, "--checkpoint", name, "--log_dir", str(log_dir),
+                    "--input", str(tmp / "kp.npy"), "--output", str(out)]
+            predict.main(argv)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict.main(argv)
+            log(f"time cli predict {name} {PREDICT_FRAMES} frames: "
+                f"{time.perf_counter() - t0:.4f} s host to host (process start excluded)")
+            model = ckpt.restore_params(log_dir, name, train_lift.build_lifter(name))
+            _predict_check(name, np.load(out), model.cuda().eval(), kp)
+
+        # the temporal route: the seeded f32 TemporalLifter's checkpoint
+        tmodel = seeded_temporal("cuda", torch.float32)
+        ckpt.save(create_train_state(tmodel, lr=1e-3), log_dir, "temporal",
+                  extra={"heads": tmodel.heads, "hidden": tmodel.hidden,
+                         "n_blocks": tmodel.n_blocks, "clip_len": tmodel.clip_len})
+        px = (np.random.default_rng(SEED + 22).random((VIDEO_FRAMES, 17, 3))
+              * [1000.0, 1000.0, 1.0])
+        (tmp / "video.json").write_text(json.dumps([
+            {"image_id": f"{i:04d}.jpg", "category_id": 1, "keypoints": px[i].tolist(),
+             "score": 0.9} for i in range(VIDEO_FRAMES)]))
+        argv = ["--model", "temporal", "--checkpoint", "temporal", "--log_dir", str(log_dir),
+                "--input", str(tmp / "video.json"), "--output", str(tmp / "t.npy")]
+        t0 = time.perf_counter()
+        got = predict.main(argv)
+        log(f"time cli predict temporal {VIDEO_FRAMES}-frame video JSON: "
+            f"{time.perf_counter() - t0:.4f} s host to host")
+        kp2d = (px[..., :2].astype(np.float32) / 1000.0) * 1000.0
+        want = lift_sequence(tmodel, kp2d, image_size=1000.0)
+        cpu = lift_sequence(seeded_temporal("cpu", torch.float32), kp2d, image_size=1000.0)
+        err = np.abs(got - cpu).max()
+        log(f"cli predict temporal: bitwise equal to lift_sequence on the card: "
+            f"{np.array_equal(got, want)}; vs the CPU {err:.3e} (limit {PREDICT_ATOL})")
+        if not np.array_equal(got, want) or err > PREDICT_ATOL:
+            raise AssertionError("cli predict temporal disagrees with lift_sequence")
+
+        # the temporal trainer for one epoch on the fabricated export
+        tcfg = TemporalConfig(n_epochs=1, log_dir=str(log_dir), run_name="temporal_h36m",
+                              data=DataConfig(data_dir=str(tmp / "h36m")))
+        t0 = time.perf_counter()
+        tstate = train_temporal.train(tcfg)
+        records = _epochs(log_dir, "temporal_h36m")
+        log(f"cli train_temporal on the fabricated export: {tstate.step} steps in "
+            f"{time.perf_counter() - t0:.2f} s; {records}")
+        if tstate.step < 1 or not all(math.isfinite(records[0][k])
+                                      for k in ("train_loss", "val_loss")):
+            raise AssertionError("train_temporal did not train on the fabricated export")
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
@@ -2280,6 +2526,7 @@ def main() -> None:
         jt = joint_major_timing_phase(tmodel, dmodel)
     log(f"time legacy soft-argmax backward (the XLA formula in PyTorch ops) B={DIRECT_B}: "
         f"{lt['soft_argmax_volume_bwd']:.4f} ms")
+    lift_cli_phase()
     bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -2379,6 +2626,10 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         decode_forward_split_phase(seeded_posenet("cuda", torch.bfloat16))
+    elif sys.argv[1:] == ["--lift-cli"]:  # the phase-1 path alone
+        device_phase()
+        build_phase()
+        lift_cli_phase()
     elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
         device_phase()
         build_phase()

@@ -6,8 +6,9 @@ a ported path becomes a CUDA kernel written by hand for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use and bound through ``ctypes``.
 
 Ported so far: the lifter serving path (all three lifter families), the
-temporal serving path, temporal training, and the direct image->3D
-forward and training.
+temporal serving path, temporal training, the direct image->3D forward
+and training, and the phase-1 lifter trainer with the Human3.6M keypoint
+reader and the predict CLI.
 
 - ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
   ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
@@ -23,8 +24,12 @@ forward and training.
   ``conv_decode.py``; the plain ones and the heatmap targets in
   ``heatmap.py``).
 - ``losses.py``, ``train/``, ``core/``, ``data/``, ``config.py``,
-  ``cli/train_temporal.py``, ``cli/train_direct.py``  the two trainers and
-  what they need (the direct model's steps in ``train/image_steps.py``).
+  ``cli/train_lift.py``, ``cli/train_temporal.py``, ``cli/train_direct.py``
+  the three trainers and what they need (the lifter epochs in
+  ``train/epoch.py``, the direct model's steps in ``train/image_steps.py``,
+  the Human3.6M reader in ``data/h36m.py``, the pose transforms in
+  ``core/transforms.py``).
+- ``cli/predict.py``     2D keypoints -> 3D with a trained checkpoint.
 - ``pipeline/lift.py``   ``lift_sequence``: video -> 3D.
 - ``serving.py``         ``LifterService``: bucketed batch inference.
 

@@ -15,8 +15,9 @@ run's checkpoint and reports the validation MPJPE (the reference's
 
 Data: synthetic Human3.6M-like poses with random frames (the fallback of
 the JAX trainer), or ``--source video`` (the phase-2 pipeline's frames
-and MotionBERT poses, ``data/video_dataset.py``). Reading Human3.6M
-(``data.data_dir``) comes with the phase-1 trainer's reader.
+and MotionBERT poses, ``data/video_dataset.py``). Training on Human3.6M
+frames (``data.data_dir``) waits for the native image loader that decodes
+them, which comes with the video pipeline.
 
 Usage:
   python -m pose3d_tpu_torch.cli.train_direct --run_name d1 --n_epochs 5
@@ -50,7 +51,8 @@ from pose3d_tpu_torch.train.state import create_train_state
 
 def load_image_split(cfg: DirectConfig, is_train: bool):
     """-> (frames (N, S, S, 3) uint8 or f32 in [0, 1), kp3d (N, 17, 3), the
-    3D statistics or None); None until the Human3.6M reader is ported."""
+    3D statistics or None); None while the Human3.6M frames cannot be
+    decoded."""
     d = cfg.data
     if cfg.source == "video":
         from pose3d_tpu_torch.data.video_dataset import load_video_dataset
@@ -61,8 +63,9 @@ def load_image_split(cfg: DirectConfig, is_train: bool):
         return frames[sl], poses[sl], None
     if d.data_dir and pathlib.Path(d.data_dir).exists():
         raise NotImplementedError(
-            f"reading Human3.6M from {d.data_dir} is not ported yet (it comes with the "
-            "phase-1 trainer); leave data.data_dir unset to train on synthetic frames")
+            f"training on the Human3.6M frames under {d.data_dir} is not ported yet: it "
+            "decodes them with the native image loader (NativeImageLoader), which comes with "
+            "the video pipeline; leave data.data_dir unset to train on synthetic frames")
     n = d.synthetic_frames if is_train else max(d.synthetic_frames // 4, 8)
     _, kp3d = synthetic.synthetic_h36m(n, seed=0 if is_train else 1)
     kp3d = kp3d - kp3d[:, :1]

@@ -1,8 +1,11 @@
 """Temporal sequence-lifter trainer: the port of
 ``pose3d_tpu/cli/train_temporal.py``.
 
-Trains the ``TemporalLifter`` on clips of ``clip_len`` frames of synthetic
-Human3.6M-like poses (reading the dataset comes with the phase-1 trainer).
+Trains the ``TemporalLifter`` on clips of ``clip_len`` frames of the
+Human3.6M export at ``data.data_dir`` (``data/h36m.read_data``: the
+subjects of ``data.train_subjects`` / ``data.test_subjects``, the action
+filter ``data.action``), or of synthetic Human3.6M-like poses where there
+is none.
 On a CUDA device at the kernels' widths (17 joints, hidden 256, 8 heads)
 the step runs the fused sub-block kernels in bf16 over f32 parameters
 (``ops/stblock_train``); otherwise it differentiates the module in f32.
@@ -21,7 +24,7 @@ import torch
 
 from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.config import TemporalConfig, parse_config
-from pose3d_tpu_torch.data import synthetic
+from pose3d_tpu_torch.data import h36m, synthetic
 from pose3d_tpu_torch.data.feed import batch_iterator, prefetch_to_device
 from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops.stblock import supports
@@ -36,11 +39,11 @@ def load_clips(cfg: TemporalConfig, is_train: bool):
     """(2D clips, root-centred 3D clips) of the train or validation split."""
     d = cfg.data
     if d.data_dir and pathlib.Path(d.data_dir).exists():
-        raise NotImplementedError(
-            f"reading Human3.6M from {d.data_dir} is not ported yet (it comes with the "
-            "phase-1 trainer); leave data.data_dir unset to train on synthetic poses")
-    n = d.synthetic_frames if is_train else max(d.synthetic_frames // 4, cfg.clip_len)
-    kp2d, kp3d = synthetic.synthetic_h36m(n, seed=0 if is_train else 1)
+        subjects = d.train_subjects if is_train else d.test_subjects
+        kp2d, kp3d, _, _ = h36m.read_data(d.data_dir, subjects, d.action)
+    else:
+        n = d.synthetic_frames if is_train else max(d.synthetic_frames // 4, cfg.clip_len)
+        kp2d, kp3d = synthetic.synthetic_h36m(n, seed=0 if is_train else 1)
     kp3d = kp3d - kp3d[:, :1]
     return make_clips(kp2d, cfg.clip_len, cfg.clip_len), make_clips(kp3d, cfg.clip_len,
                                                                     cfg.clip_len)

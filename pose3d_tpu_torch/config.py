@@ -1,11 +1,12 @@
-"""Typed run configuration: the port of ``DataConfig``, ``TemporalConfig``,
-``DirectConfig`` and ``parse_config`` of ``pose3d_tpu/config.py`` (the
-other phases' configs come with their trainers).
+"""Typed run configuration: the port of ``DataConfig``, ``LiftConfig``,
+``TemporalConfig``, ``DirectConfig`` and ``parse_config`` of
+``pose3d_tpu/config.py`` (the other phases' configs come with their
+trainers).
 
+Each config has every field of the JAX one, with its defaults, plus
+``device`` (default ``cuda``; ``--cpu`` sets ``cpu``).
 ``TemporalConfig.use_kernels_train`` is JAX's ``use_pallas_train``: train
-on the fused sub-block kernels where they apply. ``--cpu`` selects the
-torch CPU device (``device``, default ``cuda``). ``DirectConfig`` has every
-field of the JAX one (``cli/train_direct.py``).
+on the fused sub-block kernels where they apply.
 """
 
 from __future__ import annotations
@@ -17,12 +18,43 @@ from typing import Optional
 
 @dataclasses.dataclass
 class DataConfig:
-    """What the port's trainers read of the JAX ``DataConfig``. The
-    Human3.6M reader's fields (action filter, normalisation, subjects,
-    cameras) come with that reader in the phase-1 training slice."""
+    """The Human3.6M reader's settings (the reference ``H36_dataset.py``
+    globals; ``data/h36m.py``)."""
 
-    data_dir: Optional[str] = None   # H36M root; unset or missing => synthetic
+    data_dir: Optional[str] = None   # H36M root (npz/ under it); unset or missing => synthetic
+    action: str = ""                 # substring filter, e.g. "Posing"/"Walking"
+    zero_centre: bool = True
+    standardize_2d: bool = False
+    standardize_3d: bool = False
+    normalize: bool = False
+    num_joints: int = 17
+    split_rate: Optional[int] = None
+    mono_3d_file: bool = True
+    camera_view: bool = True
+    all_cameras: bool = False
     synthetic_frames: int = 16384    # synthetic fallback size (train)
+    train_subjects: tuple = ("S1", "S5", "S6", "S7", "S8")
+    test_subjects: tuple = ("S9", "S11")
+
+
+@dataclasses.dataclass
+class LiftConfig:
+    """Phase-1 trainer config (the reference ``train_1.py``)."""
+
+    model: str = "vit"               # vit | martinez | ae
+    batch_size: int = 64
+    n_epochs: int = 150
+    lr: float = 1e-4
+    run_name: str = "lift_run"
+    resume: bool = False
+    flip: bool = False               # validation flip test-time augmentation
+    loss: str = "mse"                # mse | l1
+    grad_clip: float = 0.0           # global-norm clip (0: none)
+    log_dir: str = "./logs"
+    seed: int = 0
+    ctlc_save: bool = True           # checkpoint on an interrupt
+    device: str = "cuda"
+    data: DataConfig = dataclasses.field(default_factory=lambda: DataConfig(action="Posing"))
 
 
 @dataclasses.dataclass
@@ -51,9 +83,7 @@ class TemporalConfig:
 @dataclasses.dataclass
 class DirectConfig:
     """Direct image->3D (phase-3/4) trainer config (the reference
-    ``train_3.py`` and phase-4 ``train.py``). The JAX config's data field
-    also sets the H36M reader's action filter and split rate, which come
-    with that reader."""
+    ``train_3.py`` and phase-4 ``train.py``)."""
 
     architecture: str = "resnet50"
     batch_size: int = 64
@@ -80,7 +110,8 @@ class DirectConfig:
     seed: int = 0
     bf16: bool = True
     device: str = "cuda"
-    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    data: DataConfig = dataclasses.field(
+        default_factory=lambda: DataConfig(action="1.6", split_rate=50))
 
 
 def _add_fields(parser: argparse.ArgumentParser, cls, prefix=""):
@@ -93,10 +124,12 @@ def _add_fields(parser: argparse.ArgumentParser, cls, prefix=""):
         if f.type in ("bool", bool):
             parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
                                 default=None)
-        elif f.type in ("int", int):
+        elif f.type in ("int", int, "Optional[int]"):
             parser.add_argument(name, type=int, default=None)
         elif f.type in ("float", float, "Optional[float]"):
             parser.add_argument(name, type=float, default=None)
+        elif f.type in ("tuple", tuple):
+            parser.add_argument(name, type=lambda s: tuple(s.split(",")), default=None)
         else:
             parser.add_argument(name, type=str, default=None)
 

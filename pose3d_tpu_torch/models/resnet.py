@@ -23,8 +23,8 @@ Kept for parity with the flax module:
 The modules run in whatever memory format their input has; the direct
 model (``models/heads.py``) keeps them ``channels_last``, the layout of
 the JAX package's NHWC convolutions. The convolutions are cuDNN's, as the
-JAX package leaves its convolutions to XLA. ``load_torch_resnet``, the
-ImageNet warm start, comes with the direct-training slice.
+JAX package leaves its convolutions to XLA. ``load_torch_resnet`` is the
+warm start from a torchvision (ImageNet) state dict.
 """
 
 from __future__ import annotations
@@ -133,3 +133,26 @@ class ResNet(nn.Module):
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)
         return x
+
+
+@torch.no_grad()
+def load_torch_resnet(model: ResNet, state_dict) -> int:
+    """Merge a torchvision-layout ResNet state dict (tensors or numpy
+    arrays) into ``model`` in place, as the reference's warm start filters
+    it (``Model.py:30-38``): an entry whose key the model has with the same
+    shape is copied, in the model's dtype; anything else (the classifier
+    ``fc``, another architecture's shapes) is skipped, and the model keeps
+    its own value there. BatchNorm's ``num_batches_tracked`` counters are
+    not loaded, as the JAX package's merge has no such leaf. Returns the
+    number of entries loaded."""
+    own = model.state_dict()
+    n = 0
+    for key, value in state_dict.items():
+        target = own.get(key)
+        if key.endswith("num_batches_tracked") or target is None:
+            continue
+        value = torch.as_tensor(value)
+        if tuple(value.shape) == tuple(target.shape):
+            target.copy_(value)
+            n += 1
+    return n

@@ -1,2 +1,3 @@
-"""Training of the port: optimizer and plateau state, steps, checkpoints
-and metric logging (the counterparts of ``pose3d_tpu/train``)."""
+"""Training of the port: optimizer and plateau state, steps, epochs,
+checkpoints, metric logging and debug hooks (the counterparts of
+``pose3d_tpu/train``)."""

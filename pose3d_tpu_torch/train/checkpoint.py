@@ -5,7 +5,11 @@ and optimizer state dicts and the plateau scheduler's state; a
 ``.meta.json`` sidecar beside it holds run metadata that shapes cannot
 carry (``batch_size`` and, for the temporal lifter, ``heads``,
 ``hidden``, ``n_blocks``, ``clip_len``). ``save`` writes a temporary file
-and renames it, so a checkpoint is whole or absent.
+and renames it, so a checkpoint is whole or absent. ``peek_params`` and
+``restore_params`` read the model's state dict alone (its parameters and
+BatchNorm buffers, no optimizer), for inference and for reusing a trained
+model in another run; they read the port's checkpoints, not the JAX
+package's orbax ones.
 """
 
 from __future__ import annotations
@@ -54,6 +58,20 @@ def restore(state: TrainState, log_dir, run_name: str) -> tuple[TrainState, dict
     state.plateau.load_state_dict(payload["plateau"])
     state.step = payload["step"]
     return state, load_meta(log_dir, run_name)
+
+
+def peek_params(log_dir, run_name: str) -> dict:
+    """The model's state dict of a checkpoint, on the CPU, whatever the
+    architecture: callers read the shapes to build the model."""
+    payload = torch.load(_path(log_dir, run_name), map_location="cpu", weights_only=True)
+    return payload["model"]
+
+
+def restore_params(log_dir, run_name: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a checkpoint's parameters and BatchNorm buffers into ``model``
+    (strictly, on its device), and no optimizer state; returns ``model``."""
+    model.load_state_dict(peek_params(log_dir, run_name), strict=True)
+    return model
 
 
 def exists(log_dir, run_name: str) -> bool:

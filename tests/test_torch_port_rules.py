@@ -43,7 +43,10 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch.ops.softargmax, pose3d_tpu_torch.ops.conv_decode\n"
         "import pose3d_tpu_torch.train.image_steps, pose3d_tpu_torch.config\n"
         "import pose3d_tpu_torch.cli.train_direct, pose3d_tpu_torch.data.video_dataset\n"
-        "import pose3d_tpu_torch.train.epoch\n"
+        "import pose3d_tpu_torch.train.epoch, pose3d_tpu_torch.train.debug\n"
+        "import pose3d_tpu_torch.cli.train_lift, pose3d_tpu_torch.cli.predict\n"
+        "import pose3d_tpu_torch.data.h36m, pose3d_tpu_torch.data.stats\n"
+        "import pose3d_tpu_torch.core.quaternion, pose3d_tpu_torch.core.transforms\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
         "print('cv2' in sys.modules)\n"

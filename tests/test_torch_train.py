@@ -275,13 +275,34 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
     assert fresh.plateau.state_dict() == saved_plateau
 
 
-def test_cli_with_an_existing_data_dir_raises(tmp_path):
+def test_cli_reads_a_human36m_tree(tmp_path):
+    """``data.data_dir`` set to a fabricated export: the clips are those of
+    the JAX trainer's ``load_clips`` on the same tree (the reader's frames
+    of the split's subjects and action, root-centred), bitwise; a
+    ``data_dir`` that does not exist falls back to synthetic poses; the
+    trainer trains on the tree."""
+    from torch_port_util import write_fake_h36m
+
+    from pose3d_tpu.cli.train_temporal import load_clips as jax_clips
+    from pose3d_tpu.config import DataConfig as JaxData
+    from pose3d_tpu.config import TemporalConfig as JaxConfig
     from pose3d_tpu_torch.cli import train_temporal as cli
     from pose3d_tpu_torch.config import DataConfig
 
-    cfg = _cfg(tmp_path, data=DataConfig(data_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.load_clips(cfg, True)
+    frames = {("S1", "Posing"): 50, ("S1", "Walking"): 30, ("S5", "Posing 1"): 26}
+    write_fake_h36m(tmp_path / "h36m", frames, np.random.default_rng(7))
+    split = {"data_dir": str(tmp_path / "h36m"), "action": "Posing",
+             "train_subjects": ("S1",), "test_subjects": ("S5",)}
+    cfg = _cfg(tmp_path, data=DataConfig(**split))
+    jcfg = JaxConfig(clip_len=12, n_blocks=1, data=JaxData(**split))
+    for is_train, n_clips in ((True, 50 // 12 + 1), (False, 26 // 12 + 1)):
+        got, want = cli.load_clips(cfg, is_train), jax_clips(jcfg, is_train)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape[0] == n_clips
+            np.testing.assert_array_equal(a, b)
+        assert not got[1][..., 0, :].any()  # root-centred
+    state = cli.train(_cfg(tmp_path, n_epochs=1, batch_size=2, data=DataConfig(**split)))
+    assert state.step == 5 // 2
     missing = _cfg(tmp_path, data=DataConfig(data_dir=str(tmp_path / "absent"),
                                              synthetic_frames=240))
     c2, c3 = cli.load_clips(missing, True)

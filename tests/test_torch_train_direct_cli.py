@@ -140,7 +140,7 @@ def test_synthetic_split_matches_the_jax_trainer(tmp_path):
 
 
 def test_cli_with_an_existing_data_dir_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="native image loader"):
         cli.load_image_split(_cfg(tmp_path, data=DataConfig(data_dir=str(tmp_path))), True)
 
 

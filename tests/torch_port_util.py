@@ -10,6 +10,7 @@ there with ``--noconftest``; ``tests/conftest.py`` imports JAX).
 from __future__ import annotations
 
 import functools
+import pathlib
 
 import numpy as np
 import pytest
@@ -167,6 +168,35 @@ def torch_posenet(params, batch_stats, dtype=torch.float32, device="cpu", **fiel
     model = PoseNet3D(**fields, device=device, dtype=dtype)
     model.load_state_dict(posenet3d_from_flax(params, batch_stats), strict=True)
     return model.eval()
+
+
+H36M_CAM_SUFFIXES = (".54138969", ".55011271", ".58860488", ".60457274")
+
+
+def write_fake_h36m(root, frames: dict, rng) -> dict:
+    """A fabricated Human3.6M export in the VideoPose3D schema under
+    ``root/npz`` (the pattern of ``tests/test_h36m_reader.py``'s
+    ``fake_h36m``): ``frames`` maps (subject, action) to a frame count;
+    each gets a world-frame 3D pose (``data_3d_h36m.npz``), a camera-frame
+    one (``data_3d_h36m_mono.npz``) and 2D keypoints for the mono file and
+    each of the four cameras (``data_2d_h36m.npz``), all 32 joints,
+    float32, seeded from ``rng``. Returns {"pos3d", "pos3d_mono",
+    "pos2d"}, the nested dicts written."""
+    npz = pathlib.Path(root) / "npz"
+    npz.mkdir(parents=True, exist_ok=True)
+    out = {"pos3d": {}, "pos3d_mono": {}, "pos2d": {}}
+    for (s, a), n in frames.items():
+        for d in out.values():
+            d.setdefault(s, {})
+        out["pos3d"][s][a] = rng.standard_normal((n, 32, 3)).astype(np.float32)
+        out["pos3d_mono"][s][a] = rng.standard_normal((n, 32, 3)).astype(np.float32)
+        out["pos2d"][s][a] = rng.random((n, 32, 2)).astype(np.float32)
+        for c in H36M_CAM_SUFFIXES:
+            out["pos2d"][s][a + c] = rng.random((n, 32, 2)).astype(np.float32)
+    np.savez(npz / "data_3d_h36m.npz", positions_3d=out["pos3d"])
+    np.savez(npz / "data_3d_h36m_mono.npz", positions_3d_mono=out["pos3d_mono"])
+    np.savez(npz / "data_2d_h36m.npz", positions_2d=out["pos2d"])
+    return out
 
 
 def cuda_device() -> torch.device:
