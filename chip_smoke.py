@@ -1,9 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port: `python3 chip_smoke.py`.
 
-Drives the port's serving paths, its two training paths and the
-joint-major and legacy entry points on one NVIDIA GPU (Hopper, sm_90a),
-with random weights from a seed, and fails (non-zero exit, traceback) if
-any phase fails:
+Drives the port's serving paths, its training paths, the joint-major and
+legacy entry points and the video pipeline on one NVIDIA GPU (Hopper,
+sm_90a), with random weights from a seed, and fails (non-zero exit,
+traceback) if any phase fails:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the kernels from ``pose3d_tpu_torch/csrc`` (one
@@ -226,6 +226,42 @@ JAX package trains and predicts: no kernel of ``csrc/`` runs on it:
     ``train_temporal.train`` for 1 epoch on the export. ``python3
     chip_smoke.py --lift-cli`` runs this phase alone, after phases 1-2.
 
+The video -> 3D path (``pipeline/{video,detector,run}.py``), in a
+temporary directory: the ResNet-50 ``PoseNet2D`` on 256 x 256 frames at
+batch 64 (its final conv x40 so that the heatmaps peak; a coordinate
+spread of at least 0.1 is asserted), and the default TemporalLifter in
+bf16, both from the seed:
+
+25. what the host has: whether cv2 imports and whether the port's native
+    libraries build (``data/native_build.py``: g++, libjpeg, OpenCV C++);
+    neither ends the run. 512 frames (bench.py's ``E2E_FRAMES``) rendered
+    on the card by ``render_pose_frames`` from ``synthetic_h36m``
+    keypoints, as uint8; the detector saved as port checkpoints in f32 and
+    bf16 and the lifter in bf16, and each built again from its checkpoint
+    by ``pipeline.run``; ``detect_frames`` (pinned chunks of 64, at most 6
+    in flight): f32 against the same module on the CPU for the first
+    chunk (atol 1e-3 in [0, 1] units: 1 px at the x1000 scale; TF32 off),
+    bf16 against f32 (atol 0.1: at a spread of 0.1 the bf16 budget of
+    5e-2 does not hold, see DETECT_BF16_ATOL); the detections as
+    prediction JSONs, merged by ``save_to_json``, lifted by
+    ``lift_video_json`` for the 512-frame video (one spatial and one
+    temporal sub-block launch a block: rows 5 and 6) and a 100-frame cut
+    (one packed and one sequence attention launch a block: rows 3 and 4),
+    counted from 0 before each,
+    the poses within 5e-2 of the plain versions on the CPU and 0.1 of the
+    f32 module. Where cv2 imports: the frames written to
+    ``raw_videos/walk.mp4`` and ``pipeline.run.main`` with ``--detector
+    posenet2d`` and both checkpoints, its npy bitwise equal to
+    ``lift_video_json`` on the run's own JSON, and the mp4's pixel
+    difference from the rendered frames logged; where it does not, a line
+    says so. Times (CUDA events, torch.profiler): the detector on frames
+    already on the card, f32 and bf16 (frames/s, device ms, busy share,
+    top device operations), the lift of 512 frames, and host to host per
+    stage (detect on frames in host memory, lift) and for the whole path,
+    and ``pipeline.run.main`` host to host (decode included) where cv2
+    imports. ``python3
+    chip_smoke.py --video`` runs this phase alone, after phases 1-2.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
 peak, or for the soft-argmax and its backward their f32 operations over
@@ -258,7 +294,9 @@ from pose3d_tpu_torch.cli import predict, train_direct, train_lift, train_tempor
 from pose3d_tpu_torch.config import DataConfig, DirectConfig, LiftConfig, TemporalConfig
 from pose3d_tpu_torch.data.feed import batch_iterator
 from pose3d_tpu_torch.data.synthetic import synthetic_frames, synthetic_h36m
-from pose3d_tpu_torch.models.heads import PoseNet3D
+from pose3d_tpu_torch.data import native_build
+from pose3d_tpu_torch.data.synthetic import render_pose_frames
+from pose3d_tpu_torch.models.heads import PoseNet2D, PoseNet3D
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter, MartinezLifter
 from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops import _build
@@ -270,7 +308,11 @@ from pose3d_tpu_torch.ops import martinez as Mz
 from pose3d_tpu_torch.ops import softargmax as SA
 from pose3d_tpu_torch.ops import stblock as S
 from pose3d_tpu_torch.ops import stblock_train as ST
-from pose3d_tpu_torch.pipeline.lift import lift_sequence
+from pose3d_tpu_torch.pipeline import run as video_run
+from pose3d_tpu_torch.pipeline.detector import PoseNet2DDetector, write_predictions
+from pose3d_tpu_torch.pipeline.keypoints import load_video_json, save_to_json
+from pose3d_tpu_torch.pipeline.lift import lift_sequence, lift_video_json
+from pose3d_tpu_torch.pipeline.video import extract_frames, load_frames, write_video
 from pose3d_tpu_torch.serving import LifterService
 from pose3d_tpu_torch.train import checkpoint as ckpt
 from pose3d_tpu_torch.train.epoch import make_lifter_epoch_fn, stack_batches
@@ -340,6 +382,20 @@ VIDEO_FRAMES = 600
 H36M_SUBJECTS = ("S1", "S5", "S6", "S7", "S8", "S9", "S11")
 H36M_ACTIONS = ("Posing", "Posing 1", "Walking", "Directions 1")
 H36M_CAMS = (".54138969", ".55011271", ".58860488", ".60457274")
+E2E_FRAMES = 512     # bench.py's E2E_FRAMES: the video of phase 25
+E2E_CUT = 100        # a video shorter than one 243-frame clip: rows 3 and 4
+DETECT_B = 64        # bench.py's E2E_DETECT_B, PoseNet2DDetector's batch
+# the detector's final conv x40: at the init's scale every coordinate sits
+# within a few 1e-3 of 0.47; x40 spreads them (std ~0.105, MIN_SPREAD 0.1)
+DETECT_SCALE = 40.0
+DETECT_CPU_ATOL = 1e-3  # f32 detector, card vs CPU, [0, 1] units (1 px at x1000)
+# the bf16 detector vs the f32 one: F32_ATOL, the limit of a bf16 model
+# against its f32 module. The bf16 budget of 5e-2 does not hold at a spread
+# of 0.1: the logits reach |60|, where one bf16 step is 0.25, and a random
+# network's heatmaps have near-equal peaks between which such steps move
+# the softmax's mass (experiments/detector_scale_sweep.py: x32 spreads
+# 0.094 with a largest error of 0.043, x40 0.105 with 0.072)
+DETECT_BF16_ATOL = F32_ATOL
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA's data sheet)
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_HBM = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -2402,6 +2458,220 @@ def lift_cli_phase() -> None:
             raise AssertionError("train_temporal did not train on the fabricated export")
 
 
+def seeded_posenet2d(device, dtype):
+    """The default PoseNet2D (ResNet-50) from the seed, its final conv x
+    DETECT_SCALE."""
+    model = PoseNet2D(device="cpu").init_weights(torch.Generator().manual_seed(SEED))
+    model.final_layer.weight.data.mul_(DETECT_SCALE)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def host_phase() -> bool:
+    """What the host has for the video path; returns whether cv2 imports.
+    Neither answer ends the run."""
+    try:
+        import cv2
+        log(f"host: cv2 {cv2.__version__} imports")
+        have_cv2 = True
+    except ImportError as e:
+        log(f"host: cv2 does not import ({e})")
+        have_cv2 = False
+    t0 = time.perf_counter()
+    try:
+        native_build.ensure_built()
+        note = ""
+    except RuntimeError as e:  # no g++ or no libjpeg: the cv2 fallbacks stay
+        errors = [line for line in str(e).splitlines() if "error" in line] or [str(e)]
+        note = f" (build failed: {errors[0].strip()[:200]})"
+    built = [name for name in native_build.LIBRARIES if (native_build.NATIVE_DIR / name).exists()]
+    log(f"host: the port's native libraries built here: {built or 'none'} of "
+        f"{list(native_build.LIBRARIES)} in {time.perf_counter() - t0:.2f} s{note}")
+    return have_cv2
+
+
+def _lift_check(what, got, kp_px, model_f32, model_cpu) -> None:
+    e32 = np.abs(got - lift_sequence(model_f32, kp_px)).max()
+    ep = np.abs(got - lift_sequence(model_cpu, kp_px, use_kernels=True)).max()
+    log(f"video lift {what}: max abs err vs f32 module {e32:.6g} (atol {F32_ATOL}), vs the "
+        f"plain versions {ep:.6g} (atol {KERNEL_ATOL})")
+    if not np.isfinite(got).all() or e32 > F32_ATOL or ep > KERNEL_ATOL:
+        raise AssertionError(f"video lift {what}: answer out of tolerance")
+
+
+def video_phase() -> dict:
+    """Phase 25, the video -> 3D path; returns the launches of the
+    temporal kernels (rows 3-6) in its two lifts."""
+    have_cv2 = host_phase()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
+        tmp = Path(tmp)
+        logs = tmp / "logs"
+        kp2d, _ = synthetic_h36m(E2E_FRAMES, seed=SEED + 40)
+        with torch.inference_mode():
+            frames = render_pose_frames(torch.from_numpy(kp2d).cuda(),
+                                        torch.Generator("cuda").manual_seed(SEED + 41))
+            frames_dev = (frames * 255.0).round().to(torch.uint8)
+        frames_u8 = frames_dev.cpu().numpy()
+        log(f"video: {E2E_FRAMES} rendered frames {tuple(frames_u8.shape)} uint8, mean "
+            f"{frames_u8.mean():.2f}")
+        del frames
+
+        # the models from the seed, saved as port checkpoints and built again
+        # from them as pipeline.run builds them
+        for name, dtype in (("det_f32", torch.float32), ("det_bf16", torch.bfloat16)):
+            ckpt.save(create_train_state(seeded_posenet2d("cpu", dtype), lr=1e-3), logs, name,
+                      extra={"architecture": "resnet50", "bf16": dtype == torch.bfloat16})
+        ckpt.save(create_train_state(seeded_temporal("cpu", torch.bfloat16), lr=1e-3), logs,
+                  "lift")
+        det32 = video_run.build_detector(logs, "det_f32", "cuda")
+        det16 = video_run.build_detector(logs, "det_bf16", "cuda")
+        lifter = video_run.build_lifter(logs, "lift", "cuda")
+        if det16.model.dtype != torch.bfloat16 or lifter.dtype != torch.bfloat16:
+            raise AssertionError("the checkpoints did not give a bf16 detector and lifter")
+
+        # detect: f32 vs the CPU on the first chunk, bf16 vs f32
+        t0 = time.perf_counter()
+        kp32 = det32.detect_frames(frames_u8)
+        t_det32 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kp16 = det16.detect_frames(frames_u8)
+        t_det16 = time.perf_counter() - t0
+        cpu = PoseNet2DDetector(seeded_posenet2d("cpu", torch.float32)).detect_frames(
+            frames_u8[:DETECT_B])
+        e_cpu = np.abs(kp32[:DETECT_B] - cpu).max()
+        e16 = np.abs(kp16 - kp32).max()
+        spread = kp32.std()
+        log(f"video detect {E2E_FRAMES} frames, B={DETECT_B}: f32 vs the CPU (first "
+            f"{DETECT_B} frames) max abs err {e_cpu:.6g} (atol {DETECT_CPU_ATOL}); bf16 vs f32 "
+            f"{e16:.6g} (atol {DETECT_BF16_ATOL}; 99.9th percentile "
+            f"{np.quantile(np.abs(kp16 - kp32), 0.999):.4g}); coordinate std {spread:.4g} "
+            f"(>= {MIN_SPREAD}); "
+            f"host to host incl. the copies: f32 {t_det32:.4f} s, bf16 {t_det16:.4f} s")
+        if (kp32.shape != (E2E_FRAMES, 17, 2) or not np.isfinite(kp16).all()
+                or e_cpu > DETECT_CPU_ATOL or e16 > DETECT_BF16_ATOL or spread < MIN_SPREAD):
+            raise AssertionError("the detector is out of tolerance")
+
+        # the detections' JSON, and the lifts that count the kernels' launches
+        names = [f"{i + 1:04d}.jpg" for i in range(E2E_FRAMES)]
+        write_predictions(names, kp16, tmp / "jsons")
+        write_predictions(names[:E2E_CUT], kp16[:E2E_CUT], tmp / "jsons_cut")
+        save_to_json(tmp / "jsons", tmp / "walk.json", already_h36m=True)
+        save_to_json(tmp / "jsons_cut", tmp / "cut.json", already_h36m=True)
+        model_f32 = seeded_temporal("cuda", torch.float32)
+        model_cpu = seeded_temporal("cpu", torch.bfloat16)
+        expected = {E2E_FRAMES: (5, 5, 0, 0), E2E_CUT: (0, 0, 5, 5)}
+        launches = dict.fromkeys((f.__name__ for f in TEMPORAL_KERNELS), 0)
+        for n, path in ((E2E_FRAMES, tmp / "walk.json"), (E2E_CUT, tmp / "cut.json")):
+            for f in TEMPORAL_KERNELS:
+                f.launches = 0
+            poses = lift_video_json(lifter, path, tmp / f"{n}.npy")
+            made = tuple(f.launches for f in TEMPORAL_KERNELS)
+            for f, m in zip(TEMPORAL_KERNELS, made):
+                launches[f.__name__] += m
+            log(f"video lift {n} frames: launches spatial {made[0]}, temporal {made[1]}, "
+                f"packed {made[2]}, seq {made[3]} (expected {expected[n]})")
+            if made != expected[n] or poses.shape != (n, 17, 3):
+                raise AssertionError(f"the {n}-frame video did not take its route's kernels")
+            _lift_check(f"{n} frames", poses, load_video_json(path)[0], model_f32, model_cpu)
+
+        if have_cv2:
+            video_end_to_end(tmp, logs, frames_u8, lifter)
+        else:
+            log("video: cv2 does not import on this host, so the decode, JPEG and mp4 stages "
+                "(write_video, extract_frames, load_frames, pipeline.run.main) were not run; "
+                "detect_frames -> prediction JSONs -> save_to_json -> lift_video_json ran")
+        video_timing(det32, det16, lifter, frames_dev, frames_u8)
+        del frames_dev
+    torch.cuda.empty_cache()
+    return launches
+
+
+def video_end_to_end(tmp: Path, logs: Path, frames_u8: np.ndarray, lifter) -> None:
+    """pipeline.run.main on an mp4 of the frames, with both checkpoints."""
+    root = tmp / "videos"
+    write_video(iter(frames_u8), root / "raw_videos" / "walk.mp4", fps=10)
+    argv = ["--video", "walk.mp4", "--root", str(root), "--detector", "posenet2d",
+            "--detector_checkpoint", "det_bf16", "--lifter_checkpoint", "lift",
+            "--log_dir", str(logs), "--fps", "10"]
+    t0 = time.perf_counter()
+    video_run.main(argv)
+    t_main = time.perf_counter() - t0
+    t0 = time.perf_counter()  # the decode stages again, alone
+    n = extract_frames(root / "raw_videos" / "walk.mp4", tmp / "frames_again", fps=10)
+    t_extract = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = load_frames(root / "ffmpeg_frames" / "walk.mp4", size=256, dtype=np.uint8)
+    t_load = time.perf_counter() - t0
+    diff = np.abs(decoded.astype(np.int16) - frames_u8.astype(np.int16))
+    final = root / "final_json_outputs" / "walk.mp4.json"
+    poses = np.load(root / "MB_npy" / "walk.mp4.npy")
+    again = lift_video_json(lifter, final, tmp / "again.npy")
+    log(f"video end to end (pipeline.run.main, {len(decoded)} frames): {t_main:.4f} s host to "
+        f"host; of it, alone: mp4 -> {n} JPEGs {t_extract:.4f} s, JPEGs -> uint8 frames "
+        f"{t_load:.4f} s; the mp4's frames differ from the rendered ones by mean "
+        f"{diff.mean():.3f}, max {diff.max()} (lossy mp4v); npy bitwise equal to "
+        f"lift_video_json on its JSON: "
+        f"{np.array_equal(poses, again)}")
+    if len(decoded) != E2E_FRAMES or poses.shape != (E2E_FRAMES, 17, 3) or \
+            not np.array_equal(poses, again):
+        raise AssertionError("pipeline.run.main did not give the lift of its own JSON")
+
+
+def video_timing(det32, det16, lifter, frames_dev, frames_u8) -> None:
+    """Host to host per stage and for the whole path (the frames in host
+    memory, decode excluded), before any profiler runs in this phase; the
+    detector on frames already on the card and the lift (CUDA events,
+    torch.profiler); the host's side of one bf16 ``detect_frames`` call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    name = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    for tag, det in (("f32", det32), ("bf16", det16)):
+        stages = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            px = det.detect_frames(frames_u8) * 1000.0
+            t1 = time.perf_counter()
+            lift_sequence(lifter, px)
+            stages.append((t1 - t0, time.perf_counter() - t1))
+        d, lft = (statistics.median(x) for x in zip(*stages))
+        log(f"time video path {tag} detector, {E2E_FRAMES} frames host to host ({name}): "
+            f"detect (copies + model) {d * 1e3:.2f} ms, lift {lft * 1e3:.2f} ms, whole "
+            f"{(d + lft) * 1e3:.2f} ms = {E2E_FRAMES / (d + lft):.1f} frames/s (median of 3; "
+            f"detect calls " + ", ".join(f"{a * 1e3:.1f}" for a, _ in stages) + " ms)")
+    batch = frames_dev[:DETECT_B]
+    with torch.inference_mode():
+        for tag, det in (("f32", det32), ("bf16", det16)):
+            fwd = lambda: det.model(batch.to(torch.float32) / 256.0)  # noqa: E731
+            ms = cuda_ms(fwd)
+            split = device_ms_by_kernel(fwd, n=5)
+            busy = sum(split.values())
+            log(f"time video detect {tag} B={DETECT_B} on frames on the card ({name}): "
+                f"{ms:.4f} ms = {DETECT_B / ms * 1e3:.1f} frames/s; device {busy:.4f} ms, busy "
+                f"{busy / ms:.1%}; top: " + top_kernels(split, 8))
+    kp = (det16.detect_frames(frames_u8) * 1000.0).astype(np.float32)
+    t_lift = cuda_ms(lambda: lift_sequence(lifter, kp), n=5)
+    split = device_ms_by_kernel(lambda: lift_sequence(lifter, kp), n=3)
+    log(f"time video lift {E2E_FRAMES} frames (lift_sequence, host to host, {name}): "
+        f"{t_lift:.4f} ms = {E2E_FRAMES / t_lift * 1e3:.1f} frames/s; device "
+        f"{sum(split.values()):.4f} ms; top: " + top_kernels(split, 6))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det16.detect_frames(frames_u8)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+    log(f"host side of one bf16 detect_frames call under torch.profiler: {wall:.1f} ms wall, "
+        f"{device:.1f} ms of device time; top host ops by self time: "
+        + ", ".join(f"{k} {ms:.1f} ms ({n})" for ms, n, k in host[:8]))
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
@@ -2527,6 +2797,9 @@ def main() -> None:
     log(f"time legacy soft-argmax backward (the XLA formula in PyTorch ops) B={DIRECT_B}: "
         f"{lt['soft_argmax_volume_bwd']:.4f} ms")
     lift_cli_phase()
+    # rows 3-6: the launches of phase 25's two lifts add to phase 8's
+    for k, n in video_phase().items():
+        tlaunches[k] += n
     bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -2630,6 +2903,10 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         lift_cli_phase()
+    elif sys.argv[1:] == ["--video"]:  # the video path alone
+        device_phase()
+        build_phase()
+        video_phase()
     elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
         device_phase()
         build_phase()

@@ -13,11 +13,13 @@ plain decode, as the JAX trainer's default does. ``--infer`` restores the
 run's checkpoint and reports the validation MPJPE (the reference's
 ``train_3.py`` ``infer``).
 
-Data: synthetic Human3.6M-like poses with random frames (the fallback of
-the JAX trainer), or ``--source video`` (the phase-2 pipeline's frames
-and MotionBERT poses, ``data/video_dataset.py``). Training on Human3.6M
-frames (``data.data_dir``) waits for the native image loader that decodes
-them, which comes with the video pipeline.
+Data: Human3.6M frames (``data.data_dir``: S1 trains, S11 validates, as
+``train_3.py:41-42``; the keypoints through ``data/h36m.py``, the JPEG
+frames decoded to uint8 by ``data/native_loader.py``, with cv2 where the
+native library is not built), synthetic Human3.6M-like poses with random
+frames where ``data.data_dir`` is unset or missing, or ``--source video``
+(the phase-2 pipeline's frames and MotionBERT poses,
+``data/video_dataset.py``).
 
 Usage:
   python -m pose3d_tpu_torch.cli.train_direct --run_name d1 --n_epochs 5
@@ -37,7 +39,7 @@ import torch
 
 from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.config import DirectConfig, parse_config
-from pose3d_tpu_torch.data import synthetic
+from pose3d_tpu_torch.data import h36m, synthetic
 from pose3d_tpu_torch.data.feed import batch_iterator, prefetch_to_device
 from pose3d_tpu_torch.models.heads import PoseNet3D
 from pose3d_tpu_torch.train import checkpoint as ckpt
@@ -51,8 +53,9 @@ from pose3d_tpu_torch.train.state import create_train_state
 
 def load_image_split(cfg: DirectConfig, is_train: bool):
     """-> (frames (N, S, S, 3) uint8 or f32 in [0, 1), kp3d (N, 17, 3), the
-    3D statistics or None); None while the Human3.6M frames cannot be
-    decoded."""
+    3D statistics or None). A Human3.6M training split writes its
+    statistics under ``<log_dir>/run_time_utils``, and its validation split
+    reads them there."""
     d = cfg.data
     if cfg.source == "video":
         from pose3d_tpu_torch.data.video_dataset import load_video_dataset
@@ -62,10 +65,19 @@ def load_image_split(cfg: DirectConfig, is_train: bool):
         sl = slice(0, split) if is_train else slice(split, None)
         return frames[sl], poses[sl], None
     if d.data_dir and pathlib.Path(d.data_dir).exists():
-        raise NotImplementedError(
-            f"training on the Human3.6M frames under {d.data_dir} is not ported yet: it "
-            "decodes them with the native image loader (NativeImageLoader), which comes with "
-            "the video pipeline; leave data.data_dir unset to train on synthetic frames")
+        from pose3d_tpu_torch.data.native_loader import NativeImageLoader
+
+        subjects = ("S1",) if is_train else ("S11",)  # train_3.py:41-42
+        kp2d, kp3d, paths, cams = h36m.read_data(d.data_dir, subjects, d.action,
+                                                 d.mono_3d_file, d.camera_view,
+                                                 load_frame_paths=True)
+        ds = h36m.preprocess(kp2d, kp3d, pathlib.Path(cfg.log_dir) / "run_time_utils",
+                             is_train=is_train, zero_centre=d.zero_centre,
+                             standardize_3d=d.standardize_3d, num_joints=d.num_joints,
+                             split_rate=d.split_rate, frame_paths=paths, cam_ids=cams)
+        # uint8 to the device; the step divides by 256 there
+        frames = NativeImageLoader(cfg.image_size).decode_batch(ds.frame_paths, dtype=np.uint8)
+        return frames, ds.kp3d, ds.stats3d
     n = d.synthetic_frames if is_train else max(d.synthetic_frames // 4, 8)
     _, kp3d = synthetic.synthetic_h36m(n, seed=0 if is_train else 1)
     kp3d = kp3d - kp3d[:, :1]

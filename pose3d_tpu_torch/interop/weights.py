@@ -2,7 +2,7 @@
 
 The counterpart of ``pose3d_tpu/interop/torch_weights.py``'s
 ``vit_lifter_to_torch``, ``martinez_to_torch``, ``ae_to_torch``,
-``resnet_to_torch`` and ``posenet3d_to_torch``, written with numpy alone
+``resnet_to_torch``, ``posenet3d_to_torch`` and ``posenet2d_to_torch``, written with numpy alone
 so that the port needs no JAX: a flax ``Dense`` kernel is (in, out) and a
 torch ``Linear`` weight (out, in), so kernels are transposed; a flax
 ``Conv`` kernel is (kH, kW, in, out) and a torch ``Conv2d`` weight (out,
@@ -253,3 +253,10 @@ def posenet3d_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
         _batch_norm(hp[f"BatchNorm_{i}"], hs[f"BatchNorm_{i}"], f"deconv_layers.{3 * i + 1}", sd)
     _conv(hp["Conv_0"], "final_layer", sd)
     return sd
+
+
+def posenet2d_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """``PoseNet2D`` flax params and batch_stats -> the port's ``PoseNet2D``
+    state dict (the reference ``Model_2D`` keys): the tree and the keys are
+    ``PoseNet3D``'s, with a J-channel final conv (``posenet3d_from_flax``)."""
+    return posenet3d_from_flax(params, batch_stats)

@@ -37,8 +37,13 @@ torch.bfloat16)`` computes as the flax model with f32 parameters and a
 bf16 ``dtype`` does: each convolution casts its weight to bf16, the
 BatchNorms stay f32 (``models/norm.py``), and the fused route casts the
 final conv's weight and bias to bf16 for the decode, so that their
-gradients pass through one bf16 rounding. ``PoseNet2D`` and
-``ProjectionMLP`` come with the consistency-loop slice.
+gradients pass through one bf16 rounding.
+
+``PoseNet2D`` (the reference ``Model_2D``, ``phase5_loop/Model_2d.py:
+13-138``) is the same network with J output channels, one heatmap a
+joint, decoded by the plain ``soft_argmax_2d`` as in the JAX package: (B,
+J*2) coordinates in [0, 1). ``ProjectionMLP`` comes with the
+consistency-loop slice.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from torch import nn
 from pose3d_tpu_torch.models.norm import F32BatchNorm2d, seed_batch_norm
 from pose3d_tpu_torch.models.resnet import ResNet
 from pose3d_tpu_torch.ops import conv_decode, softargmax
-from pose3d_tpu_torch.ops.heatmap import soft_argmax_3d, soft_argmax_3d_nhwc
+from pose3d_tpu_torch.ops.heatmap import soft_argmax_2d, soft_argmax_3d, soft_argmax_3d_nhwc
 
 
 class DeconvHead(nn.Sequential):
@@ -69,6 +74,28 @@ class DeconvHead(nn.Sequential):
             in_channels = f
         super().__init__(*layers)
         self.out_channels = in_channels
+
+
+@torch.no_grad()
+def init_image_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter and BatchNorm statistic of ``model`` from
+    ``generator`` (a CPU generator): convolution weights N(0, 1 / fan_in) (a
+    transposed conv's fan-in: in x kH x kW / stride^2), conv biases N(0,
+    0.1), BatchNorms as ``norm.seed_batch_norm``; returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = torch.randn(m.weight.shape, generator=generator)
+            kh, kw = m.kernel_size
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.in_channels * kh * kw / (m.stride[0] * m.stride[1])
+            else:
+                fan_in = m.in_channels * kh * kw
+            m.weight.copy_(w * fan_in ** -0.5)
+            if m.bias is not None:
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=generator))
+        elif isinstance(m, nn.BatchNorm2d):
+            seed_batch_norm(m, generator)
+    return model
 
 
 class PoseNet3D(nn.Module):
@@ -102,26 +129,10 @@ class PoseNet3D(nn.Module):
         """The parameters' dtype: the compute dtype outside torch.autocast."""
         return self.final_layer.weight.dtype
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
         """Draw every parameter and BatchNorm statistic from ``generator``
-        (a CPU generator): convolution weights N(0, 1 / fan_in) (a
-        transposed conv's fan-in: in x kH x kW / stride^2), the final
-        conv's bias N(0, 0.1), BatchNorms as ``norm.seed_batch_norm``."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                w = torch.randn(m.weight.shape, generator=generator)
-                kh, kw = m.kernel_size
-                if isinstance(m, nn.ConvTranspose2d):
-                    fan_in = m.in_channels * kh * kw / (m.stride[0] * m.stride[1])
-                else:
-                    fan_in = m.in_channels * kh * kw
-                m.weight.copy_(w * fan_in ** -0.5)
-                if m.bias is not None:
-                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=generator))
-            elif isinstance(m, nn.BatchNorm2d):
-                seed_batch_norm(m, generator)
-        return self
+        (``init_image_model``)."""
+        return init_image_model(self, generator)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC frames -> the deconv head's (B, 256, H/4, W/4)
@@ -156,3 +167,38 @@ class PoseNet3D(nn.Module):
 
     def forward(self, x: torch.Tensor):
         return self.decode(self.features(x))
+
+
+class PoseNet2D(nn.Module):
+    """(B, H, W, 3) NHWC frames in [0, 1] -> (B, J*2) f32 [x, y] per joint
+    in [0, 1) (the reference ``Model_2D``): ResNet, the deconv head, a 1x1
+    conv to J heatmaps at H/4 x W/4, the plain ``soft_argmax_2d`` (f32
+    under autocast too). The keys are ``PoseNet3D``'s (``preact``,
+    ``deconv_layers``, ``final_layer``); ``interop.weights.
+    posenet2d_from_flax`` writes them. The modules run ``channels_last``."""
+
+    def __init__(self, architecture: str = "resnet50", num_joints: int = 17, *, device,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.architecture = architecture
+        self.num_joints = num_joints
+        self.preact = ResNet(architecture, **kw)
+        self.deconv_layers = DeconvHead(self.preact.feature_channels, **kw)
+        self.final_layer = nn.Conv2d(self.deconv_layers.out_channels, num_joints, 1, **kw)
+        self.to(memory_format=torch.channels_last)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The parameters' dtype: the compute dtype outside torch.autocast."""
+        return self.final_layer.weight.dtype
+
+    def init_weights(self, generator: torch.Generator):
+        """Draw every parameter and BatchNorm statistic from ``generator``
+        (``init_image_model``)."""
+        return init_image_model(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        logits = self.final_layer(self.deconv_layers(self.preact(x.permute(0, 3, 1, 2))))
+        _, j, h, w = logits.shape
+        return soft_argmax_2d(logits, j, h, w)

@@ -14,8 +14,10 @@ decodes compute in f32 in a bf16 model.
 
 ``heatmap_targets`` (with ``xyz_to_uvw``, ``uvw_to_xyz`` and
 ``gaussian_heatmap_3d``) synthesises the heatmap loss's Gaussian targets
-(``H36_dataset.py:148-202``). ``soft_argmax_2d``, ``hard_argmax_2d`` and
-``norm_heatmap`` come with the slices that read them.
+(``H36_dataset.py:148-202``). The 2D half: ``soft_argmax_2d`` (the
+``PoseNet2D`` decode, ``Model_2d.py:96-134``), ``hard_argmax_2d``,
+``gaussian_heatmap_2d`` and ``norm_heatmap``, in f32 as the JAX package
+computes them; no kernel serves them there, and none here.
 """
 
 from __future__ import annotations
@@ -157,3 +159,65 @@ def soft_argmax_3d(logits: torch.Tensor, num_joints: int = 17, depth: int = GRID
     coords = coords_from_expectations(e.view(b, num_joints, 3), height, width, depth,
                                       z_scale, xy_scale)
     return coords, (p.view(b, num_joints, depth, height, width) if return_heatmap else None)
+
+
+@f32_math
+def gaussian_heatmap_2d(pt: torch.Tensor, shape=(64, 64), sigma: float = 2.0) -> torch.Tensor:
+    """(..., 2) (x, y) pixel points -> (..., H, W) Gaussians of centre value
+    1 (``hybrik_utils.py:464-509`` ``drawGaussian``): centred on floor(pt),
+    zero outside the window |i - floor(pt)| <= int(3 sigma)."""
+    h, w = shape
+    tmp = int(3 * sigma)
+    px = torch.floor(pt[..., 0])[..., None]
+    py = torch.floor(pt[..., 1])[..., None]
+    xs = torch.arange(w, dtype=torch.float32, device=pt.device)
+    ys = torch.arange(h, dtype=torch.float32, device=pt.device)
+    gx = torch.exp(-(xs - px).square() / (2 * sigma * sigma))
+    gy = torch.exp(-(ys - py).square() / (2 * sigma * sigma))
+    gx = torch.where((xs - px).abs() <= tmp, gx, torch.zeros_like(gx))
+    gy = torch.where((ys - py).abs() <= tmp, gy, torch.zeros_like(gy))
+    return torch.einsum("...y,...x->...yx", gy, gx)
+
+
+def norm_heatmap(norm_type: str, heatmap: torch.Tensor) -> torch.Tensor:
+    """(N, C, ...) heatmaps normalised over each (n, c) map
+    (``hybrik_utils.py:1159-1178``): "softmax" (maximum subtracted),
+    "sigmoid" or "divide_sum"; in the input's dtype with autocast off."""
+    shape = heatmap.shape
+    with torch.autocast(heatmap.device.type, enabled=False):
+        if norm_type == "softmax":
+            return torch.softmax(heatmap.reshape(shape[0], shape[1], -1), dim=2).reshape(shape)
+        if norm_type == "sigmoid":
+            return torch.sigmoid(heatmap)
+        if norm_type == "divide_sum":
+            flat = heatmap.reshape(shape[0], shape[1], -1)
+            return (flat / flat.sum(dim=2, keepdim=True)).reshape(shape)
+    raise NotImplementedError(norm_type)
+
+
+def hard_argmax_2d(heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, J, H, W) -> ((B, J, 2) f32 (x, y) of each map's first maximum,
+    (0, 0) where that maximum is not positive; (B, J) the maxima)
+    (``hybrik_utils.py:1267-1311`` ``get_max_pred_batch``)."""
+    b, j, h, w = heatmaps.shape
+    flat = heatmaps.reshape(b, j, -1)
+    maxvals = flat.amax(dim=-1)
+    idx = flat.argmax(dim=-1)  # the first maximum, as jnp.argmax
+    coords = torch.stack([(idx % w).float(), (idx // w).float()], dim=-1)
+    return torch.where(maxvals[..., None] > 0, coords, torch.zeros_like(coords)), maxvals
+
+
+@f32_math
+def soft_argmax_2d(logits: torch.Tensor, num_joints: int = 17, height: int = GRID,
+                   width: int = GRID) -> torch.Tensor:
+    """(B, J, H, W) logits (or (B, J*H*W)) -> (B, J*2) [x, y] per joint in
+    [0, 1): each map's softmax, maximum subtracted, in at least f32, and
+    its expected column / W and row / H (``Model_2d.py:96-134``)."""
+    b = logits.shape[0]
+    hm = logits.reshape(b, num_joints, height * width)
+    acc = torch.promote_types(hm.dtype, torch.float32)
+    p = torch.exp(hm.to(acc) - hm.amax(dim=-1, keepdim=True).to(acc))
+    p = (p / p.sum(dim=-1, keepdim=True)).view(b, num_joints, height, width)
+    ex = p.sum(dim=2) @ torch.arange(width, device=p.device, dtype=acc)
+    ey = p.sum(dim=3) @ torch.arange(height, device=p.device, dtype=acc)
+    return torch.stack([ex / width, ey / height], dim=-1).reshape(b, num_joints * 2)

@@ -47,6 +47,9 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch.cli.train_lift, pose3d_tpu_torch.cli.predict\n"
         "import pose3d_tpu_torch.data.h36m, pose3d_tpu_torch.data.stats\n"
         "import pose3d_tpu_torch.core.quaternion, pose3d_tpu_torch.core.transforms\n"
+        "import pose3d_tpu_torch.pipeline.video, pose3d_tpu_torch.pipeline.detector\n"
+        "import pose3d_tpu_torch.pipeline.h36m_batch, pose3d_tpu_torch.data.native_build\n"
+        "import pose3d_tpu_torch.data.native_loader, pose3d_tpu_torch.data.native_video\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
         "print('cv2' in sys.modules)\n"
@@ -56,8 +59,44 @@ def test_import_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stderr
     bad, cv2 = proc.stdout.split("\n")[:2]
     assert bad == "", f"imported: {bad}"
-    # the GPU host has no OpenCV: only the video loader imports it, inside
+    # the GPU host has no OpenCV: only the functions that decode import it
     assert cv2 == "False"
+
+
+def test_pipeline_entry_point_imports_neither_jax_nor_cv2():
+    """``python -m pose3d_tpu_torch.pipeline.run`` starts on a host without
+    JAX or OpenCV (the native decoder or cv2 is needed only to decode)."""
+    code = ("import sys\n"
+            "import pose3d_tpu_torch.pipeline.run\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('cv2',)!r}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_native_sources_are_the_ports_own():
+    """The port builds its own copies of the native sources into its own
+    directory: its build script and bindings name no path of the JAX
+    package, and the C++ is the JAX package's code, only the comments
+    differ."""
+    native = PKG / "native"
+    assert sorted(p.name for p in native.iterdir() if not p.name.endswith(".so")) == \
+        ["build.sh", "loader.cc", "video.cc"]
+    for path in [*native.glob("*.sh"), *native.glob("*.cc"),
+                 *(PKG / "data").glob("native_*.py")]:
+        assert "pose3d_tpu/" not in path.read_text(), path.name
+    from pose3d_tpu_torch.data import native_build, native_loader, native_video
+
+    assert native_build.NATIVE_DIR == native
+    assert native_loader._SO_PATH.parent == native_video._SO_PATH.parent == native
+
+    def code(text):
+        return [line for line in text.splitlines() if not line.lstrip().startswith("//")]
+
+    for name in ("loader.cc", "video.cc"):
+        assert code((native / name).read_text()) == \
+            code((REPO / "pose3d_tpu" / "native" / name).read_text()), name
 
 
 @pytest.mark.parametrize("path", SOURCES + [REPO / "chip_smoke.py"],

@@ -9,8 +9,9 @@ train_direct.py``, ``data/video_dataset.py``, ``train/epoch.py``,
   compute over f32 parameters, the fused route) writes its log and a
   checkpoint that carries the BatchNorm buffers, and ``infer`` restores
   it and reports a finite MPJPE;
-- a ``data.data_dir`` that exists raises NotImplementedError, and the
-  default device is the card.
+- a ``data.data_dir`` that exists but holds no Human3.6M export raises
+  FileNotFoundError (the export itself is read in
+  ``test_torch_native.py``), and the default device is the card.
 
 The test marked ``cuda`` trains and infers on the card and skips without
 one.
@@ -140,7 +141,7 @@ def test_synthetic_split_matches_the_jax_trainer(tmp_path):
 
 
 def test_cli_with_an_existing_data_dir_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="native image loader"):
+    with pytest.raises(FileNotFoundError, match="data_3d_h36m_mono.npz"):
         cli.load_image_split(_cfg(tmp_path, data=DataConfig(data_dir=str(tmp_path))), True)
 
 

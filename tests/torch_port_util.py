@@ -130,18 +130,12 @@ def torch_temporal(params, dtype=torch.float32, device="cpu", **fields):
     return model.eval()
 
 
-@functools.cache
-def flax_posenet(architecture: str = "resnet18", seed: int = 0, final_scale: float = 32.0):
-    """(params, batch_stats) of a flax ``PoseNet3D`` (17 joints, depth 64),
-    as numpy, cached per process: biases, BN scales and BN statistics
-    seeded (``_seeded_norms``), and the final 1x1 conv's kernel scaled by
-    ``final_scale`` so that the coordinates spread (at the init's scale
-    the heatmaps are near uniform and every coordinate sits near -1/32).
-    Callers must not modify the trees."""
+def _seeded_image_model(model, seed: int, final_scale: float):
+    """(params, batch_stats) of a flax image model at 64 x 64, as numpy:
+    biases, BN scales and BN statistics seeded (``_seeded_norms``), the
+    head's final 1x1 conv kernel scaled by ``final_scale``."""
     jax = pytest.importorskip("jax")
-    from pose3d_tpu.models.heads import PoseNet3D
 
-    model = PoseNet3D(architecture=architecture)
     x = np.zeros((1, 64, 64, 3), np.float32)
     variables = jax.jit(lambda k: model.init({"params": k}, x, train=False))(
         jax.random.key(seed))
@@ -150,6 +144,42 @@ def flax_posenet(architecture: str = "resnet18", seed: int = 0, final_scale: flo
     stats = _seeded_norms(jax.tree.map(np.asarray, variables["batch_stats"]), rng, True)
     params["head"]["Conv_0"]["kernel"] = params["head"]["Conv_0"]["kernel"] * final_scale
     return params, stats
+
+
+@functools.cache
+def flax_posenet(architecture: str = "resnet18", seed: int = 0, final_scale: float = 32.0):
+    """(params, batch_stats) of a flax ``PoseNet3D`` (17 joints, depth 64),
+    as numpy, cached per process (``_seeded_image_model``): the final conv
+    scaled so that the coordinates spread (at the init's scale the heatmaps
+    are near uniform and every coordinate sits near -1/32). Callers must
+    not modify the trees."""
+    pytest.importorskip("jax")
+    from pose3d_tpu.models.heads import PoseNet3D
+
+    return _seeded_image_model(PoseNet3D(architecture=architecture), seed, final_scale)
+
+
+@functools.cache
+def flax_posenet2d(architecture: str = "resnet18", seed: int = 0, final_scale: float = 256.0):
+    """(params, batch_stats) of a flax ``PoseNet2D`` (17 joints), as numpy,
+    cached per process (``_seeded_image_model``): at the init's scale
+    every coordinate sits within ~2e-3 of 0.47 on 64 x 64 frames; x256 on
+    the final conv spreads them. Callers must not modify the trees."""
+    pytest.importorskip("jax")
+    from pose3d_tpu.models.heads import PoseNet2D
+
+    return _seeded_image_model(PoseNet2D(architecture=architecture), seed, final_scale)
+
+
+def torch_posenet2d(params, batch_stats, dtype=torch.float32, device="cpu", **fields):
+    """The port's PoseNet2D at ``fields``, holding the flax ``params`` and
+    ``batch_stats``, in eval mode."""
+    from pose3d_tpu_torch.interop.weights import posenet2d_from_flax
+    from pose3d_tpu_torch.models.heads import PoseNet2D
+
+    model = PoseNet2D(**fields, device=device, dtype=dtype)
+    model.load_state_dict(posenet2d_from_flax(params, batch_stats), strict=True)
+    return model.eval()
 
 
 def flax_posenet_apply(model, params, batch_stats, x):
