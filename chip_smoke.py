@@ -262,6 +262,41 @@ bf16, both from the seed:
     imports. ``python3
     chip_smoke.py --video`` runs this phase alone, after phases 1-2.
 
+The detector, projector and consistency-loop trainers
+(``cli/train_detector.py``, ``cli/train_project.py``, ``cli/train_loop.py``),
+in a temporary directory, at the CLIs' default widths; no kernel of
+``csrc/`` is on this path, as in the JAX package (the loop's PoseNet3D
+decodes through the plain heatmap route):
+
+26. ``train_detector.main`` at DetectorConfig's defaults (ResNet-18, B =
+    32, 256 x 256, bf16 over f32, 8 steps a chunk, 600 steps): the eval
+    pixel error finite and below a quarter of the fresh init's (the same
+    eval step); a chunk's step time by CUDA events, its device time, busy
+    share, launches a step and the peak memory; the trained checkpoint
+    through ``pipeline.run.build_detector`` and ``detect_frames`` (bf16) on
+    512 frames rendered from held-out poses, its pixel error; the
+    projector (``train_project.main``) and the ViT lifter
+    (``train_lift.train``) for 2 epochs of 16,384 synthetic frames, the
+    loop's frozen checkpoints; ``train_loop.main`` at LoopConfig's defaults
+    (ResNet-50, B = 64, 256 x 256, bf16, AdamW 5e-4) with the triangle
+    (``sep``), the flip and the projector on 512 synthetic frames for 2
+    epochs, then 1 epoch of ``cycle``: finite records with every triangle
+    term, both checkpoints, and none of the 18 records' wrappers launched
+    (counts from 0); 10 steps on one fixed batch whose last three losses'
+    mean must be below the first, the step's time, device time, busy share,
+    launches, peak memory and device time by kind, and the device time of
+    its parts alone (each image model's forward + backward on the 2B
+    frames, the heatmap decode's on their logits, the frozen ViTs, AdamW);
+    one loop step (``sep``, flip, projector) at ResNet-18, 64 x 64, B = 4
+    from the same weights on the card and on the CPU, in float64 (the loss
+    and terms within rtol 1e-10, each trained parameter's gradient within
+    relative L2 1e-8, the running statistics within 1e-10) and in f32 with
+    TF32 off (1e-5; all gradients together within relative L2 2e-2; 1e-5);
+    the 2D final conv's bias, whose gradient is 0 in exact arithmetic, held
+    to 1e-12 / 1e-5 of the final conv weight gradient's norm.
+    ``python3 chip_smoke.py --loop`` runs this phase alone, after phases
+    1-2.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
 peak, or for the soft-argmax and its backward their f32 operations over
@@ -290,8 +325,10 @@ import numpy as np
 import torch
 
 import pose3d_tpu_torch
-from pose3d_tpu_torch.cli import predict, train_direct, train_lift, train_temporal
-from pose3d_tpu_torch.config import DataConfig, DirectConfig, LiftConfig, TemporalConfig
+from pose3d_tpu_torch.cli import (predict, train_detector, train_direct, train_lift, train_loop,
+                                  train_project, train_temporal)
+from pose3d_tpu_torch.config import (DataConfig, DetectorConfig, DirectConfig, LiftConfig,
+                                     LoopConfig, TemporalConfig)
 from pose3d_tpu_torch.data.feed import batch_iterator
 from pose3d_tpu_torch.data.synthetic import synthetic_frames, synthetic_h36m
 from pose3d_tpu_torch.data import native_build
@@ -316,8 +353,11 @@ from pose3d_tpu_torch.pipeline.video import extract_frames, load_frames, write_v
 from pose3d_tpu_torch.serving import LifterService
 from pose3d_tpu_torch.train import checkpoint as ckpt
 from pose3d_tpu_torch.train.epoch import make_lifter_epoch_fn, stack_batches
-from pose3d_tpu_torch.train.image_steps import (bf16_apply, make_direct_eval_chunk_step,
+from pose3d_tpu_torch.train.image_steps import (bf16_apply, make_detector_chunk_step,
+                                                make_detector_eval_step,
+                                                make_direct_eval_chunk_step,
                                                 make_direct_eval_step, make_direct_train_step)
+from pose3d_tpu_torch.train.loop_steps import LoopState, freeze, make_loop_train_step
 from pose3d_tpu_torch.train.state import create_train_state
 from pose3d_tpu_torch.train.steps import make_lifter_train_step
 
@@ -609,8 +649,14 @@ def cuda_ms(fn, n=N_TIMED) -> float:
 
 def device_ms_by_kernel(fn, n=N_TIMED) -> dict[str, float]:
     """Device ms per call of fn() by kernel (its full name), from
-    torch.profiler's CUDA activity over n calls after one warm-up call.
-    User annotations (``record_function`` ranges, such as the
+    torch.profiler's CUDA activity over n calls (``device_profile``)."""
+    return device_profile(fn, n)[0]
+
+
+def device_profile(fn, n: int = N_TIMED) -> tuple[dict[str, float], float]:
+    """(device ms per call of fn() by kernel, kernel launches per call),
+    from torch.profiler's CUDA activity over n calls after one warm-up
+    call. User annotations (``record_function`` ranges, such as the
     optimizer's step) are left out: their device time is that of the
     kernels inside them. In a process that has profiled before, a window
     can come back empty (device_launches): it is taken again, three times
@@ -624,16 +670,17 @@ def device_ms_by_kernel(fn, n=N_TIMED) -> dict[str, float]:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        split, launches = {}, 0
         for e in prof.key_averages():
             us = e.self_device_time_total
             if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
                     and not e.is_user_annotation):
                 name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-                out[name] = out.get(name, 0.0) + us / n / 1e3
-        if out:
-            return out
-        log("device_ms_by_kernel: torch.profiler recorded no device time; recording again")
+                split[name] = split.get(name, 0.0) + us / n / 1e3
+                launches += e.count
+        if split:
+            return split, launches / n
+        log("device_profile: torch.profiler recorded no device time; recording again")
     raise AssertionError("torch.profiler recorded no device time")
 
 
@@ -2280,16 +2327,18 @@ def _epochs(log_dir: Path, run_name: str) -> list[dict]:
     return [r for r in map(json.loads, lines) if "epoch" in r]
 
 
-def _check_run(name: str, records: list[dict], n_epochs: int) -> None:
+def _check_run(name: str, records: list[dict], n_epochs: int, terms=()) -> None:
+    """n_epochs epoch records of a CLI run, each metric and each of
+    ``terms`` finite; logs them."""
     if len(records) != n_epochs:
         raise AssertionError(f"{name}: {len(records)} epoch records, expected {n_epochs}")
     for r in records:
-        for k in ("train_loss", "train_mpjpe", "val_loss", "val_mpjpe"):
-            if not math.isfinite(r[k]):
-                raise AssertionError(f"{name}: epoch {r['epoch']} {k} = {r[k]}")
-    log(f"cli train_lift {name}: " + "; ".join(
+        for k in ("train_loss", "train_mpjpe", "val_loss", "val_mpjpe", *terms):
+            if k not in r or not math.isfinite(r[k]):
+                raise AssertionError(f"{name}: epoch {r['epoch']} {k} = {r.get(k)}")
+    log(f"cli {name}: " + "; ".join(
         f"epoch {r['epoch']} loss {r['train_loss']:.5f} val MPJPE {r['val_mpjpe']:.2f} mm"
-        for r in records))
+        + "".join(f", {k} {r[k]:.4g}" for k in terms) for r in records))
 
 
 def lift_epoch_timing(state, cfg: LiftConfig) -> None:
@@ -2370,7 +2419,7 @@ def lift_cli_phase() -> None:
         state = train_lift.train(cfg)
         torch.cuda.synchronize()
         records = _epochs(log_dir, "vit")
-        _check_run("vit", records, LIFT_EPOCHS)
+        _check_run("train_lift vit", records, LIFT_EPOCHS)
         log(f"cli train_lift vit: {LIFT_EPOCHS} epochs in {time.perf_counter() - t0:.2f} s "
             f"host to host, epoch ends at " + ", ".join(f"{r['_runtime']:.2f}" for r in records)
             + " s (logger clock, 0.01 s steps)")
@@ -2385,7 +2434,7 @@ def lift_cli_phase() -> None:
             run = train_lift.train(dataclasses.replace(cfg, model=name, n_epochs=2,
                                                         flip=False, run_name=name))
             records = _epochs(log_dir, name)
-            _check_run(name, records, 2)
+            _check_run(f"train_lift {name}", records, 2)
             if not records[1]["train_loss"] < records[0]["train_loss"]:
                 raise AssertionError(f"the {name} training loss did not fall")
             del run
@@ -2402,7 +2451,7 @@ def lift_cli_phase() -> None:
             f"arrays: {want}), {state.step} steps; {stats_files}")
         if got != want or state.step != want // LIFT_B or len(stats_files) != 6:
             raise AssertionError("train_lift did not read the fabricated export")
-        _check_run("vit_h36m", _epochs(log_dir, "vit_h36m"), 1)
+        _check_run("train_lift vit_h36m", _epochs(log_dir, "vit_h36m"), 1)
 
         # cli.predict on each checkpoint, 10,000 frames
         kp = np.random.default_rng(SEED + 21).random((PREDICT_FRAMES, 17, 2)).astype(np.float32)
@@ -2672,6 +2721,318 @@ def video_timing(det32, det16, lifter, frames_dev, frames_u8) -> None:
         + ", ".join(f"{k} {ms:.1f} ms ({n})" for ms, n, k in host[:8]))
 
 
+# phase 26: the detector, projector and consistency-loop trainers
+
+LOOP_FRAMES = 512    # the loop runs' --data.synthetic_frames: 8 steps of B = 64 an epoch
+LOOP_EPOCHS = 2
+LOOP_STEPS = 10      # steps on one fixed batch whose loss must fall
+PROJECT_EPOCHS = 2   # the projector's and the lifter's epochs of LIFT_FRAMES
+LOOP_SEP_TERMS = ("loss_2d", "loss_3d", "loss_domain_gap", "loss_lift", "loss_gap_proj",
+                  "loss_proj")
+LOOP_CYCLE_TERMS = ("loss_2d", "loss_3d", "loss_lift", "loss_proj")
+# the loop step on the card against the CPU: ResNet-18, 64^2, B = 4, every
+# toggle on, f32 with TF32 off (PERF.md §2)
+LOOP_CHECK_B, LOOP_CHECK_SIZE = 4, 64
+# Limits by dtype (PERF.md §2): the loss and its terms (relative), the
+# gradients (relative L2), the running statistics (absolute). In float64
+# the card and the CPU compute the same function, each parameter's
+# gradient to 1e-8 (measured 4.2e-14). In f32 (TF32 off) train-mode
+# BatchNorm on 8 small frames makes the gradients ill-conditioned: the
+# CPU's own f32 gradients lie 4.1e-4 (1 thread) to 4.2e-3 (8 threads)
+# from its float64 ones, all together, and up to 5.8e-3 for one
+# parameter, so a limit of 1e-3 a parameter would hold on neither device:
+# f32 holds all gradients together to 2e-2 (measured 5.1e-3 card vs CPU),
+# the loss to 1e-5 (measured 2.2e-7 to 4.5e-7) and the statistics to 1e-5
+# (measured 7.2e-7 to 8.3e-7).
+LOOP_CHECK_LIMITS = {torch.float64: (1e-10, 1e-8, 1e-10), torch.float32: (1e-5, 2e-2, 1e-5)}
+# PoseNet2D's final conv bias: each joint's softmax is invariant to a shift
+# of its map, so the bias's gradient is 0 in exact arithmetic and the two
+# devices' rounding residues have no relative error to hold. Each is held
+# to this fraction of the final conv weight gradient's norm instead.
+LOOP_CHECK_ZERO_GRAD = {"net2d.final_layer.bias": "net2d.final_layer.weight"}
+LOOP_CHECK_ZERO_REL = {torch.float64: 1e-12, torch.float32: 1e-5}
+LOOP_KINDS = (
+    ("convolutions", ("conv", "gemm", "xmma", "fprop", "dgrad", "wgrad", "nvjet", "cutlass",
+                      "sm90")),
+    ("batch norm", ("bn_", "batch_norm", "batchnorm")),
+    ("Adam", ("adam", "multi_tensor")),
+    ("softmax and reductions", ("softmax", "reduce")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "fill", "relu",
+                     "max_pool", "clamp", "cat")),
+)
+
+
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper that counts its launches (the 18 records' rows)."""
+    return tuple(dict.fromkeys((L.trunk, Mz.fused_residual_block, *TEMPORAL_KERNELS,
+                                S.temporal_block_fused, *ST.WRAPPERS, *DECODE_WRAPPERS,
+                                SA.soft_argmax_3d_pallas)))
+
+
+def detector_train_phase(logs: Path, smi: str) -> float:
+    """``cli.train_detector.main`` at DetectorConfig's defaults; the trained
+    eval pixel error below a quarter of the fresh init's; the step's times.
+    Returns the fresh init's eval pixel error."""
+    cfg = DetectorConfig(log_dir=str(logs), run_name="det")
+    eval_fn = make_detector_eval_step(cfg.image_size)
+    kp_eval = train_detector.eval_poses(cfg, "cuda")
+    fresh_px = eval_fn(train_detector.new_state(cfg), kp_eval, train_detector.EVAL_SEED).item()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, px = train_detector.main(["--log_dir", str(logs), "--run_name", "det"])
+    secs = time.perf_counter() - t0
+    log(f"cli train_detector ({cfg.architecture}, B={cfg.batch_size}, {cfg.image_size}^2, "
+        f"bf16 {cfg.bf16}, {cfg.chunk_steps} steps a chunk): {state.step} steps in {secs:.2f} s "
+        f"host to host (evals included); eval pixel error {px:.4f} px, fresh init "
+        f"{fresh_px:.4f} px (must be below a quarter: {fresh_px / 4:.4f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if state.step != cfg.n_steps or not math.isfinite(px) or not px < fresh_px / 4:
+        raise AssertionError("the detector did not train")
+
+    # one chunk of K steps: CUDA events, then torch.profiler
+    step_fn = make_detector_chunk_step(cfg.image_size)
+    pool, _ = synthetic_h36m(cfg.chunk_steps * cfg.batch_size, seed=SEED + 62)
+    kp = torch.from_numpy(pool.reshape(cfg.chunk_steps, cfg.batch_size, 17, 2)).cuda()
+    gen = torch.Generator("cuda").manual_seed(SEED + 63)
+    ms = cuda_ms(lambda: step_fn(state, kp, gen), n=2) / cfg.chunk_steps
+    split, launches = device_profile(lambda: step_fn(state, kp, gen), n=2)
+    busy = sum(split.values()) / cfg.chunk_steps
+    log(f"time detector train step B={cfg.batch_size} ({smi}): {ms:.4f} ms a step (CUDA events "
+        f"over chunks of {cfg.chunk_steps}) = {cfg.batch_size / ms * 1e3:.1f} frames/s; device "
+        f"{busy:.4f} ms a step, busy {busy / ms:.1%}; {launches / cfg.chunk_steps:.1f} kernel "
+        "launches a step; by kind (ms a step): " + ", ".join(
+            f"{k} {v / cfg.chunk_steps:.4f}" for k, v in by_kind(split, LOOP_KINDS).items())
+        + "; top: " + top_kernels({k: v / cfg.chunk_steps for k, v in split.items()}, 8))
+    del state
+    torch.cuda.empty_cache()
+    return fresh_px
+
+
+def trained_detector_video(logs: Path, fresh_px: float) -> None:
+    """The trained checkpoint through ``pipeline.run.build_detector`` and
+    ``detect_frames`` (bf16) on E2E_FRAMES frames rendered from held-out
+    poses: its pixel error against the rendered keypoints."""
+    size = DetectorConfig.image_size
+    det = video_run.build_detector(logs, "det", "cuda")
+    if det.model.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 detector checkpoint did not build a bf16 detector")
+    kp2d, _ = synthetic_h36m(E2E_FRAMES, seed=SEED + 64)  # the trainer's pools: seeds 0, 1
+    with torch.inference_mode():
+        frames = render_pose_frames(torch.from_numpy(kp2d).cuda(),
+                                    torch.Generator("cuda").manual_seed(SEED + 65), size=size)
+        # uint8, as detect_frames takes them (it divides by 256)
+        frames_u8 = (frames * 256.0).clamp(max=255.0).to(torch.uint8).cpu().numpy()
+    det.detect_frames(frames_u8[:DETECT_B])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = det.detect_frames(frames_u8)
+    secs = time.perf_counter() - t0
+    err = np.linalg.norm(got - kp2d, axis=-1) * size
+    log(f"video path, trained detector ({E2E_FRAMES} held-out rendered frames, bf16, "
+        f"detect_frames host to host {secs * 1e3:.2f} ms = {E2E_FRAMES / secs:.1f} frames/s): "
+        f"pixel error mean {err.mean():.4f} px, median {np.median(err):.4f}, 95th percentile "
+        f"{np.quantile(err, 0.95):.4f} ({size} x {size} frames; fresh init {fresh_px:.4f} px)")
+    if got.shape != (E2E_FRAMES, 17, 2) or not err.mean() < fresh_px / 4:
+        raise AssertionError("the trained detector does not detect in the video path")
+
+
+def frozen_models_phase(logs: Path) -> None:
+    """``cli.train_project`` and ``cli.train_lift`` (the ViT) for
+    PROJECT_EPOCHS epochs of LIFT_FRAMES synthetic frames: the loop's frozen
+    checkpoints ``proj`` and ``lift``."""
+    t0 = time.perf_counter()
+    train_project.main(["--n_epochs", str(PROJECT_EPOCHS), "--log_dir", str(logs),
+                        "--run_name", "proj"])
+    records = _epochs(logs, "proj")
+    _check_run("train_project", records, PROJECT_EPOCHS)
+    log(f"cli train_project: {PROJECT_EPOCHS} epochs in {time.perf_counter() - t0:.2f} s; val "
+        f"L2 {records[-1]['val_mpjpe']:.2f} millipixels")
+    if not records[-1]["train_loss"] < records[0]["train_loss"]:
+        raise AssertionError("the projector's training loss did not fall")
+    train_lift.train(LiftConfig(n_epochs=PROJECT_EPOCHS, log_dir=str(logs), run_name="lift",
+                                data=DataConfig(action="Posing", synthetic_frames=LIFT_FRAMES)))
+    _check_run("train_lift lift", _epochs(logs, "lift"), PROJECT_EPOCHS)
+
+
+def loop_cli_phase(logs: Path) -> None:
+    """``cli.train_loop.main`` at LoopConfig's defaults with the triangle
+    (sep), the flip and the projector for LOOP_EPOCHS epochs, then one
+    epoch of ``cycle``; no kernel of the 18 records is launched."""
+    base = ["--triangle", "1", "--flip", "1", "--project", "1", "--lifter_checkpoint", "lift",
+            "--projector_checkpoint", "proj", "--data.synthetic_frames", str(LOOP_FRAMES),
+            "--log_dir", str(logs)]
+    wrappers = kernel_wrappers()
+    for f in wrappers:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_loop.main(base + ["--n_epochs", str(LOOP_EPOCHS), "--run_name", "loop"])
+    secs = time.perf_counter() - t0
+    _check_run("train_loop sep", _epochs(logs, "loop"), LOOP_EPOCHS, LOOP_SEP_TERMS)
+    log(f"cli train_loop sep (resnet50, B=64, 256^2, bf16, flip, projector, {LOOP_FRAMES} "
+        f"frames): {LOOP_EPOCHS} epochs in {secs:.2f} s host to host (data and checkpoints "
+        f"included); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for tag in ("2d", "3d"):
+        if not ckpt.exists(logs, f"loop_{tag}"):
+            raise AssertionError(f"train_loop wrote no loop_{tag} checkpoint")
+    train_loop.main(base + ["--n_epochs", "1", "--triangle_mode", "cycle",
+                            "--run_name", "loop_cycle"])
+    cycle = _epochs(logs, "loop_cycle")
+    _check_run("train_loop cycle", cycle, 1, LOOP_CYCLE_TERMS)
+    if "loss_domain_gap" in cycle[0]:
+        raise AssertionError("the cycle run logged the sep loss's terms")
+    made = {f.__name__: f.launches for f in wrappers if f.launches}
+    log(f"train_loop launches of the 18 kernel records' wrappers (counts from 0): {made or 0}")
+    if made:
+        raise AssertionError("the loop's path launched a kernel of the records")
+
+
+def loop_step_phase(logs: Path, smi: str) -> None:
+    """LOOP_STEPS loop steps on one fixed batch at LoopConfig's defaults
+    (the trained frozen checkpoints, every toggle on): finite, the mean of
+    the last three below the first; the step's time, device time, busy
+    share, launches and peak memory; the device time of its parts, each
+    alone on the step's shapes."""
+    cfg = LoopConfig(triangle=True, flip=True, project=True, lifter_checkpoint="lift",
+                     projector_checkpoint="proj", log_dir=str(logs),
+                     data=DataConfig(action="Walking", split_rate=64, synthetic_frames=DIRECT_B))
+    state = train_loop.build_state(cfg)
+    f, y1, y2 = (torch.from_numpy(a[:cfg.batch_size]).cuda()
+                 for a in train_loop.load_frames_split(cfg, True))
+    step = make_loop_train_step(triangle=True, flip=True, project=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(state, f, y1, y2)["loss"].item() for _ in range(LOOP_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"loop train B={cfg.batch_size}: {LOOP_STEPS} AdamW steps on one batch, loss "
+        + ", ".join(f"{v:.5g}" for v in losses) + f"; peak device memory {peak:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses) or not (
+            statistics.mean(losses[-3:]) < losses[0]):
+        raise AssertionError("the loop's training loss did not fall")
+
+    ms = cuda_ms(lambda: step(state, f, y1, y2), n=3)
+    split, launches = device_profile(lambda: step(state, f, y1, y2), n=2)
+    busy = sum(split.values())
+    log(f"time loop train step B={cfg.batch_size} (2 x {cfg.batch_size} frames with the flip; "
+        f"{smi}): {ms:.4f} ms = {cfg.batch_size / ms * 1e3:.1f} frames/s; device {busy:.4f} ms, "
+        f"busy {busy / ms:.1%}; {launches:.0f} kernel launches a step; by kind: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in by_kind(split, LOOP_KINDS).items())
+        + "; top: " + top_kernels(split, 10))
+
+    # the parts alone, on the step's shapes (device ms of each)
+    frames2 = torch.cat([f, f.flip(2)], 0)
+    net2d, net3d = state.net2d.model, state.net3d.model
+    logits = torch.randn(2 * cfg.batch_size, 17, 64, 64, 64, device="cuda",
+                         dtype=torch.bfloat16, requires_grad=True)
+    y1h = y1.clone().requires_grad_(True)
+    y2h = y2.clone().requires_grad_(True)
+
+    def vits():
+        (state.lifter(y1h).sum() + state.projector(y2h).sum()).backward()
+        with torch.no_grad():
+            state.lifter(y1)
+            state.projector(y2)
+
+    parts = {
+        "PoseNet2D forward + backward": lambda: bf16_apply(net2d, frames2).sum().backward(),
+        "PoseNet3D forward + backward": lambda: bf16_apply(net3d, frames2)[0].sum().backward(),
+        "heatmap decode forward + backward": lambda: H.soft_argmax_3d(
+            logits, 17, 64, 64, 64)[0].sum().backward(),
+        "frozen ViTs": vits,
+        "AdamW, both models": lambda: (state.net2d.optimizer.step(),
+                                       state.net3d.optimizer.step()),
+    }
+    net2d.train()
+    net3d.train()
+    times = {k: sum(device_profile(fn, n=2)[0].values()) for k, fn in parts.items()}
+    log("device time loop step parts alone (ms; the decode's share of the step "
+        f"{times['heatmap decode forward + backward'] / busy:.1%}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; sum {sum(times.values()) - times['heatmap decode forward + backward']:.4f} "
+        f"(the decode is inside PoseNet3D's) against the step's {busy:.4f}")
+    del state, logits, parts
+    torch.cuda.empty_cache()
+
+
+def _loop_check_state(device, dtype) -> LoopState:
+    gen = lambda i: torch.Generator().manual_seed(SEED + 70 + i)  # noqa: E731
+    model2d = PoseNet2D("resnet18", device="cpu").init_weights(gen(0))
+    model3d = PoseNet3D("resnet18", return_heatmap=True, device="cpu").init_weights(gen(1))
+    lifter = JointTransformerLifter(device="cpu").init_weights(gen(2))
+    projector = JointTransformerLifter(in_dim=3, out_dim=2, device="cpu").init_weights(gen(3))
+    kw = {"device": device, "dtype": dtype}
+    return LoopState(net2d=create_train_state(model2d.to(**kw), lr=LoopConfig.lr),
+                     net3d=create_train_state(model3d.to(**kw), lr=LoopConfig.lr),
+                     lifter=freeze(lifter.to(**kw)), projector=freeze(projector.to(**kw)))
+
+
+def loop_device_check() -> None:
+    """One loop step (sep, flip, projector) from the same weights on the card
+    and on the CPU, in float64 and in f32 with TF32 off: the loss and its
+    terms, the trained models' gradients and running statistics, held to
+    LOOP_CHECK_LIMITS."""
+    rng = np.random.default_rng(SEED + 74)
+    batch = (rng.random((LOOP_CHECK_B, LOOP_CHECK_SIZE, LOOP_CHECK_SIZE, 3)),
+             rng.random((LOOP_CHECK_B, 17, 2)), 0.3 * rng.standard_normal((LOOP_CHECK_B, 17, 3)))
+    step = make_loop_train_step(triangle=True, flip=True, project=True)
+    for dtype, (loss_rtol, grad_rel, stats_atol) in LOOP_CHECK_LIMITS.items():
+        states, metrics = {}, {}
+        for dev in ("cpu", "cuda"):
+            states[dev] = _loop_check_state(dev, dtype)
+            metrics[dev] = step(states[dev], *(torch.from_numpy(a).to(dev, dtype) for a in batch))
+        loss_err = max(abs(metrics["cuda"][k].item() / metrics["cpu"][k].item() - 1)
+                       for k in metrics["cpu"] if k.startswith("loss"))
+        grads, stats_err = {}, 0.0
+        for tag in ("net2d", "net3d"):
+            cpu_model, card_model = (getattr(states[d], tag).model for d in ("cpu", "cuda"))
+            for (name, p), q in zip(cpu_model.named_parameters(), card_model.parameters()):
+                grads[f"{tag}.{name}"] = (p.grad.double(), q.grad.cpu().double())
+            for (name, b), c in zip(cpu_model.named_buffers(), card_model.buffers()):
+                if "running" in name:
+                    stats_err = max(stats_err, (c.cpu() - b).abs().max().item())
+        rel = sorted((((q - p).norm() / p.norm()).item(), k) for k, (p, q) in grads.items()
+                     if k not in LOOP_CHECK_ZERO_GRAD)
+        kept = [g for k, g in grads.items() if k not in LOOP_CHECK_ZERO_GRAD]
+        together = (torch.cat([(q - p).flatten() for p, q in kept]).norm()
+                    / torch.cat([p.flatten() for p, _ in kept]).norm()).item()
+        zero = {k: max(g.norm().item() for g in grads[k]) / grads[ref][0].norm().item()
+                for k, ref in LOOP_CHECK_ZERO_GRAD.items()}
+        per_param = dtype == torch.float64
+        log(f"loop step on the card vs the CPU ({dtype}, TF32 off, resnet18, {LOOP_CHECK_SIZE}^2, "
+            f"B={LOOP_CHECK_B}, sep + flip + projector): loss and terms max relative err "
+            f"{loss_err:.3e} (rtol {loss_rtol}); gradients relative L2 (limit {grad_rel} "
+            + ("each" if per_param else "all together") + f"): all together {together:.3e}, "
+            "worst " + ", ".join(f"{v:.3e} ({k})" for v, k in rel[-3:][::-1])
+            + f", median {statistics.median(v for v, _ in rel):.3e}"
+            + "; zero in exact arithmetic, the larger norm over the weight gradient's: "
+            + ", ".join(f"{k} {v:.3e} (limit {LOOP_CHECK_ZERO_REL[dtype]})"
+                        for k, v in zero.items())
+            + f"; running statistics max abs err {stats_err:.3e} (atol {stats_atol})")
+        grad_err = rel[-1][0] if per_param else together
+        if (loss_err > loss_rtol or grad_err > grad_rel or stats_err > stats_atol
+                or any(v > LOOP_CHECK_ZERO_REL[dtype] for v in zero.values())):
+            raise AssertionError(f"the loop step on the card disagrees with the CPU in {dtype}")
+
+
+def loop_phase() -> None:
+    """Phase 26: the detector, projector, lifter and loop trainers from their
+    CLIs in a temporary directory, the trained detector in the video path,
+    the loop step's times and its check against the CPU."""
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
+        logs = Path(tmp) / "logs"
+        fresh_px = detector_train_phase(logs, smi)
+        trained_detector_video(logs, fresh_px)
+        frozen_models_phase(logs)
+        loop_cli_phase(logs)
+        loop_step_phase(logs, smi)
+    loop_device_check()
+    torch.cuda.empty_cache()
+    log(f"phase 26 (detector, projector and loop trainers): {time.perf_counter() - t0:.1f} s")
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
@@ -2800,6 +3161,7 @@ def main() -> None:
     # rows 3-6: the launches of phase 25's two lifts add to phase 8's
     for k, n in video_phase().items():
         tlaunches[k] += n
+    loop_phase()
     bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -2907,6 +3269,10 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         video_phase()
+    elif sys.argv[1:] == ["--loop"]:  # the detector, projector and loop trainers alone
+        device_phase()
+        build_phase()
+        loop_phase()
     elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
         device_phase()
         build_phase()

@@ -1,10 +1,10 @@
 """Typed run configuration: the port of ``DataConfig``, ``LiftConfig``,
-``TemporalConfig``, ``DirectConfig`` and ``parse_config`` of
-``pose3d_tpu/config.py`` (the other phases' configs come with their
-trainers).
+``TemporalConfig``, ``DirectConfig``, ``DetectorConfig``, ``LoopConfig``
+and ``parse_config`` of ``pose3d_tpu/config.py``.
 
 Each config has every field of the JAX one, with its defaults, plus
-``device`` (default ``cuda``; ``--cpu`` sets ``cpu``).
+``device`` (default ``cuda``; ``--cpu`` sets ``cpu``). ``LoopConfig.resume``
+is parsed and unused, as in the JAX trainer.
 ``TemporalConfig.use_kernels_train`` is JAX's ``use_pallas_train``: train
 on the fused sub-block kernels where they apply.
 """
@@ -112,6 +112,54 @@ class DirectConfig:
     device: str = "cuda"
     data: DataConfig = dataclasses.field(
         default_factory=lambda: DataConfig(action="1.6", split_rate=50))
+
+
+@dataclasses.dataclass
+class DetectorConfig:
+    """2D-detector trainer config (``cli/train_detector.py``): ``PoseNet2D``
+    trained on frames rendered on the device from synthetic poses, so that
+    the video pipeline's ``--detector posenet2d`` route has trained
+    weights."""
+
+    architecture: str = "resnet18"
+    batch_size: int = 32
+    n_steps: int = 600
+    lr: float = 1e-3
+    run_name: str = "detector2d"
+    resume: bool = False
+    image_size: int = 256
+    n_train: int = 4096               # synthetic pose pool size
+    n_eval: int = 256
+    chunk_steps: int = 8              # optimizer steps per chunk
+    log_dir: str = "./logs"
+    seed: int = 0
+    bf16: bool = True
+    device: str = "cuda"
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    """Phase-5 consistency-loop config (the reference ``train_5.py``)."""
+
+    triangle: bool = False
+    triangle_mode: str = "sep"        # sep (TriangleLoss_sep) | cycle (TriangleLoss)
+    flip: bool = False
+    project: bool = False
+    batch_size: int = 64
+    n_epochs: int = 20
+    lr: float = 5e-4                  # AdamW, one per trained model
+    run_name: str = "loop_run"
+    lifter_checkpoint: Optional[str] = None     # frozen phase-1 lifter run name
+    projector_checkpoint: Optional[str] = None  # frozen projector run name
+    resume: bool = False              # parsed, unused (as in the JAX trainer)
+    log_dir: str = "./logs"
+    seed: int = 0
+    bf16: bool = True
+    architecture: str = "resnet50"
+    image_size: int = 256
+    device: str = "cuda"
+    data: DataConfig = dataclasses.field(
+        default_factory=lambda: DataConfig(action="Walking", split_rate=64))
 
 
 def _add_fields(parser: argparse.ArgumentParser, cls, prefix=""):

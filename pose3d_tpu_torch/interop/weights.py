@@ -2,7 +2,8 @@
 
 The counterpart of ``pose3d_tpu/interop/torch_weights.py``'s
 ``vit_lifter_to_torch``, ``martinez_to_torch``, ``ae_to_torch``,
-``resnet_to_torch``, ``posenet3d_to_torch`` and ``posenet2d_to_torch``, written with numpy alone
+``resnet_to_torch``, ``posenet3d_to_torch``, ``posenet2d_to_torch`` and
+``projection_to_torch``, written with numpy alone
 so that the port needs no JAX: a flax ``Dense`` kernel is (in, out) and a
 torch ``Linear`` weight (out, in), so kernels are transposed; a flax
 ``Conv`` kernel is (kH, kW, in, out) and a torch ``Conv2d`` weight (out,
@@ -260,3 +261,21 @@ def posenet2d_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
     state dict (the reference ``Model_2D`` keys): the tree and the keys are
     ``PoseNet3D``'s, with a J-channel final conv (``posenet3d_from_flax``)."""
     return posenet3d_from_flax(params, batch_stats)
+
+
+# ProjectionMLP's Dense_i / BatchNorm_i -> the reference Projection's
+# Sequential indices (0 Flatten; Linear, BatchNorm, Tanh, Dropout x 3; 13 Linear)
+_PROJECTION_LAYERS = (("mlp.1", "mlp.2"), ("mlp.5", "mlp.6"), ("mlp.9", "mlp.10"))
+
+
+def projection_mlp_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """``ProjectionMLP`` flax params and batch_stats -> the port's
+    ``ProjectionMLP`` state dict (reference ``Projection`` keys):
+    ``Dense_i`` / ``BatchNorm_i`` for i < 3 -> ``mlp.1``/``.2``,
+    ``mlp.5``/``.6``, ``mlp.9``/``.10``; ``Dense_3`` -> ``mlp.13``."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, (linear, bn) in enumerate(_PROJECTION_LAYERS):
+        _dense(params[f"Dense_{i}"], linear, sd)
+        _batch_norm(params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"], bn, sd)
+    _dense(params["Dense_3"], "mlp.13", sd)
+    return sd

@@ -42,8 +42,15 @@ gradients pass through one bf16 rounding.
 ``PoseNet2D`` (the reference ``Model_2D``, ``phase5_loop/Model_2d.py:
 13-138``) is the same network with J output channels, one heatmap a
 joint, decoded by the plain ``soft_argmax_2d`` as in the JAX package: (B,
-J*2) coordinates in [0, 1). ``ProjectionMLP`` comes with the
-consistency-loop slice.
+J*2) coordinates in [0, 1).
+
+``ProjectionMLP`` (the reference ``Projection``, ``Model_2d.py:140-170``)
+is the learned 3D -> 2D projection: Flatten, three (Linear, BatchNorm,
+Tanh, Dropout(0.3)) at widths 512, 256 and 128, a Linear to ``out_dim``;
+the reference's ``mlp.{1,2,5,6,9,10,13}`` keys
+(``interop.weights.projection_mlp_from_flax`` writes them). The
+consistency loop's projector is a ViT (``JointTransformerLifter(in_dim=3,
+out_dim=2)``); this MLP is kept for the API, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pose3d_tpu_torch.models.norm import F32BatchNorm2d, seed_batch_norm
+from pose3d_tpu_torch.models.norm import F32BatchNorm1d, F32BatchNorm2d, seed_batch_norm
 from pose3d_tpu_torch.models.resnet import ResNet
 from pose3d_tpu_torch.ops import conv_decode, softargmax
 from pose3d_tpu_torch.ops.heatmap import soft_argmax_2d, soft_argmax_3d, soft_argmax_3d_nhwc
@@ -202,3 +209,47 @@ class PoseNet2D(nn.Module):
         logits = self.final_layer(self.deconv_layers(self.preact(x.permute(0, 3, 1, 2))))
         _, j, h, w = logits.shape
         return soft_argmax_2d(logits, j, h, w)
+
+
+class ProjectionMLP(nn.Module):
+    """(B, ...) poses, flattened to (B, in_dim) -> (B, out_dim) in f32 (or
+    wider): the reference ``Projection``. Defaults: 17 x 3 in, 17 x 2
+    out. BatchNorm stays f32 (``models/norm.py``; momentum 0.1, flax's
+    0.9)."""
+
+    WIDTHS = (512, 256, 128)
+
+    def __init__(self, in_dim: int = 51, out_dim: int = 34, *, device,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        layers: list[nn.Module] = [nn.Flatten()]
+        for width in self.WIDTHS:
+            layers += [nn.Linear(in_dim, width, **kw), F32BatchNorm1d(width, device=device),
+                       nn.Tanh(), nn.Dropout(0.3)]
+            in_dim = width
+        layers.append(nn.Linear(in_dim, out_dim, **kw))
+        self.mlp = nn.Sequential(*layers)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Parameter and compute dtype."""
+        return self.mlp[-1].weight.dtype
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """Draw every parameter and BatchNorm statistic from ``generator`` (a
+        CPU generator): weights N(0, 1 / fan_in), biases N(0, 0.1),
+        BatchNorms as ``norm.seed_batch_norm``; returns the module."""
+        for m in self.mlp:
+            if isinstance(m, nn.Linear):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               * m.in_features ** -0.5)
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=generator))
+            elif isinstance(m, nn.BatchNorm1d):
+                seed_batch_norm(m, generator)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.mlp(x.to(self.dtype))
+        return y.to(torch.promote_types(self.dtype, torch.float32))

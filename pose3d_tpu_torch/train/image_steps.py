@@ -1,10 +1,18 @@
-"""Train and eval steps of the direct image->3D models: the port of
-``_normalize``, ``make_direct_train_step``, ``make_direct_chunk_step``,
-``make_direct_eval_step`` and ``make_direct_eval_chunk_step`` of
-``pose3d_tpu/train/image_steps.py`` (the reference ``train_3.py`` loop
-body: MSE on the soft-argmax coordinates, Adam with weight decay 1e-8,
-the plateau schedule; with the optional heatmap MSE supervision of
-``heatmap_loss_weight``).
+"""Train and eval steps of the image models: the port of ``_normalize``,
+``make_direct_train_step``, ``make_direct_chunk_step``,
+``make_direct_eval_step``, ``make_direct_eval_chunk_step``,
+``make_detector_chunk_step`` and ``make_detector_eval_step`` of
+``pose3d_tpu/train/image_steps.py`` (the direct steps are the reference
+``train_3.py`` loop body: MSE on the soft-argmax coordinates, Adam with
+weight decay 1e-8, the plateau schedule; with the optional heatmap MSE
+supervision of ``heatmap_loss_weight``).
+
+The detector steps train and evaluate ``PoseNet2D`` on frames that
+``data/synthetic.render_pose_frames`` renders on the keypoints' device
+inside the step, so only the (K, B, 17, 2) keypoints come from the host.
+Their noise comes from a ``torch.Generator`` on that device where the JAX
+steps draw it from their key, so the two packages' frames differ by their
+noise (the tests render with ``noise=0`` on both sides).
 
 A step runs ``state.apply(state.model, frames)``, which returns
 (coordinates, heatmap or None) as ``PoseNet3D`` does; ``bf16_apply`` runs
@@ -61,7 +69,7 @@ def make_direct_train_step(loss: str = "mse", heatmap_loss_weight: float = 0.0):
         if heatmap_loss_weight:
             hm_gt = heatmap_targets(kp3d.clamp(-1.0, 1.0), grid=hm.shape[-3:])
             total = total + heatmap_loss_weight * losses.mse(hm, hm_gt)
-        apply_gradients(state, total)
+        apply_gradients(total, state)
         with torch.no_grad():
             sums = losses.loss_mpjpe(pred, kp3d)
         return {"loss": total.detach(), "mpjpe_sums": sums}
@@ -111,5 +119,53 @@ def make_direct_eval_chunk_step(loss: str = "mse"):
         out = [eval_step(state, f, y) for f, y in zip(frames, kp3d)]
         return {"loss": torch.stack([o["loss"] for o in out]).mean(),
                 "mpjpe_sums": torch.stack([o["mpjpe_sums"] for o in out]).sum(0)}
+
+    return step
+
+
+def make_detector_chunk_step(image_size: int = 256):
+    """2D-detector step over K batches: (state, kp2d (K, B, 17, 2) on the
+    model's device, generator on that device) -> {"loss": the mean of the K
+    batch losses, "last_batch_loss", "px_err": the last batch's mean L2
+    error in pixels of the rendered image}, after K optimizer steps. Each
+    batch's frames are rendered with ``generator``'s noise, then MSE on the
+    coordinates (the phase-5 ``Model_2D`` pathway); ``state.apply`` returns
+    the (B, 34) coordinates."""
+    from pose3d_tpu_torch.data.synthetic import render_pose_frames
+
+    def step(state, kp2d: torch.Tensor, generator: torch.Generator) -> dict:
+        state.model.train()
+        loss_k = []
+        for y in kp2d:
+            frames = render_pose_frames(y, generator, size=image_size)
+            pred = state.apply(state.model, frames).reshape(y.shape)
+            loss_val = losses.mse(pred, y)
+            apply_gradients(loss_val, state)
+            loss_k.append(loss_val.detach())
+        loss_k = torch.stack(loss_k)
+        with torch.no_grad():
+            px = torch.linalg.vector_norm(pred - y, dim=-1).mean() * image_size
+        return {"loss": loss_k.mean(), "last_batch_loss": loss_k[-1], "px_err": px}
+
+    return step
+
+
+def make_detector_eval_step(image_size: int = 256):
+    """(state, kp2d (K, B, 17, 2), seed) -> the mean pixel error over the K
+    batches, in eval mode without grads; the frames are rendered from a
+    generator on kp2d's device seeded with ``seed``, so two calls with one
+    seed see the same frames (the JAX trainer's fixed key 99)."""
+    from pose3d_tpu_torch.data.synthetic import render_pose_frames
+
+    @torch.no_grad()
+    def step(state, kp2d: torch.Tensor, seed: int) -> torch.Tensor:
+        state.model.eval()
+        generator = torch.Generator(kp2d.device).manual_seed(seed)
+        px = []
+        for y in kp2d:
+            frames = render_pose_frames(y, generator, size=image_size)
+            pred = state.apply(state.model, frames).reshape(y.shape)
+            px.append(torch.linalg.vector_norm(pred - y, dim=-1).mean())
+        return torch.stack(px).mean() * image_size
 
     return step

@@ -24,15 +24,20 @@ from pose3d_tpu_torch.core.transforms import flip_pose
 from pose3d_tpu_torch.train.state import TrainState, clip_by_global_norm
 
 
-def apply_gradients(state: TrainState, loss_val: torch.Tensor) -> None:
-    """Backward from ``loss_val``, the global-norm clip where set, one
-    optimizer step at the lr the plateau schedule left in the optimizer."""
-    state.optimizer.zero_grad(set_to_none=True)
+def apply_gradients(loss_val: torch.Tensor, *states: TrainState) -> None:
+    """One backward from ``loss_val``, then, for each state, the global-norm
+    clip where set and one optimizer step at the lr the plateau schedule
+    left in its optimizer. Several states take their gradients from the
+    one backward, as the JAX loop step takes both models' gradients from
+    one ``value_and_grad``: their parameters are disjoint."""
+    for state in states:
+        state.optimizer.zero_grad(set_to_none=True)
     loss_val.backward()
-    if state.grad_clip:
-        clip_by_global_norm(list(state.model.parameters()), state.grad_clip)
-    state.optimizer.step()
-    state.step += 1
+    for state in states:
+        if state.grad_clip:
+            clip_by_global_norm(list(state.model.parameters()), state.grad_clip)
+        state.optimizer.step()
+        state.step += 1
 
 
 def make_lifter_train_step(loss: str = "mse"):
@@ -46,7 +51,7 @@ def make_lifter_train_step(loss: str = "mse"):
         state.model.train()
         pred = state.apply(state.model, y1).reshape(y2.shape)
         loss_val = loss_fn(pred, y2)
-        apply_gradients(state, loss_val)
+        apply_gradients(loss_val, state)
         with torch.no_grad():
             sums = losses.loss_mpjpe(pred, y2)
         return {"loss": loss_val.detach(), "mpjpe_sums": sums}

@@ -50,6 +50,8 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch.pipeline.video, pose3d_tpu_torch.pipeline.detector\n"
         "import pose3d_tpu_torch.pipeline.h36m_batch, pose3d_tpu_torch.data.native_build\n"
         "import pose3d_tpu_torch.data.native_loader, pose3d_tpu_torch.data.native_video\n"
+        "import pose3d_tpu_torch.train.loop_steps, pose3d_tpu_torch.cli.train_loop\n"
+        "import pose3d_tpu_torch.cli.train_detector, pose3d_tpu_torch.cli.train_project\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
         "print('cv2' in sys.modules)\n"

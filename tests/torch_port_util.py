@@ -147,16 +147,18 @@ def _seeded_image_model(model, seed: int, final_scale: float):
 
 
 @functools.cache
-def flax_posenet(architecture: str = "resnet18", seed: int = 0, final_scale: float = 32.0):
-    """(params, batch_stats) of a flax ``PoseNet3D`` (17 joints, depth 64),
-    as numpy, cached per process (``_seeded_image_model``): the final conv
-    scaled so that the coordinates spread (at the init's scale the heatmaps
-    are near uniform and every coordinate sits near -1/32). Callers must
-    not modify the trees."""
+def flax_posenet(architecture: str = "resnet18", seed: int = 0, final_scale: float = 32.0,
+                 depth: int = 64):
+    """(params, batch_stats) of a flax ``PoseNet3D`` (17 joints, volume depth
+    ``depth``), as numpy, cached per process (``_seeded_image_model``): the
+    final conv scaled so that the coordinates spread (at the init's scale
+    the heatmaps are near uniform and every coordinate sits near -1/32).
+    Callers must not modify the trees."""
     pytest.importorskip("jax")
     from pose3d_tpu.models.heads import PoseNet3D
 
-    return _seeded_image_model(PoseNet3D(architecture=architecture), seed, final_scale)
+    return _seeded_image_model(PoseNet3D(architecture=architecture, depth=depth), seed,
+                               final_scale)
 
 
 @functools.cache
