@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: `python3 chip_smoke.py`.
 
 Drives the port's serving paths, its training paths, the joint-major and
-legacy entry points and the video pipeline on one NVIDIA GPU (Hopper,
+legacy entry points, the video pipeline, the phase-5 trainers and the
+SMPL-IK family on one NVIDIA GPU (Hopper,
 sm_90a), with random weights from a seed, and fails (non-zero exit,
 traceback) if any phase fails:
 
@@ -297,6 +298,33 @@ decodes through the plain heatmap route):
     ``python3 chip_smoke.py --loop`` runs this phase alone, after phases
     1-2.
 
+The SMPL-IK family (``models/{smpl,hybrik,smpl_pose}.py``,
+``train/smpl_steps.py``) on the 6890-vertex synthetic body with the
+reference's leaf vertex ids; no kernel of ``csrc/`` is on this path, as in
+the JAX package (the plain ``soft_argmax_3d``; the IK's batched 3 x 3 SVD
+is cuSOLVER's):
+
+27. ``lbs``, ``batch_rigid_transform``, ``inverse_kinematics`` and
+    ``hybrik`` (eval and naive paths) on FK skeletons (B = 8, 5 mm of
+    noise, one joint moved 10 cm) on the card in float64 and f32 (TF32
+    off) against a float64 run on the CPU: within 1e-10 and 5e-5; the eval
+    path's 15 mm clamp changes the result against never and always
+    clamping, and not when its threshold moves by 1e-5 either way;
+    ``HybrIKPose`` with the ResNet-50 ``PoseSMPLNet`` (depth 64, 256 x 256
+    frames, B = 32, the final conv x12, a uvd spread of at least 0.1
+    asserted) in eval, bf16 under autocast against the f32 module with
+    ``flip_test`` off and on (uvd, twists and shape within 5e-2, every
+    output finite and f32), timed (CUDA events, device time, busy share,
+    launches, peak memory, device time by kind) and its SMPL half alone;
+    one ``make_hybrik_train_step`` from the same weights on the card and
+    on the CPU (ResNet-18, 64 x 64, depth 8, B = 4, dropout 0) in float64
+    (loss rtol 1e-10, each gradient relative L2 1e-8, statistics 1e-10)
+    and f32 (1e-5, all gradients together 2e-2, 1e-5); 10 steps at full
+    width (bf16 over f32, Adam 3e-4) on one batch, the mean of the last
+    three losses below the first, the step timed; none of the 18 records'
+    wrappers launched (counts from 0). ``python3 chip_smoke.py --smpl``
+    runs this phase alone, after phases 1-2.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
 peak, or for the soft-argmax and its backward their f32 operations over
@@ -334,7 +362,10 @@ from pose3d_tpu_torch.data.synthetic import synthetic_frames, synthetic_h36m
 from pose3d_tpu_torch.data import native_build
 from pose3d_tpu_torch.data.synthetic import render_pose_frames
 from pose3d_tpu_torch.models.heads import PoseNet2D, PoseNet3D
+from pose3d_tpu_torch.models import hybrik, smpl
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter, MartinezLifter
+from pose3d_tpu_torch.models.smpl import synthetic_model
+from pose3d_tpu_torch.models.smpl_pose import HybrIKPose, PoseSMPLNet
 from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops import attention as A
@@ -358,6 +389,7 @@ from pose3d_tpu_torch.train.image_steps import (bf16_apply, make_detector_chunk_
                                                 make_direct_eval_chunk_step,
                                                 make_direct_eval_step, make_direct_train_step)
 from pose3d_tpu_torch.train.loop_steps import LoopState, freeze, make_loop_train_step
+from pose3d_tpu_torch.train.smpl_steps import make_hybrik_train_step
 from pose3d_tpu_torch.train.state import create_train_state
 from pose3d_tpu_torch.train.steps import make_lifter_train_step
 
@@ -3033,6 +3065,302 @@ def loop_phase() -> None:
     log(f"phase 26 (detector, projector and loop trainers): {time.perf_counter() - t0:.1f} s")
 
 
+# phase 27: SMPL, HybrIK and the SMPL-IK pose model
+
+SMPL_LEAVES = (411, 2445, 5905, 3216, 6617)  # the reference's leaf vertices (lbs.py:352)
+SMPL_FN_B = 8        # skeletons a batch in the function checks
+# the SMPL functions on the card against a float64 run on the CPU: float64
+# computes the same expressions (1e-10; measured 3.0e-14). f32 with TF32
+# off: the eval path's rotations (the SVD pelvis, swings between near
+# parallel bones) are ill-conditioned in f32: the CPU's f32 lies up to
+# 4.9e-6 from float64 here, JAX's f32 1.1e-5 on the CPU (PERF.md §2), the
+# card's (cuSOLVER's SVD) 2.3e-5 (positions in metres and rotations)
+SMPL_FN_ATOL = {torch.float64: 1e-10, torch.float32: 5e-5}
+SMPL_CLAMP_MARGIN = 1e-5  # no joint's distance within this of the 15 mm threshold
+SMPL_B = 32          # the SMPL-IK forward's and train step's batch, 256 x 256 frames
+# the final conv x12: at the init's scale the uvd sit within ~0.05 of 0
+# (std 0.010); x12 spreads them (std ~0.135 on the CPU), where the bf16
+# net stays within 0.016 (uvd) and 0.026 (phis) of the f32 one
+SMPL_FINAL_SCALE = 12.0
+SMPL_BF16_ATOL = 5e-2  # the bf16 net vs the f32 module: uvd, phis, shape
+SMPL_BF16_KEYS = ("pred_uvd_jts", "pred_phi", "pred_shape")
+SMPL_STEPS = 10
+SMPL_LR = 3e-4       # Adam, the JAX package's test of the step
+# the train step on the card against the CPU: ResNet-18, 64^2, volume depth
+# 8, B = 4, the final conv x64 (uvd std ~0.13), dropout 0 (the devices draw
+# other masks); limits as the loop step's (LOOP_CHECK_LIMITS)
+SMPL_CHECK = {"architecture": "resnet18", "depth": 8, "size": 64, "b": 4, "scale": 64.0}
+SMPL_KINDS = (("cuSOLVER (SVD, det)", ("svd", "gesvd", "syevj", "jacobi", "getrf", "lu_",
+                                       "det")),) + LOOP_KINDS
+
+
+def smpl_body():
+    """The 6890-vertex synthetic body with the reference's leaf vertex ids."""
+    return dataclasses.replace(synthetic_model(6890, seed=0), leaf_vertex_ids=SMPL_LEAVES)
+
+
+def smpl_cams(b: int, device) -> tuple:
+    """(trans_inv, k_inv, joint_root, depth_factor) of ``tests/test_smpl_pose.py``:
+    identity crop, 1/f = 1e-3, the root 3 m away, a 2.2 m depth factor."""
+    return (torch.eye(2, 3, device=device).expand(b, 2, 3),
+            torch.diag(torch.tensor([1e-3, 1e-3, 1.0], device=device)).expand(b, 3, 3),
+            torch.tensor([[0.0, 0.0, 3000.0]], device=device).expand(b, 3),
+            torch.full((b, 1), 2200.0, device=device))
+
+
+def smpl_skeletons(body, seed: int):
+    """Float64 CPU inputs: betas (B, 10), axis-angle poses (B, 72), the rest
+    joints (B, 29, 3), their rotations (B, 29, 3, 3) (the leaves'
+    identity), FK skeletons (B, 29, 3) with 5 mm of noise and joint 4 of
+    sample 0 moved 10 cm (an outlier for the eval path's clamp), twists
+    (B, 23, 2)."""
+    g = torch.Generator().manual_seed(seed)
+    b = SMPL_FN_B
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64)
+
+    betas, pose = 0.3 * randn(b, 10), 0.25 * randn(b, 72)
+    arr = smpl.body_arrays(body, betas)
+    v_shaped = arr["v_template"] + smpl.blend_shapes(betas, arr["shapedirs"])
+    rest24 = smpl.vertices2joints(arr["j_regressor"], v_shaped)
+    rest29 = torch.cat([rest24, v_shaped[:, list(body.leaf_vertex_ids)]], 1)
+    rots = torch.cat([smpl.batch_rodrigues(pose.view(b, 24, 3)),
+                      torch.eye(3, dtype=torch.float64).expand(b, 5, 3, 3)], 1)
+    pos, _ = smpl.batch_rigid_transform(rots, rest29, parents=smpl.PARENTS,
+                                        levels=smpl.IK_LEVELS[1:])
+    pos = pos + 0.005 * randn(*pos.shape)
+    pos[0, 4, 0] += 0.1
+    return betas, pose, rest29, rots, pos, randn(b, 23, 2)
+
+
+def _ik_clamped(threshold: float, args) -> torch.Tensor:
+    """The eval path's rotations with the clamp's threshold at ``threshold``."""
+    old = hybrik.CLAMP_M
+    hybrik.CLAMP_M = threshold
+    try:
+        return hybrik.inverse_kinematics(*args, train=False)[0]
+    finally:
+        hybrik.CLAMP_M = old
+
+
+def smpl_function_check() -> None:
+    """lbs, batch_rigid_transform, inverse_kinematics (eval and naive) and
+    hybrik (eval and naive) on the card, in float64 and in f32 (TF32 off),
+    against a float64 run on the CPU (SMPL_FN_ATOL); the eval clamp fires
+    on some joints and not on others, with no distance within
+    SMPL_CLAMP_MARGIN of its threshold."""
+    body = smpl_body()
+    betas, pose, rest29, rots, pos, phis = smpl_skeletons(body, SEED + 86)
+    fns = {
+        "lbs": lambda m, t: smpl.lbs(m, t[0], t[1]),
+        "batch_rigid_transform": lambda m, t: smpl.batch_rigid_transform(
+            t[3], t[2], parents=smpl.PARENTS, levels=smpl.IK_LEVELS[1:]),
+        "inverse_kinematics eval": lambda m, t: hybrik.inverse_kinematics(t[4], t[5], t[2]),
+        "inverse_kinematics naive": lambda m, t: hybrik.inverse_kinematics(t[4], t[5], t[2],
+                                                                           train=True),
+        "hybrik eval": lambda m, t: hybrik.hybrik(m, t[0], t[4], t[5]),
+        "hybrik naive": lambda m, t: hybrik.hybrik(m, t[0], t[4], t[5], train=True),
+    }
+    inputs = (betas, pose, rest29, rots, pos, phis)
+    ref_body = smpl.SMPLTensors(body, device="cpu").double()
+    ref = {k: fn(ref_body, inputs) for k, fn in fns.items()}
+    errs = {}
+    for dtype, atol in SMPL_FN_ATOL.items():
+        for dev in ("cuda", "cpu"):
+            m = smpl.SMPLTensors(body, device=dev).to(dtype)
+            t = tuple(a.to(dev, dtype) for a in inputs)
+            for k, fn in fns.items():
+                errs[(dev, dtype, k)] = max((g.cpu().double() - w).abs().max().item()
+                                            for g, w in zip(fn(m, t), ref[k]))
+        card = {k: v for (dev, dt, k), v in errs.items() if dev == "cuda" and dt == dtype}
+        log(f"SMPL functions on the card vs a float64 CPU run ({dtype}, TF32 off, 6890 "
+            f"vertices, B={SMPL_FN_B}): max abs err " + ", ".join(
+                f"{k} {v:.3e} (CPU {errs[('cpu', dtype, k)]:.3e})" for k, v in card.items())
+            + f"; limit {atol}")
+        if max(card.values()) > atol:
+            raise AssertionError(f"the SMPL functions on the card disagree with the CPU in {dtype}")
+    t = tuple(a.cuda() for a in (pos, phis, rest29))
+    default = hybrik.inverse_kinematics(*t, train=False)[0]
+    never, always = _ik_clamped(math.inf, t), _ik_clamped(-1.0, t)
+    moved = [(_ik_clamped(hybrik.CLAMP_M + d, t) - default).abs().max().item()
+             for d in (-SMPL_CLAMP_MARGIN, SMPL_CLAMP_MARGIN)]
+    fires = [(default - never).abs().max().item(), (default - always).abs().max().item()]
+    log(f"eval clamp on the card (float64): vs never clamping {fires[0]:.3e}, vs always "
+        f"{fires[1]:.3e} (both must exceed 1e-3); threshold moved by -/+{SMPL_CLAMP_MARGIN}: "
+        f"{moved[0]:.3e}, {moved[1]:.3e} (must be 0)")
+    if min(fires) <= 1e-3 or max(moved) != 0.0:
+        raise AssertionError("the eval clamp does not fire on some joints only, or a distance "
+                             "lies at its threshold")
+
+
+def smpl_pose_model(architecture="resnet50", depth=64, scale=SMPL_FINAL_SCALE, seed=SEED + 80,
+                    device="cuda"):
+    """HybrIKPose from the seed: the PoseSMPLNet's final conv x ``scale``, the
+    6890-vertex body."""
+    net = PoseSMPLNet(architecture, depth=depth, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed))
+    net.final_layer.weight.data.mul_(scale)
+    return HybrIKPose(net.to(device), smpl_body())
+
+
+def smpl_forward_phase(smi: str) -> None:
+    """The SMPL-IK forward at full width (ResNet-50, depth 64, 256^2, B =
+    SMPL_B), eval, bf16 under autocast against the f32 module, flip_test
+    off and on; its times, and the IK + LBS half's apart."""
+    model = smpl_pose_model().eval()
+    x = direct_frames(SMPL_B, SEED + 81)
+    cam = smpl_cams(SMPL_B, "cuda")
+    with torch.inference_mode():
+        for flip in (False, True):
+            f32 = model(x, *cam, flip_test=flip)
+            bf16 = bf16_apply(lambda f: model(f, *cam, flip_test=flip), x)
+            errs = {k: (bf16[k] - f32[k]).abs().max().item() for k in f32}
+            spread = model.net(x)["uvd29"].std().item()
+            finite = all(v.isfinite().all() for v in (*f32.values(), *bf16.values()))
+            log(f"SMPL-IK forward bf16 vs f32 (resnet50, depth 64, {DIRECT_SIZE}^2, B={SMPL_B}, "
+                f"flip_test {flip}; uvd spread {spread:.4f}, min {MIN_SPREAD}): max abs err "
+                + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+                + f"; limit {SMPL_BF16_ATOL} on {', '.join(SMPL_BF16_KEYS)}")
+            if (not finite or spread < MIN_SPREAD or any(v.dtype != torch.float32 for v in
+                                                          bf16.values())
+                    or max(errs[k] for k in SMPL_BF16_KEYS) > SMPL_BF16_ATOL):
+                raise AssertionError(f"the bf16 SMPL-IK forward (flip_test {flip}) is wrong")
+        times = {}
+        for flip in (False, True):
+            fwd = lambda: bf16_apply(lambda f: model(f, *cam, flip_test=flip), x)  # noqa: E731
+            ms = cuda_ms(fwd, n=5)
+            split, launches = device_profile(fwd, n=3)
+            torch.cuda.reset_peak_memory_stats()
+            fwd()
+            torch.cuda.synchronize()
+            times[flip] = (ms, sum(split.values()), launches,
+                           torch.cuda.max_memory_allocated() / 2**30, split)
+        out = bf16_apply(model.net, x)
+        half = lambda: model._smpl_half(out, *cam)  # noqa: E731
+        half_ms = cuda_ms(half, n=5)
+        half_split, half_launches = device_profile(half, n=5)
+    for flip, (ms, busy, launches, peak, split) in times.items():
+        log(f"time SMPL-IK forward bf16 B={SMPL_B} flip_test {flip} ({smi}): {ms:.4f} ms (CUDA "
+            f"events) = {SMPL_B / ms * 1e3:.1f} frames/s; device {busy:.4f} ms, busy "
+            f"{busy / ms:.1%}; {launches:.0f} kernel launches; peak device memory {peak:.2f} GiB;"
+            " by kind: " + ", ".join(f"{k} {v:.4f}" for k, v in by_kind(split, SMPL_KINDS).items())
+            + "; top: " + top_kernels(split, 8))
+    half_dev = sum(half_split.values())
+    log(f"time SMPL half alone (uvd_to_cam, HybrIK eval: IK + LBS, root-centring, quaternions; "
+        f"f32, B={SMPL_B}, 6890 vertices): {half_ms:.4f} ms (CUDA events), device "
+        f"{half_dev:.4f} ms, busy {half_dev / half_ms:.1%}, {half_launches:.0f} launches; by "
+        "kind: " + ", ".join(f"{k} {v:.4f}" for k, v in by_kind(half_split, SMPL_KINDS).items())
+        + "; top: " + top_kernels(half_split, 8))
+    del model, out
+    torch.cuda.empty_cache()
+
+
+def _smpl_check_state(device, dtype):
+    c = SMPL_CHECK
+    model = smpl_pose_model(c["architecture"], c["depth"], c["scale"], SEED + 82, "cpu")
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0  # the two devices would draw other masks
+    return create_train_state(model.to(device=device, dtype=dtype), lr=SMPL_LR, optimizer="adam")
+
+
+def smpl_step_check() -> None:
+    """One ``make_hybrik_train_step`` from the same weights on the card and
+    on the CPU, in float64 and in f32 with TF32 off: the loss, the net's
+    gradients and its running statistics (LOOP_CHECK_LIMITS)."""
+    c = SMPL_CHECK
+    rng = np.random.default_rng(SEED + 87)
+    frames = rng.random((c["b"], c["size"], c["size"], 3))
+    uvd_gt = rng.uniform(-0.4, 0.4, (c["b"], 29, 3))
+    xyz_gt = rng.uniform(-0.3, 0.3, (c["b"], 17, 3))
+    step = make_hybrik_train_step()
+    for dtype, (loss_rtol, grad_rel, stats_atol) in LOOP_CHECK_LIMITS.items():
+        states, metrics = {}, {}
+        for dev in ("cpu", "cuda"):
+            states[dev] = _smpl_check_state(dev, dtype)
+            cam = tuple(t.to(dtype) for t in smpl_cams(c["b"], dev))
+            f, u, y = (torch.from_numpy(a).to(dev, dtype) for a in (frames, uvd_gt, xyz_gt))
+            metrics[dev] = step(states[dev], f, cam, u, y, SEED)
+        loss_err = abs(metrics["cuda"]["loss"].item() / metrics["cpu"]["loss"].item() - 1)
+        cpu_net, card_net = states["cpu"].model.net, states["cuda"].model.net
+        grads = {name: (p.grad.double(), q.grad.cpu().double()) for (name, p), q in
+                 zip(cpu_net.named_parameters(), card_net.parameters())}
+        stats_err = max((q.cpu() - p).abs().max().item() for (name, p), q in
+                        zip(cpu_net.named_buffers(), card_net.buffers()) if "running" in name)
+        rel = sorted((_rel(q, p), k) for k, (p, q) in grads.items())
+        together = (torch.cat([(q - p).flatten() for p, q in grads.values()]).norm()
+                    / torch.cat([p.flatten() for p, _ in grads.values()]).norm()).item()
+        per_param = dtype == torch.float64
+        log(f"SMPL-IK train step on the card vs the CPU ({dtype}, TF32 off, "
+            f"{c['architecture']}, {c['size']}^2, depth {c['depth']}, B={c['b']}, naive IK): "
+            f"loss {metrics['cuda']['loss'].item():.6g}, relative err {loss_err:.3e} (rtol "
+            f"{loss_rtol}); gradients relative L2 (limit {grad_rel} "
+            + ("each" if per_param else "all together") + f"): all together {together:.3e}, "
+            "worst " + ", ".join(f"{v:.3e} ({k})" for v, k in rel[-3:][::-1])
+            + f", median {statistics.median(v for v, _ in rel):.3e}; running statistics max abs "
+            f"err {stats_err:.3e} (atol {stats_atol})")
+        grad_err = rel[-1][0] if per_param else together
+        if loss_err > loss_rtol or grad_err > grad_rel or stats_err > stats_atol:
+            raise AssertionError(f"the SMPL-IK step on the card disagrees with the CPU in {dtype}")
+
+
+def smpl_train_phase(smi: str) -> None:
+    """SMPL_STEPS steps of ``make_hybrik_train_step`` at full width (ResNet-50,
+    depth 64, 256^2, B = SMPL_B, bf16 over f32 weights, Adam SMPL_LR) on one
+    fixed batch and dropout seed: finite, the mean of the last three below
+    the first; the step's times, launches, peak memory and device time by
+    kind."""
+    model = smpl_pose_model(seed=SEED + 83)
+    state = create_train_state(model, lr=SMPL_LR, optimizer="adam", apply=bf16_apply)
+    rng = np.random.default_rng(SEED + 84)
+    x = direct_frames(SMPL_B, SEED + 85)
+    cam = smpl_cams(SMPL_B, "cuda")
+    uvd_gt = torch.from_numpy(rng.uniform(-0.4, 0.4, (SMPL_B, 29, 3)).astype(np.float32)).cuda()
+    xyz_gt = torch.from_numpy(rng.uniform(-0.3, 0.3, (SMPL_B, 17, 3)).astype(np.float32)).cuda()
+    step = make_hybrik_train_step()
+    run = lambda: step(state, x, cam, uvd_gt, xyz_gt, SEED + 86)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    losses = [run()["loss"].item() for _ in range(SMPL_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"SMPL-IK train B={SMPL_B} (resnet50, depth 64, {DIRECT_SIZE}^2, bf16 over f32, Adam "
+        f"{SMPL_LR}): {SMPL_STEPS} steps on one batch, loss " + ", ".join(f"{v:.5g}" for v in losses)
+        + f"; peak device memory {peak:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses) or not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError("the SMPL-IK training loss did not fall")
+    ms = cuda_ms(run, n=3)
+    split, launches = device_profile(run, n=2)
+    busy = sum(split.values())
+    log(f"time SMPL-IK train step B={SMPL_B} ({smi}): {ms:.4f} ms (CUDA events) = "
+        f"{SMPL_B / ms * 1e3:.1f} frames/s; device {busy:.4f} ms, busy {busy / ms:.1%}; "
+        f"{launches:.0f} kernel launches a step; by kind: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in by_kind(split, SMPL_KINDS).items())
+        + "; top: " + top_kernels(split, 10))
+    del state, model
+    torch.cuda.empty_cache()
+
+
+def smpl_phase() -> None:
+    """Phase 27: the SMPL functions and HybrIK on the card, the SMPL-IK
+    forward and train step; none of the 18 records' wrappers launched."""
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    for f in wrappers:
+        f.launches = 0
+    smpl_function_check()
+    smpl_forward_phase(smi)
+    smpl_step_check()
+    smpl_train_phase(smi)
+    made = {f.__name__: f.launches for f in wrappers if f.launches}
+    log(f"phase 27 launches of the 18 kernel records' wrappers (counts from 0): {made or 0}")
+    if made:
+        raise AssertionError("the SMPL-IK path launched a kernel of the records")
+    log(f"phase 27 (SMPL, HybrIK, the SMPL-IK model): {time.perf_counter() - t0:.1f} s")
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
@@ -3162,6 +3490,7 @@ def main() -> None:
     for k, n in video_phase().items():
         tlaunches[k] += n
     loop_phase()
+    smpl_phase()
     bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -3273,6 +3602,10 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         loop_phase()
+    elif sys.argv[1:] == ["--smpl"]:  # SMPL, HybrIK and the SMPL-IK model alone
+        device_phase()
+        build_phase()
+        smpl_phase()
     elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
         device_phase()
         build_phase()

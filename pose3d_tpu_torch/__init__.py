@@ -7,8 +7,9 @@ a ported path becomes a CUDA kernel written by hand for ``sm_90a``
 
 Ported so far: the lifter serving path (all three lifter families), the
 temporal serving path, temporal training, the direct image->3D forward
-and training, and the phase-1 lifter trainer with the Human3.6M keypoint
-reader and the predict CLI.
+and training, the phase-1 lifter trainer with the Human3.6M keypoint
+reader and the predict CLI, the video pipeline, the phase-5 trainers, and
+the SMPL-IK family with the renders.
 
 - ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
   ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
@@ -29,6 +30,11 @@ reader and the predict CLI.
   ``train/epoch.py``, the direct model's steps in ``train/image_steps.py``,
   the Human3.6M reader in ``data/h36m.py``, the pose transforms in
   ``core/transforms.py``).
+- ``models/smpl.py``, ``models/hybrik.py``, ``models/smpl_pose.py`` the
+  SMPL body, HybrIK inverse kinematics, ``PoseSMPLNet`` and
+  ``HybrIKPose``; ``train/smpl_steps.py`` its train step;
+  ``core/affine.py`` the crop geometry.
+- ``utils/visualize.py`` the renders (matplotlib, imported inside).
 - ``cli/predict.py``     2D keypoints -> 3D with a trained checkpoint.
 - ``pipeline/lift.py``   ``lift_sequence``: video -> 3D.
 - ``serving.py``         ``LifterService``: bucketed batch inference.

@@ -13,9 +13,11 @@ The statistics of the training split go under
 ``<log_dir>/run_time_utils``.
 
 Each epoch's batch stack is on the device, and the host reads the
-metrics once an epoch (``train/epoch.py``). The JAX trainer's end-of-run
-renders of validation poses (``utils/visualize.py``) are not ported yet:
-this trainer draws no picture.
+metrics once an epoch (``train/epoch.py``). At the end, the first and
+the last pose of the first validation batch, ground truth against
+prediction, go to ``<log_dir>/visualizations/<run>/3d_test_{a,b}.png``
+(``utils/visualize.py``); where they cannot be drawn (no matplotlib on
+the host) the trainer says so and carries on.
 
 Usage:
   python -m pose3d_tpu_torch.cli.train_lift --run_name my_run --n_epochs 50
@@ -131,9 +133,29 @@ def train(cfg: LiftConfig):
 
     path = ckpt.save(state, cfg.log_dir, cfg.run_name, batch_size=cfg.batch_size,
                      extra={"model": cfg.model})
+    _save_visualizations(cfg, state, vy1, vy2)
     logger.finish()
     print(f"saved {path}")
     return state
+
+
+def _save_visualizations(cfg: LiftConfig, state, vy1, vy2) -> None:
+    """The end-of-run renders (train_1.py:159-184): the first and last
+    samples of the first validation batch, ground truth against the eval
+    prediction, into ``<log_dir>/visualizations/<run>/``."""
+    try:
+        from pose3d_tpu_torch.utils.visualize import visualize_3d
+
+        state.model.eval()
+        with torch.no_grad():
+            pred = state.apply(state.model, vy1[0])
+        pred = pred.reshape(-1, vy2.shape[-2], 3).cpu().numpy()
+        gt = vy2[0].cpu().numpy()
+        out_dir = pathlib.Path(cfg.log_dir) / "visualizations" / cfg.run_name
+        visualize_3d(gt[0], pred[0], out_dir / "3d_test_a.png")
+        visualize_3d(gt[-1], pred[-1], out_dir / "3d_test_b.png")
+    except Exception as e:  # a render must never end a training run
+        print(f"visualization skipped: {e}")
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 The counterpart of ``pose3d_tpu/interop/torch_weights.py``'s
 ``vit_lifter_to_torch``, ``martinez_to_torch``, ``ae_to_torch``,
 ``resnet_to_torch``, ``posenet3d_to_torch``, ``posenet2d_to_torch`` and
-``projection_to_torch``, written with numpy alone
+``projection_to_torch``, and of ``pose_smpl_net_from_flax`` (the JAX
+package has no export of ``PoseSMPLNet``), written with numpy alone
 so that the port needs no JAX: a flax ``Dense`` kernel is (in, out) and a
 torch ``Linear`` weight (out, in), so kernels are transposed; a flax
 ``Conv`` kernel is (kH, kW, in, out) and a torch ``Conv2d`` weight (out,
@@ -278,4 +279,17 @@ def projection_mlp_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
         _dense(params[f"Dense_{i}"], linear, sd)
         _batch_norm(params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"], bn, sd)
     _dense(params["Dense_3"], "mlp.13", sd)
+    return sd
+
+
+def pose_smpl_net_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """``PoseSMPLNet`` flax params and batch_stats -> the port's
+    ``PoseSMPLNet`` state dict (the reference ``Simple3DPoseBaseSMPL``
+    keys): ``backbone`` and ``head`` as ``posenet3d_from_flax`` maps them
+    (``preact.``, ``deconv_layers.{3i, 3i+1}``, ``final_layer``, here to 29
+    x 64 channels), and the Dense layers ``fc1``, ``fc2``, ``decshape`` and
+    ``decphi`` to the Linear layers of the same names, kernels transposed."""
+    sd = posenet3d_from_flax(params, batch_stats)
+    for name in ("fc1", "fc2", "decshape", "decphi"):
+        _dense(params[name], name, sd)
     return sd

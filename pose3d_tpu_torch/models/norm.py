@@ -20,6 +20,19 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch's convention; flax's 0.9 in the JAX package
 
 
+def keep_f32(fn):
+    """``fn``, a tensor map of ``Module._apply``, except that where it would
+    narrow a floating tensor below f32 the tensor is only moved, and stays
+    f32 (so it is never rounded)."""
+    def apply(t):
+        out = fn(t)
+        if out.is_floating_point() and torch.finfo(out.dtype).bits < 32:
+            out = t.to(device=out.device, dtype=torch.float32)
+        return out
+
+    return apply
+
+
 class _F32Norm:
     """The f32 behaviour shared by both BatchNorms.
 
@@ -36,13 +49,7 @@ class _F32Norm:
     """
 
     def _apply(self, fn, recurse=True):
-        def keep_f32(t):
-            out = fn(t)
-            if out.is_floating_point() and torch.finfo(out.dtype).bits < 32:
-                out = t.to(device=out.device, dtype=torch.float32)
-            return out
-
-        return super()._apply(keep_f32, recurse)
+        return super()._apply(keep_f32(fn), recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype in (torch.bfloat16, torch.float16):

@@ -13,11 +13,15 @@ lifter computes in bf16, so ``lift_video_json`` takes the kernels
 (``ops/stblock.py`` for clips of 243 frames, ``ops/attention.py`` for a
 shorter video). Checkpoints are the port's ``torch.save`` ones
 (``train/checkpoint.py``); a missing one gives a fresh init from seed 0.
+``--render`` draws the detections over the frames into
+``opp_2d_frames/<video>/out.mp4`` and, where poses were lifted, the 3D
+skeletons into ``MB_3d_frames/<video>/out.mp4`` (``utils/visualize.py``;
+needs matplotlib and cv2).
 
 Usage:
   python -m pose3d_tpu_torch.pipeline.run --video my.mp4 --root ./videos \\
       --detector posenet2d --detector_checkpoint det_run \\
-      --lifter_checkpoint temporal_run --fps 10 [--cpu]
+      --lifter_checkpoint temporal_run --fps 10 [--render] [--cpu]
 """
 
 from __future__ import annotations
@@ -44,12 +48,9 @@ def process_video(video: str, root, detector, lifter=None, fps: float = 10.0,
     """Run the stages for one video under ``root``: extract the frames of
     ``raw_videos/<video>`` where it exists (else read them from
     ``ffmpeg_frames/<video>/``), detect, merge, and lift with ``lifter`` (a
-    ``TemporalLifter`` on its device) where one is given. Returns the
-    (T, 17, 3) poses, or None without a lifter."""
-    if render:
-        raise NotImplementedError(
-            "render: the 2D and 3D videos need utils/visualize.py (matplotlib), which the "
-            "port does not have yet (ROADMAP.md §1 item 8)")
+    ``TemporalLifter`` on its device) where one is given; with ``render``,
+    the 2D and 3D videos. Returns the (T, 17, 3) poses, or None without a
+    lifter."""
     root = pathlib.Path(root)
     frames_dir = root / "ffmpeg_frames" / video
     jsons_dir = root / "opp_outputs" / video / "jsons_force"
@@ -70,6 +71,17 @@ def process_video(video: str, root, detector, lifter=None, fps: float = 10.0,
     if lifter is not None:
         poses = lift_video_json(lifter, final_json, npy_out)
         print(f"lifted: {poses.shape} -> {npy_out}")
+
+    if render:
+        from pose3d_tpu_torch.utils.visualize import render_2d_video, render_3d_video
+
+        render_2d_video(final_json, frames_dir, root / "opp_2d_frames" / video / "out.mp4", fps)
+        if poses is not None:
+            # the reference's display convention (run.py:305-352): camera ->
+            # global by the S1 camera-2 quaternion (:312-316, :336), then
+            # x2.8 (:343); no root-centring (commented out there, :339-341)
+            render_3d_video(poses, root / "MB_3d_frames" / video / "out.mp4", fps, scale=2.8,
+                            to_global=True)
     return poses
 
 
@@ -120,7 +132,7 @@ def main(argv=None):
     p.add_argument("--log_dir", default="./logs")
     p.add_argument("--fps", type=float, default=10.0)
     p.add_argument("--render", action="store_true",
-                   help="not ported yet: raises NotImplementedError")
+                   help="render the 2D detections and the 3D poses to mp4s")
     args = p.parse_args(argv)
     device = torch.device("cpu" if args.cpu else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():

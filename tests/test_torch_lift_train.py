@@ -1,7 +1,9 @@
 """The port's phase-1 training stack against the JAX package's, on the
 CPU: the lifter train and eval steps (``pose3d_tpu_torch/train/
 steps.py``, flip test-time augmentation included), the whole-epoch
-functions (``train/epoch.py``), the trainer CLI (``cli/train_lift.py``),
+functions (``train/epoch.py``), the trainer CLI (``cli/train_lift.py``,
+its end-of-run renders byte for byte JAX's), the metric logger's wandb
+mirror (``train/logging.py``, a fake ``wandb`` module),
 the configs (``config.py``), ``load_torch_resnet`` (``models/resnet.py``)
 and the debug hooks (``train/debug.py``).
 
@@ -311,6 +313,118 @@ def test_cli_reads_a_human36m_tree(tmp_path):
     assert sorted(p.name for p in (tmp_path / "run_time_utils").iterdir()) == [
         "max_train_3d.npy", "mean_train_2d.npy", "mean_train_3d.npy", "min_train_3d.npy",
         "std_train_2d.npy", "std_train_3d.npy"]
+
+
+def test_cli_renders_the_validation_poses_as_jax_draws_them(tmp_path, monkeypatch):
+    """The end-of-run renders: ``3d_test_a.png`` and ``3d_test_b.png``, the
+    first and last pose of the first validation batch, ground truth against
+    prediction, byte for byte JAX's ``visualize_3d`` of the same poses."""
+    from pose3d_tpu.utils.visualize import visualize_3d as jax_visualize_3d
+
+    from pose3d_tpu_torch.utils import visualize
+
+    drawn = []
+    port_visualize_3d = visualize.visualize_3d
+
+    def recording(gt, pred, path):
+        drawn.append((gt, pred, path))
+        port_visualize_3d(gt, pred, path)
+
+    monkeypatch.setattr(visualize, "visualize_3d", recording)
+    state = cli.train(_cfg(tmp_path, n_epochs=1))
+    out = tmp_path / "visualizations" / "l"
+    assert [p for _, _, p in drawn] == [out / "3d_test_a.png", out / "3d_test_b.png"]
+    vy1, vy2 = (torch.from_numpy(a) for a in cli.stack_batches(
+        (cli.load_split(_cfg(tmp_path), False).kp2d, cli.load_split(_cfg(tmp_path), False).kp3d),
+        64))
+    with torch.no_grad():
+        pred = state.model.eval()(vy1[0]).reshape(64, 17, 3).numpy()
+    for (gt, p, path), i in zip(drawn, (0, -1)):
+        np.testing.assert_array_equal(gt, vy2[0][i].numpy())
+        np.testing.assert_array_equal(p, pred[i])
+        jax_visualize_3d(gt, p, tmp_path / "jax.png")
+        assert path.read_bytes() == (tmp_path / "jax.png").read_bytes()
+
+
+def test_cli_carries_on_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """A host without matplotlib (the GPU host) trains, saves and says that
+    it drew nothing."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    cli.train(_cfg(tmp_path, n_epochs=1))
+    assert "visualization skipped:" in capsys.readouterr().out
+    assert ckpt.exists(tmp_path, "l") and not (tmp_path / "visualizations" / "l").exists()
+
+
+class _FakeWandb:
+    """What the logger calls of wandb, recorded."""
+
+    def __init__(self, fail_init=False):
+        self.calls, self.fail_init = [], fail_init
+
+    def init(self, **kw):
+        if self.fail_init:
+            raise RuntimeError("no network")
+        self.calls.append(("init", kw))
+
+    def log(self, record):
+        self.calls.append(("log", record))
+
+    def finish(self):
+        self.calls.append(("finish",))
+
+
+def _log_run(logger_cls, log_dir, **kw):
+    logger = logger_cls(log_dir, "run", config={"lr": 1e-3}, **kw)
+    logger.log_epoch(0, 2, 0.5, 120.0, 0.25, 130.0, lr=1e-3)
+    logger.finish()
+
+
+def test_metric_logger_mirrors_to_wandb_as_jax_does(tmp_path, monkeypatch):
+    """``WANDB=1`` with a (fake) wandb importable: the JAX logger's calls,
+    the reference's keys (the val MPJPE key's leading space kept)."""
+    import sys
+
+    from pose3d_tpu.train.logging import MetricLogger as JaxLogger
+
+    from pose3d_tpu_torch.train.logging import MetricLogger
+
+    monkeypatch.setenv("WANDB", "1")
+    calls = {}
+    for name, cls in (("port", MetricLogger), ("jax", JaxLogger)):
+        fake = _FakeWandb()
+        monkeypatch.setitem(sys.modules, "wandb", fake)
+        _log_run(cls, tmp_path / name)
+        calls[name] = fake.calls
+    assert calls["port"] == calls["jax"]
+    assert calls["port"][1] == ("log", {"loss(train)": 0.5, "loss(val.)": 0.25,
+                                        "MPJPE(train)": 120.0, " MPJPE(val.)": 130.0})
+    assert MetricLogger.WANDB_KEYS == JaxLogger.WANDB_KEYS
+
+
+def test_metric_logger_runs_without_wandb(tmp_path, monkeypatch, capsys):
+    """No ``WANDB=1``: no call; ``WANDB=1`` where wandb does not import or
+    its init fails: the run goes on without the mirror, the JSONL complete."""
+    import sys
+
+    from pose3d_tpu_torch.train.logging import MetricLogger
+
+    fake = _FakeWandb()
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    monkeypatch.delenv("WANDB", raising=False)
+    _log_run(MetricLogger, tmp_path / "off")
+    assert fake.calls == []
+    _log_run(MetricLogger, tmp_path / "asked", use_wandb=True)
+    assert [c[0] for c in fake.calls] == ["init", "log", "finish"]
+    monkeypatch.setenv("WANDB", "1")
+    for i, module in enumerate((None, _FakeWandb(fail_init=True))):
+        monkeypatch.setitem(sys.modules, "wandb", module)
+        _log_run(MetricLogger, tmp_path / f"failed{i}")
+        records = (tmp_path / f"failed{i}" / "runs" / "run.jsonl").read_text().splitlines()
+        assert [json.loads(r).get("event", "epoch") for r in records] == ["config", "epoch",
+                                                                        "finish"]
+    assert capsys.readouterr().out.count("wandb mirror off") == 2
 
 
 def test_cli_needs_cuda_unless_asked_for_the_cpu(tmp_path):

@@ -23,11 +23,14 @@ Tolerances:
 - ``process_video`` with ``MockDetector`` and a small f32
   ``TemporalLifter`` (clip 8, hidden 32, 1 block, 2 heads, weights by
   ``temporal_lifter_from_flax``) vs JAX's: poses and the saved npy atol
-  1e-4 (PERF.md §2's f32 limit);
+  1e-4 (PERF.md §2's f32 limit); with ``render`` its 3D video equals, byte
+  for byte, JAX's ``render_3d_video`` on the same poses with the
+  reference's display convention;
 - ``run.main`` with ``--cpu --detector posenet2d`` on port checkpoints: the
   JAX layout, the npy bitwise equal to ``lift_video_json`` on the run's own
   JSON with the same lifter, and a missing checkpoint giving a fresh init
-  with JAX's messages; ``--render`` raises NotImplementedError;
+  with JAX's messages; ``--render`` writes the 2D and the 3D videos, one
+  frame a video frame;
 - ``OpenPifPafDetector`` against a stub ``openpifpaf.predict`` on
   ``PYTHONPATH``: one process sees every frame and JAX's flags, the same
   argument list as the JAX detector's.
@@ -305,8 +308,16 @@ def test_process_video_matches_jax(mp4, tmp_path):
     assert np.abs(want).max() > 0.1
     # without a lifter: detections only, as in JAX
     assert run_lib.process_video("clip.mp4", root, MockDetector(), fps=100) is None
-    with pytest.raises(NotImplementedError, match="visualize"):
-        run_lib.process_video("clip.mp4", root, MockDetector(), model, fps=100, render=True)
+    # with the renders: the 2D and 3D videos, one frame a frame; the 3D one
+    # is JAX's render of the same poses (S1 camera 2 to global, x2.8)
+    from pose3d_tpu.utils.visualize import render_3d_video
+
+    got = run_lib.process_video("clip.mp4", root, MockDetector(), model, fps=100, render=True)
+    out2d = root / "opp_2d_frames" / "clip.mp4" / "out.mp4"
+    out3d = root / "MB_3d_frames" / "clip.mp4" / "out.mp4"
+    assert len(list(video_lib.iter_frames(out2d))) == len(list(video_lib.iter_frames(out3d))) == 12
+    render_3d_video(got, tmp_path / "jax3d.mp4", 100, scale=2.8, to_global=True)
+    assert out3d.read_bytes() == (tmp_path / "jax3d.mp4").read_bytes()
     with pytest.raises(FileNotFoundError, match="no frames"):
         run_lib.process_video("other.mp4", root, MockDetector())
 
@@ -350,8 +361,11 @@ def test_run_main_posenet2d_on_port_checkpoints(mp4, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "detector checkpoint nope not found; using fresh init" in out
     assert "lifter checkpoint not found; using fresh init" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_lib.main(argv[:2] + ["--root", str(root), "--cpu", "--render"])
+    # --render with the mock detector and the lifter: both videos
+    run_lib.main(argv[:2] + ["--root", str(root), "--cpu", "--render", "--log_dir", str(logs),
+                             "--lifter_checkpoint", "lift"])
+    for video in ("opp_2d_frames", "MB_3d_frames"):
+        assert len(list(video_lib.iter_frames(root / video / "clip.mp4" / "out.mp4"))) == 12
 
 
 def test_run_main_defaults_to_the_card(mp4):

@@ -2,8 +2,8 @@
 
 - ``pose3d_tpu_torch`` runs where JAX is absent: importing it pulls in no
   ``jax``, ``flax`` or ``pose3d_tpu`` (checked in a fresh interpreter,
-  since ``tests/conftest.py`` imports JAX into this one), and no ``cv2``,
-  which the GPU host lacks.
+  since ``tests/conftest.py`` imports JAX into this one), and no ``cv2``
+  or ``matplotlib``, which the GPU host lacks.
 - Its kernels are built from the repository's own CUDA sources with
   ``nvcc`` for ``sm_90a`` and bound through ctypes, call no kernel
   library, and every launcher reports CUDA errors to the caller.
@@ -52,6 +52,10 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch.data.native_loader, pose3d_tpu_torch.data.native_video\n"
         "import pose3d_tpu_torch.train.loop_steps, pose3d_tpu_torch.cli.train_loop\n"
         "import pose3d_tpu_torch.cli.train_detector, pose3d_tpu_torch.cli.train_project\n"
+        "import pose3d_tpu_torch.core.affine, pose3d_tpu_torch.models.smpl\n"
+        "import pose3d_tpu_torch.models.hybrik, pose3d_tpu_torch.models.smpl_pose\n"
+        "import pose3d_tpu_torch.train.smpl_steps, pose3d_tpu_torch.utils\n"
+        "import pose3d_tpu_torch.utils.visualize\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
         "print('cv2' in sys.modules)\n"
@@ -63,6 +67,21 @@ def test_import_pulls_in_no_jax():
     assert bad == "", f"imported: {bad}"
     # the GPU host has no OpenCV: only the functions that decode import it
     assert cv2 == "False"
+
+
+def test_renders_import_no_matplotlib():
+    """The GPU host has no matplotlib: ``utils/visualize.py``, the pipeline
+    entry point and the phase-1 trainer (which import the renders only to
+    draw) load none of it, nor cv2."""
+    code = ("import sys\n"
+            "import pose3d_tpu_torch.utils.visualize, pose3d_tpu_torch.pipeline.run\n"
+            "import pose3d_tpu_torch.cli.train_lift, pose3d_tpu_torch.train.logging\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('matplotlib', 'cv2', 'wandb')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def test_pipeline_entry_point_imports_neither_jax_nor_cv2():

@@ -184,6 +184,32 @@ def torch_posenet2d(params, batch_stats, dtype=torch.float32, device="cpu", **fi
     return model.eval()
 
 
+@functools.cache
+def flax_pose_smpl_net(architecture: str = "resnet18", seed: int = 0, final_scale: float = 64.0,
+                       depth: int = 8):
+    """(params, batch_stats) of a flax ``PoseSMPLNet`` (29 joints, volume
+    depth ``depth``), as numpy, cached per process
+    (``_seeded_image_model``): at the init's scale the uvd sit within ~0.1
+    of 0 (std 0.015 at ResNet-18, 64 x 64, depth 8); x64 on the final conv
+    spreads them (std 0.13). Callers must not modify the trees."""
+    pytest.importorskip("jax")
+    from pose3d_tpu.models.smpl_pose import PoseSMPLNet
+
+    return _seeded_image_model(PoseSMPLNet(architecture=architecture, depth=depth), seed,
+                               final_scale)
+
+
+def torch_pose_smpl_net(params, batch_stats, dtype=torch.float32, device="cpu", **fields):
+    """The port's PoseSMPLNet at ``fields``, holding the flax ``params`` and
+    ``batch_stats``, in eval mode."""
+    from pose3d_tpu_torch.interop.weights import pose_smpl_net_from_flax
+    from pose3d_tpu_torch.models.smpl_pose import PoseSMPLNet
+
+    model = PoseSMPLNet(**fields, device=device, dtype=dtype)
+    model.load_state_dict(pose_smpl_net_from_flax(params, batch_stats), strict=True)
+    return model.eval()
+
+
 def flax_posenet_apply(model, params, batch_stats, x):
     """A flax PoseNet3D's inference under one jit per module: (coords,
     heatmap or None) as numpy."""
