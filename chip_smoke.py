@@ -325,6 +325,31 @@ is cuSOLVER's):
     wrappers launched (counts from 0). ``python3 chip_smoke.py --smpl``
     runs this phase alone, after phases 1-2.
 
+The data-parallel layer (``parallel/mesh.py``, the DP steps, global
+BatchNorm, ``LifterService(mesh=)``) on the one card:
+
+28. a world of one ``nccl`` rank in this process, every collective real:
+    the DP fused temporal step (16 clips x 243, rows 8a-9b), the fused DP
+    direct step (ResNet-50, B = 64, 256^2, rows 13a/13b, cuDNN's
+    deterministic algorithms) and ``LifterService(mesh=)`` at N = 8192
+    and 10000 (row 1), each bitwise equal to its one-process counterpart
+    on the same inputs from copies of one model (a sum over one rank and a
+    division by 1 are exact), with the counts set to 0 before each; times
+    (CUDA events) of each step beside its one-process step (the direct
+    steps' device time too, torch.profiler), the ``pmean_`` of its
+    gradients and their flat ``all_reduce`` alone, the service host to
+    host. Then two ``gloo`` ranks spawned on cuda:0
+    (``nccl`` takes one device a rank): the DP fused temporal step, 8
+    clips a rank, against the one-process 16-clip step (loss rtol 1e-2,
+    each gradient relative L2 <= 5e-2), and the global-BN direct step in
+    float64 (ResNet-18, 64^2, B = 8, rank 0's frames brightened) against
+    the one-process step on the global batch (loss and MPJPE sums rtol
+    1e-10, parameters atol 1e-8, running statistics 1e-10); the ranks'
+    parameters bitwise equal; each step timed on its rank (two processes
+    sharing one GPU, not a scaling figure). Its launches add to the
+    records' counts. ``python3 chip_smoke.py --dp`` runs this phase alone,
+    after phases 1-2. A run over several GPUs is not verified here.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
 peak, or for the soft-argmax and its backward their f32 operations over
@@ -332,7 +357,8 @@ the 67 TFLOP/s f32 peak, and its bytes, each input read once and each
 output written once, over 3.35 TB/s), then as the last line
 ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result. Imports torch, numpy
-and ``pose3d_tpu_torch`` only.
+and ``pose3d_tpu_torch`` only; phase 28's ranks are spawned processes of
+this script, ended by the phase.
 """
 
 from __future__ import annotations
@@ -341,6 +367,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -351,6 +378,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import pose3d_tpu_torch
 from pose3d_tpu_torch.cli import (predict, train_detector, train_direct, train_lift, train_loop,
@@ -376,6 +404,7 @@ from pose3d_tpu_torch.ops import martinez as Mz
 from pose3d_tpu_torch.ops import softargmax as SA
 from pose3d_tpu_torch.ops import stblock as S
 from pose3d_tpu_torch.ops import stblock_train as ST
+from pose3d_tpu_torch.parallel import mesh as PM
 from pose3d_tpu_torch.pipeline import run as video_run
 from pose3d_tpu_torch.pipeline.detector import PoseNet2DDetector, write_predictions
 from pose3d_tpu_torch.pipeline.keypoints import load_video_json, save_to_json
@@ -387,11 +416,12 @@ from pose3d_tpu_torch.train.epoch import make_lifter_epoch_fn, stack_batches
 from pose3d_tpu_torch.train.image_steps import (bf16_apply, make_detector_chunk_step,
                                                 make_detector_eval_step,
                                                 make_direct_eval_chunk_step,
-                                                make_direct_eval_step, make_direct_train_step)
+                                                make_direct_eval_step, make_direct_train_step,
+                                                make_dp_direct_train_step)
 from pose3d_tpu_torch.train.loop_steps import LoopState, freeze, make_loop_train_step
 from pose3d_tpu_torch.train.smpl_steps import make_hybrik_train_step
 from pose3d_tpu_torch.train.state import create_train_state
-from pose3d_tpu_torch.train.steps import make_lifter_train_step
+from pose3d_tpu_torch.train.steps import make_dp_lifter_train_step, make_lifter_train_step
 
 SEED = 0
 TOP = 8192
@@ -3361,6 +3391,339 @@ def smpl_phase() -> None:
     log(f"phase 27 (SMPL, HybrIK, the SMPL-IK model): {time.perf_counter() - t0:.1f} s")
 
 
+# --- data parallelism (parallel/mesh.py) ------------------------------------
+
+DP_RANK_CLIPS = TRAIN_CLIPS // 2  # the 2-rank temporal step: 8 clips a rank
+DP_BN_B, DP_BN_SIZE = 8, 64       # the 2-rank global-BN direct step: ResNet-18, float64
+DP_BN_ARCH = "resnet18"
+DP_TIMED = 5                      # steps a timed run in the DP phase
+DP_DEADLINE_S = 300               # the 2-rank phase's ranks, at most
+DP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A world of one ``nccl`` rank in this process, its mesh yielded: every
+    collective is real, over one rank; the group and the environment are
+    gone after."""
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(_free_port()))
+    try:
+        device = PM.init_distributed("nccl", device_type="cuda")
+        if device != torch.device("cuda", 0):
+            raise AssertionError(f"the rank's device is {device}")
+        yield PM.make_mesh()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in DP_ENV:
+            os.environ.pop(k, None)
+
+
+def _differ(a: dict, b: dict) -> list[str]:
+    """Names whose tensors are not bitwise equal."""
+    return [k for k, v in a.items() if not torch.equal(v, b[k])]
+
+
+def _counts(wrappers) -> dict:
+    return {f.__name__: f.launches for f in wrappers}
+
+
+def _reset(wrappers) -> None:
+    for f in wrappers:
+        f.launches = 0
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _pmean_ms(model, mesh) -> tuple[float, float, int]:
+    """(ms of ``pmean_`` over the model's gradients, ms of the bare
+    ``all_reduce`` of one flat buffer of them, its bytes)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    group = PM.data_group(mesh)
+    return (cuda_ms(lambda: PM.pmean_(grads, mesh)),
+            cuda_ms(lambda: dist.all_reduce(flat, group=group)),
+            flat.numel() * flat.element_size())
+
+
+def dp_one_rank_phase(mesh) -> tuple[dict, dict]:
+    """One ``nccl`` rank: each DP entry point against its one-process
+    counterpart on the same inputs from copies of one model, bitwise (a sum
+    over one rank and a division by 1 are exact): the DP fused temporal
+    step (TRAIN_CLIPS x 243, rows 8a-9b), the fused DP direct step
+    (ResNet-50, B = DIRECT_B, 256^2, rows 13a/13b; cuDNN's deterministic
+    algorithms, so the two runs of the one step agree), and
+    ``LifterService(mesh=)`` at B = TOP and 10000 (row 1). Each DP run with
+    the counts set to 0 before it. Returns (launches, times)."""
+    import copy
+
+    launches, t = {}, {}
+    model = seeded_train_model()
+    twin = copy.deepcopy(model)
+    y1, y2 = synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 90)
+    one_state = create_train_state(model, lr=TRAIN_LR, apply=ST.temporal_train_forward_fused)
+    dp_state = create_train_state(twin, lr=TRAIN_LR, apply=ST.temporal_train_forward_fused)
+    one, dp = make_lifter_train_step("mse"), make_dp_lifter_train_step(mesh, "mse")
+    m1 = one(one_state, y1, y2)
+    _reset(ST.WRAPPERS)
+    m2 = dp(dp_state, y1, y2)
+    launches.update(_counts(TRAIN_WRAPPERS))
+    bad = (_differ(_grads(model), _grads(twin)) + _differ(model.state_dict(), twin.state_dict())
+           + _differ(m1, m2))
+    log(f"dp 1 rank temporal step C={TRAIN_CLIPS}: loss {m2['loss'].item():.8g}, "
+        f"launches {launches}; bitwise the one-process step: {not bad}")
+    if bad or launches != {f.__name__: 5 for f in TRAIN_WRAPPERS}:
+        raise AssertionError(f"the one-rank DP temporal step differs: {bad[:5]}")
+    t["temporal_one"] = cuda_ms(lambda: one(one_state, y1, y2), n=DP_TIMED)
+    t["temporal_dp"] = cuda_ms(lambda: dp(dp_state, y1, y2), n=DP_TIMED)
+    t["temporal_pmean"], t["temporal_allreduce"], nbytes = _pmean_ms(twin, mesh)
+    log(f"time dp 1 rank temporal step C={TRAIN_CLIPS}: one process {t['temporal_one']:.4f} ms, "
+        f"DP {t['temporal_dp']:.4f} ms; pmean_ of the gradients {t['temporal_pmean']:.4f} ms, "
+        f"its flat all_reduce alone {t['temporal_allreduce']:.4f} ms ({nbytes} bytes)")
+    del model, twin, one_state, dp_state
+    torch.cuda.empty_cache()
+
+    flags, wrappers = DIRECT_TRAIN_ROUTES["fused"]
+    model = seeded_train_posenet(**flags)
+    twin = copy.deepcopy(model)
+    frames, kp3d = direct_train_batch(SEED + 91)
+    one_state, dp_state = (create_train_state(m, lr=DIRECT_LR, optimizer="adam",
+                                              weight_decay=DIRECT_WD, apply=bf16_apply)
+                           for m in (model, twin))
+    one, dp = make_direct_train_step("mse"), make_dp_direct_train_step(mesh, "mse")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        m1 = one(one_state, frames, kp3d)
+        _reset(DECODE_WRAPPERS)
+        m2 = dp(dp_state, frames, kp3d)
+        made = _counts(wrappers)
+        bad = (_differ(_grads(model), _grads(twin))
+               + _differ(model.state_dict(), twin.state_dict()) + _differ(m1, m2))
+        log(f"dp 1 rank direct fused step B={DIRECT_B}: loss {m2['loss'].item():.8g}, launches "
+            f"{made}; bitwise the one-process step: {not bad}")
+        if bad or made != {f.__name__: 1 for f in wrappers}:
+            raise AssertionError(f"the one-rank DP direct step differs: {bad[:5]}")
+        launches.update(made)
+        t["direct_one"] = cuda_ms(lambda: one(one_state, frames, kp3d), n=DP_TIMED)
+        t["direct_dp"] = cuda_ms(lambda: dp(dp_state, frames, kp3d), n=DP_TIMED)
+        # device time: does the DP step's extra time run on the card?
+        busy = {k: sum(device_ms_by_kernel(fn, n=DP_TIMED).values()) for k, fn in (
+            ("one", lambda: one(one_state, frames, kp3d)),
+            ("dp", lambda: dp(dp_state, frames, kp3d)))}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    t["direct_pmean"], t["direct_allreduce"], nbytes = _pmean_ms(twin, mesh)
+    log(f"time dp 1 rank direct fused step B={DIRECT_B} (cuDNN deterministic): one process "
+        f"{t['direct_one']:.4f} ms ({busy['one']:.4f} of device time), DP "
+        f"{t['direct_dp']:.4f} ms ({busy['dp']:.4f}); pmean_ of the gradients "
+        f"{t['direct_pmean']:.4f} ms, its flat all_reduce alone {t['direct_allreduce']:.4f} ms "
+        f"({nbytes} bytes)")
+    del model, twin, one_state, dp_state
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        vit = seeded_model("cuda", torch.bfloat16)
+        svc = LifterService(vit, None, device="cuda", max_batch=TOP).warmup()
+        svc_dp = LifterService(vit, None, device="cuda", max_batch=TOP, mesh=mesh).warmup()
+        if not svc_dp.fused or svc_dp.buckets != svc.buckets:
+            raise AssertionError("the DP service left the trunk route or its buckets")
+        rng = np.random.default_rng(SEED + 92)
+        requests = [rng.random((n, 17, 2)).astype(np.float32) for n in (TOP, 10000)]
+        L.trunk.launches = 0
+        answers = [svc_dp.lift(kp) for kp in requests]
+        launches["trunk"] = L.trunk.launches
+        same = all(np.array_equal(a, svc.lift(kp)) for a, kp in zip(answers, requests))
+        log(f"dp 1 rank LifterService N={TOP}, 10000: trunk launches {launches['trunk']} "
+            f"(expected 3); bitwise the one-process service: {same}")
+        if not same or launches["trunk"] != 3:
+            raise AssertionError("the one-rank DP service differs")
+        kp = requests[0]
+        t["serve_one"] = cuda_ms(lambda: svc.lift(kp))
+        t["serve_dp"] = cuda_ms(lambda: svc_dp.lift(kp))
+        full = torch.zeros((TOP, 51), device="cuda")
+        t["serve_allreduce"] = cuda_ms(lambda: dist.all_reduce(full, group=PM.data_group(mesh)))
+    log(f"time dp 1 rank LifterService.lift N={TOP} host to host: one process "
+        f"{t['serve_one']:.4f} ms, DP {t['serve_dp']:.4f} ms; the answer's all_reduce "
+        f"({TOP} x 51 f32) {t['serve_allreduce']:.4f} ms")
+    return launches, t
+
+
+def dp_bn_model(dtype=torch.float64):
+    """The DP_BN_ARCH PoseNet3D on the NHWC route from the seed (final conv
+    x FINAL_SCALE), on the card in ``dtype``, and its batch: DP_BN_B
+    synthetic frames of DP_BN_SIZE^2, the first half brightened (each
+    rank's statistics differ from the global batch's), and poses."""
+    model = PoseNet3D(DP_BN_ARCH, return_heatmap=False, device="cpu").init_weights(
+        torch.Generator().manual_seed(SEED + 93))
+    model.final_layer.weight.data.mul_(FINAL_SCALE)
+    frames = synthetic_frames(DP_BN_B, DP_BN_SIZE, seed=SEED + 94).astype(np.float64) * 0.5
+    frames[:DP_BN_B // 2] += 0.5
+    _, kp3d = synthetic_h36m(DP_BN_B, seed=SEED + 94)
+    return (model.to("cuda", dtype),
+            torch.from_numpy(frames).to("cuda", dtype),
+            torch.from_numpy((kp3d - kp3d[:, :1]).astype(np.float64)).to("cuda", dtype))
+
+
+def dp_rank(rank: int, world: int, out_dir: str) -> None:
+    """A rank of the 2-rank phase (``gloo`` on cuda:0, spawned): the DP fused
+    temporal step on its DP_RANK_CLIPS clips, then the global-BN float64
+    direct step on its DP_BN_B / 2 frames; each timed (two processes
+    sharing one GPU, not a scaling figure). Saves (results, error) to
+    ``out_dir``."""
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    result, error = None, None
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = PM.init_distributed("gloo", device_type="cuda",
+                                     init_method=f"file://{out_dir}/rdzv")
+        if device != torch.device("cuda", 0):
+            raise AssertionError(f"rank {rank}'s device is {device}")
+        mesh = PM.make_mesh()
+        model = seeded_train_model()
+        y1, y2 = PM.shard_batch(synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 95), mesh)
+        state = create_train_state(model, lr=TRAIN_LR, apply=ST.temporal_train_forward_fused)
+        step = make_dp_lifter_train_step(mesh, "mse")
+        _reset(ST.WRAPPERS)
+        m = step(state, y1, y2)
+        result = {"launches": _counts(TRAIN_WRAPPERS), "loss": m["loss"].item(),
+                  "grads": {k: v.cpu() for k, v in _grads(model).items()},
+                  "temporal_sd": {k: v.cpu().clone() for k, v in model.state_dict().items()}}
+        result["temporal_ms"] = cuda_ms(lambda: step(state, y1, y2), n=DP_TIMED)
+        del model, state
+        torch.cuda.empty_cache()
+
+        model, frames, kp3d = dp_bn_model()
+        state = create_train_state(model, lr=DIRECT_LR, optimizer="adam",
+                                   weight_decay=DIRECT_WD)
+        step = make_direct_train_step("mse", mesh=mesh)
+        frames, kp3d = PM.shard_batch((frames, kp3d), mesh)
+        m = step(state, frames, kp3d)
+        result.update(bn_loss=m["loss"].item(), bn_sums=m["mpjpe_sums"].cpu().clone(),
+                      bn_sd={k: v.cpu().clone() for k, v in model.state_dict().items()})
+        result["bn_ms"] = cuda_ms(lambda: step(state, frames, kp3d), n=DP_TIMED)
+    except BaseException:
+        error = traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.save((result, error), f"{out_dir}/rank{rank}.pt")
+
+
+def dp_two_rank_phase() -> tuple[dict, dict]:
+    """Two ``gloo`` ranks sharing cuda:0 (``nccl`` takes one device a rank),
+    spawned from here after the one-process runs: the DP fused temporal
+    step (2 x DP_RANK_CLIPS clips) against the one-process TRAIN_CLIPS-clip
+    step (PERF.md's whole-step limits: loss rtol 1e-2, each gradient
+    relative L2 <= STEP_GRAD_REL), and the global-BN direct step in float64
+    (ResNet-18, DP_BN_SIZE^2, B = DP_BN_B) against the one-process step on
+    the global batch (loss and MPJPE sums rtol 1e-10, parameters atol 1e-8,
+    running statistics 1e-10); the ranks' parameters bitwise equal.
+    Returns (the ranks' launches, summed; times)."""
+    model = seeded_train_model()
+    y1, y2 = synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 95)
+    state = create_train_state(model, lr=TRAIN_LR, apply=ST.temporal_train_forward_fused)
+    m = make_lifter_train_step("mse")(state, y1, y2)
+    one_loss, one_grads = m["loss"].item(), {k: v.cpu() for k, v in _grads(model).items()}
+    bn_model, frames, kp3d = dp_bn_model()
+    bn_state = create_train_state(bn_model, lr=DIRECT_LR, optimizer="adam",
+                                  weight_decay=DIRECT_WD)
+    bm = make_direct_train_step("mse")(bn_state, frames, kp3d)
+    bn_sd = {k: v.cpu().clone() for k, v in bn_model.state_dict().items()}
+    del model, state, bn_model, bn_state
+    torch.cuda.empty_cache()
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out:
+        procs = [ctx.Process(target=dp_rank, args=(r, 2, out)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, DP_DEADLINE_S - (time.perf_counter() - t0)))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        if hung:
+            raise AssertionError(f"{len(hung)} rank(s) still running after {DP_DEADLINE_S} s")
+        res = []
+        for r in range(2):
+            path = Path(out) / f"rank{r}.pt"
+            if not path.exists():
+                raise AssertionError(f"rank {r} exited with {procs[r].exitcode}, no result")
+            result, error = torch.load(path, weights_only=False)
+            if error:
+                raise AssertionError(f"rank {r} failed:\n{error}")
+            res.append(result)
+    log(f"dp 2 ranks: ready and done in {time.perf_counter() - t0:.1f} s")
+
+    bad = (_differ(res[0]["temporal_sd"], res[1]["temporal_sd"])
+           + _differ(res[0]["bn_sd"], res[1]["bn_sd"]))
+    if bad:
+        raise AssertionError(f"the ranks' parameters differ: {bad[:5]}")
+    rel = {n: _rel(res[0]["grads"][n], one_grads[n]) for n in one_grads}
+    worst = max(rel, key=rel.get)
+    loss_err = abs(res[0]["loss"] - one_loss) / abs(one_loss)
+    log(f"dp 2 ranks temporal step {2} x {DP_RANK_CLIPS} clips: loss {res[0]['loss']:.8g} vs "
+        f"one process {one_loss:.8g} (rel {loss_err:.3g}); grads: worst relative L2 "
+        f"{rel[worst]:.4g} ({worst}), median {statistics.median(rel.values()):.4g}; "
+        f"launches {res[0]['launches']} + {res[1]['launches']}")
+    want = {f.__name__: 5 for f in TRAIN_WRAPPERS}
+    if (loss_err > 1e-2 or rel[worst] > STEP_GRAD_REL
+            or any(r["launches"] != want for r in res)):
+        raise AssertionError("the 2-rank DP temporal step disagrees with one process")
+    got = res[0]
+    bn_loss_err = abs(got["bn_loss"] - bm["loss"].item()) / abs(bm["loss"].item())
+    sums_err = ((got["bn_sums"] - bm["mpjpe_sums"].cpu()).abs()
+                / bm["mpjpe_sums"].cpu().abs()).max().item()
+    errs = {"params": 0.0, "running": 0.0}
+    for k, v in bn_sd.items():
+        if v.is_floating_point():
+            kind = "running" if "running" in k else "params"
+            errs[kind] = max(errs[kind], (got["bn_sd"][k] - v).abs().max().item())
+    log(f"dp 2 ranks global-BN direct step float64 {DP_BN_ARCH} {DP_BN_SIZE}^2 B={DP_BN_B}: "
+        f"loss rel {bn_loss_err:.3g}, MPJPE sums rel {sums_err:.3g}, parameters "
+        f"{errs['params']:.3g}, running statistics {errs['running']:.3g} from one process")
+    if bn_loss_err > 1e-10 or sums_err > 1e-10 or errs["params"] > 1e-8 or errs["running"] > 1e-10:
+        raise AssertionError("the 2-rank global-BN step disagrees with one process")
+    t = {k: [r[k] for r in res] for k in ("temporal_ms", "bn_ms")}
+    log(f"time dp 2 ranks sharing one GPU (two processes, not a scaling figure): temporal step "
+        f"{DP_RANK_CLIPS} clips a rank {t['temporal_ms'][0]:.4f} / {t['temporal_ms'][1]:.4f} ms, "
+        f"global-BN float64 step {DP_BN_B // 2} frames a rank {t['bn_ms'][0]:.4f} / "
+        f"{t['bn_ms'][1]:.4f} ms (rank 0 / rank 1)")
+    launches = {k: sum(r["launches"][k] for r in res) for k in want}
+    return launches, t
+
+
+def dp_phase() -> dict:
+    """Phase 28: the data-parallel layer on the card (one ``nccl`` rank,
+    then two ``gloo`` ranks on cuda:0). Returns the launches of the
+    records' wrappers it made."""
+    t0 = time.perf_counter()
+    with world_of_one() as mesh:
+        launches, _ = dp_one_rank_phase(mesh)
+    two, _ = dp_two_rank_phase()
+    for k, n in two.items():
+        launches[k] += n
+    log(f"dp phase: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
@@ -3491,6 +3854,13 @@ def main() -> None:
         tlaunches[k] += n
     loop_phase()
     smpl_phase()
+    # phase 28: the data-parallel runs of rows 1, 8a-9b, 13a and 13b
+    plaunches = dp_phase()
+    launches += plaunches["trunk"]
+    for f in TRAIN_WRAPPERS:
+        trlaunches[f.__name__] += plaunches[f.__name__]
+    for k in ("conv_soft_argmax_3d_fused", "conv_soft_argmax_3d_backward"):
+        dtrlaunches[k] += plaunches[k]
     bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -3606,6 +3976,10 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         smpl_phase()
+    elif sys.argv[1:] == ["--dp"]:  # the data-parallel layer alone
+        device_phase()
+        build_phase()
+        dp_phase()
     elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
         device_phase()
         build_phase()

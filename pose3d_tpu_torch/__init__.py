@@ -8,8 +8,8 @@ a ported path becomes a CUDA kernel written by hand for ``sm_90a``
 Ported so far: the lifter serving path (all three lifter families), the
 temporal serving path, temporal training, the direct image->3D forward
 and training, the phase-1 lifter trainer with the Human3.6M keypoint
-reader and the predict CLI, the video pipeline, the phase-5 trainers, and
-the SMPL-IK family with the renders.
+reader and the predict CLI, the video pipeline, the phase-5 trainers,
+the SMPL-IK family with the renders, and data parallelism.
 
 - ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
   ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
@@ -38,6 +38,9 @@ the SMPL-IK family with the renders.
 - ``cli/predict.py``     2D keypoints -> 3D with a trained checkpoint.
 - ``pipeline/lift.py``   ``lift_sequence``: video -> 3D.
 - ``serving.py``         ``LifterService``: bucketed batch inference.
+- ``parallel/mesh.py``   data parallelism on ``torch.distributed``: the
+  mesh, the shards, the flat collectives (the DP steps live in
+  ``train/``, global BatchNorm in ``models/norm.py``).
 
 The package imports torch and numpy, never jax, flax or ``pose3d_tpu``.
 """

@@ -21,6 +21,14 @@ frames where ``data.data_dir`` is unset or missing, or ``--source video``
 (the phase-2 pipeline's frames and MotionBERT poses,
 ``data/video_dataset.py``).
 
+Under a launcher (``torchrun --nproc_per_node=N -m
+pose3d_tpu_torch.cli.train_direct``) every rank joins the world's mesh:
+each batch of a chunk is split over the ranks, the BatchNorms are global
+(``train.image_steps.make_direct_chunk_step(mesh=)``, the JAX trainer's
+GSPMD contract), validation runs on the shards and reduces its metrics,
+and rank 0 writes the log and the checkpoint. ``--infer`` stays one
+process a rank.
+
 Usage:
   python -m pose3d_tpu_torch.cli.train_direct --run_name d1 --n_epochs 5
   python -m pose3d_tpu_torch.cli.train_direct --infer --run_name d1
@@ -42,6 +50,8 @@ from pose3d_tpu_torch.config import DirectConfig, parse_config
 from pose3d_tpu_torch.data import h36m, synthetic
 from pose3d_tpu_torch.data.feed import batch_iterator, prefetch_to_device
 from pose3d_tpu_torch.models.heads import PoseNet3D
+from pose3d_tpu_torch.parallel.mesh import (broadcast_parameters, data_size, launched_mesh,
+                                            pmean_, psum_, shard_batch)
 from pose3d_tpu_torch.train import checkpoint as ckpt
 from pose3d_tpu_torch.train.epoch import stack_batches
 from pose3d_tpu_torch.train.image_steps import (bf16_apply, make_direct_chunk_step,
@@ -108,12 +118,27 @@ def _state(cfg: DirectConfig, return_heatmap: bool):
                               apply=bf16_apply if cfg.bf16 else None)
 
 
-def train(cfg: DirectConfig):
-    """Train for ``cfg.n_epochs`` epochs, logging each; returns the state."""
+def _rank_major(batch, k: int, n_shards: int):
+    """A chunk of k batches, rows reordered so that ``shard_batch`` gives
+    each rank its rows of every batch: (k·B, ...) -> rank-major (N, k,
+    B/N, ...) order, flattened."""
+    return tuple(a.reshape(k, n_shards, -1, *a.shape[1:]).swapaxes(0, 1).reshape(a.shape)
+                 for a in batch)
+
+
+def train(cfg: DirectConfig, mesh=None):
+    """Train for ``cfg.n_epochs`` epochs, logging each; returns the state.
+    ``mesh``: data parallelism with global BatchNorm over its data axis
+    (``main`` under a launcher); the batch size must split over it."""
     # the (B, J, 64^3) heatmap only where it is supervised; otherwise the
     # head decodes straight from NHWC (no layout transpose)
     state = _state(cfg, return_heatmap=cfg.heatmap_loss_weight > 0)
     device = next(state.model.parameters()).device
+    n_shards = 1 if mesh is None else data_size(mesh)
+    if mesh is not None:
+        broadcast_parameters(state.model, mesh)
+    if cfg.batch_size % n_shards:
+        raise ValueError(f"--batch_size {cfg.batch_size} does not split over {n_shards} ranks")
     frames, kp3d, _ = load_image_split(cfg, is_train=True)
     vframes, vkp3d, _ = load_image_split(cfg, is_train=False)
     if cfg.resume and ckpt.exists(cfg.log_dir, cfg.run_name):
@@ -121,7 +146,7 @@ def train(cfg: DirectConfig):
         print(f"resumed {cfg.run_name} at step {state.step}")
 
     k = max(cfg.chunk_steps, 1)
-    step = make_direct_chunk_step(cfg.loss, cfg.heatmap_loss_weight)
+    step = make_direct_chunk_step(cfg.loss, cfg.heatmap_loss_weight, mesh)
     eval_step = make_direct_eval_chunk_step(cfg.loss)
     logger = MetricLogger(cfg.log_dir, cfg.run_name, config={
         "learning_rate": cfg.lr, "architecture": cfg.architecture,
@@ -132,25 +157,37 @@ def train(cfg: DirectConfig):
     if n_train == 0:
         raise ValueError(f"need >= {chunk_frames} frames (chunk_steps x batch_size); got "
                          f"{len(frames)}: lower --chunk_steps or --batch_size")
-    # the validation set stacked into batches and staged on the device once
-    vf_stack, vy_stack = (torch.from_numpy(a).to(device) for a in
-                          stack_batches((vframes, vkp3d), min(cfg.batch_size, len(vframes))))
+    # the validation set stacked into batches (this rank's rows of each)
+    # and staged on the device once
+    vb = min(cfg.batch_size, len(vframes))
+    vb -= vb % n_shards
+    vf_stack, vy_stack = stack_batches((vframes, vkp3d), vb)
     n_val = vf_stack.shape[0] * vf_stack.shape[1]
+    if mesh is not None:
+        vf_stack, vy_stack = (a.swapaxes(0, 1) for a in shard_batch(
+            (vf_stack.swapaxes(0, 1), vy_stack.swapaxes(0, 1)), mesh))
+    vf_stack, vy_stack = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                          for a in (vf_stack, vy_stack))
+    b = cfg.batch_size // n_shards
 
     try:
         for epoch in range(cfg.n_epochs):
-            it = prefetch_to_device(batch_iterator((frames, kp3d), chunk_frames, shuffle=True,
-                                                   seed=cfg.seed + epoch, epochs=1), device)
+            chunks = batch_iterator((frames, kp3d), chunk_frames, shuffle=True,
+                                    seed=cfg.seed + epoch, epochs=1)
+            if mesh is not None:
+                chunks = (_rank_major(c, k, n_shards) for c in chunks)
             loss_acc, mpjpe_acc, last_loss = [], [], None
-            for f, y in it:
-                m = step(state, f.reshape(k, cfg.batch_size, *f.shape[1:]),
-                         y.reshape(k, cfg.batch_size, *y.shape[1:]))
+            for f, y in prefetch_to_device(chunks, device, mesh=mesh):
+                m = step(state, f.reshape(k, b, *f.shape[1:]), y.reshape(k, b, *y.shape[1:]))
                 loss_acc.append(m["loss"])
                 mpjpe_acc.append(m["mpjpe_sums"])
                 last_loss = m["last_batch_loss"]
             # the reference steps its scheduler on the last train batch's loss
             state.plateau.step(float(last_loss))
             vm = eval_step(state, vf_stack, vy_stack)
+            if mesh is not None:
+                pmean_([vm["loss"]], mesh)
+                psum_([vm["mpjpe_sums"]], mesh)
             logger.log_epoch(
                 epoch, cfg.n_epochs,
                 float(torch.stack(loss_acc).mean()),
@@ -190,9 +227,15 @@ def infer(cfg: DirectConfig) -> float:
     return mpjpe
 
 
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--infer" in argv:
+        argv.remove("--infer")
+        return infer(parse_config(DirectConfig, argv))
+    cfg = parse_config(DirectConfig, argv)
+    with launched_mesh(cfg.device) as mesh:
+        return train(cfg, mesh)
+
+
 if __name__ == "__main__":
-    if "--infer" in sys.argv:
-        sys.argv.remove("--infer")
-        infer(parse_config(DirectConfig))
-    else:
-        train(parse_config(DirectConfig))
+    main()

@@ -22,8 +22,12 @@ Data: Human3.6M frames of the ``Walking`` action, every 64th frame
 step), or synthetic poses with random float frames where the export is
 absent. Each epoch's JSONL record carries the averages of the loss
 terms. On an interrupt the models go to ``interrupt_<run>_2d`` / ``_3d``;
-at the end to ``<run>_2d`` / ``<run>_3d``. One device: the JAX trainer's
-mesh waits for the port's ``torch.distributed`` work.
+at the end to ``<run>_2d`` / ``<run>_3d``. Under a launcher (``torchrun
+--nproc_per_node=N -m pose3d_tpu_torch.cli.train_loop``) every rank joins
+the world's mesh, takes its rows of each batch and steps with both image
+models' BatchNorms global (``train.loop_steps.make_loop_train_step(mesh=)``,
+the JAX trainer's GSPMD contract); validation runs on the shards and
+reduces its metrics; rank 0 writes the log and the checkpoints.
 
 Usage:
   python -m pose3d_tpu_torch.cli.train_loop --triangle true --flip true \\
@@ -44,6 +48,8 @@ from pose3d_tpu_torch.data import h36m, synthetic
 from pose3d_tpu_torch.data.feed import batch_iterator, prefetch_to_device
 from pose3d_tpu_torch.models.heads import PoseNet2D, PoseNet3D
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter
+from pose3d_tpu_torch.parallel.mesh import (broadcast_parameters, data_size, launched_mesh,
+                                            pmean_, psum_)
 from pose3d_tpu_torch.train import checkpoint as ckpt
 from pose3d_tpu_torch.train.image_steps import bf16_apply
 from pose3d_tpu_torch.train.logging import MetricLogger
@@ -118,15 +124,23 @@ def _mean(values) -> float:
     return float(torch.stack(values).mean())
 
 
-def train(cfg: LoopConfig) -> LoopState:
-    """Train for ``cfg.n_epochs`` epochs, logging each; returns the state."""
+def train(cfg: LoopConfig, mesh=None) -> LoopState:
+    """Train for ``cfg.n_epochs`` epochs, logging each; returns the state.
+    ``mesh``: data parallelism with global BatchNorm over its data axis
+    (``main`` under a launcher); the batch size must split over it."""
     state = build_state(cfg)
     device = next(state.net2d.model.parameters()).device
+    if mesh is not None:
+        for net in (state.net2d, state.net3d):
+            broadcast_parameters(net.model, mesh)
+        if cfg.batch_size % data_size(mesh):
+            raise ValueError(f"--batch_size {cfg.batch_size} does not split over "
+                             f"{data_size(mesh)} ranks")
     frames, kp2d, kp3d = load_frames_split(cfg, True)
     vframes, vkp2d, vkp3d = load_frames_split(cfg, False)
 
     step = make_loop_train_step(triangle=cfg.triangle, flip=cfg.flip, project=cfg.project,
-                                triangle_mode=cfg.triangle_mode)
+                                triangle_mode=cfg.triangle_mode, mesh=mesh)
     eval_step = make_loop_eval_step(flip=cfg.flip)
     logger = MetricLogger(cfg.log_dir, cfg.run_name, config={
         "learning_rate": cfg.lr, "architecture": cfg.architecture, "dataset": "H3.6",
@@ -139,7 +153,7 @@ def train(cfg: LoopConfig) -> LoopState:
         for epoch in range(cfg.n_epochs):
             it = prefetch_to_device(batch_iterator((frames, kp2d, kp3d), cfg.batch_size,
                                                    shuffle=True, seed=cfg.seed + epoch,
-                                                   epochs=1), device)
+                                                   epochs=1), device, mesh=mesh)
             loss_acc, sums_acc, term_acc, last = [], [], [], None
             for f, y1, y2 in it:
                 m = step(state, f, y1, y2)
@@ -151,11 +165,15 @@ def train(cfg: LoopConfig) -> LoopState:
 
             vloss, vsums, n_val = [], [], 0
             for f, y1, y2 in prefetch_to_device(batch_iterator(
-                    (vframes, vkp2d, vkp3d), cfg.batch_size, shuffle=False, epochs=1), device):
+                    (vframes, vkp2d, vkp3d), cfg.batch_size, shuffle=False, epochs=1), device,
+                    mesh=mesh):
                 vm = eval_step(state, f, y1, y2)
+                if mesh is not None:
+                    pmean_([vm["loss"]], mesh)
+                    psum_([vm["mpjpe_sums"]], mesh)
                 vloss.append(vm["loss"])
                 vsums.append(vm["mpjpe_sums"])
-                n_val += f.shape[0]
+                n_val += cfg.batch_size
 
             # the per-term averages (the reference's TriangleLoss.report_losses)
             terms = ({k: _mean([t[k] for t in term_acc]) for k in term_acc[0]}
@@ -183,7 +201,9 @@ def train(cfg: LoopConfig) -> LoopState:
 
 
 def main(argv=None):
-    return train(parse_config(LoopConfig, argv))
+    cfg = parse_config(LoopConfig, argv)
+    with launched_mesh(cfg.device) as mesh:
+        return train(cfg, mesh)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,14 @@ On a CUDA device at the kernels' widths (17 joints, hidden 256, 8 heads)
 the step runs the fused sub-block kernels in bf16 over f32 parameters
 (``ops/stblock_train``); otherwise it differentiates the module in f32.
 
+Under a launcher (``torchrun --nproc_per_node=N -m
+pose3d_tpu_torch.cli.train_temporal``) every rank joins the world's mesh
+(``parallel/mesh.py``), the batch is trimmed to a multiple of N, each rank
+stages its shard, and the step is the data-parallel one
+(``train.steps.make_dp_lifter_train_step``, on the fused apply where the
+kernels serve); validation runs on the shards and reduces its metrics;
+rank 0 writes the log and the checkpoint.
+
 Usage:
   python -m pose3d_tpu_torch.cli.train_temporal --run_name t1 --clip_len 243
   python -m pose3d_tpu_torch.cli.train_temporal --cpu --n_blocks 1 --clip_len 12 \\
@@ -29,10 +37,13 @@ from pose3d_tpu_torch.data.feed import batch_iterator, prefetch_to_device
 from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops.stblock import supports
 from pose3d_tpu_torch.ops.stblock_train import temporal_train_forward_fused
+from pose3d_tpu_torch.parallel.mesh import (broadcast_parameters, data_size, launched_mesh,
+                                            pmean_, psum_)
 from pose3d_tpu_torch.train import checkpoint as ckpt
 from pose3d_tpu_torch.train.logging import MetricLogger
 from pose3d_tpu_torch.train.state import create_train_state
-from pose3d_tpu_torch.train.steps import make_lifter_eval_step, make_lifter_train_step
+from pose3d_tpu_torch.train.steps import (make_dp_lifter_train_step, make_lifter_eval_step,
+                                          make_lifter_train_step)
 
 
 def load_clips(cfg: TemporalConfig, is_train: bool):
@@ -49,14 +60,29 @@ def load_clips(cfg: TemporalConfig, is_train: bool):
                                                                     cfg.clip_len)
 
 
-def train(cfg: TemporalConfig):
-    """Train for ``cfg.n_epochs`` epochs, logging each; returns the state."""
+def _trim(n: int, n_shards: int) -> int:
+    """n rounded down to a multiple of the data axis; raises where none is
+    left."""
+    n -= n % n_shards
+    if n <= 0:
+        raise ValueError(f"a batch smaller than the {n_shards} data ranks")
+    return n
+
+
+def train(cfg: TemporalConfig, mesh=None):
+    """Train for ``cfg.n_epochs`` epochs, logging each; returns the state.
+    ``mesh``: data parallelism over its data axis (``main`` under a
+    launcher)."""
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --cpu to train on the CPU")
     model = TemporalLifter(clip_len=cfg.clip_len, hidden=cfg.hidden, n_blocks=cfg.n_blocks,
                            heads=cfg.heads, device="cpu")
     model = model.init_weights(torch.Generator().manual_seed(cfg.seed)).to(device)
+    n_shards = 1
+    if mesh is not None:
+        broadcast_parameters(model, mesh)
+        n_shards = data_size(mesh)
     c2, c3 = load_clips(cfg, True)
     v2, v3 = load_clips(cfg, False)
     print(f"clips: train {c2.shape}, val {v2.shape}")
@@ -69,18 +95,23 @@ def train(cfg: TemporalConfig):
     if cfg.resume and ckpt.exists(cfg.log_dir, cfg.run_name):
         state, _ = ckpt.restore(state, cfg.log_dir, cfg.run_name)
         print(f"resumed at step {state.step}")
-    step = make_lifter_train_step(cfg.loss)
+    if mesh is None:
+        step = make_lifter_train_step(cfg.loss)
+    else:
+        step = make_dp_lifter_train_step(mesh, cfg.loss)
+        print(f"train step: data parallel over {n_shards} ranks")
     eval_step = make_lifter_eval_step(cfg.loss)
     logger = MetricLogger(cfg.log_dir, cfg.run_name, config={
         "learning_rate": cfg.lr, "architecture": "temporal_transformer",
         "clip_len": cfg.clip_len, "epochs": cfg.n_epochs,
     })
 
-    bs = min(cfg.batch_size, len(c2))
+    bs = _trim(min(cfg.batch_size, len(c2)), n_shards)
+    vbs = _trim(min(bs, len(v2)), n_shards)
     n_train = (len(c2) // bs) * bs * cfg.clip_len
     for epoch in range(cfg.n_epochs):
         it = prefetch_to_device(batch_iterator((c2, c3), bs, shuffle=True, seed=cfg.seed + epoch,
-                                               epochs=1), device)
+                                               epochs=1), device, mesh=mesh)
         loss_acc, sums_acc, last = [], [], None
         for y1, y2 in it:
             m = step(state, y1, y2)
@@ -91,12 +122,15 @@ def train(cfg: TemporalConfig):
         state.plateau.step(float(last))
 
         vloss, vsums, n_val = [], [], 0
-        for y1, y2 in prefetch_to_device(batch_iterator((v2, v3), min(bs, len(v2)),
-                                                        shuffle=False, epochs=1), device):
+        for y1, y2 in prefetch_to_device(batch_iterator((v2, v3), vbs, shuffle=False, epochs=1),
+                                         device, mesh=mesh):
             vm = eval_step(state, y1, y2)
+            if mesh is not None:
+                pmean_([vm["loss"]], mesh)
+                psum_([vm["mpjpe_sums"]], mesh)
             vloss.append(vm["loss"])
             vsums.append(vm["mpjpe_sums"])
-            n_val += y1.shape[0] * cfg.clip_len
+            n_val += vbs * cfg.clip_len
         logger.log_epoch(
             epoch, cfg.n_epochs,
             float(torch.stack(loss_acc).mean()),
@@ -115,5 +149,11 @@ def train(cfg: TemporalConfig):
     return state
 
 
+def main(argv=None):
+    cfg = parse_config(TemporalConfig, argv)
+    with launched_mesh(cfg.device) as mesh:
+        return train(cfg, mesh)
+
+
 if __name__ == "__main__":
-    train(parse_config(TemporalConfig))
+    main()

@@ -5,8 +5,9 @@
 package's. ``prefetch_to_device`` keeps ``depth`` batches in flight: on a
 CUDA device each batch is copied from pinned host memory with
 ``non_blocking`` copies on the current stream, so the copy of batch N+1
-overlaps step N (one device; the multi-device feed waits for the port's
-``torch.distributed`` work).
+overlaps step N. With a mesh each rank stages only its shard of every
+batch (``parallel.mesh.shard_batch``), as the JAX feed puts each chip's
+shard on it directly.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import itertools
 
 import numpy as np
 import torch
+
+from pose3d_tpu_torch.parallel.mesh import shard_batch
 
 
 def batch_iterator(arrays, batch_size: int, *, shuffle: bool, seed: int = 0,
@@ -36,13 +39,17 @@ def batch_iterator(arrays, batch_size: int, *, shuffle: bool, seed: int = 0,
             yield tuple(a[sel] for a in arrays)
 
 
-def prefetch_to_device(iterator, device, depth: int = 2):
+def prefetch_to_device(iterator, device, depth: int = 2, mesh=None):
     """Yield the batches of ``iterator`` as tensors on ``device``, with
-    ``depth`` copies started ahead of the batch yielded."""
+    ``depth`` copies started ahead of the batch yielded; with ``mesh``
+    only this rank's rows of each batch (which must split evenly over the
+    data axis)."""
     device = torch.device(device)
     queue = collections.deque()
 
     def stage(batch):
+        if mesh is not None:
+            batch = shard_batch(tuple(batch), mesh)
         out = []
         for a in batch:
             t = torch.from_numpy(np.ascontiguousarray(a))

@@ -9,11 +9,27 @@ variance and the running variance updated with the unbiased one), but a
 ``.to(torch.bfloat16)`` of the model would round its statistics.
 ``F32BatchNorm1d`` (the lifters) and ``F32BatchNorm2d`` (the ResNet and
 the deconv head) refuse that rounding.
+
+Under data parallelism a BatchNorm is local (each rank normalises its
+shard with the shard's statistics) unless ``sync_batch_norm(model, mesh)``
+gives it the data axis' process group. Then, in train mode over more than
+one rank, it normalises with the statistics of the global batch, as the
+JAX package's BatchNorm does under GSPMD (``pose3d_tpu/models/norm.py``):
+``_GlobalBatchNorm`` all-reduces [Σx, Σx², n] in at least f32, takes
+JAX's variance max(E[x²] - E[x]², 0), and updates ``running_var`` with the
+unbiased factor of the global count n (JAX's static ``n``). Its backward
+all-reduces [Σdy, Σdy·x̂] and returns the rank's own weight and bias
+gradients, the scale ``SyncBatchNorm`` has under DDP: each rank's
+backward starts from its local mean loss, and the steps then average the
+parameter gradients (``parallel.mesh.pmean_``). Eval mode and a group of
+one rank run the module as it is, bitwise. ``torch.nn.SyncBatchNorm``
+takes no CPU tensor, so the port has its own.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 BN_EPS = 1e-5
@@ -48,14 +64,65 @@ class _F32Norm:
     copies of the activations.
     """
 
+    process_group = None  # set by sync_batch_norm: the global batch's ranks
+
     def _apply(self, fn, recurse=True):
         return super()._apply(keep_f32(fn), recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.process_group
+        if self.training and group is not None and dist.get_world_size(group) > 1:
+            self.num_batches_tracked.add_(1)
+            return _GlobalBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                          self.running_var, self.momentum, self.eps, group)
         if x.dtype in (torch.bfloat16, torch.float16):
             return super().forward(x)
         acc = torch.promote_types(x.dtype, torch.float32)
         return super().forward(x.to(acc)).to(x.dtype)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of ``group``'s ranks
+    (x: (N, C) or (N, C, ...)), the running statistics updated in place;
+    returns x's dtype and memory format."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps, group):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xf = x.to(acc)
+        stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
+                           xf.new_full((1,), x.numel() // c)])
+        dist.all_reduce(stats, group=group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        y = xhat * weight.to(acc).view(shape) + bias.to(acc).view(shape)
+        with torch.no_grad():
+            unbiased = var * (n / (n - 1).clamp_min(1.0))
+            running_mean.mul_(1.0 - momentum).add_(momentum * mean.to(running_mean.dtype))
+            running_var.mul_(1.0 - momentum).add_(momentum * unbiased.to(running_var.dtype))
+        ctx.save_for_backward(xhat, weight, invstd, n)
+        ctx.group, ctx.dims, ctx.shape = group, dims, shape
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, weight, invstd, n = ctx.saved_tensors
+        dims, shape, c = ctx.dims, ctx.shape, xhat.shape[1]
+        dyf = dy.to(xhat.dtype)
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = (dyf * xhat).sum(dims)
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums, group=ctx.group)
+        dx = (weight.to(xhat.dtype) * invstd).view(shape) * (
+            dyf - (sums[:c] / n).view(shape) - xhat * (sums[c:] / n).view(shape))
+        return (dx.to(dy.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype),
+                None, None, None, None, None)
 
 
 class F32BatchNorm1d(_F32Norm, nn.BatchNorm1d):
@@ -73,6 +140,25 @@ class F32BatchNorm2d(_F32Norm, nn.BatchNorm2d):
     def __init__(self, num_features: int, *, device):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM,
                          device=device, dtype=torch.float32)
+
+
+def sync_batch_norm(model: nn.Module, mesh) -> nn.Module:
+    """Every BatchNorm of ``model`` made global over ``mesh``'s data axis
+    (train mode normalises with the global batch's statistics), or local
+    again with ``mesh=None``; returns ``model``. Raises on a BatchNorm that
+    is not one of this module's (it would stay local)."""
+    group = None
+    if mesh is not None:
+        from pose3d_tpu_torch.parallel.mesh import data_group
+
+        group = data_group(mesh)
+    for name, m in model.named_modules():
+        if isinstance(m, _F32Norm):
+            m.process_group = group
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            raise TypeError(f"{name}: {type(m).__name__} cannot be made global; the port's "
+                            "models use F32BatchNorm1d / F32BatchNorm2d")
+    return model
 
 
 @torch.no_grad()

@@ -18,6 +18,14 @@
 Every family answers (N, 17, 2) keypoints with (N, 17, 3) poses: the
 flat lifters' (N, 51) outputs are reshaped per joint, as the JAX service
 does.
+
+With ``mesh=`` (data-parallel serving, ``parallel/mesh.py``) every rank
+calls ``lift`` with the same request. The buckets are multiples of the
+data axis' size; each rank runs its rows of the padded bucket through the
+route one process would take (the gate tests the per-shard bucket), and
+writes them into a zero-filled f32 buffer of the whole bucket, which one
+``all_reduce`` sums: adding zeros is exact, so every rank gets, bitwise,
+the gather of the shards (``gloo`` has no all-gather of CUDA tensors).
 """
 
 from __future__ import annotations
@@ -26,20 +34,22 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter
 from pose3d_tpu_torch.ops import lifter as _lifter
 from pose3d_tpu_torch.ops import martinez as _martinez
+from pose3d_tpu_torch.parallel.mesh import data_group, data_rank, data_size, shard_batch
 
 N_JOINTS = 17
 
 
-def fused_vit_buckets_ok(buckets) -> bool:
-    """True iff every bucket is a whole number of the trunk kernel's frame
-    tiles (``FRAMES_PER_CTA``); ``lifter_forward_fused`` raises on any
-    other batch size, so the gate must route such configurations to the
-    module's forward instead."""
-    return all(b % _lifter.FRAMES_PER_CTA == 0 for b in buckets)
+def fused_vit_buckets_ok(buckets, n_shards: int = 1) -> bool:
+    """True iff every per-shard bucket is a whole number of the trunk
+    kernel's frame tiles (``FRAMES_PER_CTA``); ``lifter_forward_fused``
+    raises on any other batch size, so the gate must route such
+    configurations to the module's forward instead."""
+    return all((b // n_shards) % _lifter.FRAMES_PER_CTA == 0 for b in buckets)
 
 
 def _io_shapes(model) -> tuple[tuple[int, int], tuple[int, int]]:
@@ -59,14 +69,15 @@ class LifterService:
     """Wraps a lifter for padded, bucketed batch inference on one device.
 
     ``state_dict`` (or None to keep the model's weights) is loaded with
-    ``strict=True``. ``device`` is where the model runs; a CUDA device
-    that is not available raises. ``fused`` says whether a fused route
-    (ViT trunk or Martinez blocks) serves the model.
+    ``strict=True``. ``device`` is where the model runs (this rank's,
+    under a mesh); a CUDA device that is not available raises. ``fused``
+    says whether a fused route (ViT trunk or Martinez blocks) serves the
+    model. ``mesh``: each bucket split over the mesh's data axis.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict=None, *, device,
                  max_batch: int = 8192, min_bucket: int = 64,
-                 use_fused_vit: bool = True, use_fused_martinez: bool = True):
+                 use_fused_vit: bool = True, use_fused_martinez: bool = True, mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"LifterService(device={device!r}): CUDA is "
@@ -75,6 +86,13 @@ class LifterService:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
         self.in_shape, self.out_shape = _io_shapes(model)
+        self.mesh = mesh
+        n_shards = 1
+        if mesh is not None:
+            self._group = data_group(mesh)  # raises without a process group
+            n_shards = data_size(mesh)
+            # every bucket splits evenly over the data axis
+            min_bucket = -(-max(min_bucket, n_shards) // n_shards) * n_shards
         self.buckets = []
         b = min_bucket
         while b <= max_batch:
@@ -85,7 +103,7 @@ class LifterService:
         # the fused routes compute in bf16: only bf16 models take them
         bf16 = getattr(model, "dtype", None) == torch.bfloat16
         if (use_fused_vit and bf16 and _lifter.supports(model)
-                and fused_vit_buckets_ok(self.buckets)):
+                and fused_vit_buckets_ok(self.buckets, n_shards)):
             self._forward = functools.partial(
                 _lifter.lifter_forward_fused, model, weights=_lifter.pack_weights(model))
         elif use_fused_martinez and bf16 and _martinez.supports(model):
@@ -97,7 +115,16 @@ class LifterService:
 
     @torch.inference_mode()
     def _run(self, kp2d: torch.Tensor) -> torch.Tensor:
-        return self._forward(kp2d)
+        if self.mesh is None:
+            return self._forward(kp2d)
+        # this rank's rows into a zero-filled whole; one all_reduce sums them
+        n, rows = len(kp2d), shard_batch(kp2d, self.mesh)
+        out = self._forward(rows).float().reshape(len(rows), -1)
+        full = torch.zeros((n, out.shape[1]), device=out.device)
+        r = data_rank(self.mesh)
+        full[r * len(rows):(r + 1) * len(rows)] = out
+        dist.all_reduce(full, group=self._group)
+        return full
 
     def warmup(self):
         """Run every bucket once (the first request pays no first-call cost)."""

@@ -10,6 +10,11 @@ and renames it, so a checkpoint is whole or absent. ``peek_params`` and
 BatchNorm buffers, no optimizer), for inference and for reusing a trained
 model in another run; they read the port's checkpoints, not the JAX
 package's orbax ones.
+
+In a data-parallel run (an initialised ``torch.distributed`` world)
+rank 0 writes the checkpoint and every rank then meets at a barrier;
+every rank restores the same file, and ``restore`` then checks that the
+restored model and optimizer states are bitwise equal across the ranks.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import pathlib
 
 import torch
 
+from pose3d_tpu_torch.parallel.mesh import barrier, check_replicated, is_writer
 from pose3d_tpu_torch.train.state import TrainState
 
 
@@ -30,15 +36,17 @@ def _path(log_dir, run_name: str) -> pathlib.Path:
 def save(state: TrainState, log_dir, run_name: str, *, batch_size: int | None = None,
          extra: dict | None = None) -> str:
     path = _path(log_dir, run_name)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {"step": state.step, "model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
-               "plateau": state.plateau.state_dict()}
-    tmp = path.with_name(path.name + ".tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    with open(str(path) + ".meta.json", "w") as f:
-        json.dump({"batch_size": batch_size or 0, **(extra or {})}, f)
+    if is_writer():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        payload = {"step": state.step, "model": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict(),
+                   "plateau": state.plateau.state_dict()}
+        tmp = path.with_name(path.name + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        with open(str(path) + ".meta.json", "w") as f:
+            json.dump({"batch_size": batch_size or 0, **(extra or {})}, f)
+    barrier()
     return str(path)
 
 
@@ -57,6 +65,9 @@ def restore(state: TrainState, log_dir, run_name: str) -> tuple[TrainState, dict
     state.optimizer.load_state_dict(payload["optimizer"])
     state.plateau.load_state_dict(payload["plateau"])
     state.step = payload["step"]
+    check_replicated([*state.model.state_dict().values(),
+                      *(t for s in state.optimizer.state.values() for t in s.values()
+                        if torch.is_tensor(t))])
     return state, load_meta(log_dir, run_name)
 
 

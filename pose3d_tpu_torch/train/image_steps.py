@@ -23,9 +23,21 @@ eval steps in eval mode, without grads. Steps return the loss and the
 per-joint MPJPE sums (``losses.loss_mpjpe``); the caller sums those over
 an epoch and finishes with ``losses.mpjpe_mm``. The chunk step is a
 Python loop of K optimizer steps where the JAX step scans; the deconv
-head has no dropout, so there is no rng to carry. The data-parallel step
-(``make_dp_direct_train_step``) comes with the port's
-``torch.distributed`` work.
+head has no dropout, so there is no rng to carry.
+
+Data parallelism over a mesh's data axis (``parallel/mesh.py``), each
+rank stepping on its shard of the global batch; the loss returned is the
+global batch's and the MPJPE sums are summed over the ranks:
+
+- ``make_direct_train_step(mesh=)`` / ``make_direct_chunk_step(mesh=)``:
+  global BatchNorm (``models/norm.sync_batch_norm``, the JAX package's
+  GSPMD contract): the statistics of the global batch, the gradients
+  averaged (``pmean_``) before the optimizer step;
+- ``make_dp_direct_train_step``: local BatchNorm (the JAX package's
+  ``shard_map`` step, torch DDP without SyncBatchNorm): each shard
+  normalised with its own statistics, the gradients and the updated
+  running statistics averaged over the ranks. The fused route's decode
+  kernels run on each shard.
 """
 
 from __future__ import annotations
@@ -33,7 +45,9 @@ from __future__ import annotations
 import torch
 
 from pose3d_tpu_torch import losses
+from pose3d_tpu_torch.models.norm import sync_batch_norm
 from pose3d_tpu_torch.ops.heatmap import heatmap_targets
+from pose3d_tpu_torch.parallel.mesh import pmean_, psum_
 from pose3d_tpu_torch.train.steps import apply_gradients
 
 
@@ -52,43 +66,89 @@ def bf16_apply(model, x):
         return model(x)
 
 
-def make_direct_train_step(loss: str = "mse", heatmap_loss_weight: float = 0.0):
+def _global_metrics(total: torch.Tensor, pred: torch.Tensor, kp3d: torch.Tensor, mesh) -> dict:
+    """{"loss", "mpjpe_sums"} of a step, over the mesh's global batch
+    where there is one."""
+    with torch.no_grad():
+        out, sums = total.detach().clone(), losses.loss_mpjpe(pred, kp3d)
+    if mesh is not None:
+        pmean_([out], mesh)
+        psum_([sums], mesh)
+    return {"loss": out, "mpjpe_sums": sums}
+
+
+def _direct_loss(state, frames, kp3d, loss_fn, heatmap_loss_weight):
+    """(total loss, prediction) of the train-mode forward on ``frames``."""
+    state.model.train()
+    coords, hm = state.apply(state.model, _normalize(frames))
+    pred = coords.reshape(kp3d.shape)
+    total = loss_fn(pred, kp3d)
+    if heatmap_loss_weight:
+        hm_gt = heatmap_targets(kp3d.clamp(-1.0, 1.0), grid=hm.shape[-3:])
+        total = total + heatmap_loss_weight * losses.mse(hm, hm_gt)
+    return total, pred
+
+
+def make_direct_train_step(loss: str = "mse", heatmap_loss_weight: float = 0.0, mesh=None):
     """(state, frames (B, H, W, 3) float or uint8, kp3d (B, 17, 3)) ->
     {"loss", "mpjpe_sums"} after one optimizer step. With
     ``heatmap_loss_weight`` the model must return its heatmap, and the loss
     adds that weight times the MSE between it and ``heatmap_targets`` of
     the keypoints clipped to [-1, 1], on the heatmap's (D, H, W) grid and
-    in the targets' (u, v, w) order, as the JAX step compares them."""
+    in the targets' (u, v, w) order, as the JAX step compares them.
+
+    ``mesh``: frames and kp3d are this rank's shard; the model's
+    BatchNorms are made global over the data axis (``sync_batch_norm``),
+    the gradients averaged before the step, and the metrics are the global
+    batch's: one step of the global batch on every rank."""
     loss_fn = losses.LOSS_FNS[loss]
 
     def step(state, frames: torch.Tensor, kp3d: torch.Tensor) -> dict:
-        state.model.train()
-        coords, hm = state.apply(state.model, _normalize(frames))
-        pred = coords.reshape(kp3d.shape)
-        total = loss_fn(pred, kp3d)
-        if heatmap_loss_weight:
-            hm_gt = heatmap_targets(kp3d.clamp(-1.0, 1.0), grid=hm.shape[-3:])
-            total = total + heatmap_loss_weight * losses.mse(hm, hm_gt)
-        apply_gradients(total, state)
-        with torch.no_grad():
-            sums = losses.loss_mpjpe(pred, kp3d)
-        return {"loss": total.detach(), "mpjpe_sums": sums}
+        if mesh is not None:
+            sync_batch_norm(state.model, mesh)
+        total, pred = _direct_loss(state, frames, kp3d, loss_fn, heatmap_loss_weight)
+        apply_gradients(total, state, mesh=mesh)
+        return _global_metrics(total, pred, kp3d, mesh)
 
     return step
 
 
-def make_direct_chunk_step(loss: str = "mse", heatmap_loss_weight: float = 0.0):
+def make_direct_chunk_step(loss: str = "mse", heatmap_loss_weight: float = 0.0, mesh=None):
     """Multi-batch step: (state, frames (K, B, H, W, 3), kp3d (K, B, 17,
     3)) -> {"loss": the mean of the K batch losses, "last_batch_loss",
     "mpjpe_sums": their sum}, after K optimizer steps, batch after
-    batch."""
-    train_step = make_direct_train_step(loss, heatmap_loss_weight)
+    batch; with ``mesh`` each of them ``make_direct_train_step``'s global
+    BatchNorm step on this rank's shards."""
+    train_step = make_direct_train_step(loss, heatmap_loss_weight, mesh)
 
     def step(state, frames: torch.Tensor, kp3d: torch.Tensor) -> dict:
         out = [train_step(state, f, y) for f, y in zip(frames, kp3d)]
         loss_k = torch.stack([o["loss"] for o in out])
         return {"loss": loss_k.mean(), "last_batch_loss": loss_k[-1],
                 "mpjpe_sums": torch.stack([o["mpjpe_sums"] for o in out]).sum(0)}
+
+    return step
+
+
+def make_dp_direct_train_step(mesh, loss: str = "mse", heatmap_loss_weight: float = 0.0):
+    """Local-BN data-parallel step: (state, frames, kp3d: this rank's shard)
+    -> {"loss", "mpjpe_sums"} of the global batch, after one optimizer
+    step. Each rank normalises its shard with its own batch statistics
+    (the model's BatchNorms made local), one backward, the gradients
+    averaged over the data axis, the optimizer step, and the running
+    statistics averaged over the ranks (for equal shards the mean of the
+    shard means is the global mean; the averaged variance leaves out the
+    spread between shard means, as torch DDP without SyncBatchNorm)."""
+    loss_fn = losses.LOSS_FNS[loss]
+
+    def step(state, frames: torch.Tensor, kp3d: torch.Tensor) -> dict:
+        sync_batch_norm(state.model, None)
+        total, pred = _direct_loss(state, frames, kp3d, loss_fn, heatmap_loss_weight)
+        apply_gradients(total, state, mesh=mesh)
+        pmean_([b for m in state.model.modules()
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                for b in (m.running_mean, m.running_var)], mesh)
+        return _global_metrics(total, pred, kp3d, mesh)
 
     return step
 

@@ -6,7 +6,9 @@ Every run appends one JSON object per epoch to
 ``use_wandb=True``) each epoch is mirrored to wandb under the reference's
 key names (``WANDB_KEYS``; train_1.py:151, the leading space of the val
 MPJPE key kept), where the package imports and its ``init`` succeeds;
-otherwise the mirror stays off and the run goes on.
+otherwise the mirror stays off and the run goes on. In a data-parallel
+run only rank 0 writes, prints and mirrors; ``finish`` is a barrier of
+every rank.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import json
 import os
 import pathlib
 import time
+
+from pose3d_tpu_torch.parallel.mesh import barrier, is_writer
 
 
 class MetricLogger:
@@ -29,9 +33,12 @@ class MetricLogger:
                  use_wandb: bool | None = None):
         self.run_name = run_name
         self.path = pathlib.Path(log_dir) / "runs" / f"{run_name}.jsonl"
-        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.writer = is_writer()
         self.t0 = time.time()
         self._wandb = None
+        if not self.writer:
+            return
+        self.path.parent.mkdir(parents=True, exist_ok=True)
         if use_wandb is None:
             use_wandb = os.environ.get("WANDB", "0") == "1"
         if use_wandb:
@@ -46,11 +53,15 @@ class MetricLogger:
             self._write({"event": "config", **config})
 
     def _write(self, record: dict) -> None:
+        if not self.writer:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
     def log_epoch(self, epoch: int, n_epochs: int, train_loss: float, train_mpjpe: float,
                   val_loss: float, val_mpjpe: float, **extra) -> None:
+        if not self.writer:
+            return
         self._write({"epoch": epoch + 1, "train_loss": train_loss, "train_mpjpe": train_mpjpe,
                      "val_loss": val_loss, "val_mpjpe": val_mpjpe,
                      "_runtime": round(time.time() - self.t0, 2), **extra})
@@ -66,3 +77,4 @@ class MetricLogger:
         self._write({"event": "finish", "_runtime": round(time.time() - self.t0, 2)})
         if self._wandb is not None:
             self._wandb.finish()
+        barrier()

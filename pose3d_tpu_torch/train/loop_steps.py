@@ -32,6 +32,15 @@ phase-1 ViT lifter and an optional frozen ViT projector, combined by
 Nothing on this path has dropout (the deconv head has none, and the
 frozen ViTs run in eval mode), so a step is a deterministic function and
 takes no rng.
+
+Under a mesh (``make_loop_train_step(mesh=)``) each rank steps on its
+shard of the global batch with both image models' BatchNorms global over
+the data axis (``models/norm.sync_batch_norm``, the JAX package's GSPMD
+contract): the flip batch of 2·B/N frames on each rank shares its
+statistics with every rank's through the global BatchNorm. The frozen
+models stay in eval mode, with no collective. Both models' gradients are
+averaged in one ``pmean_``; the loss and its terms are the global batch's
+and the MPJPE sums are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ import torch
 
 from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.core.transforms import flip_pose
+from pose3d_tpu_torch.models.norm import sync_batch_norm
+from pose3d_tpu_torch.parallel.mesh import pmean_, psum_
 from pose3d_tpu_torch.train.image_steps import _normalize
 from pose3d_tpu_torch.train.state import TrainState
 from pose3d_tpu_torch.train.steps import apply_gradients
@@ -76,16 +87,21 @@ def _predict(state: LoopState, frames: torch.Tensor, flip: bool):
 
 
 def make_loop_train_step(*, triangle: bool = False, flip: bool = False, project: bool = False,
-                         triangle_mode: str = "sep"):
+                         triangle_mode: str = "sep", mesh=None):
     """(LoopState, frames (B, H, W, 3) float or uint8, y1 (B, 17, 2), y2 (B,
     17, 3)) -> {"loss", "mpjpe_sums", and each loss term}, after one step
     of each image model's optimizer. ``triangle`` needs ``state.lifter``;
     ``project`` adds the projection terms where ``state.projector`` is
-    set."""
+    set. With ``mesh`` the arrays are this rank's shard and the step is
+    the global batch's (global BatchNorm, averaged gradients, global
+    metrics)."""
     if triangle_mode not in ("sep", "cycle"):
         raise ValueError(f"triangle_mode must be sep|cycle, got {triangle_mode}")
 
     def step(state: LoopState, frames: torch.Tensor, y1: torch.Tensor, y2: torch.Tensor) -> dict:
+        if mesh is not None:
+            sync_batch_norm(state.net2d.model, mesh)
+            sync_batch_norm(state.net3d.model, mesh)
         state.net2d.model.train()
         state.net3d.model.train()
         y1_hat, y2_hat = _predict(state, frames, flip)
@@ -109,11 +125,15 @@ def make_loop_train_step(*, triangle: bool = False, flip: bool = False, project:
         else:
             terms = {"loss_2d": losses.mse(y1_hat, y1), "loss_3d": losses.mse(y2_hat, y2)}
             total = terms["loss_2d"] + terms["loss_3d"]
-        apply_gradients(total, state.net2d, state.net3d)
+        apply_gradients(total, state.net2d, state.net3d, mesh=mesh)
         with torch.no_grad():
             sums = losses.loss_mpjpe(y2_hat, y2)
-        return {"loss": total.detach(), "mpjpe_sums": sums,
-                **{k: v.detach() for k, v in terms.items()}}
+            out = {"loss": total.detach().clone(), **{k: v.detach().clone()
+                                                      for k, v in terms.items()}}
+        if mesh is not None:
+            pmean_(out.values(), mesh)
+            psum_([sums], mesh)
+        return {**out, "mpjpe_sums": sums}
 
     return step
 

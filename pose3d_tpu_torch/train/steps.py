@@ -11,28 +11,43 @@ Flip test-time augmentation: the reference's validation flip
 (``train_1.py:128-134``) averages the flip of the unflipped input's
 prediction, an operand bug. The eval step implements the documented
 intent, as the JAX step does: predict on the flipped input, flip the
-prediction back, average it with the plain prediction. The data-parallel
-step comes with the port's ``torch.distributed`` work.
+prediction back, average it with the plain prediction.
+
+``make_dp_lifter_train_step`` is the data-parallel step of the JAX
+package's ``shard_map`` route (``pose3d_tpu/train/steps.py``): each rank
+runs ``state.apply`` on its shard (on the fused apply, the training
+kernels), one backward, then the loss and the gradients are averaged and
+the MPJPE sums summed over the mesh's data axis before the optimizer
+step, so every rank takes the global-batch step and keeps bitwise the
+same parameters.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.core.transforms import flip_pose
+from pose3d_tpu_torch.parallel.mesh import data_rank, pmean_, psum_, require_group, shard_seed
 from pose3d_tpu_torch.train.state import TrainState, clip_by_global_norm
 
 
-def apply_gradients(loss_val: torch.Tensor, *states: TrainState) -> None:
+def apply_gradients(loss_val: torch.Tensor, *states: TrainState, mesh=None) -> None:
     """One backward from ``loss_val``, then, for each state, the global-norm
     clip where set and one optimizer step at the lr the plateau schedule
     left in its optimizer. Several states take their gradients from the
     one backward, as the JAX loop step takes both models' gradients from
-    one ``value_and_grad``: their parameters are disjoint."""
+    one ``value_and_grad``: their parameters are disjoint. With ``mesh``
+    every state's gradients are averaged over its data axis in one
+    ``pmean_`` before the clip."""
     for state in states:
         state.optimizer.zero_grad(set_to_none=True)
     loss_val.backward()
+    if mesh is not None:
+        pmean_([p.grad for state in states for p in state.model.parameters()
+                if p.grad is not None], mesh)
     for state in states:
         if state.grad_clip:
             clip_by_global_norm(list(state.model.parameters()), state.grad_clip)
@@ -55,6 +70,61 @@ def make_lifter_train_step(loss: str = "mse"):
         with torch.no_grad():
             sums = losses.loss_mpjpe(pred, y2)
         return {"loss": loss_val.detach(), "mpjpe_sums": sums}
+
+    return step
+
+
+def has_batch_stats(model: torch.nn.Module) -> bool:
+    """True where a module of ``model`` keeps running statistics."""
+    return any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) and m.track_running_stats
+               for m in model.modules())
+
+
+@contextlib.contextmanager
+def shard_rng(seed: int | None, mesh, device: torch.device):
+    """Dropout of this rank drawn from ``shard_seed(seed, rank)`` on
+    ``device``'s generator (the caller's state restored after; rank 0
+    where ``mesh`` is None, which is ``seed`` itself); with ``seed`` None,
+    from the generator as it stands."""
+    if seed is None:
+        yield
+        return
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else [],
+                               device_type="cuda"):
+        torch.manual_seed(shard_seed(seed, 0 if mesh is None else data_rank(mesh)))
+        yield
+
+
+def make_dp_lifter_train_step(mesh, loss: str = "mse"):
+    """(state, y1, y2, seed=None) -> {"loss", "mpjpe_sums"} over the mesh's
+    data axis: y1, y2 are this rank's shard (``parallel.mesh.shard_batch``)
+    of a global batch split evenly. Forward on the shard in train mode,
+    dropout from ``shard_seed(seed, rank)`` where ``seed`` is given, one
+    backward, ``pmean_`` of the gradients, the clip and the optimizer
+    step; the returned loss is the global batch's (``pmean_``) and the
+    MPJPE sums the global batch's (``psum_``), the same on every rank, so
+    every rank's plateau schedule takes the same decision. Stats-free
+    models only: BatchNorm models go through the global-BN steps of
+    ``train/image_steps.py``."""
+    loss_fn = losses.LOSS_FNS[loss]
+
+    def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor,
+             seed: int | None = None) -> dict:
+        require_group(mesh)
+        if has_batch_stats(state.model):
+            raise ValueError("the DP lifter step supports stats-free models only; BatchNorm "
+                             "models go through the global-BN steps")
+        state.model.train()
+        with shard_rng(seed, mesh, y1.device):
+            pred = state.apply(state.model, y1).reshape(y2.shape)
+        loss_val = loss_fn(pred, y2)
+        apply_gradients(loss_val, state, mesh=mesh)
+        with torch.no_grad():
+            out = loss_val.detach().clone()
+            sums = losses.loss_mpjpe(pred, y2)
+        pmean_([out], mesh)
+        psum_([sums], mesh)
+        return {"loss": out, "mpjpe_sums": sums}
 
     return step
 

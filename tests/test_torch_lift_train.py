@@ -227,8 +227,18 @@ def test_dropout_masks_come_from_the_epoch_seed():
 
 
 def test_mesh_epochs_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_lifter_epoch_fn("mse", mesh=object())
+    """Mesh epochs are ported now (``tests/test_torch_parallel.py`` runs
+    them over spawned ranks); given a mesh and no process group, the
+    epoch raises before any step instead of running as one process."""
+    state = _port_state("vit")
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    y1, y2 = _batches(1, seed=1)
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_lifter_epoch_fn("mse", mesh=object())(state, torch.from_numpy(y1),
+                                                    torch.from_numpy(y2), 0)
+    assert state.step == 0
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
 
 
 def _cfg(tmp_path, **kw):

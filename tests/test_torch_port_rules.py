@@ -55,7 +55,7 @@ def test_import_pulls_in_no_jax():
         "import pose3d_tpu_torch.core.affine, pose3d_tpu_torch.models.smpl\n"
         "import pose3d_tpu_torch.models.hybrik, pose3d_tpu_torch.models.smpl_pose\n"
         "import pose3d_tpu_torch.train.smpl_steps, pose3d_tpu_torch.utils\n"
-        "import pose3d_tpu_torch.utils.visualize\n"
+        "import pose3d_tpu_torch.utils.visualize, pose3d_tpu_torch.parallel.mesh\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
         "print('cv2' in sys.modules)\n"
