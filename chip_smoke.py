@@ -338,17 +338,25 @@ BatchNorm, ``LifterService(mesh=)``) on the one card:
     (CUDA events) of each step beside its one-process step (the direct
     steps' device time too, torch.profiler), the ``pmean_`` of its
     gradients and their flat ``all_reduce`` alone, the service host to
-    host. Then two ``gloo`` ranks spawned on cuda:0
+    host. In the same world, the global-BN Function forced through the
+    one rank beside cuDNN's batch norm: one BatchNorm of layer 1's output
+    (bf16, 256 x 64^2, within 2 bf16 steps); the direct step (fused
+    route, ResNet-50, B = 64, 256^2) in float64 (loss rtol 1e-10,
+    gradients together and the final conv's 1e-8), in f32 and in bf16 (as
+    accurate as cuDNN's against the float64 step), both bf16 steps timed,
+    with their peak memory. Then two ``gloo`` ranks spawned on cuda:0
     (``nccl`` takes one device a rank): the DP fused temporal step, 8
     clips a rank, against the one-process 16-clip step (loss rtol 1e-2,
-    each gradient relative L2 <= 5e-2), and the global-BN direct step in
-    float64 (ResNet-18, 64^2, B = 8, rank 0's frames brightened) against
-    the one-process step on the global batch (loss and MPJPE sums rtol
-    1e-10, parameters atol 1e-8, running statistics 1e-10); the ranks'
-    parameters bitwise equal; each step timed on its rank (two processes
-    sharing one GPU, not a scaling figure). Its launches add to the
-    records' counts. ``python3 chip_smoke.py --dp`` runs this phase alone,
-    after phases 1-2. A run over several GPUs is not verified here.
+    each gradient relative L2 <= 5e-2); the global-BN direct step in float64 (ResNet-18, 64^2, B = 8, rank 0's
+    frames brightened) against the one-process step on the global batch
+    (loss and MPJPE sums rtol 1e-10, parameters atol 1e-8, running
+    statistics 1e-10); and the global-BN direct steps at full width, 2 x
+    32 frames, against the one-process 64-frame steps by the same limits
+    as over one rank; the ranks' parameters and gradients bitwise equal;
+    each step timed on its rank (two processes sharing one GPU, not a
+    scaling figure), the bf16 one with its peak memory. Its launches add
+    to the records' counts. ``python3 chip_smoke.py --dp`` runs this phase
+    alone, after phases 1-2. A run over several GPUs is not verified here.
 
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
@@ -392,6 +400,7 @@ from pose3d_tpu_torch.data.synthetic import render_pose_frames
 from pose3d_tpu_torch.models.heads import PoseNet2D, PoseNet3D
 from pose3d_tpu_torch.models import hybrik, smpl
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter, MartinezLifter
+from pose3d_tpu_torch.models.norm import F32BatchNorm1d, F32BatchNorm2d, sync_batch_norm
 from pose3d_tpu_torch.models.smpl import synthetic_model
 from pose3d_tpu_torch.models.smpl_pose import HybrIKPose, PoseSMPLNet
 from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
@@ -3396,6 +3405,7 @@ def smpl_phase() -> None:
 DP_RANK_CLIPS = TRAIN_CLIPS // 2  # the 2-rank temporal step: 8 clips a rank
 DP_BN_B, DP_BN_SIZE = 8, 64       # the 2-rank global-BN direct step: ResNet-18, float64
 DP_BN_ARCH = "resnet18"
+DP_WIDE_SEED = SEED + 96          # the full-width bf16 global-BN steps' batch
 DP_TIMED = 5                      # steps a timed run in the DP phase
 DP_DEADLINE_S = 300               # the 2-rank phase's ranks, at most
 DP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
@@ -3560,6 +3570,174 @@ def dp_one_rank_phase(mesh) -> tuple[dict, dict]:
     return launches, t
 
 
+def force_global_bn(model, mesh):
+    """``model``'s BatchNorms bound global over ``mesh`` even where its data
+    axis has one rank (``sync_batch_norm`` then leaves them as they are):
+    the global-BN Function runs, its all-reduces over the one rank, to be
+    held and timed against cuDNN's batch norm on the same batch."""
+    sync_batch_norm(model, mesh)
+    for m in model.modules():
+        if isinstance(m, (F32BatchNorm1d, F32BatchNorm2d)):
+            m.process_group = PM.data_group(mesh)
+    return model
+
+
+def _peak_gib(fn) -> float:
+    """GiB the card's allocator held at most during fn(), above what it
+    held before."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _total_rel(a: dict, b: dict) -> float:
+    return _rel(torch.cat([v.flatten() for v in a.values()]),
+                torch.cat([b[k].flatten() for k in a]))
+
+
+def f64_apply(model, x):
+    """``TrainState.apply`` of a float64 model: the frames in float64."""
+    return model(x.double())
+
+
+def hold_f64_step(what, loss, grads, loss_ref, grads_ref) -> None:
+    """A float64 direct step on the global-BN Function against the same
+    step on cuDNN's batch norm: the loss within rtol 1e-10, all gradients
+    together and the final conv's within relative L2 1e-8 (the same
+    function, sums in other orders; float64 as PRs 13-17's parity checks,
+    since this model's train-mode f32 and bf16 gradients are
+    ill-conditioned). No per-parameter limit: a BatchNorm weight's
+    gradient can nearly cancel; the worst is logged."""
+    total = _total_rel(grads, grads_ref)
+    final = max(_rel(grads[k], grads_ref[k]) for k in ("final_layer.weight", "final_layer.bias"))
+    rel = {n: _rel(grads[n], grads_ref[n]) for n in grads}
+    worst = max(rel, key=rel.get)
+    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+    log(f"{what}: loss {loss:.12g} vs {loss_ref:.12g} (rel {loss_err:.3g}); grads: all together "
+        f"{total:.4g}, final conv {final:.4g}, median {statistics.median(rel.values()):.4g}, "
+        f"worst {rel[worst]:.4g} ({worst})")
+    if not math.isfinite(loss) or loss_err > 1e-10 or total > 1e-8 or final > 1e-8:
+        raise AssertionError(f"{what} disagrees with cuDNN's batch norm")
+
+
+def hold_to_f64(what, got, cudnn, ref64, floor) -> None:
+    """A reduced-precision direct step on the global-BN Function, ``got`` =
+    (loss, gradients), as accurate as the same step on cuDNN's batch norm,
+    ``cudnn``, both measured against the float64 step ``ref64``: the
+    loss's error and all gradients' together (relative L2) each at most
+    F32_ERR_RATIO x cuDNN's (floor ``floor``, relative). The two steps
+    round the BatchNorms' outputs in other places, and this model's
+    train-mode gradients amplify roundings (both errors are logged), so
+    they are not held to each other; each parameter's ratio is logged."""
+    (loss_k, g_k), (loss_p, g_p), (loss_64, g_64) = got, cudnn, ref64
+    err_k, err_p = _total_rel(g_k, g_64), _total_rel(g_p, g_64)
+    lerr_k, lerr_p = (abs(v - loss_64) / abs(loss_64) for v in (loss_k, loss_p))
+    ratio = {n: _rel(g_k[n], g_64[n]) / max(_rel(g_p[n], g_64[n]), floor) for n in g_k}
+    worst = max(ratio, key=ratio.get)
+    log(f"{what}: loss {loss_k:.8g}, cuDNN's {loss_p:.8g}, float64 {loss_64:.8g} (rel "
+        f"{lerr_k:.3g}, {lerr_p:.3g}); grads vs float64, all together: global BN {err_k:.4g}, "
+        f"cuDNN {err_p:.4g}; to each other {_total_rel(g_k, g_p):.4g}; per parameter ratio: "
+        f"median {statistics.median(ratio.values()):.3g}, worst {ratio[worst]:.3g} ({worst})")
+    if (not math.isfinite(loss_k) or lerr_k > F32_ERR_RATIO * max(lerr_p, floor)
+            or err_k > F32_ERR_RATIO * max(err_p, floor)):
+        raise AssertionError(f"{what} is less accurate than cuDNN's batch norm")
+
+
+def global_bn_module_check(mesh) -> None:
+    """One BatchNorm of the ResNet-50's layer 1 output, bf16, B = 64:
+    (64, 256, 64, 64) channels_last, per-channel offsets and scales, half
+    the batch shifted; the global-BN Function over the one rank against
+    cuDNN's train-mode batch norm on the same input and upstream gradient:
+    output and input gradient within 2 bf16 steps of the largest (both
+    compute in f32 and round once), the f32 weight and bias gradients
+    within 1e-3 of the largest, the running statistics rtol 1e-4."""
+    gen = torch.Generator().manual_seed(SEED + 97)
+    shape = (DIRECT_B, 256, DIRECT_SIZE // 4, DIRECT_SIZE // 4)
+    scale = torch.linspace(0.5, 3.0, 256).view(1, 256, 1, 1)
+    x = torch.randn(shape, generator=gen) * scale + torch.linspace(-2.0, 4.0, 256).view(
+        1, 256, 1, 1)
+    x[:DIRECT_B // 2] += 1.5
+    x = x.to("cuda", torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    g = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    out = {}
+    for name in ("cudnn", "global"):
+        bn = F32BatchNorm2d(256, device="cuda").train()
+        if name == "global":
+            force_global_bn(bn, mesh)
+        xi = x.detach().requires_grad_(True)
+        y = bn(xi)
+        y.backward(g)
+        out[name] = (y.float(), xi.grad.float(), bn.weight.grad, bn.bias.grad,
+                     bn.running_mean, bn.running_var, y.is_contiguous(
+                         memory_format=torch.channels_last))
+    errs = []
+    for i, (got, want) in enumerate(zip(out["global"][:6], out["cudnn"][:6])):
+        errs.append(((got - want).abs().max() / want.abs().max()).item())
+    log(f"dp 1 rank global-BN module bf16 {tuple(shape)} vs cuDNN's batch norm: relative to the "
+        f"largest: y {errs[0]:.3g}, dx {errs[1]:.3g}, dw {errs[2]:.3g}, db {errs[3]:.3g}, "
+        f"running mean {errs[4]:.3g}, var {errs[5]:.3g}; channels_last {out['global'][6]}")
+    if (errs[0] > 2 * 2.0 ** -8 or errs[1] > 2 * 2.0 ** -8 or max(errs[2:4]) > 1e-3
+            or max(errs[4:6]) > 1e-4 or not out["global"][6]):
+        raise AssertionError("the global-BN Function disagrees with cuDNN's batch norm")
+
+
+def dp_wide_bn_phase(mesh) -> tuple[dict, dict]:
+    """Global BatchNorm at full width (the fused route's ResNet-50, B =
+    DIRECT_B, 256^2) in the world of one rank, forced through the global-BN
+    Function (``force_global_bn``) beside cuDNN's batch norm: one
+    BatchNorm alone (``global_bn_module_check``); the float64 step (the
+    decodes on their plain versions) by ``hold_f64_step``; the f32 and
+    bf16 steps' accuracy against it (``hold_to_f64``); then both bf16
+    steps' time (CUDA events), device time (torch.profiler) and peak
+    memory, neither with ``pmean_``. Returns (the one-process steps'
+    losses and gradients, on the CPU: the two-rank steps' reference;
+    times)."""
+    import copy
+
+    global_bn_module_check(mesh)
+    flags, _ = DIRECT_TRAIN_ROUTES["fused"]
+    frames, kp3d = direct_train_batch(DP_WIDE_SEED)
+    model = seeded_train_posenet(**flags)
+    model64 = copy.deepcopy(model).double()
+    with plain_decodes():
+        ref = {"f64": _direct_loss_and_grads(model64, frames, kp3d, f64_apply)}
+        got = _direct_loss_and_grads(force_global_bn(model64, mesh), frames, kp3d, f64_apply)
+    hold_f64_step(f"dp 1 rank global-BN direct step float64 B={DIRECT_B} vs cuDNN's", *got,
+                  *ref["f64"])
+    del model64, got
+    for name, apply, floor in (("f32", lambda m, x: m(x), 2.0 ** -16),
+                               ("bf16", bf16_apply, STEP_GRAD_REL)):
+        ref[name] = _direct_loss_and_grads(model, frames, kp3d, apply)
+        got = _direct_loss_and_grads(force_global_bn(model, mesh), frames, kp3d, apply)
+        sync_batch_norm(model, None)
+        hold_to_f64(f"dp 1 rank global-BN direct step {name} B={DIRECT_B}", got, ref[name],
+                    ref["f64"], floor)
+        del got
+    ref = {k: (loss, {n: g.cpu() for n, g in grads.items()}) for k, (loss, grads) in ref.items()}
+    state = create_train_state(model, lr=DIRECT_LR, optimizer="adam", weight_decay=DIRECT_WD,
+                               apply=bf16_apply)
+    step = make_direct_train_step("mse")
+    t = {}
+    for name, bind in (("cudnn", lambda: sync_batch_norm(model, None)),
+                       ("global", lambda: force_global_bn(model, mesh))):
+        bind()
+        t[name] = cuda_ms(lambda: step(state, frames, kp3d), n=DP_TIMED)
+        t[f"{name}_busy"] = sum(device_ms_by_kernel(lambda: step(state, frames, kp3d),
+                                                    n=DP_TIMED).values())
+        t[f"{name}_gib"] = _peak_gib(lambda: step(state, frames, kp3d))
+    log(f"time dp 1 rank direct step bf16 B={DIRECT_B} (fused route, no pmean_): cuDNN's batch "
+        f"norm {t['cudnn']:.4f} ms ({t['cudnn_busy']:.4f} of device time), peak "
+        f"{t['cudnn_gib']:.3f} GiB above the state; global BN forced over one rank "
+        f"{t['global']:.4f} ms ({t['global_busy']:.4f}), peak {t['global_gib']:.3f} GiB")
+    del model, state
+    torch.cuda.empty_cache()
+    return ref, t
+
+
 def dp_bn_model(dtype=torch.float64):
     """The DP_BN_ARCH PoseNet3D on the NHWC route from the seed (final conv
     x FINAL_SCALE), on the card in ``dtype``, and its batch: DP_BN_B
@@ -3578,10 +3756,11 @@ def dp_bn_model(dtype=torch.float64):
 
 def dp_rank(rank: int, world: int, out_dir: str) -> None:
     """A rank of the 2-rank phase (``gloo`` on cuda:0, spawned): the DP fused
-    temporal step on its DP_RANK_CLIPS clips, then the global-BN float64
-    direct step on its DP_BN_B / 2 frames; each timed (two processes
-    sharing one GPU, not a scaling figure). Saves (results, error) to
-    ``out_dir``."""
+    temporal step on its DP_RANK_CLIPS clips, the global-BN float64 direct
+    step on its DP_BN_B / 2 frames, then the full-width global-BN direct
+    steps (ResNet-50, fused route), float64 (the decodes on their plain
+    versions) and bf16, on its DIRECT_B / 2 frames; each timed (two processes sharing one GPU, not a scaling
+    figure), the bf16 one with its peak memory. Saves (results, error) to ``out_dir``."""
     import traceback
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
@@ -3608,14 +3787,37 @@ def dp_rank(rank: int, world: int, out_dir: str) -> None:
         torch.cuda.empty_cache()
 
         model, frames, kp3d = dp_bn_model()
-        state = create_train_state(model, lr=DIRECT_LR, optimizer="adam",
-                                   weight_decay=DIRECT_WD)
+        state = create_train_state(sync_batch_norm(model, mesh), lr=DIRECT_LR,
+                                   optimizer="adam", weight_decay=DIRECT_WD)
         step = make_direct_train_step("mse", mesh=mesh)
         frames, kp3d = PM.shard_batch((frames, kp3d), mesh)
         m = step(state, frames, kp3d)
         result.update(bn_loss=m["loss"].item(), bn_sums=m["mpjpe_sums"].cpu().clone(),
                       bn_sd={k: v.cpu().clone() for k, v in model.state_dict().items()})
         result["bn_ms"] = cuda_ms(lambda: step(state, frames, kp3d), n=DP_TIMED)
+        del model, state
+        torch.cuda.empty_cache()
+
+        # the full-width global-BN steps (f32, then bf16) on the rank's half
+        # of the batch
+        frames, kp3d = PM.shard_batch(direct_train_batch(DP_WIDE_SEED), mesh)
+        for name, apply in (("f64", f64_apply), ("bf16", bf16_apply)):
+            model = seeded_train_posenet(**DIRECT_TRAIN_ROUTES["fused"][0])
+            if name == "f64":
+                model.double()
+            state = create_train_state(sync_batch_norm(model, mesh), lr=DIRECT_LR,
+                                       optimizer="adam", weight_decay=DIRECT_WD, apply=apply)
+            with plain_decodes() if name == "f64" else contextlib.nullcontext():
+                m = step(state, frames, kp3d)
+            result[f"wide_{name}"] = (m["loss"].item(),
+                                      {k: v.cpu() for k, v in _grads(model).items()})
+            del model, state
+            torch.cuda.empty_cache()
+        model = sync_batch_norm(seeded_train_posenet(**DIRECT_TRAIN_ROUTES["fused"][0]), mesh)
+        state = create_train_state(model, lr=DIRECT_LR, optimizer="adam",
+                                   weight_decay=DIRECT_WD, apply=bf16_apply)
+        result["wide_ms"] = cuda_ms(lambda: step(state, frames, kp3d), n=DP_TIMED)
+        result["wide_gib"] = _peak_gib(lambda: step(state, frames, kp3d))
     except BaseException:
         error = traceback.format_exc()
     finally:
@@ -3624,7 +3826,7 @@ def dp_rank(rank: int, world: int, out_dir: str) -> None:
         torch.save((result, error), f"{out_dir}/rank{rank}.pt")
 
 
-def dp_two_rank_phase() -> tuple[dict, dict]:
+def dp_two_rank_phase(wide_ref: dict) -> tuple[dict, dict]:
     """Two ``gloo`` ranks sharing cuda:0 (``nccl`` takes one device a rank),
     spawned from here after the one-process runs: the DP fused temporal
     step (2 x DP_RANK_CLIPS clips) against the one-process TRAIN_CLIPS-clip
@@ -3632,8 +3834,12 @@ def dp_two_rank_phase() -> tuple[dict, dict]:
     relative L2 <= STEP_GRAD_REL), and the global-BN direct step in float64
     (ResNet-18, DP_BN_SIZE^2, B = DP_BN_B) against the one-process step on
     the global batch (loss and MPJPE sums rtol 1e-10, parameters atol 1e-8,
-    running statistics 1e-10); the ranks' parameters bitwise equal.
-    Returns (the ranks' launches, summed; times)."""
+    running statistics 1e-10), and the full-width global-BN direct steps
+    (ResNet-50, 2 x DIRECT_B / 2 frames, 256^2) against the one-process
+    DIRECT_B-frame steps of ``wide_ref``: float64 (``hold_f64_step``) and
+    bf16 (``hold_to_f64``); the ranks' parameters and gradients bitwise
+    equal. Returns (the ranks'
+    launches, summed; times)."""
     model = seeded_train_model()
     y1, y2 = synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 95)
     state = create_train_state(model, lr=TRAIN_LR, apply=ST.temporal_train_forward_fused)
@@ -3673,7 +3879,9 @@ def dp_two_rank_phase() -> tuple[dict, dict]:
     log(f"dp 2 ranks: ready and done in {time.perf_counter() - t0:.1f} s")
 
     bad = (_differ(res[0]["temporal_sd"], res[1]["temporal_sd"])
-           + _differ(res[0]["bn_sd"], res[1]["bn_sd"]))
+           + _differ(res[0]["bn_sd"], res[1]["bn_sd"])
+           + _differ(res[0]["wide_f64"][1], res[1]["wide_f64"][1])
+           + _differ(res[0]["wide_bf16"][1], res[1]["wide_bf16"][1]))
     if bad:
         raise AssertionError(f"the ranks' parameters differ: {bad[:5]}")
     rel = {n: _rel(res[0]["grads"][n], one_grads[n]) for n in one_grads}
@@ -3701,11 +3909,17 @@ def dp_two_rank_phase() -> tuple[dict, dict]:
         f"{errs['params']:.3g}, running statistics {errs['running']:.3g} from one process")
     if bn_loss_err > 1e-10 or sums_err > 1e-10 or errs["params"] > 1e-8 or errs["running"] > 1e-10:
         raise AssertionError("the 2-rank global-BN step disagrees with one process")
-    t = {k: [r[k] for r in res] for k in ("temporal_ms", "bn_ms")}
+    hold_f64_step(f"dp 2 ranks global-BN direct step float64 2 x {DIRECT_B // 2} vs one "
+                  f"process B={DIRECT_B}", *got["wide_f64"], *wide_ref["f64"])
+    hold_to_f64(f"dp 2 ranks global-BN direct step bf16 2 x {DIRECT_B // 2}", got["wide_bf16"],
+                wide_ref["bf16"], wide_ref["f64"], STEP_GRAD_REL)
+    t = {k: [r[k] for r in res] for k in ("temporal_ms", "bn_ms", "wide_ms", "wide_gib")}
     log(f"time dp 2 ranks sharing one GPU (two processes, not a scaling figure): temporal step "
         f"{DP_RANK_CLIPS} clips a rank {t['temporal_ms'][0]:.4f} / {t['temporal_ms'][1]:.4f} ms, "
         f"global-BN float64 step {DP_BN_B // 2} frames a rank {t['bn_ms'][0]:.4f} / "
-        f"{t['bn_ms'][1]:.4f} ms (rank 0 / rank 1)")
+        f"{t['bn_ms'][1]:.4f} ms, global-BN bf16 ResNet-50 step {DIRECT_B // 2} frames a rank "
+        f"{t['wide_ms'][0]:.4f} / {t['wide_ms'][1]:.4f} ms, peak {t['wide_gib'][0]:.3f} / "
+        f"{t['wide_gib'][1]:.3f} GiB above the state (rank 0 / rank 1)")
     launches = {k: sum(r["launches"][k] for r in res) for k in want}
     return launches, t
 
@@ -3717,7 +3931,8 @@ def dp_phase() -> dict:
     t0 = time.perf_counter()
     with world_of_one() as mesh:
         launches, _ = dp_one_rank_phase(mesh)
-    two, _ = dp_two_rank_phase()
+        wide_ref, _ = dp_wide_bn_phase(mesh)
+    two, _ = dp_two_rank_phase(wide_ref)
     for k, n in two.items():
         launches[k] += n
     log(f"dp phase: {time.perf_counter() - t0:.1f} s; launches {launches}")

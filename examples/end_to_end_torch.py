@@ -72,7 +72,7 @@ def dp_rank(rank: int, device_type: str, backend: str, logs: str, kp2d: np.ndarr
         state = create_train_state(model, lr=1e-3,
                                    apply=temporal_train_forward_fused if fused else None)
         y1, y2 = (torch.from_numpy(a).to(device) for a in M.shard_batch(clips, mesh))
-        m = make_dp_lifter_train_step(mesh)(state, y1, y2, seed=4)
+        m = make_dp_lifter_train_step(mesh)(state, y1, y2)
         result = {"answer": answer, "loss": m["loss"].item(), "fused": fused,
                   "params": {k: v.cpu() for k, v in model.state_dict().items()}}
     except BaseException:

@@ -50,6 +50,7 @@ from pose3d_tpu_torch.config import DirectConfig, parse_config
 from pose3d_tpu_torch.data import h36m, synthetic
 from pose3d_tpu_torch.data.feed import batch_iterator, prefetch_to_device
 from pose3d_tpu_torch.models.heads import PoseNet3D
+from pose3d_tpu_torch.models.norm import sync_batch_norm
 from pose3d_tpu_torch.parallel.mesh import (broadcast_parameters, data_size, launched_mesh,
                                             pmean_, psum_, shard_batch)
 from pose3d_tpu_torch.train import checkpoint as ckpt
@@ -137,6 +138,7 @@ def train(cfg: DirectConfig, mesh=None):
     n_shards = 1 if mesh is None else data_size(mesh)
     if mesh is not None:
         broadcast_parameters(state.model, mesh)
+        sync_batch_norm(state.model, mesh)  # global BatchNorm; local again at the end
     if cfg.batch_size % n_shards:
         raise ValueError(f"--batch_size {cfg.batch_size} does not split over {n_shards} ranks")
     frames, kp3d, _ = load_image_split(cfg, is_train=True)
@@ -200,6 +202,8 @@ def train(cfg: DirectConfig, mesh=None):
                          batch_size=cfg.batch_size)
         print(f"interrupted; saved {path}")
         raise
+    finally:
+        sync_batch_norm(state.model, None)  # the mesh's group ends with main
 
     path = ckpt.save(state, cfg.log_dir, cfg.run_name, batch_size=cfg.batch_size)
     logger.finish()

@@ -48,6 +48,7 @@ from pose3d_tpu_torch.data import h36m, synthetic
 from pose3d_tpu_torch.data.feed import batch_iterator, prefetch_to_device
 from pose3d_tpu_torch.models.heads import PoseNet2D, PoseNet3D
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter
+from pose3d_tpu_torch.models.norm import sync_batch_norm
 from pose3d_tpu_torch.parallel.mesh import (broadcast_parameters, data_size, launched_mesh,
                                             pmean_, psum_)
 from pose3d_tpu_torch.train import checkpoint as ckpt
@@ -133,6 +134,7 @@ def train(cfg: LoopConfig, mesh=None) -> LoopState:
     if mesh is not None:
         for net in (state.net2d, state.net3d):
             broadcast_parameters(net.model, mesh)
+            sync_batch_norm(net.model, mesh)  # global BatchNorm; local again at the end
         if cfg.batch_size % data_size(mesh):
             raise ValueError(f"--batch_size {cfg.batch_size} does not split over "
                              f"{data_size(mesh)} ranks")
@@ -192,6 +194,9 @@ def train(cfg: LoopConfig, mesh=None) -> LoopState:
                       batch_size=cfg.batch_size)
         print("interrupted; saved interrupt checkpoints")
         raise
+    finally:
+        for net in (state.net2d, state.net3d):
+            sync_batch_norm(net.model, None)  # the mesh's group ends with main
 
     paths = [ckpt.save(net, cfg.log_dir, f"{cfg.run_name}_{tag}", batch_size=cfg.batch_size)
              for tag, net in (("2d", state.net2d), ("3d", state.net3d))]

@@ -14,8 +14,8 @@ Under a launcher (``torchrun --nproc_per_node=N -m
 pose3d_tpu_torch.cli.train_temporal``) every rank joins the world's mesh
 (``parallel/mesh.py``), the batch is trimmed to a multiple of N, each rank
 stages its shard, and the step is the data-parallel one
-(``train.steps.make_dp_lifter_train_step``, on the fused apply where the
-kernels serve); validation runs on the shards and reduces its metrics;
+(``train.steps.make_lifter_train_step(mesh=)``, on the fused apply where
+the kernels serve); validation runs on the shards and reduces its metrics;
 rank 0 writes the log and the checkpoint.
 
 Usage:
@@ -42,8 +42,7 @@ from pose3d_tpu_torch.parallel.mesh import (broadcast_parameters, data_size, lau
 from pose3d_tpu_torch.train import checkpoint as ckpt
 from pose3d_tpu_torch.train.logging import MetricLogger
 from pose3d_tpu_torch.train.state import create_train_state
-from pose3d_tpu_torch.train.steps import (make_dp_lifter_train_step, make_lifter_eval_step,
-                                          make_lifter_train_step)
+from pose3d_tpu_torch.train.steps import make_lifter_eval_step, make_lifter_train_step
 
 
 def load_clips(cfg: TemporalConfig, is_train: bool):
@@ -95,10 +94,8 @@ def train(cfg: TemporalConfig, mesh=None):
     if cfg.resume and ckpt.exists(cfg.log_dir, cfg.run_name):
         state, _ = ckpt.restore(state, cfg.log_dir, cfg.run_name)
         print(f"resumed at step {state.step}")
-    if mesh is None:
-        step = make_lifter_train_step(cfg.loss)
-    else:
-        step = make_dp_lifter_train_step(mesh, cfg.loss)
+    step = make_lifter_train_step(cfg.loss, mesh)
+    if mesh is not None:
         print(f"train step: data parallel over {n_shards} ranks")
     eval_step = make_lifter_eval_step(cfg.loss)
     logger = MetricLogger(cfg.log_dir, cfg.run_name, config={

@@ -12,17 +12,24 @@ the deconv head) refuse that rounding.
 
 Under data parallelism a BatchNorm is local (each rank normalises its
 shard with the shard's statistics) unless ``sync_batch_norm(model, mesh)``
-gives it the data axis' process group. Then, in train mode over more than
-one rank, it normalises with the statistics of the global batch, as the
-JAX package's BatchNorm does under GSPMD (``pose3d_tpu/models/norm.py``):
+binds the model to the data axis' process group, once, where the mesh
+meets the model (the trainers bind it beside ``broadcast_parameters`` and
+unbind it before the group ends). Then, in train mode over more than one
+rank, it normalises with the statistics of the global batch, as the JAX
+package's BatchNorm does under GSPMD (``pose3d_tpu/models/norm.py``):
 ``_GlobalBatchNorm`` all-reduces [Σx, Σx², n] in at least f32, takes
 JAX's variance max(E[x²] - E[x]², 0), and updates ``running_var`` with the
-unbiased factor of the global count n (JAX's static ``n``). Its backward
-all-reduces [Σdy, Σdy·x̂] and returns the rank's own weight and bias
-gradients, the scale ``SyncBatchNorm`` has under DDP: each rank's
-backward starts from its local mean loss, and the steps then average the
-parameter gradients (``parallel.mesh.pmean_``). Eval mode and a group of
-one rank run the module as it is, bitwise. ``torch.nn.SyncBatchNorm``
+unbiased factor of the global count n (JAX's static ``n``). It saves x in
+its own dtype and the per-channel mean and 1/σ, as PyTorch's batch norm
+does, and normalises with PyTorch's eval-mode batch norm on those
+statistics (one pass). Its backward all-reduces [Σdy, Σdy·x̂] (on the
+card [Σdy, Σdy·(x - mean)], through ``SyncBatchNorm``'s kernels) and
+returns the rank's own weight and bias gradients, the scale
+``SyncBatchNorm`` has under DDP: each rank's backward starts from its
+local mean loss, and the steps then average the parameter gradients
+(``parallel.mesh.pmean_``). Eval mode and a group of one rank run the
+module as it is, bitwise. The steps check the model's binding
+(``require_batch_norm``) and never change it. ``torch.nn.SyncBatchNorm``
 takes no CPU tensor, so the port has its own.
 """
 
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
@@ -64,17 +72,17 @@ class _F32Norm:
     copies of the activations.
     """
 
-    process_group = None  # set by sync_batch_norm: the global batch's ranks
+    process_group = None  # set by sync_batch_norm: the global batch's ranks, if more than one
 
     def _apply(self, fn, recurse=True):
         return super()._apply(keep_f32(fn), recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        group = self.process_group
-        if self.training and group is not None and dist.get_world_size(group) > 1:
+        if self.training and self.process_group is not None:
             self.num_batches_tracked.add_(1)
             return _GlobalBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
-                                          self.running_var, self.momentum, self.eps, group)
+                                          self.running_var, self.momentum, self.eps,
+                                          self.process_group)
         if x.dtype in (torch.bfloat16, torch.float16):
             return super().forward(x)
         acc = torch.promote_types(x.dtype, torch.float32)
@@ -84,44 +92,60 @@ class _F32Norm:
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch norm over the global batch of ``group``'s ranks
     (x: (N, C) or (N, C, ...)), the running statistics updated in place;
-    returns x's dtype and memory format."""
+    returns x's dtype and memory format.
+
+    On the card the backward runs PyTorch's batch-norm kernels, those of
+    ``SyncBatchNorm`` (one reduction pass over x and dy, the all-reduce,
+    one elementwise pass): they exist for CUDA only, so on the CPU the
+    same sums and input gradient are written out in tensor operations."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps, group):
         acc = torch.promote_types(x.dtype, torch.float32)
         c = x.shape[1]
         dims = [0, *range(2, x.dim())]
-        shape = (1, c) + (1,) * (x.dim() - 2)
-        xf = x.to(acc)
-        stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
-                           xf.new_full((1,), x.numel() // c)])
+        # one read of x each, no widened copy: Σx, and Σx² as |x|² over dims
+        stats = torch.cat([x.sum(dims, dtype=acc),
+                           torch.linalg.vector_norm(x, 2, dims, dtype=acc).square_(),
+                           x.new_full((1,), x.numel() // c, dtype=acc)])
         dist.all_reduce(stats, group=group)
-        n = stats[2 * c]
-        mean = stats[:c] / n
-        var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
-        invstd = torch.rsqrt(var + eps)
-        xhat = (xf - mean.view(shape)) * invstd.view(shape)
-        y = xhat * weight.to(acc).view(shape) + bias.to(acc).view(shape)
+        n = stats[2 * c:]
+        mean, ex2 = (stats[:2 * c] / n).view(2, c)
+        var = torch.addcmul(ex2, mean, mean, value=-1.0).clamp_min_(0.0)
+        invstd = (var + eps).rsqrt_()
         with torch.no_grad():
-            unbiased = var * (n / (n - 1).clamp_min(1.0))
-            running_mean.mul_(1.0 - momentum).add_(momentum * mean.to(running_mean.dtype))
-            running_var.mul_(1.0 - momentum).add_(momentum * unbiased.to(running_var.dtype))
-        ctx.save_for_backward(xhat, weight, invstd, n)
-        ctx.group, ctx.dims, ctx.shape = group, dims, shape
-        return y.to(x.dtype)
+            running_mean.lerp_(mean, momentum)
+            running_var.lerp_(var * (n / (n - 1).clamp_min(1.0)), momentum)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group = group
+        return F.batch_norm(x, mean, var, weight.to(acc), bias.to(acc), False, 0.0, eps)
 
     @staticmethod
     def backward(ctx, dy):
-        xhat, weight, invstd, n = ctx.saved_tensors
-        dims, shape, c = ctx.dims, ctx.shape, xhat.shape[1]
-        dyf = dy.to(xhat.dtype)
-        sum_dy = dyf.sum(dims)
-        sum_dy_xhat = (dyf * xhat).sum(dims)
-        sums = torch.cat([sum_dy, sum_dy_xhat])
-        dist.all_reduce(sums, group=ctx.group)
-        dx = (weight.to(xhat.dtype) * invstd).view(shape) * (
-            dyf - (sums[:c] / n).view(shape) - xhat * (sums[c:] / n).view(shape))
-        return (dx.to(dy.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype),
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c, w = x.shape[1], weight.to(mean.dtype)
+        if x.is_cuda:
+            if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+                dy = dy.contiguous(memory_format=torch.channels_last)
+            else:
+                dy = dy.contiguous()
+            sum_dy, sum_dy_xmu, dw, db = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, w, True, True, True)
+            sums = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(sums, group=ctx.group)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, w, sums[:c], sums[c:],
+                                                 n.to(torch.int32))
+        else:
+            dims = [0, *range(2, x.dim())]
+            shape = (1, c) + (1,) * (x.dim() - 2)
+            xhat = (x.to(mean.dtype) - mean.view(shape)) * invstd.view(shape)
+            dyf = dy.to(mean.dtype)
+            db, dw = dyf.sum(dims), (dyf * xhat).sum(dims)
+            sums = torch.cat([db, dw])
+            dist.all_reduce(sums, group=ctx.group)
+            dx = (w * invstd).view(shape) * (
+                dyf - (sums[:c] / n).view(shape) - xhat * (sums[c:] / n).view(shape))
+        return (dx.to(dy.dtype), dw.to(weight.dtype), db.to(weight.dtype),
                 None, None, None, None, None)
 
 
@@ -143,22 +167,42 @@ class F32BatchNorm2d(_F32Norm, nn.BatchNorm2d):
 
 
 def sync_batch_norm(model: nn.Module, mesh) -> nn.Module:
-    """Every BatchNorm of ``model`` made global over ``mesh``'s data axis
-    (train mode normalises with the global batch's statistics), or local
-    again with ``mesh=None``; returns ``model``. Raises on a BatchNorm that
-    is not one of this module's (it would stay local)."""
+    """Binds every BatchNorm of ``model`` to ``mesh``'s data axis (train
+    mode normalises with the global batch's statistics where the axis has
+    more than one rank), or local again with ``mesh=None``; returns
+    ``model``. Called once where the mesh meets the model, not by a step.
+    Raises on a BatchNorm that is not one of this module's (it would stay
+    local)."""
     group = None
     if mesh is not None:
         from pose3d_tpu_torch.parallel.mesh import data_group
 
         group = data_group(mesh)
+    per_norm = group if group is not None and dist.get_world_size(group) > 1 else None
     for name, m in model.named_modules():
         if isinstance(m, _F32Norm):
-            m.process_group = group
+            m.process_group = per_norm
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             raise TypeError(f"{name}: {type(m).__name__} cannot be made global; the port's "
                             "models use F32BatchNorm1d / F32BatchNorm2d")
+    model.batch_norm_group = group
     return model
+
+
+def require_batch_norm(model: nn.Module, mesh) -> None:
+    """Raise unless ``model``'s BatchNorms are bound as a step over
+    ``mesh`` needs them: global over its data axis (``sync_batch_norm(model,
+    mesh)``), or local with ``mesh=None``."""
+    want = None
+    if mesh is not None:
+        from pose3d_tpu_torch.parallel.mesh import data_group
+
+        want = data_group(mesh)
+    if getattr(model, "batch_norm_group", None) is not want:
+        raise ValueError(f"{type(model).__name__}'s BatchNorms are "
+                         + ("local; bind them with sync_batch_norm(model, mesh)"
+                            if want is not None else
+                            "global; this step wants them local (sync_batch_norm(model, None))"))
 
 
 @torch.no_grad()

@@ -39,7 +39,8 @@ import torch.distributed as dist
 from pose3d_tpu_torch.models.lifters import JointTransformerLifter
 from pose3d_tpu_torch.ops import lifter as _lifter
 from pose3d_tpu_torch.ops import martinez as _martinez
-from pose3d_tpu_torch.parallel.mesh import data_group, data_rank, data_size, shard_batch
+from pose3d_tpu_torch.parallel.mesh import (data_group, data_rank, data_size, pad_to_multiple,
+                                            shard_batch)
 
 N_JOINTS = 17
 
@@ -92,7 +93,7 @@ class LifterService:
             self._group = data_group(mesh)  # raises without a process group
             n_shards = data_size(mesh)
             # every bucket splits evenly over the data axis
-            min_bucket = -(-max(min_bucket, n_shards) // n_shards) * n_shards
+            min_bucket = pad_to_multiple(max(min_bucket, n_shards), n_shards)
         self.buckets = []
         b = min_bucket
         while b <= max_batch:

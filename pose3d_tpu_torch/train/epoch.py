@@ -9,8 +9,9 @@ the device, and the host reads the metrics once an epoch, as after the
 scan. The conventions are the reference's: the epoch loss is the mean of
 the batch losses, the MPJPE the per-joint sums over the epoch, finished
 by ``losses.mpjpe_mm``. With a mesh each batch goes through the
-data-parallel step (``train.steps.make_dp_lifter_train_step``): the batch
-stack holds this rank's shards, and the metrics are the global batches'.
+data-parallel step (``train.steps.make_lifter_train_step(mesh=)``): the
+batch stack holds this rank's shards, and the metrics are the global
+batches'.
 """
 
 from __future__ import annotations
@@ -19,9 +20,9 @@ import numpy as np
 import torch
 
 from pose3d_tpu_torch import losses
+from pose3d_tpu_torch.parallel.mesh import data_rank, shard_seed
 from pose3d_tpu_torch.train.state import TrainState
-from pose3d_tpu_torch.train.steps import (eval_predict, make_dp_lifter_train_step,
-                                          make_lifter_train_step, shard_rng)
+from pose3d_tpu_torch.train.steps import eval_predict, make_lifter_train_step
 
 
 def make_lifter_epoch_fn(loss: str = "mse", mesh=None):
@@ -38,11 +39,14 @@ def make_lifter_epoch_fn(loss: str = "mse", mesh=None):
     raises on a BatchNorm model before its first update). The stacks hold
     this rank's shard of each batch; the generator is seeded with
     ``shard_seed(seed, rank)``, and the metrics are the global batches'."""
-    step = make_lifter_train_step(loss) if mesh is None else make_dp_lifter_train_step(mesh, loss)
+    step = make_lifter_train_step(loss, mesh)
 
     def epoch(state: TrainState, y1_batches: torch.Tensor, y2_batches: torch.Tensor,
               seed: int) -> dict:
-        with shard_rng(seed, mesh, y1_batches.device):
+        device = y1_batches.device
+        with torch.random.fork_rng(devices=[device] if device.type == "cuda" else [],
+                                   device_type="cuda"):
+            torch.manual_seed(shard_seed(seed, 0 if mesh is None else data_rank(mesh)))
             ms = [step(state, y1, y2) for y1, y2 in zip(y1_batches, y2_batches)]
         batch_losses = torch.stack([m["loss"] for m in ms])
         return {"loss": batch_losses.mean(), "last_batch_loss": batch_losses[-1],

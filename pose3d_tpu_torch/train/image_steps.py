@@ -30,14 +30,18 @@ rank stepping on its shard of the global batch; the loss returned is the
 global batch's and the MPJPE sums are summed over the ranks:
 
 - ``make_direct_train_step(mesh=)`` / ``make_direct_chunk_step(mesh=)``:
-  global BatchNorm (``models/norm.sync_batch_norm``, the JAX package's
-  GSPMD contract): the statistics of the global batch, the gradients
-  averaged (``pmean_``) before the optimizer step;
+  global BatchNorm (the JAX package's GSPMD contract): the model bound
+  to the mesh with ``models/norm.sync_batch_norm`` by the caller, so the
+  statistics are the global batch's; the gradients averaged (``pmean_``)
+  before the optimizer step;
 - ``make_dp_direct_train_step``: local BatchNorm (the JAX package's
   ``shard_map`` step, torch DDP without SyncBatchNorm): each shard
   normalised with its own statistics, the gradients and the updated
   running statistics averaged over the ranks. The fused route's decode
   kernels run on each shard.
+
+The steps check the model's binding (``models/norm.require_batch_norm``)
+and never change it.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from __future__ import annotations
 import torch
 
 from pose3d_tpu_torch import losses
-from pose3d_tpu_torch.models.norm import sync_batch_norm
+from pose3d_tpu_torch.models.norm import require_batch_norm
 from pose3d_tpu_torch.ops.heatmap import heatmap_targets
 from pose3d_tpu_torch.parallel.mesh import pmean_, psum_
 from pose3d_tpu_torch.train.steps import apply_gradients
@@ -98,14 +102,15 @@ def make_direct_train_step(loss: str = "mse", heatmap_loss_weight: float = 0.0, 
     in the targets' (u, v, w) order, as the JAX step compares them.
 
     ``mesh``: frames and kp3d are this rank's shard; the model's
-    BatchNorms are made global over the data axis (``sync_batch_norm``),
-    the gradients averaged before the step, and the metrics are the global
-    batch's: one step of the global batch on every rank."""
+    BatchNorms bound global over the data axis (``sync_batch_norm(model,
+    mesh)``, else it raises), the gradients averaged before the step, and
+    the metrics are the global batch's: one step of the global batch on
+    every rank."""
     loss_fn = losses.LOSS_FNS[loss]
 
     def step(state, frames: torch.Tensor, kp3d: torch.Tensor) -> dict:
         if mesh is not None:
-            sync_batch_norm(state.model, mesh)
+            require_batch_norm(state.model, mesh)
         total, pred = _direct_loss(state, frames, kp3d, loss_fn, heatmap_loss_weight)
         apply_gradients(total, state, mesh=mesh)
         return _global_metrics(total, pred, kp3d, mesh)
@@ -134,15 +139,16 @@ def make_dp_direct_train_step(mesh, loss: str = "mse", heatmap_loss_weight: floa
     """Local-BN data-parallel step: (state, frames, kp3d: this rank's shard)
     -> {"loss", "mpjpe_sums"} of the global batch, after one optimizer
     step. Each rank normalises its shard with its own batch statistics
-    (the model's BatchNorms made local), one backward, the gradients
-    averaged over the data axis, the optimizer step, and the running
-    statistics averaged over the ranks (for equal shards the mean of the
-    shard means is the global mean; the averaged variance leaves out the
-    spread between shard means, as torch DDP without SyncBatchNorm)."""
+    (the model's BatchNorms local, else it raises), one backward, the
+    gradients averaged over the data axis, the optimizer step, and the
+    running statistics averaged over the ranks (for equal shards the mean
+    of the shard means is the global mean; the averaged variance leaves
+    out the spread between shard means, as torch DDP without
+    SyncBatchNorm)."""
     loss_fn = losses.LOSS_FNS[loss]
 
     def step(state, frames: torch.Tensor, kp3d: torch.Tensor) -> dict:
-        sync_batch_norm(state.model, None)
+        require_batch_norm(state.model, None)
         total, pred = _direct_loss(state, frames, kp3d, loss_fn, heatmap_loss_weight)
         apply_gradients(total, state, mesh=mesh)
         pmean_([b for m in state.model.modules()

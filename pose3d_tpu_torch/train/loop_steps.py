@@ -34,13 +34,14 @@ frozen ViTs run in eval mode), so a step is a deterministic function and
 takes no rng.
 
 Under a mesh (``make_loop_train_step(mesh=)``) each rank steps on its
-shard of the global batch with both image models' BatchNorms global over
-the data axis (``models/norm.sync_batch_norm``, the JAX package's GSPMD
-contract): the flip batch of 2·B/N frames on each rank shares its
-statistics with every rank's through the global BatchNorm. The frozen
-models stay in eval mode, with no collective. Both models' gradients are
-averaged in one ``pmean_``; the loss and its terms are the global batch's
-and the MPJPE sums are summed over the ranks.
+shard of the global batch with both image models' BatchNorms bound global
+over the data axis by the caller (``models/norm.sync_batch_norm``, the
+JAX package's GSPMD contract; the step checks it): the flip batch of
+2·B/N frames on each rank shares its statistics with every rank's
+through the global BatchNorm. The frozen models stay in eval mode, with
+no collective. Both models' gradients are averaged in one ``pmean_``;
+the loss and its terms are the global batch's and the MPJPE sums are
+summed over the ranks.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ import torch
 
 from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.core.transforms import flip_pose
-from pose3d_tpu_torch.models.norm import sync_batch_norm
+from pose3d_tpu_torch.models.norm import require_batch_norm
 from pose3d_tpu_torch.parallel.mesh import pmean_, psum_
 from pose3d_tpu_torch.train.image_steps import _normalize
 from pose3d_tpu_torch.train.state import TrainState
@@ -93,15 +94,15 @@ def make_loop_train_step(*, triangle: bool = False, flip: bool = False, project:
     of each image model's optimizer. ``triangle`` needs ``state.lifter``;
     ``project`` adds the projection terms where ``state.projector`` is
     set. With ``mesh`` the arrays are this rank's shard and the step is
-    the global batch's (global BatchNorm, averaged gradients, global
-    metrics)."""
+    the global batch's (both image models bound global with
+    ``sync_batch_norm``, averaged gradients, global metrics)."""
     if triangle_mode not in ("sep", "cycle"):
         raise ValueError(f"triangle_mode must be sep|cycle, got {triangle_mode}")
 
     def step(state: LoopState, frames: torch.Tensor, y1: torch.Tensor, y2: torch.Tensor) -> dict:
         if mesh is not None:
-            sync_batch_norm(state.net2d.model, mesh)
-            sync_batch_norm(state.net3d.model, mesh)
+            require_batch_norm(state.net2d.model, mesh)
+            require_batch_norm(state.net3d.model, mesh)
         state.net2d.model.train()
         state.net3d.model.train()
         y1_hat, y2_hat = _predict(state, frames, flip)

@@ -13,24 +13,24 @@ prediction, an operand bug. The eval step implements the documented
 intent, as the JAX step does: predict on the flipped input, flip the
 prediction back, average it with the plain prediction.
 
-``make_dp_lifter_train_step`` is the data-parallel step of the JAX
-package's ``shard_map`` route (``pose3d_tpu/train/steps.py``): each rank
-runs ``state.apply`` on its shard (on the fused apply, the training
-kernels), one backward, then the loss and the gradients are averaged and
-the MPJPE sums summed over the mesh's data axis before the optimizer
-step, so every rank takes the global-batch step and keeps bitwise the
-same parameters.
+With a mesh the train step is the data-parallel step of the JAX
+package's ``shard_map`` route (``make_dp_lifter_train_step`` of
+``pose3d_tpu/train/steps.py``): each rank runs ``state.apply`` on its
+shard (on the fused apply, the training kernels), one backward, then the
+loss and the gradients are averaged and the MPJPE sums summed over the
+mesh's data axis before the optimizer step, so every rank takes the
+global-batch step and keeps bitwise the same parameters. Dropout draws
+from the rank's generator as the caller left it; the epoch seeds it per
+rank (``train.epoch.make_lifter_epoch_fn``).
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
 from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.core.transforms import flip_pose
-from pose3d_tpu_torch.parallel.mesh import data_rank, pmean_, psum_, require_group, shard_seed
+from pose3d_tpu_torch.parallel.mesh import pmean_, psum_, require_group
 from pose3d_tpu_torch.train.state import TrainState, clip_by_global_norm
 
 
@@ -55,78 +55,52 @@ def apply_gradients(loss_val: torch.Tensor, *states: TrainState, mesh=None) -> N
         state.step += 1
 
 
-def make_lifter_train_step(loss: str = "mse"):
+def make_lifter_train_step(loss: str = "mse", mesh=None):
     """(state, y1, y2) -> {"loss", "mpjpe_sums"}: forward through
     ``state.apply`` in train mode, loss, backward, optimizer step at the lr
     the plateau schedule left in the optimizer. y1: model inputs; y2:
-    targets, to whose shape the prediction is reshaped."""
+    targets, to whose shape the prediction is reshaped.
+
+    ``mesh``: y1, y2 are this rank's shard (``parallel.mesh.shard_batch``)
+    of a global batch split evenly over its data axis; the gradients are
+    averaged (``pmean_``) before the clip and the step, and the returned
+    loss (``pmean_``) and MPJPE sums (``psum_``) are the global batch's,
+    the same on every rank, so every rank's plateau schedule takes the
+    same decision. Stats-free models only: BatchNorm models go through the
+    global-BN steps of ``train/image_steps.py``."""
     loss_fn = losses.LOSS_FNS[loss]
 
     def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
+        if mesh is not None:
+            require_group(mesh)
+            if has_batch_stats(state.model):
+                raise ValueError("the DP lifter step supports stats-free models only; "
+                                 "BatchNorm models go through the global-BN steps")
         state.model.train()
         pred = state.apply(state.model, y1).reshape(y2.shape)
         loss_val = loss_fn(pred, y2)
-        apply_gradients(loss_val, state)
+        apply_gradients(loss_val, state, mesh=mesh)
         with torch.no_grad():
+            out = loss_val.detach()
             sums = losses.loss_mpjpe(pred, y2)
-        return {"loss": loss_val.detach(), "mpjpe_sums": sums}
+        if mesh is not None:
+            out = out.clone()
+            pmean_([out], mesh)
+            psum_([sums], mesh)
+        return {"loss": out, "mpjpe_sums": sums}
 
     return step
+
+
+def make_dp_lifter_train_step(mesh, loss: str = "mse"):
+    """The JAX package's name for ``make_lifter_train_step(loss, mesh)``."""
+    return make_lifter_train_step(loss, mesh)
 
 
 def has_batch_stats(model: torch.nn.Module) -> bool:
     """True where a module of ``model`` keeps running statistics."""
     return any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) and m.track_running_stats
                for m in model.modules())
-
-
-@contextlib.contextmanager
-def shard_rng(seed: int | None, mesh, device: torch.device):
-    """Dropout of this rank drawn from ``shard_seed(seed, rank)`` on
-    ``device``'s generator (the caller's state restored after; rank 0
-    where ``mesh`` is None, which is ``seed`` itself); with ``seed`` None,
-    from the generator as it stands."""
-    if seed is None:
-        yield
-        return
-    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else [],
-                               device_type="cuda"):
-        torch.manual_seed(shard_seed(seed, 0 if mesh is None else data_rank(mesh)))
-        yield
-
-
-def make_dp_lifter_train_step(mesh, loss: str = "mse"):
-    """(state, y1, y2, seed=None) -> {"loss", "mpjpe_sums"} over the mesh's
-    data axis: y1, y2 are this rank's shard (``parallel.mesh.shard_batch``)
-    of a global batch split evenly. Forward on the shard in train mode,
-    dropout from ``shard_seed(seed, rank)`` where ``seed`` is given, one
-    backward, ``pmean_`` of the gradients, the clip and the optimizer
-    step; the returned loss is the global batch's (``pmean_``) and the
-    MPJPE sums the global batch's (``psum_``), the same on every rank, so
-    every rank's plateau schedule takes the same decision. Stats-free
-    models only: BatchNorm models go through the global-BN steps of
-    ``train/image_steps.py``."""
-    loss_fn = losses.LOSS_FNS[loss]
-
-    def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor,
-             seed: int | None = None) -> dict:
-        require_group(mesh)
-        if has_batch_stats(state.model):
-            raise ValueError("the DP lifter step supports stats-free models only; BatchNorm "
-                             "models go through the global-BN steps")
-        state.model.train()
-        with shard_rng(seed, mesh, y1.device):
-            pred = state.apply(state.model, y1).reshape(y2.shape)
-        loss_val = loss_fn(pred, y2)
-        apply_gradients(loss_val, state, mesh=mesh)
-        with torch.no_grad():
-            out = loss_val.detach().clone()
-            sums = losses.loss_mpjpe(pred, y2)
-        pmean_([out], mesh)
-        psum_([sums], mesh)
-        return {"loss": out, "mpjpe_sums": sums}
-
-    return step
 
 
 def eval_predict(state: TrainState, y1: torch.Tensor, shape, flip_tta: bool = False):

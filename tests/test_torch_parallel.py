@@ -70,6 +70,35 @@ def test_mesh_and_collectives(tmp_path, world):
         src = 0 if world != 4 else r % 2
         np.testing.assert_array_equal(out["broadcast"], np.full((2, 3), float(src)))
         assert (out["replication_error"] is None) == (r == 0), out["replication_error"]
+        bn = out["bn"]
+        assert "local; bind them" in bn["global_step_local_model"]
+        assert "local; bind them" in bn["loop_step_local_models"]
+        assert "wants them local" in bn["local_step_global_model"]
+        assert bn["bound_group_size"] == n_data and bn["unbound"]
+        _assert_bf16_global_bn(bn["bf16"], d, n_data)
+
+
+def _assert_bf16_global_bn(got: dict, d: int, n_data: int) -> None:
+    """The global BatchNorm in bf16 on data rank d's rows against PyTorch's
+    train-mode batch norm (its mixed-precision kernel, f32 inside) on the
+    whole batch in one process: the output and the input gradient within
+    2 bf16 ulps of the largest (both compute in f32 and round once; the
+    sums run in other orders), the f32 weight, bias and running-statistic
+    values at f32 precision."""
+    x, bn, g = cases.bf16_bn_inputs()
+    x = x.detach().requires_grad_(True)
+    y = bn.train()(x)
+    (y.float() * g.float()).sum().backward()
+    rows = slice(d * 8 // n_data, (d + 1) * 8 // n_data)
+    assert got["dtypes"] == ("torch.bfloat16", "torch.bfloat16") and got["channels_last"]
+    for name, want in (("y", y.detach()), ("dx", x.grad)):
+        want = want.float().numpy()
+        np.testing.assert_allclose(got[name], want[rows], rtol=0,
+                                   atol=2 * 2.0 ** -8 * np.abs(want).max(), err_msg=name)
+    np.testing.assert_allclose(got["dw"], bn.weight.grad.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got["db"], bn.bias.grad.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got["running"][0], bn.running_mean.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got["running"][1], bn.running_var.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_no_launcher_no_mesh():

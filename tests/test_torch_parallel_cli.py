@@ -107,6 +107,7 @@ def test_trainer_under_the_launcher(tmp_path, module):
     for k, v in res[1]["sd"].items():
         np.testing.assert_array_equal(v, res[0]["sd"][k], err_msg=k)
     assert res[1]["files"] == []
+    assert res[0]["bound"] == res[1]["bound"] == []  # BatchNorms local again after main
     written = set(res[0]["files"])
     assert "logs/t/runs/t1.jsonl" in written
     for run in runs:

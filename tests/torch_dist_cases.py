@@ -62,6 +62,7 @@ def mesh_checks(batch: np.ndarray) -> dict:
         out["replication_error"] = None
     except RuntimeError as e:
         out["replication_error"] = str(e)
+    out["bn"] = bn_binding_checks(mesh)
     dist.barrier()
     dist.destroy_process_group()
     from pose3d_tpu_torch.train.steps import make_dp_lifter_train_step
@@ -70,6 +71,79 @@ def mesh_checks(batch: np.ndarray) -> dict:
     with pytest.raises(RuntimeError, match="no process group"):
         make_dp_lifter_train_step(mesh)(state, torch.zeros(2, 2), torch.zeros(2, 3))
     return out
+
+
+def bn_binding_checks(mesh) -> dict:
+    """The BatchNorm contract is the model's: the steps check it and never
+    change it. The ValueError of each step given the other contract, the
+    data group's size on a bound BatchNorm, and the module local again
+    after unbinding."""
+    from pose3d_tpu_torch.models.norm import F32BatchNorm1d, sync_batch_norm
+    from pose3d_tpu_torch.train.image_steps import (make_direct_train_step,
+                                                    make_dp_direct_train_step)
+    from pose3d_tpu_torch.train.loop_steps import LoopState, make_loop_train_step
+
+    def error(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    net = torch.nn.Sequential(torch.nn.Linear(2, 3), F32BatchNorm1d(3, device="cpu"))
+    state = create_train_state(net, lr=1e-3, optimizer="sgd")
+    frames, kp3d = torch.zeros(2, 4, 4, 3), torch.zeros(2, 17, 3)
+    out = {"global_step_local_model": error(
+               lambda: make_direct_train_step(mesh=mesh)(state, frames, kp3d)),
+           "loop_step_local_models": error(
+               lambda: make_loop_train_step(mesh=mesh)(LoopState(state, state), frames,
+                                                       kp3d[..., :2], kp3d))}
+    sync_batch_norm(net, mesh)
+    out["bound_group_size"] = dist.get_world_size(net[1].process_group)
+    out["local_step_global_model"] = error(
+        lambda: make_dp_direct_train_step(mesh)(state, frames, kp3d))
+    sync_batch_norm(net, None)
+    out["unbound"] = net[1].process_group is None and net.batch_norm_group is None
+    out["bf16"] = global_bn_bf16(mesh)
+    return out
+
+
+def bf16_bn_inputs():
+    """A bf16 (8, 6, 5, 4) channels_last batch, offset and scaled a channel
+    and skewed across its halves, a seeded F32BatchNorm2d and an upstream
+    gradient, all made alike in every process."""
+    from pose3d_tpu_torch.models.norm import F32BatchNorm2d, seed_batch_norm
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 6, 5, 4, generator=gen) * torch.linspace(0.5, 3.0, 6).view(1, 6, 1, 1)
+    x = x + torch.linspace(-2.0, 4.0, 6).view(1, 6, 1, 1)
+    x[:4] += 1.5
+    bn = F32BatchNorm2d(6, device="cpu")
+    seed_batch_norm(bn, gen)
+    g = torch.randn(x.shape, generator=gen)
+    return (x.bfloat16().contiguous(memory_format=torch.channels_last), bn,
+            g.bfloat16().contiguous(memory_format=torch.channels_last))
+
+
+def global_bn_bf16(mesh) -> dict:
+    """The global BatchNorm on this rank's rows of ``bf16_bn_inputs``: its
+    bf16 output and input gradient (of sum(y·g)), the weight and bias
+    gradients summed over the data axis, and the running statistics."""
+    from pose3d_tpu_torch.models.norm import sync_batch_norm
+
+    x, bn, g = bf16_bn_inputs()
+    x, g = M.shard_batch((x, g), mesh)
+    x = x.detach().requires_grad_(True)
+    sync_batch_norm(bn, mesh).train()
+    y = bn(x)
+    (y.float() * g.float()).sum().backward()
+    grads = [bn.weight.grad, bn.bias.grad]
+    M.psum_(grads, mesh)
+    return {"y": y.detach().float().numpy(), "dx": x.grad.float().numpy(),
+            "channels_last": y.is_contiguous(memory_format=torch.channels_last),
+            "dtypes": (str(y.dtype), str(x.grad.dtype)),
+            "dw": grads[0].numpy(), "db": grads[1].numpy(),
+            "running": (bn.running_mean.numpy(), bn.running_var.numpy())}
 
 
 def dp_lifter(fields: dict, sd: dict, y1, y2, y1e, y2e, fused_sd, fy1, fy2) -> dict:
@@ -93,7 +167,7 @@ def dp_lifter(fields: dict, sd: dict, y1, y2, y1e, y2e, fused_sd, fy1, fy2) -> d
 
     out = {}
     s = state(fields, sd)
-    m = make_dp_lifter_train_step(mesh)(s, *M.shard_batch((_t(y1), _t(y2)), mesh), seed=3)
+    m = make_dp_lifter_train_step(mesh)(s, *M.shard_batch((_t(y1), _t(y2)), mesh))
     out["step"] = {"loss": m["loss"].item(), "sums": m["mpjpe_sums"].numpy(),
                    "params": _sd(s.model)}
     s = state(fields, sd)
@@ -158,6 +232,8 @@ def image_step(job: tuple, mesh=None) -> dict:
         if kind == "dp_direct" and mesh is not None:
             step = make_dp_direct_train_step(mesh)
         else:
+            if mesh is not None:
+                sync_batch_norm(model, mesh)
             step = make_direct_train_step(mesh=mesh)
         return {"m": _metrics(step(state, *arrays)), "sd": _sd(model)}
     if kind == "posenet2d":
@@ -181,6 +257,9 @@ def image_step(job: tuple, mesh=None) -> dict:
                                                depth=LOOP_DEPTH).to(dtype), lr=IMAGE_LR),
         lifter=freeze(torch_vit(lifter, **LOOP_VIT).to(dtype)),
         projector=freeze(torch_vit(projector, in_dim=3, out_dim=2, **LOOP_VIT).to(dtype)))
+    if mesh is not None:
+        sync_batch_norm(state.net2d.model, mesh)
+        sync_batch_norm(state.net3d.model, mesh)
     step = make_loop_train_step(triangle=True, flip=True, project=True, triangle_mode="sep",
                                 mesh=mesh)
     m = step(state, *arrays)
@@ -256,5 +335,10 @@ def cli_main(module: str, argv: list, workdir: str) -> dict:
     state = cli.main(argv)
     assert not dist.is_initialized()  # main left the group
     nets = {"2d": state.net2d, "3d": state.net3d} if hasattr(state, "net2d") else {"": state}
-    return {"sd": {f"{tag}.{k}": v for tag, net in nets.items() for k, v in _sd(net.model).items()},
-            "files": sorted(str(p.relative_to(cwd)) for p in cwd.rglob("*") if p.is_file())}
+    bound = [f"{tag}.{name}" for tag, net in nets.items() for name, m in net.model.named_modules()
+             if getattr(m, "process_group", None) is not None
+             or getattr(m, "batch_norm_group", None) is not None]
+    sd = {f"{tag}.{k}": v for tag, net in nets.items() for k, v in _sd(net.model).items()}
+    return {"sd": sd,
+            "files": sorted(str(p.relative_to(cwd)) for p in cwd.rglob("*") if p.is_file()),
+            "bound": bound}
