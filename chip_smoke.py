@@ -358,6 +358,34 @@ BatchNorm, ``LifterService(mesh=)``) on the one card:
     to the records' counts. ``python3 chip_smoke.py --dp`` runs this phase
     alone, after phases 1-2. A run over several GPUs is not verified here.
 
+Tensor parallelism (``parallel/sharding.py``: ``shard_params`` over the
+mesh's model axis), the TP-sharded checkpoint, the DP SMPL-IK step and
+``parallel/dryrun.dryrun_multichip``:
+
+29. (a) one ``nccl`` rank on a 1 x 1 mesh: ``shard_params`` over one
+    model rank cuts nothing, and three f32 Martinez steps at full width
+    (hidden 1024, 2 stages, B = 64, Adam, dropout 0.5, global BatchNorm
+    bound) are bitwise the one-process steps; (b) two ``gloo`` ranks on
+    cuda:0, 1 x 2: the Martinez steps in float64 against the one-process
+    float64 steps (losses and MPJPE sums rtol 1e-10, parameters and the
+    gathered running statistics atol 1e-10 after 3 steps; the same
+    dropout masks), in f32 as close to float64 as the one-process f32
+    steps (2x, loss and state relative L2; without dropout, since the
+    card's masks depend on the dtype), then as 2 x 1 the DP SMPL-IK
+    step in float64 at phase 27's configuration against the one-process
+    step on the global batch (loss and MPJPE sums rtol 1e-10, parameters
+    atol 1e-8, running statistics 1e-10); (c) four ``gloo`` ranks on
+    cuda:0, 2 x 2: the Martinez steps in float64 (dropout 0) by (b)'s
+    limits, replicated tensors bitwise on every rank and each shard on
+    its data peers; the checkpoint saved, restored and resumed bitwise,
+    its file's tensors bitwise the gathered state and a one-process save
+    of it; then ``dryrun_multichip(4, device="cuda")``, whose stages 6-7
+    launch rows 8a-9b, 13a and 13b on each rank (their launches add to
+    the records' counts). Each TP step timed on its rank by CUDA events
+    beside the one-process step (ranks sharing one GPU, not a scaling
+    figure), the gather of a 64 x 512 shard, peak memory.
+    ``python3 chip_smoke.py --tp`` runs this phase alone, after phases 1-2.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
 peak, or for the soft-argmax and its backward their f32 operations over
@@ -365,8 +393,8 @@ the 67 TFLOP/s f32 peak, and its bytes, each input read once and each
 output written once, over 3.35 TB/s), then as the last line
 ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result. Imports torch, numpy
-and ``pose3d_tpu_torch`` only; phase 28's ranks are spawned processes of
-this script, ended by the phase.
+and ``pose3d_tpu_torch`` only; phase 28's and 29's ranks are spawned
+processes of this script or of ``parallel/dryrun.py``, ended by the phase.
 """
 
 from __future__ import annotations
@@ -414,6 +442,8 @@ from pose3d_tpu_torch.ops import softargmax as SA
 from pose3d_tpu_torch.ops import stblock as S
 from pose3d_tpu_torch.ops import stblock_train as ST
 from pose3d_tpu_torch.parallel import mesh as PM
+from pose3d_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
+from pose3d_tpu_torch.parallel.sharding import gathered_state_dict, shard_params, tp_layout
 from pose3d_tpu_torch.pipeline import run as video_run
 from pose3d_tpu_torch.pipeline.detector import PoseNet2DDetector, write_predictions
 from pose3d_tpu_torch.pipeline.keypoints import load_video_json, save_to_json
@@ -3408,6 +3438,7 @@ DP_BN_ARCH = "resnet18"
 DP_WIDE_SEED = SEED + 96          # the full-width bf16 global-BN steps' batch
 DP_TIMED = 5                      # steps a timed run in the DP phase
 DP_DEADLINE_S = 300               # the 2-rank phase's ranks, at most
+BN_F64_ATOL = 1e-8                # float64 parameters of a BatchNorm image step vs one process
 DP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -3623,6 +3654,31 @@ def hold_f64_step(what, loss, grads, loss_ref, grads_ref) -> None:
         raise AssertionError(f"{what} disagrees with cuDNN's batch norm")
 
 
+F64_LOSS_RTOL = 1e-10             # a float64 multi-rank step vs one process: loss, MPJPE sums
+F64_RUNNING_ATOL = 1e-10          # and running statistics
+
+
+def hold_f64_state(what, got, want, param_atol: float) -> None:
+    """A float64 multi-rank run, ``got`` = (loss or losses, MPJPE sums, the
+    whole state dict), against the one-process run of the same steps on
+    the global batch, ``want``: every loss and the sums within rtol
+    F64_LOSS_RTOL, every parameter within atol ``param_atol``, every
+    running statistic within F64_RUNNING_ATOL."""
+    (losses, sums, sd), (w_losses, w_sums, w_sd) = got, want
+    loss_err = max(abs(a / b - 1) for a, b in zip(np.atleast_1d(losses), np.atleast_1d(w_losses)))
+    sums_err = ((sums - w_sums).abs() / w_sums.abs()).max().item()
+    errs = {"params": 0.0, "running": 0.0}
+    for k, v in w_sd.items():
+        if v.is_floating_point():
+            kind = "running" if "running" in k else "params"
+            errs[kind] = max(errs[kind], (sd[k] - v).abs().max().item())
+    log(f"{what}: loss {losses}, rel err {loss_err:.3g}, MPJPE sums {sums_err:.3g}; parameters "
+        f"{errs['params']:.3g}, running statistics {errs['running']:.3g} from one process")
+    if (loss_err > F64_LOSS_RTOL or sums_err > F64_LOSS_RTOL or errs["params"] > param_atol
+            or errs["running"] > F64_RUNNING_ATOL):
+        raise AssertionError(f"{what} disagrees with one process")
+
+
 def hold_to_f64(what, got, cudnn, ref64, floor) -> None:
     """A reduced-precision direct step on the global-BN Function, ``got`` =
     (loss, gradients), as accurate as the same step on cuDNN's batch norm,
@@ -3754,76 +3810,62 @@ def dp_bn_model(dtype=torch.float64):
             torch.from_numpy((kp3d - kp3d[:, :1]).astype(np.float64)).to("cuda", dtype))
 
 
-def dp_rank(rank: int, world: int, out_dir: str) -> None:
-    """A rank of the 2-rank phase (``gloo`` on cuda:0, spawned): the DP fused
+def dp_rank() -> dict:
+    """A rank of the 2-rank phase (``gloo`` on cuda:0, ``run_ranks``): the DP fused
     temporal step on its DP_RANK_CLIPS clips, the global-BN float64 direct
     step on its DP_BN_B / 2 frames, then the full-width global-BN direct
     steps (ResNet-50, fused route), float64 (the decodes on their plain
     versions) and bf16, on its DIRECT_B / 2 frames; each timed (two processes sharing one GPU, not a scaling
-    figure), the bf16 one with its peak memory. Saves (results, error) to ``out_dir``."""
-    import traceback
+    figure), the bf16 one with its peak memory. Returns the results."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = PM.make_mesh()
+    model = seeded_train_model()
+    y1, y2 = PM.shard_batch(synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 95), mesh)
+    state = create_train_state(model, lr=TRAIN_LR, apply=ST.temporal_train_forward_fused)
+    step = make_dp_lifter_train_step(mesh, "mse")
+    _reset(ST.WRAPPERS)
+    m = step(state, y1, y2)
+    result = {"launches": _counts(TRAIN_WRAPPERS), "loss": m["loss"].item(),
+              "grads": {k: v.cpu() for k, v in _grads(model).items()},
+              "temporal_sd": {k: v.cpu().clone() for k, v in model.state_dict().items()}}
+    result["temporal_ms"] = cuda_ms(lambda: step(state, y1, y2), n=DP_TIMED)
+    del model, state
+    torch.cuda.empty_cache()
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
-    result, error = None, None
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        device = PM.init_distributed("gloo", device_type="cuda",
-                                     init_method=f"file://{out_dir}/rdzv")
-        if device != torch.device("cuda", 0):
-            raise AssertionError(f"rank {rank}'s device is {device}")
-        mesh = PM.make_mesh()
-        model = seeded_train_model()
-        y1, y2 = PM.shard_batch(synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 95), mesh)
-        state = create_train_state(model, lr=TRAIN_LR, apply=ST.temporal_train_forward_fused)
-        step = make_dp_lifter_train_step(mesh, "mse")
-        _reset(ST.WRAPPERS)
-        m = step(state, y1, y2)
-        result = {"launches": _counts(TRAIN_WRAPPERS), "loss": m["loss"].item(),
-                  "grads": {k: v.cpu() for k, v in _grads(model).items()},
-                  "temporal_sd": {k: v.cpu().clone() for k, v in model.state_dict().items()}}
-        result["temporal_ms"] = cuda_ms(lambda: step(state, y1, y2), n=DP_TIMED)
-        del model, state
-        torch.cuda.empty_cache()
+    model, frames, kp3d = dp_bn_model()
+    state = create_train_state(sync_batch_norm(model, mesh), lr=DIRECT_LR,
+                               optimizer="adam", weight_decay=DIRECT_WD)
+    step = make_direct_train_step("mse", mesh=mesh)
+    frames, kp3d = PM.shard_batch((frames, kp3d), mesh)
+    m = step(state, frames, kp3d)
+    result.update(bn_loss=m["loss"].item(), bn_sums=m["mpjpe_sums"].cpu().clone(),
+                  bn_sd={k: v.cpu().clone() for k, v in model.state_dict().items()})
+    result["bn_ms"] = cuda_ms(lambda: step(state, frames, kp3d), n=DP_TIMED)
+    del model, state
+    torch.cuda.empty_cache()
 
-        model, frames, kp3d = dp_bn_model()
+    # the full-width global-BN steps (f32, then bf16) on the rank's half
+    # of the batch
+    frames, kp3d = PM.shard_batch(direct_train_batch(DP_WIDE_SEED), mesh)
+    for name, apply in (("f64", f64_apply), ("bf16", bf16_apply)):
+        model = seeded_train_posenet(**DIRECT_TRAIN_ROUTES["fused"][0])
+        if name == "f64":
+            model.double()
         state = create_train_state(sync_batch_norm(model, mesh), lr=DIRECT_LR,
-                                   optimizer="adam", weight_decay=DIRECT_WD)
-        step = make_direct_train_step("mse", mesh=mesh)
-        frames, kp3d = PM.shard_batch((frames, kp3d), mesh)
-        m = step(state, frames, kp3d)
-        result.update(bn_loss=m["loss"].item(), bn_sums=m["mpjpe_sums"].cpu().clone(),
-                      bn_sd={k: v.cpu().clone() for k, v in model.state_dict().items()})
-        result["bn_ms"] = cuda_ms(lambda: step(state, frames, kp3d), n=DP_TIMED)
+                                   optimizer="adam", weight_decay=DIRECT_WD, apply=apply)
+        with plain_decodes() if name == "f64" else contextlib.nullcontext():
+            m = step(state, frames, kp3d)
+        result[f"wide_{name}"] = (m["loss"].item(),
+                                  {k: v.cpu() for k, v in _grads(model).items()})
         del model, state
         torch.cuda.empty_cache()
-
-        # the full-width global-BN steps (f32, then bf16) on the rank's half
-        # of the batch
-        frames, kp3d = PM.shard_batch(direct_train_batch(DP_WIDE_SEED), mesh)
-        for name, apply in (("f64", f64_apply), ("bf16", bf16_apply)):
-            model = seeded_train_posenet(**DIRECT_TRAIN_ROUTES["fused"][0])
-            if name == "f64":
-                model.double()
-            state = create_train_state(sync_batch_norm(model, mesh), lr=DIRECT_LR,
-                                       optimizer="adam", weight_decay=DIRECT_WD, apply=apply)
-            with plain_decodes() if name == "f64" else contextlib.nullcontext():
-                m = step(state, frames, kp3d)
-            result[f"wide_{name}"] = (m["loss"].item(),
-                                      {k: v.cpu() for k, v in _grads(model).items()})
-            del model, state
-            torch.cuda.empty_cache()
-        model = sync_batch_norm(seeded_train_posenet(**DIRECT_TRAIN_ROUTES["fused"][0]), mesh)
-        state = create_train_state(model, lr=DIRECT_LR, optimizer="adam",
-                                   weight_decay=DIRECT_WD, apply=bf16_apply)
-        result["wide_ms"] = cuda_ms(lambda: step(state, frames, kp3d), n=DP_TIMED)
-        result["wide_gib"] = _peak_gib(lambda: step(state, frames, kp3d))
-    except BaseException:
-        error = traceback.format_exc()
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        torch.save((result, error), f"{out_dir}/rank{rank}.pt")
+    model = sync_batch_norm(seeded_train_posenet(**DIRECT_TRAIN_ROUTES["fused"][0]), mesh)
+    state = create_train_state(model, lr=DIRECT_LR, optimizer="adam",
+                               weight_decay=DIRECT_WD, apply=bf16_apply)
+    result["wide_ms"] = cuda_ms(lambda: step(state, frames, kp3d), n=DP_TIMED)
+    result["wide_gib"] = _peak_gib(lambda: step(state, frames, kp3d))
+    return result
 
 
 def dp_two_rank_phase(wide_ref: dict) -> tuple[dict, dict]:
@@ -3853,29 +3895,8 @@ def dp_two_rank_phase(wide_ref: dict) -> tuple[dict, dict]:
     del model, state, bn_model, bn_state
     torch.cuda.empty_cache()
 
-    ctx = torch.multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory() as out:
-        procs = [ctx.Process(target=dp_rank, args=(r, 2, out)) for r in range(2)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(max(1.0, DP_DEADLINE_S - (time.perf_counter() - t0)))
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join()
-        if hung:
-            raise AssertionError(f"{len(hung)} rank(s) still running after {DP_DEADLINE_S} s")
-        res = []
-        for r in range(2):
-            path = Path(out) / f"rank{r}.pt"
-            if not path.exists():
-                raise AssertionError(f"rank {r} exited with {procs[r].exitcode}, no result")
-            result, error = torch.load(path, weights_only=False)
-            if error:
-                raise AssertionError(f"rank {r} failed:\n{error}")
-            res.append(result)
+    t0 = time.perf_counter()
+    res = run_ranks(dp_rank, 2, "cuda", deadline=DP_DEADLINE_S)
     log(f"dp 2 ranks: ready and done in {time.perf_counter() - t0:.1f} s")
 
     bad = (_differ(res[0]["temporal_sd"], res[1]["temporal_sd"])
@@ -3896,19 +3917,9 @@ def dp_two_rank_phase(wide_ref: dict) -> tuple[dict, dict]:
             or any(r["launches"] != want for r in res)):
         raise AssertionError("the 2-rank DP temporal step disagrees with one process")
     got = res[0]
-    bn_loss_err = abs(got["bn_loss"] - bm["loss"].item()) / abs(bm["loss"].item())
-    sums_err = ((got["bn_sums"] - bm["mpjpe_sums"].cpu()).abs()
-                / bm["mpjpe_sums"].cpu().abs()).max().item()
-    errs = {"params": 0.0, "running": 0.0}
-    for k, v in bn_sd.items():
-        if v.is_floating_point():
-            kind = "running" if "running" in k else "params"
-            errs[kind] = max(errs[kind], (got["bn_sd"][k] - v).abs().max().item())
-    log(f"dp 2 ranks global-BN direct step float64 {DP_BN_ARCH} {DP_BN_SIZE}^2 B={DP_BN_B}: "
-        f"loss rel {bn_loss_err:.3g}, MPJPE sums rel {sums_err:.3g}, parameters "
-        f"{errs['params']:.3g}, running statistics {errs['running']:.3g} from one process")
-    if bn_loss_err > 1e-10 or sums_err > 1e-10 or errs["params"] > 1e-8 or errs["running"] > 1e-10:
-        raise AssertionError("the 2-rank global-BN step disagrees with one process")
+    hold_f64_state(f"dp 2 ranks global-BN direct step float64 {DP_BN_ARCH} {DP_BN_SIZE}^2 "
+                   f"B={DP_BN_B}", (got["bn_loss"], got["bn_sums"], got["bn_sd"]),
+                   (bm["loss"].item(), bm["mpjpe_sums"].cpu(), bn_sd), BN_F64_ATOL)
     hold_f64_step(f"dp 2 ranks global-BN direct step float64 2 x {DIRECT_B // 2} vs one "
                   f"process B={DIRECT_B}", *got["wide_f64"], *wide_ref["f64"])
     hold_to_f64(f"dp 2 ranks global-BN direct step bf16 2 x {DIRECT_B // 2}", got["wide_bf16"],
@@ -3937,6 +3948,280 @@ def dp_phase() -> dict:
         launches[k] += n
     log(f"dp phase: {time.perf_counter() - t0:.1f} s; launches {launches}")
     return launches
+
+
+# phase 29: tensor parallelism (the model axis), its checkpoint, the DP
+# SMPL-IK step and the multi-process dry run
+
+TP_B = LiftConfig().batch_size  # the phase-1 trainer's batch
+TP_LR = LiftConfig().lr         # with Adam
+TP_STEPS = 3
+TP_SEED = SEED + 100
+TP_F64_ATOL = 1e-10              # float64 parameters after TP_STEPS
+TP_F32_RATIO = 2.0               # f32 TP vs float64, relative to the one-process f32 step's
+TP_F32_FLOOR = 2.0 ** -20        # relative: below it an f32 error is not held to a ratio
+TP_DEADLINE_S = 300              # the TP ranks, at most
+TP_GATHER = (TP_B, 512)          # one rank's activation shard at hidden 1024 over 2
+
+
+def tp_martinez(dtype, dropout: float = 0.5) -> MartinezLifter:
+    """The full-width MartinezLifter (hidden 1024, 2 stages) from the seed,
+    on the card in ``dtype``."""
+    return MartinezLifter(dropout=dropout, device="cpu").init_weights(
+        torch.Generator().manual_seed(TP_SEED)).to("cuda", dtype)
+
+
+def tp_batch(dtype) -> tuple:
+    kp2d, kp3d = synthetic_h36m(TP_B, seed=TP_SEED)
+    return tuple(torch.from_numpy(a).to("cuda", dtype) for a in (kp2d, kp3d - kp3d[:, :1]))
+
+
+def tp_state(dtype, mesh=None, dropout: float = 0.5):
+    """Adam at TP_LR over ``tp_martinez``; with ``mesh`` its BatchNorms bound
+    global over the data axis and its wide layers cut over the model axis."""
+    model = tp_martinez(dtype, dropout)
+    if mesh is not None:
+        shard_params(sync_batch_norm(model, mesh), mesh)
+    return create_train_state(model, lr=TP_LR, optimizer="adam")
+
+
+def tp_steps(state, y1, y2, mesh=None, steps: int = TP_STEPS) -> tuple[list, torch.Tensor]:
+    """``steps`` steps of ``make_lifter_train_step(mesh=)`` on this rank's
+    shard, step i's dropout from ``shard_seed(TP_SEED + i, data rank)``,
+    each followed by the plateau step: (losses, the last MPJPE sums)."""
+    step = make_lifter_train_step("mse", mesh)
+    if mesh is not None:
+        y1, y2 = PM.shard_batch((y1, y2), mesh)
+    losses = []
+    for i in range(steps):
+        torch.manual_seed(PM.shard_seed(TP_SEED + i, 0 if mesh is None else PM.data_rank(mesh)))
+        m = step(state, y1, y2)
+        state.plateau.step(m["loss"].item())
+        losses.append(m["loss"].item())
+    return losses, m["mpjpe_sums"].cpu()
+
+
+def tp_full(model) -> dict:
+    """The model's whole state dict on the CPU: its shards gathered."""
+    return {k: v.cpu().clone() for k, v in gathered_state_dict(model).items()}
+
+
+def tp_step_ms(state, y1, y2, mesh=None) -> tuple[float, float]:
+    """(ms a step by CUDA events, GiB of peak memory above the state)."""
+    step = make_lifter_train_step("mse", mesh)
+    if mesh is not None:
+        y1, y2 = PM.shard_batch((y1, y2), mesh)
+    return (cuda_ms(lambda: step(state, y1, y2), n=DP_TIMED),
+            _peak_gib(lambda: step(state, y1, y2)))
+
+
+def tp_one_rank_phase() -> dict:
+    """(a) One ``nccl`` rank on a 1 x 1 mesh: ``shard_params`` over one model
+    rank cuts nothing, and the f32 Martinez step at full width (B = TP_B,
+    Adam, dropout 0.5) is bitwise the one-process step from a copy of the
+    model, TP_STEPS steps. Returns the times."""
+    import copy
+
+    y1, y2 = tp_batch(torch.float32)
+    with world_of_one() as mesh:
+        one = tp_state(torch.float32)
+        tp = create_train_state(shard_params(sync_batch_norm(copy.deepcopy(one.model), mesh),
+                                             mesh), lr=TP_LR, optimizer="adam")
+        m1, m2 = tp_steps(one, y1, y2), tp_steps(tp, y1, y2, mesh)
+        bad = (_differ(one.model.state_dict(), tp.model.state_dict())
+               + _differ(_grads(one.model), _grads(tp.model))
+               + ([] if m1[0] == m2[0] and torch.equal(m1[1], m2[1]) else ["metrics"]))
+        log(f"tp 1 nccl rank, 1 x 1 mesh, Martinez f32 B={TP_B} x {TP_STEPS} steps: losses "
+            f"{m2[0]}; nothing sharded: {not tp_layout(tp.model)[1]}; bitwise the one-process "
+            f"steps: {not bad}")
+        if bad or tp_layout(tp.model)[1]:
+            raise AssertionError(f"the 1 x 1 TP step differs from one process: {bad[:5]}")
+        t = {"one": tp_step_ms(one, y1, y2), "tp": tp_step_ms(tp, y1, y2, mesh)}
+    log(f"time tp 1 rank Martinez f32 step B={TP_B}: one process {t['one'][0]:.4f} ms, 1 x 1 "
+        f"mesh {t['tp'][0]:.4f} ms; peak {t['one'][1]:.4f} / {t['tp'][1]:.4f} GiB above the state")
+    return t
+
+
+def tp_rank(world: int, out_dir: str) -> dict:
+    """A rank of phase 29 (``gloo`` on cuda:0, ``run_ranks``). Two ranks: the 1 x 2
+    Martinez steps in float64 (dropout 0.5) and f32 (dropout 0), their
+    times and the gather's, then the 2 x 1 SMPL-IK step in float64. Four ranks: the 2 x 2
+    float64 steps (dropout 0: each data rank draws its own masks), the f32
+    step's time, then the checkpoint round trip in ``out_dir``. Returns
+    the results."""
+    result = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = PM.make_mesh(n_data=world // 2, n_model=2)
+    for dtype in (torch.float64, torch.float32):
+        # the masks of 1 x 2 are one process's; on the card they depend on
+        # the dtype, so f32 is held to float64 without dropout
+        dropout = 0.5 if world == 2 and dtype == torch.float64 else 0.0
+        state = tp_state(dtype, mesh, dropout)
+        y1, y2 = tp_batch(dtype)
+        result[str(dtype)] = (*tp_steps(state, y1, y2, mesh), tp_full(state.model))
+    result["ms"] = tp_step_ms(state, y1, y2, mesh)
+    if world == 2:
+        shard = torch.randn(TP_GATHER, device="cuda")
+        result["gather_ms"] = cuda_ms(lambda: PM.gather_model(shard, -1, mesh))
+        dp = PM.make_mesh(n_data=2, n_model=1)
+        c = SMPL_CHECK
+        state = _smpl_check_state("cuda", torch.float64)
+        sync_batch_norm(state.model, dp)
+        frames, uvd, xyz = smpl_dp_batch()
+        cam = tuple(t.double() for t in smpl_cams(c["b"], "cuda"))
+        frames, uvd, xyz, *cam = PM.shard_batch((frames, uvd, xyz, *cam), dp)
+        m = make_hybrik_train_step(mesh=dp)(state, frames, tuple(cam), uvd, xyz, SEED)
+        result["smpl"] = (m["loss"].item(), m["mpjpe_sums"].cpu(),
+                          {k: v.cpu().clone() for k, v in state.model.net.state_dict().items()})
+    else:
+        state = tp_state(torch.float64, mesh, 0.0)
+        y1, y2 = tp_batch(torch.float64)
+        tp_steps(state, y1, y2, mesh, steps=1)
+        path = ckpt.save(state, out_dir, "tp_run", batch_size=TP_B)
+        restored, _ = ckpt.restore(tp_state(torch.float64, mesh, 0.0), out_dir, "tp_run")
+        same = _same_bits
+        opt = lambda s: [t for p in s.model.parameters()  # noqa: E731
+                         for t in s.optimizer.state[p].values()]
+        result["restored"] = (
+            all(same(a, b) for a, b in zip(state.model.state_dict().values(),
+                                           restored.model.state_dict().values()))
+            and all(same(a, b) for a, b in zip(opt(state), opt(restored)))
+            and restored.step == state.step
+            and restored.plateau.state_dict() == state.plateau.state_dict())
+        result["saved"] = tp_full(state.model)
+        a, b = (tp_steps(s, y1, y2, mesh, steps=1) for s in (state, restored))
+        result["resumed"] = (a[0] == b[0] and same(a[1], b[1])
+                             and all(same(x, y) for x, y in
+                                     zip(state.model.state_dict().values(),
+                                         restored.model.state_dict().values()))
+                             and all(same(x, y) for x, y in zip(opt(state), opt(restored))))
+        result["path"] = path
+        result["local"] = {k: v.cpu().clone() for k, v in state.model.state_dict().items()}
+        result["coords"] = (PM.data_rank(mesh), PM.model_rank(mesh))
+    return result
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal, wherever each lies (a restored Adam step count lies
+    on the model's device, a fresh one on the CPU)."""
+    return a.shape == b.shape and torch.equal(a.detach().cpu().reshape(-1).view(torch.uint8),
+                                              b.detach().cpu().reshape(-1).view(torch.uint8))
+
+
+def smpl_dp_batch() -> tuple:
+    """The SMPL_CHECK batch in float64 on the card: frames, uvd29, xyz17."""
+    c = SMPL_CHECK
+    rng = np.random.default_rng(SEED + 101)
+    arrays = (rng.random((c["b"], c["size"], c["size"], 3)),
+              rng.uniform(-0.4, 0.4, (c["b"], 29, 3)), rng.uniform(-0.3, 0.3, (c["b"], 17, 3)))
+    return tuple(torch.from_numpy(a).to("cuda", torch.float64) for a in arrays)
+
+
+def tp_phase() -> dict:
+    """Phase 29: (a) one ``nccl`` rank, 1 x 1; (b) two ``gloo`` ranks on
+    cuda:0, 1 x 2 Martinez (float64, f32) and 2 x 1 SMPL-IK; (c) four,
+    2 x 2 Martinez in float64 and the checkpoint round trip, then
+    ``dryrun_multichip(4, device="cuda")``. Returns the dry run's launches
+    of the records' wrappers."""
+    t0 = time.perf_counter()
+    t = {"1x1": tp_one_rank_phase()}
+    # the one-process references
+    ref = {}
+    for dtype in (torch.float64, torch.float32):
+        y1, y2 = tp_batch(dtype)
+        for dropout in (0.5, 0.0):
+            state = tp_state(dtype, dropout=dropout)
+            ref[(dtype, dropout)] = (*tp_steps(state, y1, y2), tp_full(state.model))
+    t["one_f32"] = tp_step_ms(state, y1, y2)
+    smpl = _smpl_check_state("cuda", torch.float64)
+    frames, uvd, xyz = smpl_dp_batch()
+    cam = tuple(c.double() for c in smpl_cams(SMPL_CHECK["b"], "cuda"))
+    sm = make_hybrik_train_step()(smpl, frames, cam, uvd, xyz, SEED)
+    smpl_ref = (sm["loss"].item(), sm["mpjpe_sums"].cpu(),
+                {k: v.cpu().clone() for k, v in smpl.model.net.state_dict().items()})
+    del smpl, state
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        two = run_ranks(tp_rank, 2, "cuda", 2, out, deadline=TP_DEADLINE_S)
+    log(f"tp 2 ranks: ready and done in {time.perf_counter() - t1:.1f} s")
+    for r in two:
+        if _differ(r[str(torch.float64)][2], two[0][str(torch.float64)][2]):
+            raise AssertionError("the 1 x 2 ranks' gathered states differ")
+    hold_f64_state(f"tp 2 gloo ranks 1 x 2 Martinez float64 B={TP_B} x {TP_STEPS} steps, "
+                   "dropout 0.5", two[0][str(torch.float64)], ref[(torch.float64, 0.5)],
+                   TP_F64_ATOL)
+    want = ref[(torch.float64, 0.0)]
+    errs = {}
+    for name, run in (("tp", two[0][str(torch.float32)]), ("one", ref[(torch.float32, 0.0)])):
+        keys = [k for k, v in want[2].items() if v.is_floating_point()]
+        errs[name] = (max(abs(a / b - 1) for a, b in zip(run[0], want[0])),
+                      _rel(torch.cat([run[2][k].double().flatten() for k in keys]),
+                           torch.cat([want[2][k].flatten() for k in keys])))
+    log(f"tp 2 gloo ranks 1 x 2 Martinez f32, dropout 0, vs the float64 one-process steps: "
+        f"loss rel {errs['tp'][0]:.3g} (one process f32 {errs['one'][0]:.3g}), state relative L2 "
+        f"{errs['tp'][1]:.3g} (one process f32 {errs['one'][1]:.3g})")
+    if any(errs["tp"][i] > TP_F32_RATIO * max(errs["one"][i], TP_F32_FLOOR) for i in (0, 1)):
+        raise AssertionError("the 1 x 2 f32 step is less accurate than one process")
+    hold_f64_state(f"tp 2 gloo ranks 2 x 1 SMPL-IK step float64 ({SMPL_CHECK['architecture']}, "
+                   f"{SMPL_CHECK['size']}^2, B={SMPL_CHECK['b']})", two[0]["smpl"], smpl_ref,
+                   BN_F64_ATOL)
+    if _differ(two[1]["smpl"][2], two[0]["smpl"][2]):
+        raise AssertionError("the 2 x 1 SMPL-IK ranks' states differ")
+
+    with tempfile.TemporaryDirectory() as out:
+        t1 = time.perf_counter()
+        four = run_ranks(tp_rank, 4, "cuda", 4, out, deadline=TP_DEADLINE_S)
+        log(f"tp 4 ranks: ready and done in {time.perf_counter() - t1:.1f} s")
+        hold_f64_state(f"tp 4 gloo ranks 2 x 2 Martinez float64 B={TP_B} x {TP_STEPS} steps, "
+                       "dropout 0", four[0][str(torch.float64)], ref[(torch.float64, 0.0)],
+                       TP_F64_ATOL)
+        for r in four:
+            peer = next(q for q in four if q["coords"][1] == r["coords"][1])
+            for k, v in r["local"].items():
+                ref_v = (peer if v.shape != r["saved"][k].shape else four[0])["local"][k]
+                if not torch.equal(v, ref_v):
+                    raise AssertionError(f"rank {r['coords']}: {k} is not its peers'")
+        payload = torch.load(four[0]["path"], map_location="cpu", weights_only=True)
+        file_same = all(_same_bits(v, four[0]["saved"][k]) for k, v in payload["model"].items())
+        one = tp_state(torch.float64, dropout=0.0)
+        ckpt.restore(one, out, "tp_run")
+        again_path = ckpt.save(one, Path(out) / "one", "tp_run", batch_size=TP_B)
+        again = torch.load(again_path, map_location="cpu", weights_only=True)
+        one_same = (all(_same_bits(v, again["model"][k]) for k, v in payload["model"].items())
+                    and all(_same_bits(t, again["optimizer"]["state"][i][n])
+                            for i, a in payload["optimizer"]["state"].items()
+                            for n, t in a.items()))
+    ok = all(r["restored"] and r["resumed"] for r in four)
+    log(f"tp 4 gloo ranks 2 x 2 checkpoint: restored bitwise {all(r['restored'] for r in four)}, "
+        f"resumed bitwise {all(r['resumed'] for r in four)}; the file's tensors are the "
+        f"gathered state {file_same} and a one-process save of it {one_same}")
+    if not (ok and file_same and one_same):
+        raise AssertionError("the TP checkpoint round trip differs")
+    t["1x2"] = [r["ms"] for r in two]
+    t["2x2"] = [r["ms"] for r in four]
+    log(f"time tp Martinez f32 step B={TP_B} (gloo ranks sharing one GPU, not a scaling "
+        f"figure): one process {t['one_f32'][0]:.4f} ms, peak {t['one_f32'][1]:.4f} GiB; 1 x 2 "
+        + " / ".join(f"{ms:.4f} ms" for ms, _ in t["1x2"]) + ", peak "
+        + " / ".join(f"{g:.4f}" for _, g in t["1x2"]) + " GiB; 2 x 2 "
+        + " / ".join(f"{ms:.4f} ms" for ms, _ in t["2x2"]) + ", peak "
+        + " / ".join(f"{g:.4f}" for _, g in t["2x2"]) + " GiB (above the state, by rank); "
+        f"gather_model of a {TP_GATHER} f32 shard over 2 gloo ranks "
+        + " / ".join(f"{r['gather_ms']:.4f}" for r in two) + " ms")
+
+    t1 = time.perf_counter()
+    lines, launches = dryrun_multichip(4, device="cuda")
+    made = {k.rsplit(".", 1)[1]: n for k, n in launches.items() if n}
+    log(f"tp dryrun_multichip(4, device='cuda'): {len(lines)} stages in "
+        f"{time.perf_counter() - t1:.1f} s; kernel launches over the 4 ranks {made}")
+    want = [f.__name__ for f in (*TRAIN_WRAPPERS, CD.conv_soft_argmax_3d_fused,
+                                 CD.conv_soft_argmax_3d_backward)]
+    if len(lines) != 7 or any(made.get(k, 0) < 4 for k in want):
+        raise AssertionError(f"the dry run's stages or launches are short: {made}")
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s")
+    return made
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
@@ -4076,6 +4361,11 @@ def main() -> None:
         trlaunches[f.__name__] += plaunches[f.__name__]
     for k in ("conv_soft_argmax_3d_fused", "conv_soft_argmax_3d_backward"):
         dtrlaunches[k] += plaunches[k]
+    # phase 29: tensor parallelism; its dry run's stages 6-7 launch rows 8a-9b, 13a and 13b
+    for k, n in tp_phase().items():
+        for counts in (trlaunches, dtrlaunches):
+            if k in counts:
+                counts[k] += n
     bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
@@ -4195,6 +4485,10 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         dp_phase()
+    elif sys.argv[1:] == ["--tp"]:  # tensor parallelism, its checkpoint and the dry run alone
+        device_phase()
+        build_phase()
+        tp_phase()
     elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
         device_phase()
         build_phase()

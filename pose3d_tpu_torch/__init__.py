@@ -9,7 +9,7 @@ Ported so far: the lifter serving path (all three lifter families), the
 temporal serving path, temporal training, the direct image->3D forward
 and training, the phase-1 lifter trainer with the Human3.6M keypoint
 reader and the predict CLI, the video pipeline, the phase-5 trainers,
-the SMPL-IK family with the renders, and data parallelism.
+the SMPL-IK family with the renders, and data and tensor parallelism.
 
 - ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
   ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
@@ -38,9 +38,11 @@ the SMPL-IK family with the renders, and data parallelism.
 - ``cli/predict.py``     2D keypoints -> 3D with a trained checkpoint.
 - ``pipeline/lift.py``   ``lift_sequence``: video -> 3D.
 - ``serving.py``         ``LifterService``: bucketed batch inference.
-- ``parallel/mesh.py``   data parallelism on ``torch.distributed``: the
-  mesh, the shards, the flat collectives (the DP steps live in
-  ``train/``, global BatchNorm in ``models/norm.py``).
+- ``parallel/mesh.py``   the (data, model) mesh on ``torch.distributed``:
+  the shards, the flat collectives, the model axis' gather (the DP steps
+  live in ``train/``, global BatchNorm in ``models/norm.py``);
+  ``parallel/sharding.py`` tensor parallelism of the Martinez and AE
+  lifters; ``parallel/dryrun.py`` the multi-process dry run.
 
 The package imports torch and numpy, never jax, flax or ``pose3d_tpu``.
 """

@@ -30,7 +30,10 @@ local mean loss, and the steps then average the parameter gradients
 (``parallel.mesh.pmean_``). Eval mode and a group of one rank run the
 module as it is, bitwise. The steps check the model's binding
 (``require_batch_norm``) and never change it. ``torch.nn.SyncBatchNorm``
-takes no CPU tensor, so the port has its own.
+takes no CPU tensor, so the port has its own. On a (data, model) mesh
+the bound group is the data axis'; a BatchNorm cut over the model axis
+(``parallel/sharding.shard_params``) normalises its channel shard, per
+channel as ever, so its running statistics update only its channels.
 """
 
 from __future__ import annotations

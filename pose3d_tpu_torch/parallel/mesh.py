@@ -1,11 +1,13 @@
-"""Data parallelism over ``torch.distributed``: the port of
+"""The (data, model) mesh over ``torch.distributed``: the port of
 ``pose3d_tpu/parallel/mesh.py``.
 
 The JAX package names a (data, model) ``jax.sharding.Mesh`` and lets
 ``shard_map`` or GSPMD place the collectives. Here one process runs per
 rank (``torchrun``, or spawned ranks in the tests), the mesh is a
 ``DeviceMesh`` over the initialised world with the same axis names, and
-every collective is written out where the JAX step spells it:
+every collective is written out where the JAX step spells it. The data
+axis splits the batch (data parallelism); the model axis splits the wide
+layers' features (tensor parallelism, ``parallel/sharding.py``):
 
 - ``shard_batch`` gives each rank its rows of a global batch in the JAX
   ``P(DATA_AXIS)`` order: rank r of the data axis holds rows
@@ -16,7 +18,11 @@ every collective is written out where the JAX step spells it:
   ``broadcast_buffers`` would overwrite averaged running statistics, and
   its bucketed hooks would hide the ``pmean`` the JAX steps spell out;
 - ``broadcast_parameters`` (JAX's ``replicated``) copies rank 0's
-  parameters and buffers to every rank.
+  parameters and buffers to every rank;
+- ``gather_model`` joins the model axis' shards of a tensor: each rank
+  writes its shard into a zero-filled buffer, and one ``all_reduce`` of
+  the buffer's bytes fills in the others' (``gloo`` has no all-gather of
+  CUDA tensors; a byte sum against zeros is exact for any dtype).
 
 Without a launcher nothing here runs: the trainers, the services and the
 steps keep their one-process paths. Given a mesh, a step or service that
@@ -146,6 +152,52 @@ def data_rank(mesh) -> int:
     return mesh.get_local_rank(DATA_AXIS)
 
 
+def model_group(mesh):
+    """The process group of this rank's model axis."""
+    require_group(mesh)
+    return mesh.get_group(MODEL_AXIS)
+
+
+def model_size(mesh) -> int:
+    """The number of ranks on the model axis."""
+    return mesh.shape[mesh.mesh_dim_names.index(MODEL_AXIS)]
+
+
+def model_rank(mesh) -> int:
+    """This rank's index on the model axis."""
+    require_group(mesh)
+    return mesh.get_local_rank(MODEL_AXIS)
+
+
+def gather_model(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The whole tensor whose shard on ``dim`` this rank holds (model rank
+    r holds the r-th of ``model_size`` equal slices), the same bytes on
+    every model rank; ``x`` itself over one rank. The shard goes into its
+    slot of a zero-filled buffer and one ``all_reduce`` sums the buffer's
+    bytes over the model group: each byte has one non-zero contributor, so
+    the sum is a copy, exact for any dtype (-0.0 included), and it runs
+    under ``gloo`` on CUDA tensors."""
+    n = model_size(mesh)
+    if n == 1:
+        return x
+    dim %= x.dim()
+    w = x.shape[dim]
+    full = x.new_zeros((*x.shape[:dim], w * n, *x.shape[dim + 1:]))
+    full.narrow(dim, model_rank(mesh) * w, w).copy_(x)
+    dist.all_reduce(full.view(-1).view(torch.uint8), group=model_group(mesh))
+    return full
+
+
+def model_shard(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This model rank's slice of ``x`` on ``dim`` (a contiguous copy):
+    the inverse of ``gather_model``."""
+    n = model_size(mesh)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} model ranks")
+    w = x.shape[dim] // n
+    return x.narrow(dim, model_rank(mesh) * w, w).contiguous()
+
+
 def shard_seed(seed: int, rank: int) -> int:
     """Rank ``rank``'s dropout seed for a step seeded with ``seed`` (JAX's
     ``fold_in(key, axis_index)``): rank 0 draws the seed's own stream, so
@@ -226,19 +278,22 @@ def barrier() -> None:
         dist.barrier()
 
 
-def check_replicated(tensors) -> None:
-    """Raise unless every tensor is bitwise rank 0's on every rank of the
-    initialised world (a no-op for one process): rank 0's flat bytes are
-    broadcast and compared."""
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+def check_replicated(tensors, group=None) -> None:
+    """Raise unless every tensor is bitwise the same on every rank of
+    ``group`` (default: the initialised world) as on the group's first
+    rank; a no-op for one process or a group of one. The first rank's flat
+    bytes are broadcast and compared. Shards of the model axis are checked
+    over their data axis' group, the ranks that hold the same shard."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return
+    src = 0 if group is None else dist.get_global_rank(group, 0)
     for ts in _by_dtype(t.detach() for t in tensors):
         mine = _flatten_dense_tensors(ts)
         ref = mine.clone()
-        dist.broadcast(ref, src=0)
+        dist.broadcast(ref, src=src, group=group)
         if not torch.equal(mine.view(torch.uint8), ref.view(torch.uint8)):
             raise RuntimeError(f"rank {dist.get_rank()}: {mine.dtype} state differs "
-                               "bitwise from rank 0's")
+                               f"bitwise from rank {src}'s")
 
 
 def broadcast_parameters(module: torch.nn.Module, mesh) -> torch.nn.Module:

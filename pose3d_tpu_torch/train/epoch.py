@@ -35,10 +35,12 @@ def make_lifter_epoch_fn(loss: str = "mse", mesh=None):
     (what the plateau schedule steps on) and ``mpjpe_sums`` (J,), tensors
     on the device.
 
-    ``mesh``: data-parallel epochs, stats-free models only (the DP step
-    raises on a BatchNorm model before its first update). The stacks hold
-    this rank's shard of each batch; the generator is seeded with
-    ``shard_seed(seed, rank)``, and the metrics are the global batches'."""
+    ``mesh``: epochs of ``make_lifter_train_step(mesh=)`` (a BatchNorm
+    model bound global over the data axis, a sharded model over the mesh
+    it was cut for). The stacks hold this rank's shard of each batch; the
+    generator is seeded with ``shard_seed(seed, data_rank)``, so the
+    model ranks of one data rank draw one stream, and the metrics are the
+    global batches'."""
     step = make_lifter_train_step(loss, mesh)
 
     def epoch(state: TrainState, y1_batches: torch.Tensor, y2_batches: torch.Tensor,

@@ -14,7 +14,9 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from pose3d_tpu_torch.parallel.mesh import model_group
 from pose3d_tpu_torch.train.schedule import make_plateau
 
 
@@ -49,11 +51,24 @@ def make_optimizer(params, lr: float, kind: str = "adamw",
     return cls(params, lr=lr, weight_decay=weight_decay)
 
 
-def clip_by_global_norm(params, max_norm: float) -> None:
+def clip_by_global_norm(params, max_norm: float, mesh=None, shards=()) -> None:
     """optax.clip_by_global_norm in place: every gradient times max_norm /
-    norm when the global norm exceeds max_norm."""
+    norm when the global norm exceeds max_norm, the squares summed in at
+    least f32 (in the gradients' dtype where wider, as optax sums).
+
+    ``mesh``, ``shards``: the parameters of ``shards`` hold this rank's
+    slices over the mesh's model axis (``parallel.sharding.tp_shards``),
+    so their squares are summed over the model group; the others are
+    replicated there and counted once."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    sharded = {id(p.grad) for p in shards if p.grad is not None}
+    acc = torch.promote_types(grads[0].dtype, torch.float32)
+    zero = grads[0].new_zeros((), dtype=acc)
+    local = sum((g.to(acc).square().sum() for g in grads if id(g) in sharded), zero)
+    if mesh is not None and sharded:
+        dist.all_reduce(local, group=model_group(mesh))
+    norm = torch.sqrt(local + sum((g.to(acc).square().sum() for g in grads
+                                   if id(g) not in sharded), zero))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale.to(g.dtype))

@@ -13,15 +13,23 @@ prediction, an operand bug. The eval step implements the documented
 intent, as the JAX step does: predict on the flipped input, flip the
 prediction back, average it with the plain prediction.
 
-With a mesh the train step is the data-parallel step of the JAX
-package's ``shard_map`` route (``make_dp_lifter_train_step`` of
-``pose3d_tpu/train/steps.py``): each rank runs ``state.apply`` on its
-shard (on the fused apply, the training kernels), one backward, then the
-loss and the gradients are averaged and the MPJPE sums summed over the
-mesh's data axis before the optimizer step, so every rank takes the
-global-batch step and keeps bitwise the same parameters. Dropout draws
-from the rank's generator as the caller left it; the epoch seeds it per
-rank (``train.epoch.make_lifter_epoch_fn``).
+With a mesh the train step is the JAX package's step on a mesh:
+each rank runs ``state.apply`` on its shard of the batch (on the fused
+apply, the training kernels), one backward, then the loss and the
+gradients are averaged and the MPJPE sums summed over the mesh's data
+axis before the optimizer step, so every rank takes the global-batch
+step. Dropout draws from the rank's generator as the caller left it; the
+epoch seeds it per data rank (``train.epoch.make_lifter_epoch_fn``).
+
+- ``make_lifter_train_step(mesh=)`` is JAX's GSPMD step
+  (``make_lifter_train_step`` jitted over sharded inputs): a BatchNorm
+  model's BatchNorms must be bound global over the data axis
+  (``models/norm.sync_batch_norm``), and the model may be cut over the
+  model axis (``parallel/sharding.shard_params``), whose shards the
+  global-norm clip sums over the model group. The math is the
+  one-process step on the global batch.
+- ``make_dp_lifter_train_step`` is JAX's ``shard_map`` step: stats-free
+  models with replicated parameters only, as JAX's refuses batch stats.
 """
 
 from __future__ import annotations
@@ -30,7 +38,9 @@ import torch
 
 from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.core.transforms import flip_pose
+from pose3d_tpu_torch.models.norm import require_batch_norm
 from pose3d_tpu_torch.parallel.mesh import pmean_, psum_, require_group
+from pose3d_tpu_torch.parallel.sharding import require_tp_mesh, tp_layout, tp_shards
 from pose3d_tpu_torch.train.state import TrainState, clip_by_global_norm
 
 
@@ -41,7 +51,9 @@ def apply_gradients(loss_val: torch.Tensor, *states: TrainState, mesh=None) -> N
     one backward, as the JAX loop step takes both models' gradients from
     one ``value_and_grad``: their parameters are disjoint. With ``mesh``
     every state's gradients are averaged over its data axis in one
-    ``pmean_`` before the clip."""
+    ``pmean_`` before the clip; a model cut over the model axis
+    (``parallel.sharding.shard_params``) has its shards' squares summed
+    over the model group in the clip."""
     for state in states:
         state.optimizer.zero_grad(set_to_none=True)
     loss_val.backward()
@@ -50,7 +62,8 @@ def apply_gradients(loss_val: torch.Tensor, *states: TrainState, mesh=None) -> N
                 if p.grad is not None], mesh)
     for state in states:
         if state.grad_clip:
-            clip_by_global_norm(list(state.model.parameters()), state.grad_clip)
+            clip_by_global_norm(list(state.model.parameters()), state.grad_clip,
+                                *tp_shards(state.model))
         state.optimizer.step()
         state.step += 1
 
@@ -66,16 +79,18 @@ def make_lifter_train_step(loss: str = "mse", mesh=None):
     averaged (``pmean_``) before the clip and the step, and the returned
     loss (``pmean_``) and MPJPE sums (``psum_``) are the global batch's,
     the same on every rank, so every rank's plateau schedule takes the
-    same decision. Stats-free models only: BatchNorm models go through the
-    global-BN steps of ``train/image_steps.py``."""
+    same decision. A BatchNorm model's BatchNorms must be bound global
+    over the mesh's data axis (``sync_batch_norm(model, mesh)``), else it
+    raises; a model cut by ``shard_params`` runs over the mesh it was cut
+    for, and only there."""
     loss_fn = losses.LOSS_FNS[loss]
 
     def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
         if mesh is not None:
             require_group(mesh)
             if has_batch_stats(state.model):
-                raise ValueError("the DP lifter step supports stats-free models only; "
-                                 "BatchNorm models go through the global-BN steps")
+                require_batch_norm(state.model, mesh)
+        require_tp_mesh(state.model, mesh)
         state.model.train()
         pred = state.apply(state.model, y1).reshape(y2.shape)
         loss_val = loss_fn(pred, y2)
@@ -93,8 +108,22 @@ def make_lifter_train_step(loss: str = "mse", mesh=None):
 
 
 def make_dp_lifter_train_step(mesh, loss: str = "mse"):
-    """The JAX package's name for ``make_lifter_train_step(loss, mesh)``."""
-    return make_lifter_train_step(loss, mesh)
+    """JAX's ``shard_map`` step: ``make_lifter_train_step(loss, mesh)`` for
+    stats-free models with replicated parameters, the fused training
+    apply's route. A BatchNorm model raises, as JAX's step refuses batch
+    stats, and so does a model cut over the model axis."""
+    step = make_lifter_train_step(loss, mesh)
+
+    def dp_step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
+        if has_batch_stats(state.model):
+            raise ValueError("the DP lifter step supports stats-free models only; BatchNorm "
+                             "models go through make_lifter_train_step(mesh=), bound global")
+        if tp_layout(state.model)[0] is not None:
+            raise ValueError("the DP lifter step takes replicated parameters; a sharded "
+                             "model goes through make_lifter_train_step(mesh=)")
+        return step(state, y1, y2)
+
+    return dp_step
 
 
 def has_batch_stats(model: torch.nn.Module) -> bool:

@@ -20,7 +20,8 @@ and its stats-free steps, on the CPU over spawned ``gloo`` ranks
   both ranks' parameters bitwise equal. The step on the fused training
   apply (``temporal_train_forward_fused``, its plain versions on the CPU;
   hidden 256, 8 heads, 4 frames) against the one-process step on it, at
-  the same limits. The ``ValueError`` on a BatchNorm model.
+  the same limits. The DP step's ``ValueError`` on a BatchNorm model, and
+  ``make_lifter_train_step(mesh=)``'s on one whose BatchNorms are unbound.
 """
 
 import numpy as np

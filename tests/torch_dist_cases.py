@@ -151,12 +151,14 @@ def dp_lifter(fields: dict, sd: dict, y1, y2, y1e, y2e, fused_sd, fy1, fy2) -> d
     on its shards of the stacks (y1e, y2e), each from ``sd`` (a
     TemporalLifter at ``fields``, SGD lr 1e-3); the DP step on the fused
     training apply (its plain versions here) from ``fused_sd`` on (fy1,
-    fy2); and the ValueError on a BatchNorm model."""
+    fy2); the DP step's ValueError on a BatchNorm model, and
+    ``make_lifter_train_step(mesh=)``'s on one whose BatchNorms are
+    unbound."""
     from pose3d_tpu_torch.models.lifters import MartinezLifter
     from pose3d_tpu_torch.models.temporal import TemporalLifter
     from pose3d_tpu_torch.ops.stblock_train import temporal_train_forward_fused
     from pose3d_tpu_torch.train.epoch import make_lifter_epoch_fn
-    from pose3d_tpu_torch.train.steps import make_dp_lifter_train_step
+    from pose3d_tpu_torch.train.steps import make_dp_lifter_train_step, make_lifter_train_step
 
     mesh = M.make_mesh()
 
@@ -183,6 +185,9 @@ def dp_lifter(fields: dict, sd: dict, y1, y2, y1e, y2e, fused_sd, fy1, fy2) -> d
     bn = create_train_state(MartinezLifter(hidden=16, num_stages=1, device="cpu"), lr=1e-3)
     with pytest.raises(ValueError, match="stats-free"):
         make_dp_lifter_train_step(mesh)(bn, torch.zeros(2, 34), torch.zeros(2, 51))
+    # JAX's GSPMD step takes a BatchNorm model, bound global; unbound it raises
+    with pytest.raises(ValueError, match="local; bind them"):
+        make_lifter_train_step(mesh=mesh)(bn, torch.zeros(2, 34), torch.zeros(2, 51))
     return out
 
 
@@ -342,3 +347,177 @@ def cli_main(module: str, argv: list, workdir: str) -> dict:
     return {"sd": sd,
             "files": sorted(str(p.relative_to(cwd)) for p in cwd.rglob("*") if p.is_file()),
             "bound": bound}
+
+
+# --- tensor parallelism: the DP x TP Martinez step, its checkpoint, SMPL-IK DP
+
+TP_FIELDS = {"hidden": 256, "num_stages": 1}
+TP_LR = 1e-3
+TP_STEPS = 3
+TP_CLIP = 0.05  # below the skewed batch's gradient norm (~0.6), so the clip binds
+
+
+def tp_state(sd: dict, dtype: str, mesh=None, grad_clip: float = 0.0, dropout: float = 0.0):
+    """A MartinezLifter at TP_FIELDS holding the full state dict ``sd``
+    (numpy) in ``dtype``, Adam at TP_LR; with ``mesh`` its BatchNorms bound
+    global and its wide layers cut over the model axis."""
+    from pose3d_tpu_torch.models.lifters import MartinezLifter
+    from pose3d_tpu_torch.models.norm import sync_batch_norm
+    from pose3d_tpu_torch.parallel.sharding import shard_params
+
+    model = MartinezLifter(**TP_FIELDS, dropout=dropout, device="cpu")
+    model.load_state_dict({k: _t(v) for k, v in sd.items()})
+    model.to(getattr(torch, dtype))
+    if mesh is not None:
+        shard_params(sync_batch_norm(model, mesh), mesh)
+    return create_train_state(model, lr=TP_LR, optimizer="adam", grad_clip=grad_clip)
+
+
+def tp_gathered(model) -> dict:
+    """The model's whole state dict (numpy): each sharded tensor gathered
+    over the model axis."""
+    from pose3d_tpu_torch.parallel.sharding import gathered_state_dict
+
+    return {k: v.detach().numpy().copy() for k, v in gathered_state_dict(model).items()}
+
+
+def tp_run(state, y1, y2, mesh=None, steps: int = TP_STEPS, seed: int | None = None) -> dict:
+    """``steps`` steps of ``make_lifter_train_step(mesh=)`` on this rank's
+    shard of (y1, y2), each followed by the plateau step; with ``seed`` the
+    dropout of step i draws from ``shard_seed(seed + i, data_rank)``.
+    Returns the losses, the last MPJPE sums, the local and the gathered
+    state dicts, and the eval step's prediction for the whole batch."""
+    from pose3d_tpu_torch.train.steps import make_lifter_eval_step, make_lifter_train_step
+
+    step = make_lifter_train_step("mse", mesh)
+    x, y = _t(y1), _t(y2)
+    if mesh is not None:
+        x, y = M.shard_batch((x, y), mesh)
+    losses = []
+    for i in range(steps):
+        with torch.random.fork_rng():
+            if seed is not None:
+                torch.manual_seed(M.shard_seed(seed + i, 0 if mesh is None else M.data_rank(mesh)))
+            m = step(state, x, y)
+        state.plateau.step(m["loss"].item())
+        losses.append(m["loss"].item())
+    pred = make_lifter_eval_step()(state, _t(y1), _t(y2))["pred"]  # the whole batch
+    return {"losses": losses, "sums": m["mpjpe_sums"].numpy(), "local": _sd(state.model),
+            "full": tp_gathered(state.model), "pred": pred.numpy()}
+
+
+def _opt_state(state) -> list:
+    return [{k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+            for s in (state.optimizer.state[p] for p in state.model.parameters())]
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.detach().reshape(-1).view(torch.uint8),
+                                              b.detach().reshape(-1).view(torch.uint8))
+
+
+def tp_checkpoint(sd: dict, y1, y2, log_dir: str, mesh) -> dict:
+    """The JAX mesh checkpoint test on ``mesh``: one step, the plateau
+    step, ``save``; a fresh sharded state restores it bit for bit (every
+    tensor of the model and the optimizer, the step, the plateau), then
+    the resumed step equals the uninterrupted one bit for bit. Returns the
+    saved state's gathered state dict and the rank's shards."""
+    from pose3d_tpu_torch.train import checkpoint as ckpt
+
+    state = tp_state(sd, "float32", mesh)
+    run = tp_run(state, y1, y2, mesh, steps=1)
+    ckpt.save(state, log_dir, "tp_run", batch_size=len(y1))
+    restored, meta = ckpt.restore(tp_state(sd, "float32", mesh), log_dir, "tp_run")
+    out = {"meta": meta, "full": run["full"], "local": run["local"],
+           "step": (restored.step, state.step),
+           "plateau": restored.plateau.state_dict() == state.plateau.state_dict()}
+    mine, theirs = _opt_state(state), _opt_state(restored)
+    out["restored_bitwise"] = (
+        all(_same_bits(a, b) for a, b in zip(state.model.state_dict().values(),
+                                             restored.model.state_dict().values()))
+        and all(len(a) == len(b) and all(_same_bits(a[k], b[k]) for k in a)
+                for a, b in zip(mine, theirs)))
+    out["moment_shapes"] = [tuple(s["exp_avg"].shape) for s in theirs]
+    out["param_shapes"] = [tuple(p.shape) for p in restored.model.parameters()]
+    cont, res = tp_run(state, y1, y2, mesh, steps=1), tp_run(restored, y1, y2, mesh, steps=1)
+    out["resumed_bitwise"] = (
+        cont["losses"] == res["losses"]
+        and all(cont["local"][k].tobytes() == res["local"][k].tobytes() for k in cont["local"])
+        and all(_same_bits(a[k], b[k]) for a, b in zip(_opt_state(state), _opt_state(restored))
+                for k in a))
+    return out
+
+
+def tp_restore(sd: dict, log_dir: str, mesh) -> dict:
+    """A fresh sharded state of this layout restores the file of another:
+    its shards, their moments' shapes, and one step after."""
+    from pose3d_tpu_torch.train import checkpoint as ckpt
+
+    state, _ = ckpt.restore(tp_state(sd, "float32", mesh), log_dir, "tp_run")
+    return {"local": _sd(state.model), "step": state.step,
+            "moment_shapes": [tuple(s["exp_avg"].shape) for s in _opt_state(state)],
+            "param_shapes": [tuple(p.shape) for p in state.model.parameters()]}
+
+
+def tp_four(sd: dict, y1, y2, log_dir: str) -> dict:
+    """The 2 x 2 runs: the DP x TP step in f32 and float64, with and
+    without the clip; the checkpoint; the rule on a real mesh."""
+    from pose3d_tpu_torch.parallel.sharding import infer_param_sharding
+
+    mesh = M.make_mesh(n_data=2, n_model=2)
+    out = {"data_rank": M.data_rank(mesh), "model_rank": M.model_rank(mesh)}
+    for dtype in ("float32", "float64"):
+        for clip in (0.0, TP_CLIP):
+            out[(dtype, clip)] = tp_run(tp_state(sd, dtype, mesh, clip), y1, y2, mesh)
+    out["rule"] = infer_param_sharding(tp_state(sd, "float32").model, mesh)
+    out["checkpoint"] = tp_checkpoint(sd, y1, y2, log_dir, mesh)
+    return out
+
+
+def tp_two(sd: dict, y1, y2, log_dir: str, smpl: tuple) -> dict:
+    """The two-rank runs: 1 x 2 with dropout 0.5 (float64, the epoch's
+    seeding), the 2 x 2 file restored into 1 x 2, and the SMPL-IK step on
+    a 2 x 1 mesh (``smpl_dp``)."""
+    mesh = M.make_mesh(n_data=1, n_model=2)
+    state = tp_state(sd, "float64", mesh, dropout=0.5)
+    return {"dropout": tp_run(state, y1, y2, mesh, seed=11),
+            "restore": tp_restore(sd, log_dir, mesh),
+            "smpl": smpl_dp(*smpl, M.make_mesh(n_data=2, n_model=1))}
+
+
+def smpl_assembly(params: dict, dtype: str = "float64"):
+    """The HybrIKPose of ``test_torch_smpl_pose.py``'s step test from the
+    bridged state dict ``params`` (numpy): ResNet-18, depth 8, the 300-vertex
+    synthetic body, in ``dtype``, every dropout at p = 0 (JAX's held)."""
+    from pose3d_tpu_torch.models import smpl as ts
+    from pose3d_tpu_torch.models.smpl_pose import HybrIKPose, PoseSMPLNet
+
+    net = PoseSMPLNet("resnet18", depth=8, device="cpu")
+    net.load_state_dict({k: _t(v) for k, v in params.items()}, strict=True)
+    model = HybrIKPose(net, ts.synthetic_model(300, seed=1)).to(getattr(torch, dtype))
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+SMPL_LR = 2.0 ** -10
+
+
+def smpl_dp(params: dict, arrays: tuple, mesh=None) -> dict:
+    """One ``make_hybrik_train_step`` (Adam at SMPL_LR) in float64 on this
+    rank's shard of ``arrays`` = (frames, cam..., uvd29, xyz17), global
+    BatchNorm over ``mesh``'s data axis; without a mesh the one-process
+    step on the whole batch. Returns its metrics and the net's state dict."""
+    from pose3d_tpu_torch.models.norm import sync_batch_norm
+    from pose3d_tpu_torch.train.smpl_steps import make_hybrik_train_step
+
+    model = smpl_assembly(params)
+    arrays = tuple(_t(a) for a in arrays)
+    if mesh is not None:
+        sync_batch_norm(model, mesh)
+        arrays = M.shard_batch(arrays, mesh)
+    frames, *cam, uvd, xyz = arrays
+    state = create_train_state(model, lr=SMPL_LR, optimizer="adam")
+    m = make_hybrik_train_step(mesh=mesh)(state, frames, tuple(cam), uvd, xyz, 0)
+    return {"m": _metrics(m), "sd": _sd(model.net)}
