@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port: `python3 chip_smoke.py`.
 
 Drives the port's serving paths, its training paths, the joint-major and
-legacy entry points, the video pipeline, the phase-5 trainers and the
-SMPL-IK family on one NVIDIA GPU (Hopper,
+legacy entry points, the video pipeline, the phase-5 trainers, the
+SMPL-IK family, the parallel layers and the long-clip path on one NVIDIA
+GPU (Hopper,
 sm_90a), with random weights from a seed, and fails (non-zero exit,
 traceback) if any phase fails:
 
@@ -386,11 +387,40 @@ mesh's model axis), the TP-sharded checkpoint, the DP SMPL-IK step and
     figure), the gather of a 64 x 512 shard, peak memory.
     ``python3 chip_smoke.py --tp`` runs this phase alone, after phases 1-2.
 
+The long-clip path, ``TemporalLifter(flash=True, remat=True)`` at the
+default widths (hidden 256, 5 blocks, 8 heads x 32) and clips of 2048
+frames, f32 master weights under bf16 autocast (``bf16_apply``), 2 clips
+a step (34 sequences of 2048 frames in each temporal attention):
+
+30. kernels 14a-14c (``ops/flash_attention.py``) against their plain
+    versions on block 0's temporal qkv rows of seeded clips at 16 x 243
+    and 2 x 2048 frames: O within 2^-6 + 2^-7 |want|; dQ, dK, dV within
+    2^-7 max|want| + 2^-7 |want|; the log-sum-exp within 2^-12 (1 +
+    |want|); each output's error against a float64 run at most 1.5x the
+    plain version's + 2^-16 of its largest value; two calls bitwise
+    equal. Their times at 2 x 2048, the plain versions' and PyTorch's
+    ``scaled_dot_product_attention`` forward, backward alone and both (a
+    yardstick; the port never calls it). The full-width model, flash
+    against eager attention from the same weights: the forward within
+    5e-2, one step's loss within rtol 1e-2 and each gradient within 5e-2
+    in relative L2. The main path: 10 AdamW steps of the flash + remat
+    model through ``make_lifter_train_step`` with the counts from 0 (14a
+    ten times a step, 14b and 14c five times), the loss falling. ms a
+    step and peak memory of eager, flash and flash + remat. Two ``gloo``
+    ranks on cuda:0 as a 1 x 2 sequence-parallel mesh, flash on (each
+    rank's 1024 frames of queries over the gathered keys and values),
+    against one process: loss rtol 1e-2, gradients relative L2 5e-2. The
+    dry run's sequence-parallel stage (f32, flash off) runs in phase 29.
+    ``python3 chip_smoke.py --long`` runs this phase alone, after phases
+    1-2.
+
 Prints one JSON line of kernel records (with each kernel's bound: the
 larger of its matrix-product flops over the H100's 989 TFLOP/s dense bf16
 peak, or for the soft-argmax and its backward their f32 operations over
-the 67 TFLOP/s f32 peak, and its bytes, each input read once and each
-output written once, over 3.35 TB/s), then as the last line
+the 67 TFLOP/s f32 peak, for the flash kernels also their exponentials
+over the SFUs' 16 a clock an SM at the card's maximum SM clock, and its
+bytes, each input read once and each output written once, over 3.35
+TB/s), then as the last line
 ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result. Imports torch, numpy
 and ``pose3d_tpu_torch`` only; phase 28's and 29's ranks are spawned
@@ -435,6 +465,7 @@ from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops import attention as A
 from pose3d_tpu_torch.ops import conv_decode as CD
+from pose3d_tpu_torch.ops import flash_attention as FA
 from pose3d_tpu_torch.ops import heatmap as H
 from pose3d_tpu_torch.ops import lifter as L
 from pose3d_tpu_torch.ops import martinez as Mz
@@ -443,7 +474,8 @@ from pose3d_tpu_torch.ops import stblock as S
 from pose3d_tpu_torch.ops import stblock_train as ST
 from pose3d_tpu_torch.parallel import mesh as PM
 from pose3d_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
-from pose3d_tpu_torch.parallel.sharding import gathered_state_dict, shard_params, tp_layout
+from pose3d_tpu_torch.parallel.sharding import (gathered_state_dict, sequence_parallel,
+                                                shard_params, tp_layout)
 from pose3d_tpu_torch.pipeline import run as video_run
 from pose3d_tpu_torch.pipeline.detector import PoseNet2DDetector, write_predictions
 from pose3d_tpu_torch.pipeline.keypoints import load_video_json, save_to_json
@@ -4224,16 +4256,333 @@ def tp_phase() -> dict:
     return made
 
 
+# --- phase 30: the long-clip path ------------------------------------------------
+
+LONG_T = 2048        # frames a clip on the long-clip path
+LONG_CLIPS = 2       # clips a step: 34 sequences of 2048 frames in each temporal attention
+LONG_CHECKS = ((CLIPS, 243), (LONG_CLIPS, LONG_T))  # (clips, frames) of the kernel checks
+LONG_SEED = SEED + 110
+LONG_HEADS = 8
+FLASH_CHUNK = 8      # sequences a plain-version call in the checks (the float64 scores of
+#                      34 sequences x 8 heads at L = 2048 would take 9 GB a tensor)
+FLASH_NAMES = {"flash_fwd": FA.flash_forward, "flash_bwd_dkv": FA.flash_backward_dkv,
+               "flash_bwd_dq": FA.flash_backward_dq}
+SFU_EXP_PER_CLOCK = 16 * 132  # exponentials a clock on the H100's SFUs: 16 an SM, 132 SMs
+SP_SPEC = ("data", "model", None, None)
+SP_DEADLINE_S = 300
+
+
+def long_model(flash: bool, remat: bool = False, activation_spec=None) -> TemporalLifter:
+    """The full-width TemporalLifter (hidden 256, 5 blocks, 8 heads) at
+    clips of LONG_T frames with f32 master weights on the card, seeded;
+    its steps run under bf16 autocast (``bf16_apply``)."""
+    model = TemporalLifter(clip_len=LONG_T, flash=flash, remat=remat,
+                           activation_spec=activation_spec, device="cpu")
+    return model.init_weights(torch.Generator().manual_seed(LONG_SEED)).to("cuda")
+
+
+def flash_tokens(model, n_clips: int, frames: int, seed: int):
+    """Block 0's temporal qkv rows of seeded clips under bf16 autocast, (n_clips
+    x 17, frames, 768) bf16, and a seeded output gradient (N(0, 1), bf16)."""
+    y1, _ = synthetic_batch(n_clips, frames, seed)
+    blk = model.blocks[0]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        x = model.embed(y1) + model.spatial_pe + model.temporal_pe[:, :frames]
+        b, t, j, c = x.shape
+        xs = x.reshape(b * t, j, c)
+        xs = xs + blk.spatial_attn(blk.spatial_norm1(xs))
+        xs = xs + blk.spatial_mlp(blk.spatial_norm2(xs))
+        xt = xs.view(b, t, j, c).transpose(1, 2).reshape(b * j, t, c)
+        qkv = blk.temporal_attn.qkv(blk.temporal_norm1(xt)).contiguous()
+    dout = torch.randn(b * j, t, c, generator=torch.Generator().manual_seed(seed + 1))
+    return qkv, dout.to("cuda", torch.bfloat16)
+
+
+def flash_run(qkv, dout, kernel: bool, saved=None) -> tuple:
+    """(O, lse, dQ, dK, dV) from the three kernels on every sequence, or
+    from the plain versions FLASH_CHUNK sequences at a time. ``saved``: the
+    kernels' (O, lse), which the plain backward then takes, so that each
+    kernel meets its plain version on the same inputs; without it the
+    plain backward takes the plain forward's (on float64 inputs: the
+    float64 yardstick)."""
+    if kernel:
+        q, k, v = FA._views(qkv, None)
+        o, lse = FA.flash_forward(q, k, v, LONG_HEADS)
+        delta = FA.flash_delta(dout, o, LONG_HEADS)
+        grads = FA._views(torch.empty_like(qkv), None)
+        FA.flash_backward_dkv(q, k, v, dout, lse, delta, LONG_HEADS, grads[1], grads[2])
+        FA.flash_backward_dq(q, k, v, dout, lse, delta, LONG_HEADS, grads[0])
+        return (o, lse, *grads)
+    parts = []
+    for i in range(0, qkv.shape[0], FLASH_CHUNK):
+        q, k, v = FA._views(qkv[i:i + FLASH_CHUNK], None)
+        d = dout[i:i + FLASH_CHUNK]
+        o, lse = FA.flash_forward_reference(q, k, v, LONG_HEADS)
+        bo, blse = (o, lse) if saved is None else (t[i:i + FLASH_CHUNK] for t in saved)
+        delta = FA.flash_delta(d, bo, LONG_HEADS)
+        parts.append((o, lse, *FA.flash_backward_reference(q, k, v, d, blse, delta,
+                                                           LONG_HEADS)))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _flash_hold(what, got, want, ref64, atol, rtol) -> tuple[float, bool]:
+    """Kernel vs plain within atol + rtol |want|; the kernel's error against
+    float64 at most F32_ERR_RATIO x the plain version's + 2^-16 of the
+    largest float64 value. Returns (the max abs difference from plain,
+    whether both hold)."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    excess = (diff - (atol + rtol * want.abs())).max().item()
+    err64, plain64 = ((t - ref64).abs().max().item() for t in (got, want))
+    floor = 2 ** -16 * ref64.abs().max().item()
+    log(f"kernel vs plain, {what}: max abs err {diff.max().item():.6g} (worst excess "
+        f"{excess:.4g}, |want| max {want.abs().max().item():.4g}); vs float64: kernel "
+        f"{err64:.6g}, plain {plain64:.6g}")
+    ok = (bool(torch.isfinite(got).all()) and excess <= 0
+          and err64 <= F32_ERR_RATIO * plain64 + floor)
+    return diff.max().item(), ok
+
+
+def flash_kernel_phase(model) -> dict:
+    """Kernels 14a-14c against their plain versions on block 0's temporal qkv
+    rows of seeded clips at (CLIPS, 243) and (LONG_CLIPS, LONG_T), the
+    backward ones on the forward kernel's O and log-sum-exp: O within
+    2^-6 + 2^-7 |want|, dQ, dK, dV within 2^-7 max|want| + 2^-7 |want|, the
+    log-sum-exp within 2^-12 (1 + |want|), each against a float64 run of
+    the plain version (``_flash_hold``), two calls bitwise equal; every
+    check logged before any failure raises. Returns each kernel's max abs
+    error at the long shape."""
+    errs, failed = {}, []
+    for n_clips, frames in LONG_CHECKS:
+        qkv, dout = flash_tokens(model, n_clips, frames, LONG_SEED + frames)
+        got, again = flash_run(qkv, dout, True), flash_run(qkv, dout, True)
+        torch.cuda.synchronize()
+        what = f"L={frames} ({n_clips * 17} sequences x 8 heads x 32)"
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            failed.append(f"two calls at {what}")
+        want = flash_run(qkv, dout, False, saved=got[:2])
+        ref64 = flash_run(qkv.double(), dout.double(), False)
+        held = {"flash_fwd": _flash_hold(f"flash_fwd O {what}", got[0], want[0], ref64[0],
+                                         ATTN_ATOL, ATTN_RTOL)}
+        lse = (got[1] - want[1]).abs()
+        log(f"kernel vs plain, flash_fwd log-sum-exp {what}: max abs err {lse.max().item():.6g}")
+        if (lse > 2 ** -12 * (1 + want[1].abs())).any():
+            failed.append(f"flash_fwd log-sum-exp {what}")
+        for n, a, w, r in zip(("dq", "dk", "dv"), got[2:], want[2:], ref64[2:]):
+            held[n] = _flash_hold(f"{n} {what}", a, w, r,
+                                  GRAD_ATOL_REL * w.float().abs().max().item(), GRAD_RTOL)
+        failed += [f"{n} {what}" for n, (_, ok) in held.items() if not ok]
+        errs = {"flash_fwd": held["flash_fwd"][0], "flash_bwd_dq": held["dq"][0],
+                "flash_bwd_dkv": max(held["dk"][0], held["dv"][0])}
+        del got, again, want, ref64
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"flash kernels disagree with their plain versions: {failed}")
+    return errs
+
+
+def flash_timing_phase(model) -> dict:
+    """ms of each kernel, its plain version and PyTorch's
+    ``scaled_dot_product_attention`` (a yardstick only; the port never
+    calls it) on block 0's temporal qkv at (LONG_CLIPS, LONG_T): the
+    forward, the backward alone (dQ, dK and dV together) and both."""
+    qkv, dout = flash_tokens(model, LONG_CLIPS, LONG_T, LONG_SEED + 7)
+    q, k, v = FA._views(qkv, None)
+    o, lse = FA.flash_forward(q, k, v, LONG_HEADS)
+    delta = FA.flash_delta(dout, o, LONG_HEADS)
+    g = FA._views(torch.empty_like(qkv), None)
+    t = {"flash_fwd": cuda_ms(lambda: FA.flash_forward(q, k, v, LONG_HEADS)),
+         "flash_bwd_dkv": cuda_ms(lambda: FA.flash_backward_dkv(q, k, v, dout, lse, delta,
+                                                                LONG_HEADS, g[1], g[2])),
+         "flash_bwd_dq": cuda_ms(lambda: FA.flash_backward_dq(q, k, v, dout, lse, delta,
+                                                              LONG_HEADS, g[0])),
+         "delta": cuda_ms(lambda: FA.flash_delta(dout, o, LONG_HEADS))}
+    t["flash_fwd_plain"] = cuda_ms(lambda: FA.flash_forward_reference(q, k, v, LONG_HEADS), n=3)
+    t["flash_bwd_plain"] = cuda_ms(lambda: FA.flash_backward_reference(
+        q, k, v, dout, lse, delta, LONG_HEADS), n=3)
+    n, length = qkv.shape[:2]
+    heads = [x.view(n, length, LONG_HEADS, -1).transpose(1, 2).detach().requires_grad_(True)
+             for x in (q, k, v)]
+    g4 = dout.view(n, length, LONG_HEADS, -1).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t["sdpa_fwd"] = cuda_ms(lambda: sdpa(*heads))
+    out = sdpa(*heads)
+    t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(out, heads, g4, retain_graph=True))
+    t["sdpa_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(sdpa(*heads), heads, g4))
+    log(f"time flash attention {n} sequences x {length} frames x 8 heads x 32 (bf16): forward "
+        f"{t['flash_fwd']:.4f} ms (plain {t['flash_fwd_plain']:.4f}, SDPA {t['sdpa_fwd']:.4f}); "
+        f"dK/dV {t['flash_bwd_dkv']:.4f} ms, dQ {t['flash_bwd_dq']:.4f} ms, D = rowsum(dO O) "
+        f"{t['delta']:.4f} ms (plain backward {t['flash_bwd_plain']:.4f}, SDPA backward "
+        f"{t['sdpa_bwd']:.4f}, SDPA forward + backward {t['sdpa_fwd_bwd']:.4f})")
+    return t
+
+
+def long_step_check(y1, y2) -> None:
+    """The full-width model at LONG_T frames under bf16 autocast, flash
+    against eager attention from the same weights: the forward within
+    KERNEL_ATOL, each against the f32 module (logged); one step's loss
+    within rtol 1e-2 and each parameter's gradient within STEP_GRAD_REL in
+    relative L2 (P and dS rounded to bf16 in the kernels, the scores to bf16
+    in the eager module under autocast)."""
+    flash, eager = long_model(True), long_model(False)
+    with torch.no_grad():
+        pf, pe = bf16_apply(flash, y1), bf16_apply(eager, y1)
+        p32 = eager(y1)
+    err = (pf - pe).abs().max().item()
+    log(f"long forward {LONG_CLIPS} x {LONG_T} bf16: flash vs eager max abs {err:.6g}; vs the "
+        f"f32 module: flash {(pf - p32).abs().max().item():.6g}, eager "
+        f"{(pe - p32).abs().max().item():.6g}")
+    if not torch.isfinite(pf).all() or err > KERNEL_ATOL:
+        raise AssertionError("the flash forward disagrees with the eager module")
+    del p32
+    lf, gf = _loss_and_grads(flash, bf16_apply, y1, y2)
+    le, ge = _loss_and_grads(eager, bf16_apply, y1, y2)
+    rel = {n: _rel(gf[n].float(), ge[n].float()) for n in ge}
+    worst = max(rel, key=rel.get)
+    log(f"long step {LONG_CLIPS} x {LONG_T}: loss flash {lf:.8g}, eager {le:.8g}; grads "
+        f"flash vs eager: worst relative L2 {rel[worst]:.4g} ({worst}), median "
+        f"{statistics.median(rel.values()):.4g}")
+    if not math.isfinite(lf) or abs(lf - le) > 1e-2 * abs(le) or rel[worst] > STEP_GRAD_REL:
+        raise AssertionError("the flash step disagrees with the eager module's")
+
+
+def long_train_phase(y1, y2) -> dict:
+    """The main path: TRAIN_STEPS AdamW steps (lr 1e-3) of
+    ``TemporalLifter(flash=True, remat=True)`` through
+    ``make_lifter_train_step("mse")`` under bf16 autocast on LONG_CLIPS
+    clips of LONG_T frames, the counts set to 0 just before: each step
+    launches 14a ten times (5 blocks, each recomputed in the backward) and
+    14b and 14c five times; a finite loss whose last three steps' mean is
+    below the first. Returns the launches."""
+    state = create_train_state(long_model(True, remat=True), lr=TRAIN_LR, apply=bf16_apply)
+    step = make_lifter_train_step("mse")
+    _reset(FLASH_NAMES.values())
+    losses = [step(state, y1, y2)["loss"].item() for _ in range(TRAIN_STEPS)]
+    launches = {k: f.launches for k, f in FLASH_NAMES.items()}
+    log(f"long train flash + remat {LONG_CLIPS} x {LONG_T}, {TRAIN_STEPS} AdamW steps: losses "
+        + " ".join(f"{x:.5g}" for x in losses) + f"; launches {launches}")
+    blocks = state.model.n_blocks
+    want = {"flash_fwd": 2 * blocks * TRAIN_STEPS, "flash_bwd_dkv": blocks * TRAIN_STEPS,
+            "flash_bwd_dq": blocks * TRAIN_STEPS}
+    if (not all(math.isfinite(x) for x in losses) or statistics.mean(losses[-3:]) >= losses[0]
+            or launches != want):
+        raise AssertionError("the long-clip training run did not fall or launched short")
+    return launches
+
+
+def long_memory_phase(y1, y2) -> dict:
+    """ms a step (CUDA events, 3 runs of 3) and peak memory above the state
+    of one step, for eager attention, flash, and flash + remat."""
+    t = {}
+    for name, flash, remat in (("eager", False, False), ("flash", True, False),
+                               ("flash_remat", True, True)):
+        state = create_train_state(long_model(flash, remat), lr=TRAIN_LR, apply=bf16_apply)
+        step = make_lifter_train_step("mse")
+        gib = _peak_gib(lambda: step(state, y1, y2))
+        t[name] = (cuda_ms(lambda: step(state, y1, y2), n=3), gib)
+        del state, step
+        torch.cuda.empty_cache()
+    log(f"time long step {LONG_CLIPS} x {LONG_T} frames (bf16 autocast, AdamW): "
+        + ", ".join(f"{k} {ms:.4f} ms ({LONG_CLIPS * LONG_T / ms * 1e3:.1f} frames/s), peak "
+                    f"{g:.3f} GiB above the state" for k, (ms, g) in t.items()))
+    return t
+
+
+def long_sp_rank() -> dict:
+    """A rank of the 1 x 2 sequence-parallel check (``gloo`` on cuda:0): one
+    step of the flash model with its frames split over the model axis, on
+    the whole batch. Returns the loss, the gradients and the launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = PM.make_mesh(n_data=1, n_model=2)
+    model = sequence_parallel(long_model(True, activation_spec=SP_SPEC), mesh)
+    y1, y2 = synthetic_batch(LONG_CLIPS, LONG_T, LONG_SEED + 2)
+    state = create_train_state(model, lr=TRAIN_LR, apply=bf16_apply)
+    _reset(FLASH_NAMES.values())
+    m = make_lifter_train_step("mse", mesh)(state, y1, y2)
+    return {"loss": m["loss"].item(), "grads": {k: v.cpu() for k, v in _grads(model).items()},
+            "launches": {k: f.launches for k, f in FLASH_NAMES.items()}}
+
+
+def long_sp_phase(y1, y2) -> None:
+    """Two ``gloo`` ranks on cuda:0 as a 1 x 2 mesh, each with half of every
+    clip's frames, flash on (local queries over gathered K and V, Lq != Lk),
+    against the one-process flash step on the same batch: loss rtol 1e-2,
+    each gradient relative L2 <= STEP_GRAD_REL; the ranks' gradients
+    bitwise equal."""
+    model = long_model(True)
+    state = create_train_state(model, lr=TRAIN_LR, apply=bf16_apply)
+    loss = make_lifter_train_step("mse")(state, y1, y2)["loss"].item()
+    want = {k: v.cpu() for k, v in _grads(model).items()}
+    blocks = model.n_blocks
+    del model, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_ranks(long_sp_rank, 2, "cuda", deadline=SP_DEADLINE_S)
+    rel = {n: _rel(res[0]["grads"][n].float(), want[n].float()) for n in want}
+    worst = max(rel, key=rel.get)
+    err = abs(res[0]["loss"] - loss) / abs(loss)
+    log(f"long sp 1 x 2 gloo ranks on one GPU, flash, {LONG_T // 2} frames a rank: loss "
+        f"{res[0]['loss']:.8g} vs one process {loss:.8g} (rel {err:.3g}); grads worst relative "
+        f"L2 {rel[worst]:.4g} ({worst}); launches {res[0]['launches']} a rank; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (err > 1e-2 or rel[worst] > STEP_GRAD_REL or _differ(res[0]["grads"], res[1]["grads"])
+            or any(r["launches"] != dict.fromkeys(FLASH_NAMES, blocks) for r in res)):
+        raise AssertionError("the sequence-parallel flash step disagrees with one process")
+
+
+def long_phase() -> tuple[dict, dict, dict, float]:
+    """Phase 30: the long-clip path. Returns (each flash kernel's max abs
+    error, the times, the main path's launches, the SM clock in Hz)."""
+    t0 = time.perf_counter()
+    clock = float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()) * 1e6
+    model = long_model(True)
+    errs = flash_kernel_phase(model)
+    times = flash_timing_phase(model)
+    del model
+    torch.cuda.empty_cache()
+    y1, y2 = synthetic_batch(LONG_CLIPS, LONG_T, LONG_SEED + 2)
+    long_step_check(y1, y2)
+    launches = long_train_phase(y1, y2)
+    times.update(long_memory_phase(y1, y2))
+    long_sp_phase(y1, y2)
+    log(f"long phase: {time.perf_counter() - t0:.1f} s, SM clock {clock / 1e6:.0f} MHz")
+    return errs, times, launches, clock
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the H100 could take, what bounds it)."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_bounds(model_vit, model_t, model_m, model_d) -> dict:
+def flash_bounds(n_seq: int, length: int, dh: int, clock: float) -> dict:
+    """Kernels 14a-14c's bounds at n_seq sequences x LONG_HEADS heads of
+    ``length`` frames: the larger of their products' flops over the bf16
+    peak, their exponentials (one a score, recomputed in each backward
+    kernel) over the SFUs' SFU_EXP_PER_CLOCK a clock at ``clock`` Hz, and
+    their bytes (q, k, v and dO bf16, the log-sum-exp and D f32, each read
+    once; O, dQ, dK, dV written once) over the HBM rate."""
+    scores = n_seq * LONG_HEADS * length * length
+    product = 2 * scores * dh  # flops of one (L x L x dh) product
+    t_exp = scores / (SFU_EXP_PER_CLOCK * clock) * 1e3
+    rows = n_seq * length * LONG_HEADS * dh * 2  # one (N, L, dim) bf16 tensor
+    stat = n_seq * LONG_HEADS * length * 4
+    out = {}
+    for name, products, nbytes in (("flash_fwd", 2, 4 * rows + stat),  # S, PV
+                                   ("flash_bwd_dkv", 4, 6 * rows + 2 * stat),  # S, dV, dP, dK
+                                   ("flash_bwd_dq", 3, 5 * rows + 2 * stat)):  # S, dP, dQ
+        ms, by = bound(products * product, nbytes)
+        out[name] = (t_exp, "operations") if t_exp > ms else (ms, by)
+    return out
+
+
+def kernel_bounds(model_vit, model_t, model_m, model_d, long_clock: float) -> dict:
     """Each kernel's bound at the shapes it is timed at: its matrix-product
     flops, and its bytes with each input read once and each output written
-    once (weights included)."""
+    once (weights included); the flash kernels' at the long-clip path's
+    shape with their exponentials too (``flash_bounds``)."""
     b2 = 2  # bytes of a bf16 element
     d = 256
     dense = 2 * d * (3 * d + d + 4 * d + 4 * d)  # qkv, proj, W1, W2 flops per row
@@ -4294,7 +4643,8 @@ def kernel_bounds(model_vit, model_t, model_m, model_d) -> dict:
             "spatial_fwd": bound(rows * dense + att_spatial, fwd_bytes),
             "slab_fwd": bound(rows * dense + att_temporal, fwd_bytes),
             "spatial_bwd": bound(rows * (recompute + 2 * dense) + 2.5 * att_spatial, bwd_bytes),
-            "slab_bwd": bound(rows * (recompute + 2 * dense) + 2.5 * att_temporal, bwd_bytes)}
+            "slab_bwd": bound(rows * (recompute + 2 * dense) + 2.5 * att_temporal, bwd_bytes),
+            **flash_bounds(LONG_CLIPS * 17, LONG_T, d // LONG_HEADS, long_clock)}
 
 
 def main() -> None:
@@ -4366,7 +4716,9 @@ def main() -> None:
         for counts in (trlaunches, dtrlaunches):
             if k in counts:
                 counts[k] += n
-    bounds = kernel_bounds(model, tmodel, mmodel, dmodel)
+    # phase 30: the long-clip path (rows 14a-14c)
+    ferrs, ft, flaunches, clock = long_phase()
+    bounds = kernel_bounds(model, tmodel, mmodel, dmodel, clock)
 
     def record(kname, source, replaces, n_launches, max_err, ms, plain_ms, library_ms):
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -4441,6 +4793,15 @@ def main() -> None:
                           "pose3d_tpu/ops/pallas_softargmax.py:36",
                           jlaunches["soft_argmax_3d_pallas"], errs["soft_argmax_volume"],
                           jt["soft_argmax_volume"], jt["soft_argmax_volume_plain"], None))
+    # rows 14a-14c: the plain backward computes dQ, dK and dV at once, and so
+    # does SDPA's backward, timed alone on its saved forward (a yardstick only)
+    flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    kernels += [record(k, f"{csrc}/flash_attention.cu", f"{flash_src}:{line}", flaunches[k],
+                       ferrs[k], ft[k], ft[plain], ft[lib])
+                for k, line, plain, lib in (
+                    ("flash_fwd", 758, "flash_fwd_plain", "sdpa_fwd"),
+                    ("flash_bwd_dkv", 1121, "flash_bwd_plain", "sdpa_bwd"),
+                    ("flash_bwd_dq", 1456, "flash_bwd_plain", "sdpa_bwd"))]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
@@ -4489,6 +4850,10 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         tp_phase()
+    elif sys.argv[1:] == ["--long"]:  # the long-clip path alone
+        device_phase()
+        build_phase()
+        long_phase()
     elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
         device_phase()
         build_phase()

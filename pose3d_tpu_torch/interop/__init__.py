@@ -1,1 +1,3 @@
-"""Weight conversion between the JAX package and the port."""
+"""Weight conversion: the JAX package's flax trees -> the port's state
+dicts (``weights.py``), and the reference repository's checkpoints <-> the
+port's state dicts (``torch_weights.py``)."""

@@ -127,6 +127,7 @@ def vit_lifter_from_flax(params) -> dict[str, torch.Tensor]:
 # port's: the spatial half (LayerNorm_0, _MHSA_0, LayerNorm_1, _MLP_0),
 # then the temporal half (LayerNorm_2, _MHSA_1, LayerNorm_3, _MLP_1), the
 # order of pallas_stblock.pack_spatial_weights / pack_temporal_weights.
+_ST_BLOCKS = ("SpatioTemporalBlock_", "CheckpointSpatioTemporalBlock_")  # remat=False / True
 _ST_HALVES = (
     ("spatial", "LayerNorm_0", "_MHSA_0", "LayerNorm_1", "_MLP_0"),
     ("temporal", "LayerNorm_2", "_MHSA_1", "LayerNorm_3", "_MLP_1"),
@@ -148,15 +149,20 @@ def temporal_lifter_from_flax(params) -> dict[str, torch.Tensor]:
     | ``LayerNorm_0`` | ``norm`` |
     | ``Dense_1``, ``Dense_2`` | ``head.0``, ``head.2`` |
 
-    The block count is read from the tree.
+    The block count is read from the tree; a tree built with ``remat=True``
+    names its blocks ``CheckpointSpatioTemporalBlock_{i}``. A tree with no
+    blocks raises ValueError.
     """
     sd: dict[str, torch.Tensor] = {}
     _dense(params["Dense_0"], "embed", sd)
     sd["spatial_pe"] = _t(params["spatial_pe"])
     sd["temporal_pe"] = _t(params["temporal_pe"])
-    n_blocks = sum(1 for k in params if k.startswith("SpatioTemporalBlock_"))
+    prefix = next((p for p in _ST_BLOCKS if f"{p}0" in params), None)
+    if prefix is None:
+        raise ValueError(f"no {' or '.join(p + '0' for p in _ST_BLOCKS)} in the tree")
+    n_blocks = sum(1 for k in params if k.startswith(prefix))
     for i in range(n_blocks):
-        bp = params[f"SpatioTemporalBlock_{i}"]
+        bp = params[f"{prefix}{i}"]
         for half, ln1, att, ln2, mlp in _ST_HALVES:
             b = f"blocks.{i}.{half}"
             _scale_bias(bp[ln1], f"{b}_norm1", sd)

@@ -96,7 +96,7 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         _compile(so)
     lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in (("lifter_trunk_launch", [p] * 7 + [i, i, i, i, p]),
                        ("attention_launch", [p, p, i, i, i, i, p]),
                        ("stblock_temporal_launch", [p, p, p, p, p, p, i, i, i, p]),
@@ -107,7 +107,10 @@ def library() -> ctypes.CDLL:
                        ("softargmax_nhwc_bwd_launch", [p, i, p, p, p, p] + [i] * 6 + [p]),
                        ("softargmax_volume_launch", [p, i, p, p] + [i] * 5 + [p]),
                        ("conv_decode_launch", [p] * 6 + [i] * 7 + [p]),
-                       ("conv_decode_bwd_launch", [p] * 10 + [i] * 8 + [p])):
+                       ("conv_decode_bwd_launch", [p] * 10 + [i] * 8 + [p]),
+                       ("flash_fwd_launch", [p] * 3 + [ll] * 4 + [p, p] + [i] * 5 + [p]),
+                       ("flash_bwd_dq_launch", [p] * 3 + [ll] * 4 + [p] * 4 + [i] * 5 + [p]),
+                       ("flash_bwd_dkv_launch", [p] * 3 + [ll] * 4 + [p] * 5 + [i] * 5 + [p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i

@@ -10,8 +10,9 @@ a mesh of the world:
    (n/2) x 2 mesh when n is even and at least 4, else n x 1; batch 8 a
    data rank;
 2. the temporal lifter (hidden 64, one block, 2 heads, clips of 8 frames
-   a model rank of stage 1), data-parallel: the sequence parallelism of
-   JAX's stage (``activation_spec``) is not ported;
+   a model rank) with sequence parallelism: ``activation_spec=("data",
+   "model", None, None)`` on stage 1's mesh, the batch over the data axis
+   and each clip's frames over the model axis (``sequence_parallel``);
 3. the global-BatchNorm direct step (``PoseNet3D``, ResNet-18, depth 8,
    32 x 32, 2 frames a rank);
 4. the SMPL-IK step (``HybrIKPose``: ResNet-18, depth 8, 64 x 64, the
@@ -54,12 +55,12 @@ DEADLINE_S = 600.0
 def _kernel_counts() -> dict[str, int]:
     """{wrapper: launches} of every kernel wrapper of ``ops/`` in this
     process."""
-    from pose3d_tpu_torch.ops import (attention, conv_decode, lifter, martinez, softargmax,
-                                      stblock, stblock_train)
+    from pose3d_tpu_torch.ops import (attention, conv_decode, flash_attention, lifter, martinez,
+                                      softargmax, stblock, stblock_train)
 
     return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": f.launches
-            for mod in (attention, conv_decode, lifter, martinez, softargmax, stblock,
-                        stblock_train)
+            for mod in (attention, conv_decode, flash_attention, lifter, martinez, softargmax,
+                        stblock, stblock_train)
             for name, f in vars(mod).items() if callable(f) and hasattr(f, "launches")}
 
 
@@ -74,7 +75,7 @@ def _stages(n: int, device: torch.device) -> list[str]:
     from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
     from pose3d_tpu_torch.ops.stblock_train import temporal_train_forward_fused
     from pose3d_tpu_torch.parallel.mesh import data_rank, make_mesh, shard_batch, shard_seed
-    from pose3d_tpu_torch.parallel.sharding import shard_params
+    from pose3d_tpu_torch.parallel.sharding import sequence_parallel, shard_params
     from pose3d_tpu_torch.train.image_steps import (bf16_apply, make_direct_train_step,
                                                     make_dp_direct_train_step)
     from pose3d_tpu_torch.train.loop_steps import (LoopState, freeze, loop_plateau_step,
@@ -115,18 +116,19 @@ def _stages(n: int, device: torch.device) -> list[str]:
     lines.append(f"dryrun_multichip ok: mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
                  f"loss={done('martinez', m['loss']):.5f} (dp x tp)")
 
-    # stage 2: the temporal lifter, data-parallel
-    dp = make_mesh(n, 1)
+    # stage 2: the temporal lifter, dp x sp
     clip_len = 8 * n_model
     kp2d, kp3d = synthetic_h36m(clip_len * (n // n_model) * 2)
     c2, c3 = shard_batch(put(make_clips(kp2d, clip_len),
-                             make_clips(kp3d - kp3d[:, :1], clip_len)), dp)
-    lifter = seeded(TemporalLifter(clip_len=clip_len, hidden=64, n_blocks=1, heads=2,
-                                   device="cpu"), 2)
+                             make_clips(kp3d - kp3d[:, :1], clip_len)), mesh)
+    lifter = sequence_parallel(seeded(TemporalLifter(
+        clip_len=clip_len, hidden=64, n_blocks=1, heads=2,
+        activation_spec=("data", "model", None, None), device="cpu"), 2), mesh)
     state = create_train_state(lifter, lr=1e-3)
-    m = run(dp, 3, lambda: make_lifter_train_step("mse", dp)(state, c2, c3))
-    lines.append(f"dryrun_multichip ok: temporal dp loss={done('temporal', m['loss']):.5f}")
+    m = make_lifter_train_step("mse", mesh)(state, c2, c3)
+    lines.append(f"dryrun_multichip ok: temporal dp x sp loss={done('temporal', m['loss']):.5f}")
 
+    dp = make_mesh(n, 1)
     # stage 3: the direct model, global BatchNorm
     rng = np.random.default_rng(0)
     frames, kps = put(rng.random((2 * n, 32, 32, 3), np.float32),

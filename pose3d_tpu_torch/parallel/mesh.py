@@ -188,6 +188,33 @@ def gather_model(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     return full
 
 
+class _GatherModel(torch.autograd.Function):
+    """``gather_model`` with its backward: where the consumer of the whole
+    tensor is sharded (``reduce``), each model rank holds a partial
+    gradient of it, so they are summed over the model group; where it is
+    replicated, the gradient is already whole. Either way the rank keeps
+    its slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, reduce):
+        ctx.dim, ctx.mesh, ctx.reduce = dim, mesh, reduce
+        return gather_model(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, group=model_group(ctx.mesh))
+        return model_shard(g, ctx.dim, ctx.mesh), None, None, None
+
+
+def gather_model_grad(x: torch.Tensor, dim: int, mesh, reduce: bool) -> torch.Tensor:
+    """``gather_model`` through autograd: x (this rank's shard on ``dim``)
+    -> the whole tensor. ``reduce``: the consumer is sharded over the model
+    axis too, so the backward sums the ranks' gradients before slicing."""
+    return _GatherModel.apply(x, dim, mesh, reduce)
+
+
 def model_shard(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """This model rank's slice of ``x`` on ``dim`` (a contiguous copy):
     the inverse of ``gather_model``."""
@@ -250,6 +277,13 @@ def psum_(tensors, mesh) -> None:
     """Sum each tensor over the data axis, in place, in one ``all_reduce``
     (one a dtype)."""
     group = data_group(mesh)
+    _flat_(list(tensors), lambda flat: dist.all_reduce(flat, group=group))
+
+
+def psum_model_(tensors, mesh) -> None:
+    """Sum each tensor over the model axis, in place, in one ``all_reduce``
+    (one a dtype)."""
+    group = model_group(mesh)
     _flat_(list(tensors), lambda flat: dist.all_reduce(flat, group=group))
 
 

@@ -39,17 +39,24 @@ their dims, which ``tp_layout`` reads: the steps, the global-norm clip
 (``tp_shards``) and the checkpoint (``gathered_state_dict``) ask it.
 ``shard_params`` refuses every other model: no JAX path runs tensor
 parallelism on it.
+
+Sequence parallelism (JAX's ``TemporalLifter(activation_spec=...)``):
+``sequence_parallel`` binds a mesh to a ``TemporalLifter`` whose spec
+splits the frames over the model axis; its forward then runs on the
+rank's frames (``models/temporal.py``). Its parameters stay whole on
+every rank, and each rank's gradients cover its own frames only, so the
+steps sum them over the model group (``sequence_mesh``) before averaging
+over the data axis; the clip then reads whole gradients.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from pose3d_tpu_torch.parallel.mesh import (gather_model, model_group, model_rank, model_shard,
-                                            model_size)
+from pose3d_tpu_torch.parallel.mesh import (gather_model, gather_model_grad, model_rank,
+                                            model_shard, model_size)
 
 # the layers whose forward runs on feature shards
 _TP_LAYERS = (nn.Linear, nn.modules.batchnorm._BatchNorm, nn.ReLU, nn.Dropout, nn.Flatten)
@@ -82,26 +89,6 @@ def infer_param_sharding(model: nn.Module, mesh, min_dim: int = 256) -> dict[str
     return {name: rule[name] for name, _ in model.named_parameters()}
 
 
-class _GatherFeatures(torch.autograd.Function):
-    """x (..., C / tp), this rank's feature shard -> (..., C), the whole
-    activation on every model rank. Backward: where the consumer is
-    sharded (``reduce``), each model rank holds a partial input gradient,
-    so they are summed over the model group; where it is replicated, the
-    gradient is already whole. Either way the rank keeps its slice."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, reduce):
-        ctx.mesh, ctx.reduce = mesh, reduce
-        return gather_model(x, -1, mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.reduce:
-            g = g.clone(memory_format=torch.contiguous_format)
-            dist.all_reduce(g, group=model_group(ctx.mesh))
-        return model_shard(g, -1, ctx.mesh), None, None
-
-
 class _TPLinear(nn.Linear):
     """A ``Linear`` of a sharded model: ``sharded`` where its weight and
     bias hold this rank's output features. An input narrower than
@@ -112,7 +99,7 @@ class _TPLinear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.in_features:
-            x = _GatherFeatures.apply(x, self.tp_mesh, self.sharded)
+            x = gather_model_grad(x, -1, self.tp_mesh, self.sharded)
         return super().forward(x)
 
 
@@ -214,3 +201,33 @@ def require_tp_mesh(model: nn.Module, mesh) -> None:
     if tp is not None and tp is not mesh:
         raise ValueError(f"{type(model).__name__} is sharded over a mesh; its step must run "
                          "over that mesh" + (", and was given none" if mesh is None else ""))
+
+
+def sequence_parallel(model: nn.Module, mesh) -> nn.Module:
+    """Binds ``mesh`` to a ``TemporalLifter`` whose ``activation_spec``
+    splits the frames over the model axis (``("data", "model", None,
+    None)``), once, where the mesh meets the model; returns ``model``.
+    Raises ValueError on any other model, or one bound already."""
+    from pose3d_tpu_torch.models.temporal import TemporalLifter
+
+    if not isinstance(model, TemporalLifter) or not model.splits_frames:
+        raise ValueError("sequence_parallel binds a TemporalLifter whose activation_spec "
+                         "splits the frames over the model axis")
+    if model.sp_mesh is not None:
+        raise ValueError("the TemporalLifter is bound to a mesh already")
+    model.sp_mesh = mesh
+    return model
+
+
+def sequence_mesh(model: nn.Module):
+    """The mesh ``sequence_parallel`` bound to ``model``, or None."""
+    return getattr(model, "sp_mesh", None)
+
+
+def require_sequence_mesh(model: nn.Module, mesh) -> None:
+    """Raise unless a step over ``mesh`` can run ``model``: a model bound by
+    ``sequence_parallel`` runs over its mesh, and only there."""
+    sp = sequence_mesh(model)
+    if sp is not None and sp is not mesh:
+        raise ValueError(f"{type(model).__name__} splits its frames over a mesh; its step must "
+                         "run over that mesh" + (", and was given none" if mesh is None else ""))

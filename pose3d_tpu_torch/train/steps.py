@@ -39,8 +39,9 @@ import torch
 from pose3d_tpu_torch import losses
 from pose3d_tpu_torch.core.transforms import flip_pose
 from pose3d_tpu_torch.models.norm import require_batch_norm
-from pose3d_tpu_torch.parallel.mesh import pmean_, psum_, require_group
-from pose3d_tpu_torch.parallel.sharding import require_tp_mesh, tp_layout, tp_shards
+from pose3d_tpu_torch.parallel.mesh import pmean_, psum_, psum_model_, require_group
+from pose3d_tpu_torch.parallel.sharding import (require_sequence_mesh, require_tp_mesh,
+                                                sequence_mesh, tp_layout, tp_shards)
 from pose3d_tpu_torch.train.state import TrainState, clip_by_global_norm
 
 
@@ -53,11 +54,17 @@ def apply_gradients(loss_val: torch.Tensor, *states: TrainState, mesh=None) -> N
     every state's gradients are averaged over its data axis in one
     ``pmean_`` before the clip; a model cut over the model axis
     (``parallel.sharding.shard_params``) has its shards' squares summed
-    over the model group in the clip."""
+    over the model group in the clip, and a model whose frames are split
+    over it (``parallel.sharding.sequence_parallel``) has its gradients,
+    each rank's over its own frames, summed over the model group first."""
     for state in states:
         state.optimizer.zero_grad(set_to_none=True)
     loss_val.backward()
     if mesh is not None:
+        for state in states:
+            if sequence_mesh(state.model) is not None:
+                psum_model_([p.grad for p in state.model.parameters() if p.grad is not None],
+                            mesh)
         pmean_([p.grad for state in states for p in state.model.parameters()
                 if p.grad is not None], mesh)
     for state in states:
@@ -81,8 +88,9 @@ def make_lifter_train_step(loss: str = "mse", mesh=None):
     the same on every rank, so every rank's plateau schedule takes the
     same decision. A BatchNorm model's BatchNorms must be bound global
     over the mesh's data axis (``sync_batch_norm(model, mesh)``), else it
-    raises; a model cut by ``shard_params`` runs over the mesh it was cut
-    for, and only there."""
+    raises; a model cut by ``shard_params``, or whose frames
+    ``sequence_parallel`` split, runs over the mesh it was bound to, and
+    only there."""
     loss_fn = losses.LOSS_FNS[loss]
 
     def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
@@ -91,6 +99,7 @@ def make_lifter_train_step(loss: str = "mse", mesh=None):
             if has_batch_stats(state.model):
                 require_batch_norm(state.model, mesh)
         require_tp_mesh(state.model, mesh)
+        require_sequence_mesh(state.model, mesh)
         state.model.train()
         pred = state.apply(state.model, y1).reshape(y2.shape)
         loss_val = loss_fn(pred, y2)
@@ -111,16 +120,18 @@ def make_dp_lifter_train_step(mesh, loss: str = "mse"):
     """JAX's ``shard_map`` step: ``make_lifter_train_step(loss, mesh)`` for
     stats-free models with replicated parameters, the fused training
     apply's route. A BatchNorm model raises, as JAX's step refuses batch
-    stats, and so does a model cut over the model axis."""
+    stats, and so does a model cut over the model axis or whose frames are
+    split over it."""
     step = make_lifter_train_step(loss, mesh)
 
     def dp_step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
         if has_batch_stats(state.model):
             raise ValueError("the DP lifter step supports stats-free models only; BatchNorm "
                              "models go through make_lifter_train_step(mesh=), bound global")
-        if tp_layout(state.model)[0] is not None:
-            raise ValueError("the DP lifter step takes replicated parameters; a sharded "
-                             "model goes through make_lifter_train_step(mesh=)")
+        if tp_layout(state.model)[0] is not None or sequence_mesh(state.model) is not None:
+            raise ValueError("the DP lifter step takes replicated parameters and whole clips; "
+                             "a sharded or sequence-parallel model goes through "
+                             "make_lifter_train_step(mesh=)")
         return step(state, y1, y2)
 
     return dp_step

@@ -32,7 +32,8 @@ virtual devices and the port's one process:
   one-process step on the global batch and JAX's
   ``make_hybrik_train_step`` on a 2-device mesh in x64: loss and MPJPE
   sums rtol 1e-10, parameters atol 1e-8, running statistics 1e-10.
-- (vii) ``dryrun_multichip(4, device="cpu")`` prints its seven lines.
+- (vii) ``dryrun_multichip(4, device="cpu")`` prints its seven lines,
+  the second JAX's "temporal dp x sp".
 """
 
 import concurrent.futures
@@ -472,7 +473,7 @@ def test_dryrun_multichip_prints_its_seven_lines(capsys):
     assert printed == lines and len(lines) == 7
     assert all(line.startswith("dryrun_multichip ok: ") for line in lines)
     assert "mesh={'data': 2, 'model': 2}" in lines[0] and "(dp x tp)" in lines[0]
-    assert "temporal dp" in lines[1] and "smpl-ik dp" in lines[3]
+    assert "temporal dp x sp" in lines[1] and "smpl-ik dp" in lines[3]
     for line in lines:
         assert np.isfinite(float(line.rsplit("loss=", 1)[1].split()[0])), line
     assert not any(launches.values())  # the CPU runs the kernels' plain versions

@@ -146,6 +146,7 @@ LAUNCHERS = {
                       "softargmax_volume_launch"],
     "conv_decode.cu": ["conv_decode_launch"],
     "conv_decode_bwd.cu": ["conv_decode_bwd_launch"],
+    "flash_attention.cu": ["flash_fwd_launch", "flash_bwd_dq_launch", "flash_bwd_dkv_launch"],
 }
 
 

@@ -521,3 +521,64 @@ def smpl_dp(params: dict, arrays: tuple, mesh=None) -> dict:
     state = create_train_state(model, lr=SMPL_LR, optimizer="adam")
     m = make_hybrik_train_step(mesh=mesh)(state, frames, tuple(cam), uvd, xyz, 0)
     return {"m": _metrics(m), "sd": _sd(model.net)}
+
+
+SP_FIELDS = {"clip_len": 16, "hidden": 32, "n_blocks": 2, "heads": 2}
+SP_SPEC = ("data", "model", None, None)
+SP_LR = 1e-3
+SP_STEPS = 2
+SP_CLIP = 0.05  # below the batch's gradient norm, so the clip binds
+
+
+def sp_state(sd: dict, dtype: str, mesh=None, flash: bool = False, grad_clip: float = 0.0):
+    """A TemporalLifter at SP_FIELDS holding the state dict ``sd`` (numpy)
+    in ``dtype``, AdamW at SP_LR; with ``mesh`` its frames split over the
+    mesh's model axis (``sequence_parallel``)."""
+    from pose3d_tpu_torch.models.temporal import TemporalLifter
+    from pose3d_tpu_torch.parallel.sharding import sequence_parallel
+
+    model = TemporalLifter(**SP_FIELDS, flash=flash,
+                           activation_spec=SP_SPEC if mesh is not None else None, device="cpu")
+    model.load_state_dict({k: _t(v) for k, v in sd.items()})
+    model.to(getattr(torch, dtype))
+    if mesh is not None:
+        sequence_parallel(model, mesh)
+    return create_train_state(model, lr=SP_LR, grad_clip=grad_clip)
+
+
+def sp_run(state, y1, y2, mesh=None) -> dict:
+    """SP_STEPS steps of ``make_lifter_train_step(mesh=)`` on this rank's
+    data shard of whole clips: the losses, the last MPJPE sums and the
+    state dict (whole on every rank)."""
+    from pose3d_tpu_torch.train.steps import make_lifter_train_step
+
+    step = make_lifter_train_step("mse", mesh)
+    x, y = _t(y1), _t(y2)
+    if mesh is not None:
+        x, y = M.shard_batch((x, y), mesh)
+    losses = []
+    for _ in range(SP_STEPS):
+        m = step(state, x, y)
+        losses.append(m["loss"].item())
+    return {"losses": losses, "sums": m["mpjpe_sums"].numpy(), "full": _sd(state.model)}
+
+
+def sp_ranks(sd: dict, y1, y2, n_model: int) -> dict:
+    """The SP steps on a (world / n_model) x n_model mesh in f32 and
+    float64, flash off and on (float64 also with the clip); the errors of
+    a clip whose frames do not split and of the kernel route."""
+    mesh = M.make_mesh(n_model=n_model)
+    out = {"data_rank": M.data_rank(mesh), "model_rank": M.model_rank(mesh)}
+    for dtype in ("float32", "float64"):
+        for flash in (False, True):
+            out[(dtype, flash)] = sp_run(sp_state(sd, dtype, mesh, flash), y1, y2, mesh)
+    out["clip"] = sp_run(sp_state(sd, "float64", mesh, grad_clip=SP_CLIP), y1, y2, mesh)
+    model = sp_state(sd, "float32", mesh).model
+    for name, kw, x in (("odd", {}, _t(y1[:1, :n_model + 1])),
+                        ("kernels", {"use_kernels": True}, _t(y1[:1]))):
+        try:
+            model(x, **kw)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
