@@ -394,11 +394,14 @@ a step (34 sequences of 2048 frames in each temporal attention):
 
 30. kernels 14a-14c (``ops/flash_attention.py``) against their plain
     versions on block 0's temporal qkv rows of seeded clips at 16 x 243
-    and 2 x 2048 frames: O within 2^-6 + 2^-7 |want|; dQ, dK, dV within
+    and 2 x 2048 frames, 14c (dQ and D = rowsum(dO ∘ O)) launched before
+    14b, which reads its D: O within 2^-6 + 2^-7 |want|; dQ, dK, dV within
     2^-7 max|want| + 2^-7 |want|; the log-sum-exp within 2^-12 (1 +
-    |want|); each output's error against a float64 run at most 1.5x the
-    plain version's + 2^-16 of its largest value; two calls bitwise
-    equal. Their times at 2 x 2048, the plain versions' and PyTorch's
+    |want|); D within 2^-18 of the row's Σ|dO ∘ O| of ``flash_delta`` on
+    the same O and dO; each output's error against a float64 run at most
+    1.5x the plain version's + 2^-16 of its largest value; two calls
+    bitwise equal. Their times at 2 x 2048 (14c with D inside), the plain
+    versions' (``flash_delta`` apart) and PyTorch's
     ``scaled_dot_product_attention`` forward, backward alone and both (a
     yardstick; the port never calls it). The full-width model, flash
     against eager attention from the same weights: the forward within
@@ -4267,6 +4270,8 @@ FLASH_CHUNK = 8      # sequences a plain-version call in the checks (the float64
 #                      34 sequences x 8 heads at L = 2048 would take 9 GB a tensor)
 FLASH_NAMES = {"flash_fwd": FA.flash_forward, "flash_bwd_dkv": FA.flash_backward_dkv,
                "flash_bwd_dq": FA.flash_backward_dq}
+DELTA_REL = 2 ** -18  # 14c's D against flash_delta: of the row's sum |dO O| (f32 sums in
+#                       another order)
 SFU_EXP_PER_CLOCK = 16 * 132  # exponentials a clock on the H100's SFUs: 16 an SM, 132 SMs
 SP_SPEC = ("data", "model", None, None)
 SP_DEADLINE_S = 300
@@ -4299,20 +4304,20 @@ def flash_tokens(model, n_clips: int, frames: int, seed: int):
 
 
 def flash_run(qkv, dout, kernel: bool, saved=None) -> tuple:
-    """(O, lse, dQ, dK, dV) from the three kernels on every sequence, or
-    from the plain versions FLASH_CHUNK sequences at a time. ``saved``: the
-    kernels' (O, lse), which the plain backward then takes, so that each
-    kernel meets its plain version on the same inputs; without it the
-    plain backward takes the plain forward's (on float64 inputs: the
-    float64 yardstick)."""
+    """(O, lse, dQ, dK, dV, D) from the three kernels on every sequence,
+    14c (dQ and D) before 14b, or from the plain versions FLASH_CHUNK
+    sequences at a time. ``saved``: the kernels' (O, lse), which the plain
+    backward then takes, so that each kernel meets its plain version on
+    the same inputs; without it the plain backward takes the plain
+    forward's (on float64 inputs: the float64 yardstick)."""
     if kernel:
         q, k, v = FA._views(qkv, None)
         o, lse = FA.flash_forward(q, k, v, LONG_HEADS)
-        delta = FA.flash_delta(dout, o, LONG_HEADS)
+        delta = torch.empty_like(lse)
         grads = FA._views(torch.empty_like(qkv), None)
+        FA.flash_backward_dq(q, k, v, dout, o, lse, LONG_HEADS, grads[0], delta)
         FA.flash_backward_dkv(q, k, v, dout, lse, delta, LONG_HEADS, grads[1], grads[2])
-        FA.flash_backward_dq(q, k, v, dout, lse, delta, LONG_HEADS, grads[0])
-        return (o, lse, *grads)
+        return (o, lse, *grads, delta)
     parts = []
     for i in range(0, qkv.shape[0], FLASH_CHUNK):
         q, k, v = FA._views(qkv[i:i + FLASH_CHUNK], None)
@@ -4320,8 +4325,8 @@ def flash_run(qkv, dout, kernel: bool, saved=None) -> tuple:
         o, lse = FA.flash_forward_reference(q, k, v, LONG_HEADS)
         bo, blse = (o, lse) if saved is None else (t[i:i + FLASH_CHUNK] for t in saved)
         delta = FA.flash_delta(d, bo, LONG_HEADS)
-        parts.append((o, lse, *FA.flash_backward_reference(q, k, v, d, blse, delta,
-                                                           LONG_HEADS)))
+        parts.append((o, lse, *FA.flash_backward_reference(q, k, v, d, blse, delta, LONG_HEADS),
+                      delta))
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
@@ -4349,9 +4354,10 @@ def flash_kernel_phase(model) -> dict:
     backward ones on the forward kernel's O and log-sum-exp: O within
     2^-6 + 2^-7 |want|, dQ, dK, dV within 2^-7 max|want| + 2^-7 |want|, the
     log-sum-exp within 2^-12 (1 + |want|), each against a float64 run of
-    the plain version (``_flash_hold``), two calls bitwise equal; every
-    check logged before any failure raises. Returns each kernel's max abs
-    error at the long shape."""
+    the plain version (``_flash_hold``); 14c's D within DELTA_REL of the
+    row's Σ|dO ∘ O| of ``flash_delta`` on the kernel's O; two calls bitwise
+    equal; every check logged before any failure raises. Returns each
+    kernel's max abs error at the long shape."""
     errs, failed = {}, []
     for n_clips, frames in LONG_CHECKS:
         qkv, dout = flash_tokens(model, n_clips, frames, LONG_SEED + frames)
@@ -4368,10 +4374,20 @@ def flash_kernel_phase(model) -> dict:
         log(f"kernel vs plain, flash_fwd log-sum-exp {what}: max abs err {lse.max().item():.6g}")
         if (lse > 2 ** -12 * (1 + want[1].abs())).any():
             failed.append(f"flash_fwd log-sum-exp {what}")
-        for n, a, w, r in zip(("dq", "dk", "dv"), got[2:], want[2:], ref64[2:]):
+        for n, a, w, r in zip(("dq", "dk", "dv"), got[2:5], want[2:5], ref64[2:5]):
             held[n] = _flash_hold(f"{n} {what}", a, w, r,
                                   GRAD_ATOL_REL * w.float().abs().max().item(), GRAD_RTOL)
         failed += [f"{n} {what}" for n, (_, ok) in held.items() if not ok]
+        # D: 14c's against flash_delta on the kernel's O and the same dO
+        scale = torch.cat([FA.flash_delta(dout[i:i + FLASH_CHUNK].abs(),
+                                          got[0][i:i + FLASH_CHUNK].abs(), LONG_HEADS)
+                           for i in range(0, dout.shape[0], FLASH_CHUNK)])
+        dlt = (got[5] - want[5]).abs()
+        log(f"kernel vs plain, flash_bwd_dq D {what}: max abs err {dlt.max().item():.6g}, worst "
+            f"share of the row's sum |dO O| {(dlt / scale.clamp_min(1e-30)).max().item():.4g} "
+            f"(limit {DELTA_REL:.4g})")
+        if not bool(torch.isfinite(got[5]).all()) or (dlt > DELTA_REL * scale).any():
+            failed.append(f"flash_bwd_dq D {what}")
         errs = {"flash_fwd": held["flash_fwd"][0], "flash_bwd_dq": held["dq"][0],
                 "flash_bwd_dkv": max(held["dk"][0], held["dv"][0])}
         del got, again, want, ref64
@@ -4382,20 +4398,21 @@ def flash_kernel_phase(model) -> dict:
 
 
 def flash_timing_phase(model) -> dict:
-    """ms of each kernel, its plain version and PyTorch's
-    ``scaled_dot_product_attention`` (a yardstick only; the port never
-    calls it) on block 0's temporal qkv at (LONG_CLIPS, LONG_T): the
-    forward, the backward alone (dQ, dK and dV together) and both."""
+    """ms of each kernel (14c with D inside), its plain version (D's,
+    ``flash_delta``, apart) and PyTorch's ``scaled_dot_product_attention``
+    (a yardstick only; the port never calls it) on block 0's temporal qkv
+    at (LONG_CLIPS, LONG_T): the forward, the backward alone (dQ, dK and
+    dV together) and both."""
     qkv, dout = flash_tokens(model, LONG_CLIPS, LONG_T, LONG_SEED + 7)
     q, k, v = FA._views(qkv, None)
     o, lse = FA.flash_forward(q, k, v, LONG_HEADS)
-    delta = FA.flash_delta(dout, o, LONG_HEADS)
+    delta = torch.empty_like(lse)
     g = FA._views(torch.empty_like(qkv), None)
     t = {"flash_fwd": cuda_ms(lambda: FA.flash_forward(q, k, v, LONG_HEADS)),
+         "flash_bwd_dq": cuda_ms(lambda: FA.flash_backward_dq(q, k, v, dout, o, lse, LONG_HEADS,
+                                                              g[0], delta)),
          "flash_bwd_dkv": cuda_ms(lambda: FA.flash_backward_dkv(q, k, v, dout, lse, delta,
                                                                 LONG_HEADS, g[1], g[2])),
-         "flash_bwd_dq": cuda_ms(lambda: FA.flash_backward_dq(q, k, v, dout, lse, delta,
-                                                              LONG_HEADS, g[0])),
          "delta": cuda_ms(lambda: FA.flash_delta(dout, o, LONG_HEADS))}
     t["flash_fwd_plain"] = cuda_ms(lambda: FA.flash_forward_reference(q, k, v, LONG_HEADS), n=3)
     t["flash_bwd_plain"] = cuda_ms(lambda: FA.flash_backward_reference(
@@ -4411,9 +4428,9 @@ def flash_timing_phase(model) -> dict:
     t["sdpa_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(sdpa(*heads), heads, g4))
     log(f"time flash attention {n} sequences x {length} frames x 8 heads x 32 (bf16): forward "
         f"{t['flash_fwd']:.4f} ms (plain {t['flash_fwd_plain']:.4f}, SDPA {t['sdpa_fwd']:.4f}); "
-        f"dK/dV {t['flash_bwd_dkv']:.4f} ms, dQ {t['flash_bwd_dq']:.4f} ms, D = rowsum(dO O) "
-        f"{t['delta']:.4f} ms (plain backward {t['flash_bwd_plain']:.4f}, SDPA backward "
-        f"{t['sdpa_bwd']:.4f}, SDPA forward + backward {t['sdpa_fwd_bwd']:.4f})")
+        f"dK/dV {t['flash_bwd_dkv']:.4f} ms, dQ with D inside {t['flash_bwd_dq']:.4f} ms, D = "
+        f"rowsum(dO O) plain {t['delta']:.4f} ms (plain backward {t['flash_bwd_plain']:.4f}, "
+        f"SDPA backward {t['sdpa_bwd']:.4f}, SDPA forward + backward {t['sdpa_fwd_bwd']:.4f})")
     return t
 
 
@@ -4563,7 +4580,8 @@ def flash_bounds(n_seq: int, length: int, dh: int, clock: float) -> dict:
     peak, their exponentials (one a score, recomputed in each backward
     kernel) over the SFUs' SFU_EXP_PER_CLOCK a clock at ``clock`` Hz, and
     their bytes (q, k, v and dO bf16, the log-sum-exp and D f32, each read
-    once; O, dQ, dK, dV written once) over the HBM rate."""
+    once; O, dQ, dK, dV written once; 14c also reads O and writes D) over
+    the HBM rate."""
     scores = n_seq * LONG_HEADS * length * length
     product = 2 * scores * dh  # flops of one (L x L x dh) product
     t_exp = scores / (SFU_EXP_PER_CLOCK * clock) * 1e3
@@ -4572,7 +4590,7 @@ def flash_bounds(n_seq: int, length: int, dh: int, clock: float) -> dict:
     out = {}
     for name, products, nbytes in (("flash_fwd", 2, 4 * rows + stat),  # S, PV
                                    ("flash_bwd_dkv", 4, 6 * rows + 2 * stat),  # S, dV, dP, dK
-                                   ("flash_bwd_dq", 3, 5 * rows + 2 * stat)):  # S, dP, dQ
+                                   ("flash_bwd_dq", 3, 6 * rows + 2 * stat)):  # S, dP, dQ
         ms, by = bound(products * product, nbytes)
         out[name] = (t_exp, "operations") if t_exp > ms else (ms, by)
     return out

@@ -6,47 +6,78 @@
 // Replaces the three TPU kernels of jax's
 // jax/experimental/pallas/ops/tpu/flash_attention.py that the JAX package's
 // TemporalLifter(flash=True) reaches (pose3d_tpu/models/temporal.py:84):
-// - flash_fwd_kernel: _flash_attention_impl's pallas_call (:758) over
+// - flash_fwd_kernel (14a): _flash_attention_impl's pallas_call (:758) over
 //   _flash_attention_kernel (:331): O and the softmax residuals. Here the
 //   residual is one f32 log-sum-exp a row (JAX keeps its l and m apart);
-// - flash_dkv_kernel: _flash_attention_bwd_dkv's pallas_call (:1121) over
-//   _flash_attention_dkv_kernel (:796): dK and dV;
-// - flash_dq_kernel: _flash_attention_bwd_dq's pallas_call (:1456) over
+// - flash_dq_kernel (14c): _flash_attention_bwd_dq's pallas_call (:1456) over
 //   _flash_attention_dq_kernel (:1146): dQ (JAX's dS output, which ab=None
-//   discards, is not formed).
-// D = rowsum(dO * O) stays a PyTorch op (ops/flash_attention.py), as JAX
-// computes it outside its kernels (flash_attention.py:273-275). A TPU grid
-// walks its K/V axis in order and carries the row max and sum in scratch
-// from step to step; here a block loops over the K/V (or Q) tiles itself
-// and carries them in registers. The TPU kernel needs the K/V length to be
-// a multiple of 128; these take any lengths and mask the partial last tile.
+//   discards, is not formed). It also computes D = rowsum(dO * O), which
+//   JAX computes outside its kernels (flash_attention.py:273-275), from the
+//   O and dO tiles it loads, and writes it for 14b: 14c launches first;
+// - flash_dkv_kernel (14b): _flash_attention_bwd_dkv's pallas_call (:1121)
+//   over _flash_attention_dkv_kernel (:796): dK and dV, on 14c's D.
+// A TPU grid walks its K/V axis in order and carries the row max and sum in
+// scratch from step to step; here a block loops over the K/V (or Q) tiles
+// itself and carries them in registers. The TPU kernel needs the K/V length
+// to be a multiple of 128; these take any lengths and mask the partial last
+// tile.
 //
 // What bounds them on this card. At the long-clip path's shape (2 clips x
 // 2048 frames: 34 sequences x 8 heads, dh = 32) the forward does two
 // products, 146 GFLOP (0.148 ms at 989 TFLOP/s), and one exponential per
 // score, 1.14 G, which the SFU's 16 a clock an SM take ~0.27 ms at 1.98 GHz;
 // it moves ~145 MB (0.043 ms at 3.35 TB/s). At dh = 32 the exponentials,
-// not the tensor cores, set the floor; each backward kernel recomputes the
-// exponentials beside its products (dK/dV: S, dV, dP, dK; dQ: S, dP, dQ).
-// The design therefore keeps every score in registers and spends nothing
-// on the L x L matrices beyond the products and one ex2 a score:
-// - Q (or, in dK/dV, K and V) never enters shared memory: each warp loads
-//   the A fragments of its 16 rows straight from device memory into
-//   registers; shared memory holds the streamed K/V (or Q/dO) tiles of 64
-//   rows, double-buffered by cp.async, so a tile's loads overlap the
-//   previous tile's products;
-// - a forward or dQ block takes up to 128 query rows (8 warps), so each
-//   K/V tile that enters shared memory serves 8 warps;
-// - mma.sync m16n8k16, bf16 in and f32 accumulate. Scores leave their
-//   accumulators as the A operand of the next product (their C layout is
-//   the A layout); P (forward, dV) and dS (dQ, dK) are rounded to bf16 for
-//   it, and only those roundings, and the outputs', differ from f32 math;
-// - exp(s * scale - m) as ex2.approx of s * scale * log2(e) - m', the scale
-//   folded into one multiply; a key past the sequence gets -inf (its ex2 is
-//   0) and the padded rows of a tile are zero, so every product is finite.
-// The forward keeps an online row max and sum in f32 (rows g and g + 8 of
-// each warp's tile, shared by the four lanes of a quad) and rescales its
-// accumulators by ex2(m_old - m_new) when the max moves.
+// not the tensor cores, set the floor; each backward kernel recomputes them
+// beside its products (dQ: S, dP, dQ, 0.22 ms; dK/dV: S, dV, dP, dK). So
+// the SFU has to stay busy while the tensor cores run the products, and
+// nothing else may cost as much as an exponential.
+//
+// 14a and 14c: one query-major engine on rowtile_sm90.cuh's primitives.
+// Their first versions (mma.sync m16n8k16 with every B fragment through
+// ldmatrix, 64-key tiles by cp.async with two block-wide barriers a tile, a
+// mask on every score, 0.91 and 0.94 ms + 0.33 for D as a PyTorch op) ran
+// each warp's products and exponentials one after the other. Now:
+// - a persistent CTA an SM walks work tiles of 128 query rows of one
+//   (sequence, head): a producer warpgroup (setmaxnreg down) whose one
+//   thread issues each work tile's Q (14c: Q, dO, O) by TMA into one of two
+//   slots, then its K and V tiles (128 keys; 64 in 14c, whose S and dP
+//   accumulators share the registers) into a 4-stage ring, every slot and
+//   stage guarded by a full and an empty mbarrier; it waits only for free
+//   stages, so the next work tile's loads run under this one's epilogue.
+//   Two consumer warpgroups (setmaxnreg up) own 64 query rows each. No
+//   barrier spans the block after set-up.
+// - each view is a 3-D TMA map (head columns, rows, sequences) over the
+//   strided (N, L, heads * dh) rows: rows past a sequence's end arrive as
+//   zeros and no box reads into the next sequence. A box row is one head,
+//   dh * 2 bytes, in the swizzle of that span (32 B at dh = 16, 64 B at 32,
+//   128 B at 64), which the wgmma descriptors name (head_desc).
+// - S = Q K^T and 14c's dP = dO V^T are wgmma with both operands from
+//   shared memory, K-major; P (14a) and dS (14c) go from the f32
+//   accumulators to bf16 A fragments in registers (their layouts match) and
+//   feed wgmma with A from registers against the V (14a) or K (14c) tile,
+//   taken N-major with the transpose flag: no transposed copy exists.
+// - overlap: 14a issues tile j's S and tile j - 1's P V together, and runs
+//   tile j's softmax while P V is on the tensor cores; 14c issues tile j -
+//   1's dS K, then tile j's S and dP, and runs tile j's exponentials while
+//   dP is on the tensor cores. The other warpgroup's exponentials fill the
+//   rest. Slower, each measured (PERF.md §6): 14c's next S issued
+//   before its exponentials, a third consumer warpgroup, 96-key tiles
+//   (ptxas serialised the products for want of registers: 168 a thread at
+//   384 threads, 128 at 512, whatever setmaxnreg asks); an 8-stage ring;
+//   dS staged in shared memory for an all-shared-memory dS K; the
+//   warpgroups taking turns at issuing products or at the exponentials,
+//   on named barriers or mbarriers.
+// - a score costs one FFMA (s * scale * log2 e - m, or - lse) and one
+//   ex2.approx; the mask runs only on the tile that holds Lk, behind a
+//   branch uniform over the block; 128-key tiles halve the forward's row
+//   max shuffles and rescales a key.
+// Rounding points as before: P and dS rounded to bf16 once before their
+// product; f32 accumulation; O scaled by 1/l in f32 and rounded once; lse =
+// (m + log2 l) * ln 2 in f32; D an f32 sum of f32 products.
+//
+// 14b keeps its first version: a block owns 64 keys (4 warps), holds their
+// K and V as mma.sync A fragments in registers, and streams the Q and dO
+// tiles of 64 rows by cp.async, double-buffered.
 //
 // Layout: q, k and v are strided (N, L, heads * dh) views, head h at
 // columns [h * dh, (h + 1) * dh), rows `row` elements apart and sequences
@@ -57,15 +88,16 @@
 // stream, do not synchronise, allocate nothing, and return
 // cudaGetLastError() (or cudaErrorInvalidValue for what they refuse).
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "rowtile_sm90.cuh"
 
 namespace {
 
 using namespace pose3d;
+namespace rt = rowtile;
 
-constexpr int kRowWarps = 8;   // the most warps of a forward / dQ block: 128 query rows
-constexpr int kKeyWarps = 4;   // the most warps of a dK/dV block: 64 keys
-constexpr int kTile = 64;      // rows of a streamed K/V or Q/dO tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -76,13 +108,6 @@ struct Rows {
 template <int DH>
 __host__ __device__ constexpr float head_scale() {
   return DH == 16 ? 0.25f : DH == 32 ? 0.17677669529663687f : 0.125f;
-}
-
-// shared-memory pitch of a tile row: 16 bytes of skew keep the 8 rows of
-// an ldmatrix on distinct banks
-template <int DH>
-__host__ __device__ constexpr int pitch() {
-  return DH + 8;
 }
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
@@ -106,6 +131,479 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ unsigned pack_bf16(float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<unsigned*>(&h);
+}
+
+// ------------------------------------------------ the query-major engine
+
+constexpr int kQRows = rt::kTileRows;  // query rows of a work tile: 64 a consumer warpgroup
+constexpr int kSlots = 2;              // work tiles whose Q (dO, O) tiles are in shared memory
+constexpr int kStages = 4;             // K/V tiles in flight
+
+template <int DH, bool kDq>
+struct Tiles {
+  static constexpr int kRowBytes = DH * 2;            // a head row: its swizzle span
+  static constexpr int kKeys = kDq ? 64 : 128;        // keys a K/V tile
+  static constexpr int kKvBytes = kKeys * kRowBytes;  // one K or V tile
+  static constexpr int kStageBytes = 2 * kKvBytes;    // K, then V
+  static constexpr int kQBytes = kQRows * kRowBytes;  // one Q, dO or O tile
+  static constexpr int kSlotBytes = (kDq ? 3 : 1) * kQBytes;
+  static constexpr int kWgBytes = rt::kWgRows * kRowBytes;  // a warpgroup's 64 rows of one
+  static constexpr int kSmem =
+      1024 + kStages * kStageBytes + kSlots * kSlotBytes + 16 * (kStages + kSlots);
+  static_assert(kKvBytes % 1024 == 0 && kWgBytes % 1024 == 0,
+                "every tile starts on a whole swizzle pattern");
+  static_assert(kSmem <= kSmemLimit, "the ring and the slots fit in shared memory");
+};
+
+// A wgmma descriptor of a tile of DH-element rows at addr, in the swizzle
+// of the row's span, as TMA lays out the maps below (layout type 1: 128 B,
+// 2: 64 B, 3: 32 B): 8-row groups 8 rows apart (SBO); LBO unused, every
+// operand's contiguous extent being one swizzle row. K-major (rows are M
+// or N), a k-step of 16 columns is 32 bytes along the row; N-major (rows
+// are K), a k-step of 16 rows is 16 rows on.
+template <int DH>
+__device__ __forceinline__ uint64_t head_desc(uint32_t addr) {
+  constexpr uint64_t kSbo = 8 * DH * 2, kLayout = DH == 64 ? 1 : DH == 32 ? 2 : 3;
+  return uint64_t((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((kSbo >> 4) << 32) | (kLayout << 62);
+}
+
+// Byte offset of element (r, c) of such a tile: 16-byte chunk bits XOR the
+// row-group bits above them, as TMA swizzles.
+template <int DH>
+__device__ __forceinline__ uint32_t head_offset(int r, int c) {
+  const uint32_t o = uint32_t(r) * (DH * 2) + uint32_t(c) * 2;
+  return o ^ ((o >> 3) & uint32_t((DH * 2 / 16 - 1) << 4));
+}
+
+// d += A (64 x 16: this thread's bf16 fragment a, in registers) @ B (16 x
+// N, shared, N-major: the transpose flag); bf16 in, f32 accumulate.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// s = A (a warpgroup's 64 rows x DH at descriptor da, K-major) @ the N-row
+// tile at b, transposed (K-major: rows of DH), DH / 16 k-steps; the first
+// overwrites s. Issues only: the caller fences before and commits after.
+template <int DH, int N>
+__device__ __forceinline__ void issue_scores(float (&s)[N / 2], uint64_t da, uint32_t b) {
+  const uint64_t db = head_desc<DH>(b);
+#pragma unroll
+  for (int k = 0; k < DH / 16; ++k) {
+    if constexpr (N == 128) rt::wgmma_m64n128<0, 0>(s, da + 2 * k, db + 2 * k, k);
+    else rt::wgmma_m64n64<0, 0>(s, da + 2 * k, db + 2 * k, k);
+  }
+}
+
+// acc += P (64 x N: this thread's bf16 fragments p) @ the N-row tile at b
+// (N x DH, N-major), N / 16 k-steps of 16 rows. Issues only.
+template <int DH, int N>
+__device__ __forceinline__ void issue_rows(float (&acc)[DH / 2], const unsigned (&p)[N / 16][4],
+                                           uint32_t b) {
+  const uint64_t db = head_desc<DH>(b);
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k) {
+    if constexpr (DH == 16) wgmma_rs_n16(acc, p[k], db + 2 * DH * k);
+    else if constexpr (DH == 32) wgmma_rs_n32(acc, p[k], db + 2 * DH * k);
+    else wgmma_rs_n64(acc, p[k], db + 2 * DH * k);
+  }
+}
+
+// The accumulator layout of m64nNk16 (rowtile_sm90.cuh): this thread holds
+// rows ra and ra + 8 of its warpgroup's 64, columns 8j + 2(l % 4) and + 1,
+// in s[4j], s[4j + 1] (row ra) and s[4j + 2], s[4j + 3] (row ra + 8). A
+// k-step kk of the A fragment layout takes the columns [16kk, 16kk + 16):
+// registers (ra, 2q), (ra + 8, 2q), (ra, 2q + 8), (ra + 8, 2q + 8), the
+// accumulator's blocks 2kk and 2kk + 1.
+template <int N>
+__device__ __forceinline__ void to_frags(const float (&s)[N / 2], unsigned (&p)[N / 16][4]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[k][r] = pack_bf16(s[8 * k + 2 * r], s[8 * k + 2 * r + 1]);
+}
+
+// Keys at or past `valid` of a tile of N get -inf (their exponential is
+// 0); the caller branches here only on the tile that holds Lk.
+template <int N>
+__device__ __forceinline__ void mask_keys(float (&s)[N / 2], int valid, int q4) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (8 * j + 2 * q4 + i >= valid) s[4 * j + i] = s[4 * j + 2 + i] = -inf();
+}
+
+// The online softmax of one tile's raw scores s (keys past `valid` masked):
+// the row maxes m (log2 units, of s * sl) move to cover the tile; a0 and a1
+// = ex2(m_old - m_new) rescale what was summed before; s becomes ex2(s * sl
+// - m), one FFMA and one ex2 a score; the row sums l (this thread's
+// columns; the quad's are summed at the end) take the tile's.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float sl, int valid, int q4,
+                                               float& m0, float& m1, float& l0, float& l1,
+                                               float& a0, float& a1) {
+  if (valid < N) mask_keys<N>(s, valid, q4);
+  float r0[4], r1[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) r0[u] = r1[u] = -inf();
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    r0[j % 4] = fmaxf(r0[j % 4], fmaxf(s[4 * j], s[4 * j + 1]));
+    r1[j % 4] = fmaxf(r1[j % 4], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  const float x0 = quad_max(fmaxf(fmaxf(r0[0], r0[1]), fmaxf(r0[2], r0[3])));
+  const float x1 = quad_max(fmaxf(fmaxf(r1[0], r1[1]), fmaxf(r1[2], r1[3])));
+  const float n0 = fmaxf(m0, x0 * sl), n1 = fmaxf(m1, x1 * sl);  // finite: a tile has a key
+  a0 = ex2(m0 - n0);  // 0 on the first tile
+  a1 = ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], sl, -n0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl, -n0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl, -n1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl, -n1));
+    t0[j % 4] += s[4 * j] + s[4 * j + 1];
+    t1[j % 4] += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * a0 + ((t0[0] + t0[1]) + (t0[2] + t0[3]));
+  l1 = l1 * a1 + ((t1[0] + t1[1]) + (t1[2] + t1[3]));
+}
+
+// f32 sum of f32 products over this thread's quarter of row r of two tiles
+// (dO and O): columns [q4 * DH / 4, (q4 + 1) * DH / 4).
+template <int DH>
+__device__ __forceinline__ float row_dot(const unsigned char* a, const unsigned char* b, int r,
+                                         int q4) {
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < DH / 4; e += 2) {
+    const uint32_t off = head_offset<DH>(r, q4 * (DH / 4) + e);
+    const float2 x = load2(reinterpret_cast<const bf16*>(a + off));
+    const float2 y = load2(reinterpret_cast<const bf16*>(b + off));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
+}
+
+// Work tile t of a persistent CTA's walk (blockIdx.x, + gridDim.x, ...):
+// query rows [qt * 128, qt * 128 + 128) of head h of sequence n.
+struct Work {
+  int n, h, qt;
+  __device__ Work(int t, int n_qt, int heads)
+      : n(t / n_qt / heads), h(t / n_qt % heads), qt(t % n_qt) {}
+};
+
+template <int DH, bool kDq>
+using KvRing = rt::Ring<kStages, Tiles<DH, kDq>::kStageBytes>;
+template <int DH, bool kDq>
+using SlotRing = rt::Ring<kSlots, Tiles<DH, kDq>::kSlotBytes>;
+
+// The producer's thread: for each work tile of the CTA, its Q tile (14c:
+// Q, dO and O) into the next slot, then its K and V tiles, in the order
+// the consumers take them; it waits only for free slots and stages.
+template <int DH, bool kDq>
+__device__ void produce(KvRing<DH, kDq>& ring, SlotRing<DH, kDq>& slots, const CUtensorMap* q_map,
+                        const CUtensorMap* do_map, const CUtensorMap* o_map,
+                        const CUtensorMap* k_map, const CUtensorMap* v_map, int n_qt, int n_kt,
+                        int heads, int n_items) {
+  using T = Tiles<DH, kDq>;
+  for (int t = blockIdx.x; t < n_items; t += gridDim.x) {
+    const Work w(t, n_qt, heads);
+    const int col = w.h * DH, row = w.qt * kQRows;
+    uint32_t bar;
+    const uint32_t slot = slots.claim(&bar);
+    rt::tma_load3(slot, q_map, bar, col, row, w.n);
+    if constexpr (kDq) {
+      rt::tma_load3(slot + T::kQBytes, do_map, bar, col, row, w.n);
+      rt::tma_load3(slot + 2 * T::kQBytes, o_map, bar, col, row, w.n);
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const uint32_t st = ring.claim(&bar);
+      rt::tma_load3(st, k_map, bar, col, kt * T::kKeys, w.n);
+      rt::tma_load3(st + T::kKvBytes, v_map, bar, col, kt * T::kKeys, w.n);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// 14a: O and the log-sum-exp of the work tiles of a persistent CTA.
+template <int DH>
+__global__ void __launch_bounds__(rt::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                 float* __restrict__ lse, int Lq, int Lk, int heads, int n_items) {
+  using T = Tiles<DH, false>;
+  constexpr int kN = T::kKeys;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring_s = smem_u32(align1024(smem_raw));
+  const uint32_t slot_s = ring_s + kStages * T::kStageBytes;
+  const uint32_t bars = slot_s + kSlots * T::kSlotBytes;
+  if (threadIdx.x == 0) {
+    rt::ring_init<kStages>(bars);
+    rt::ring_init<kSlots>(bars + 16 * kStages);
+  }
+  __syncthreads();
+  KvRing<DH, false> ring{ring_s, bars, 0};
+  SlotRing<DH, false> slots{slot_s, bars + 16 * kStages, 0};
+  const int n_qt = (Lq + kQRows - 1) / kQRows, n_kt = (Lk + kN - 1) / kN;
+  const int wg = threadIdx.x / 128;
+  if (wg == rt::kConsumers) {
+    rt::regs_dec<rt::kProducerRegs>();
+    if (threadIdx.x == rt::kConsumers * 128)
+      produce<DH, false>(ring, slots, &q_map, nullptr, nullptr, &k_map, &v_map, n_qt, n_kt,
+                         heads, n_items);
+    return;
+  }
+  rt::regs_inc<rt::kConsumerRegs>();
+  const int lane = threadIdx.x % 32, q4 = lane % 4;
+  const int ra = 16 * (threadIdx.x / 32 % 4) + lane / 4;  // rows ra, ra + 8 of the warpgroup's
+  constexpr float sl = head_scale<DH>() * kLog2e;
+  const int dim = heads * DH;
+  for (int t = blockIdx.x; t < n_items; t += gridDim.x) {
+    const Work w(t, n_qt, heads);
+    const uint64_t da = head_desc<DH>(slots.acquire() + wg * T::kWgBytes);
+    float acc[DH / 2], s[kN / 2];
+    unsigned p[kN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float m0 = -inf(), m1 = -inf(), l0 = 0.f, l1 = 0.f, a0, a1;
+    uint32_t kv = ring.acquire();
+    rt::wgmma_fence();
+    issue_scores<DH, kN>(s, da, kv);
+    rt::wgmma_commit();
+    rt::wgmma_wait<0>();
+    rt::fence_acc(s);
+    online_softmax<kN>(s, sl, Lk, q4, m0, m1, l0, l1, a0, a1);  // acc is 0: a0, a1 unused
+    to_frags<kN>(s, p);
+#pragma unroll 1
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const uint32_t next = ring.acquire();
+      rt::wgmma_fence();
+      issue_scores<DH, kN>(s, da, next);
+      rt::wgmma_commit();
+      issue_rows<DH, kN>(acc, p, kv + T::kKvBytes);  // the last tile's P V
+      rt::wgmma_commit();
+      rt::wgmma_wait<1>();  // S has landed; P V runs under the softmax
+      rt::fence_acc(s);
+      online_softmax<kN>(s, sl, Lk - kt * kN, q4, m0, m1, l0, l1, a0, a1);
+      rt::wgmma_wait<0>();
+      rt::fence_acc(acc);
+      rt::fence_acc(s);
+      ring.release(ring.next - 2);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        acc[4 * j] *= a0;
+        acc[4 * j + 1] *= a0;
+        acc[4 * j + 2] *= a1;
+        acc[4 * j + 3] *= a1;
+      }
+      to_frags<kN>(s, p);
+      kv = next;
+    }
+    rt::wgmma_fence();
+    issue_rows<DH, kN>(acc, p, kv + T::kKvBytes);
+    rt::wgmma_commit();
+    rt::wgmma_wait<0>();
+    rt::fence_acc(acc);
+    ring.release(ring.next - 1);
+    slots.release(slots.next - 1);
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const int r = w.qt * kQRows + wg * rt::kWgRows + ra;
+    bf16* ob = o + static_cast<long long>(w.n) * Lq * dim + w.h * DH;
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int c = 8 * j + 2 * q4;
+      const long long at = static_cast<long long>(r) * dim + c;
+      if (r < Lq) store2(ob + at, acc[4 * j] * i0, acc[4 * j + 1] * i0);
+      if (r + 8 < Lq) store2(ob + at + 8LL * dim, acc[4 * j + 2] * i1, acc[4 * j + 3] * i1);
+    }
+    if (q4 == 0) {
+      float* lb = lse + (static_cast<long long>(w.n) * heads + w.h) * Lq;
+      if (r < Lq) lb[r] = (m0 + __log2f(l0)) * kLn2;
+      if (r + 8 < Lq) lb[r + 8] = (m1 + __log2f(l1)) * kLn2;
+    }
+  }
+}
+
+// 14c: dQ = scale * Σ_keys bf16(P ∘ (dO V^T - D)) K of the work tiles of a
+// persistent CTA, P recomputed from the log-sum-exp, and D = rowsum(dO ∘
+// O) of their rows, which it also writes.
+template <int DH>
+__global__ void __launch_bounds__(rt::kThreads, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap o_map, const float* __restrict__ lse,
+                float* __restrict__ delta, bf16* __restrict__ dq, Rows qs, int Lq, int Lk,
+                int heads, int n_items) {
+  using T = Tiles<DH, true>;
+  constexpr int kN = T::kKeys;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const uint32_t ring_s = smem_u32(base);
+  const uint32_t slot_s = ring_s + kStages * T::kStageBytes;
+  const uint32_t bars = slot_s + kSlots * T::kSlotBytes;
+  if (threadIdx.x == 0) {
+    rt::ring_init<kStages>(bars);
+    rt::ring_init<kSlots>(bars + 16 * kStages);
+  }
+  __syncthreads();
+  KvRing<DH, true> ring{ring_s, bars, 0};
+  SlotRing<DH, true> slots{slot_s, bars + 16 * kStages, 0};
+  const int n_qt = (Lq + kQRows - 1) / kQRows, n_kt = (Lk + kN - 1) / kN;
+  const int wg = threadIdx.x / 128;
+  if (wg == rt::kConsumers) {
+    rt::regs_dec<rt::kProducerRegs>();
+    if (threadIdx.x == rt::kConsumers * 128)
+      produce<DH, true>(ring, slots, &q_map, &do_map, &o_map, &k_map, &v_map, n_qt, n_kt, heads,
+                        n_items);
+    return;
+  }
+  rt::regs_inc<rt::kConsumerRegs>();
+  const int lane = threadIdx.x % 32, q4 = lane % 4;
+  const int ra = 16 * (threadIdx.x / 32 % 4) + lane / 4;
+  constexpr float sl = head_scale<DH>() * kLog2e;
+  for (int t = blockIdx.x; t < n_items; t += gridDim.x) {
+    const Work w(t, n_qt, heads);
+    const uint32_t qa = slots.acquire() + wg * T::kWgBytes;
+    const uint64_t dq_a = head_desc<DH>(qa), do_a = head_desc<DH>(qa + T::kQBytes);
+    // D of rows ra and ra + 8 from the dO and O tiles
+    const unsigned char* tile = base + (qa - ring_s);
+    const float d0 = quad_sum(row_dot<DH>(tile + T::kQBytes, tile + 2 * T::kQBytes, ra, q4));
+    const float d1 = quad_sum(row_dot<DH>(tile + T::kQBytes, tile + 2 * T::kQBytes, ra + 8, q4));
+    const int r = w.qt * kQRows + wg * rt::kWgRows + ra;
+    const long long stat = (static_cast<long long>(w.n) * heads + w.h) * Lq;
+    // rows past Lq: Q and dO arrive as zeros, so their dS is 0 whatever these are
+    const float e0 = r < Lq ? lse[stat + r] * kLog2e : 0.f;
+    const float e1 = r + 8 < Lq ? lse[stat + r + 8] * kLog2e : 0.f;
+    float acc[DH / 2], s[kN / 2], dp[kN / 2];
+    unsigned ds[kN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    // Tile kt: its S and dP went out after the last tile's dS K; the
+    // exponentials of S run under dP. The first and last tiles are peeled
+    // (first: no stage to hand back; more: the next tile's S and dP go
+    // out): with either as a branch in the loop ptxas serialised the
+    // products (C7514, C7515).
+    uint32_t kv = ring.acquire();
+    rt::wgmma_fence();
+    issue_scores<DH, kN>(s, dq_a, kv);  // S = Q K^T
+    rt::wgmma_commit();
+    issue_scores<DH, kN>(dp, do_a, kv + T::kKvBytes);  // dP = dO V^T
+    rt::wgmma_commit();
+    auto step = [&](int kt, auto first, auto more) {
+      rt::wgmma_wait<1>();
+      rt::fence_acc(s);
+      const int valid = Lk - kt * kN;
+      if (valid < kN) mask_keys<kN>(s, valid, q4);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[4 * j + i] = ex2(fmaf(s[4 * j + i], sl, i < 2 ? -e0 : -e1));
+      rt::wgmma_wait<0>();
+      rt::fence_acc(dp);
+      rt::fence_acc(acc);
+      if constexpr (!decltype(first)::value) ring.release(ring.next - 2);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[4 * j + i] *= dp[4 * j + i] - (i < 2 ? d0 : d1);
+      to_frags<kN>(s, ds);
+      rt::wgmma_fence();
+      issue_rows<DH, kN>(acc, ds, kv);  // dQ += dS K
+      rt::wgmma_commit();
+      if constexpr (decltype(more)::value) {
+        kv = ring.acquire();
+        issue_scores<DH, kN>(s, dq_a, kv);
+        rt::wgmma_commit();
+        issue_scores<DH, kN>(dp, do_a, kv + T::kKvBytes);
+        rt::wgmma_commit();
+      }
+    };
+    if (n_kt == 1) {
+      step(0, std::true_type{}, std::false_type{});
+    } else {
+      step(0, std::true_type{}, std::true_type{});
+#pragma unroll 1
+      for (int kt = 1; kt + 1 < n_kt; ++kt) step(kt, std::false_type{}, std::true_type{});
+      step(n_kt - 1, std::false_type{}, std::false_type{});
+    }
+    rt::wgmma_wait<0>();
+    rt::fence_acc(acc);
+    ring.release(ring.next - 1);
+    slots.release(slots.next - 1);
+
+    constexpr float sc = head_scale<DH>();
+    bf16* gb = dq + w.n * qs.seq + w.h * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int c = 8 * j + 2 * q4;
+      if (r < Lq) store2(gb + r * qs.row + c, acc[4 * j] * sc, acc[4 * j + 1] * sc);
+      if (r + 8 < Lq) store2(gb + (r + 8) * qs.row + c, acc[4 * j + 2] * sc, acc[4 * j + 3] * sc);
+    }
+    if (q4 == 0) {
+      if (r < Lq) delta[stat + r] = d0;
+      if (r + 8 < Lq) delta[stat + r + 8] = d1;
+    }
+  }
+}
+
+// ------------------------------------------------ 14b on mma.sync
+
+constexpr int kKeyWarps = 4;  // the most warps of a dK/dV block: 64 keys
+constexpr int kTile = 64;     // rows of a streamed Q/dO tile
+
+// shared-memory pitch of a tile row: 16 bytes of skew keep the 8 rows of
+// an ldmatrix on distinct banks
+template <int DH>
+__host__ __device__ constexpr int pitch() {
+  return DH + 8;
 }
 
 // The A fragments of rows [r0, r0 + 16) x DH of a strided bf16 matrix,
@@ -210,170 +708,6 @@ __device__ __forceinline__ void store_rows(bf16* base, long long row, int r0, in
   }
 }
 
-// One block per (sequence, head, tile of 16·warps query rows).
-template <int DH>
-__global__ void __launch_bounds__(kRowWarps * 32)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, Rows qs, Rows kvs, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Lq, int Lk, int heads) {
-  __shared__ __align__(16) bf16 ksm[2][kTile * pitch<DH>()];
-  __shared__ __align__(16) bf16 vsm[2][kTile * pitch<DH>()];
-  const int bm = blockDim.x / 2;  // 16 rows a warp
-  const int n_qt = (Lq + bm - 1) / bm;
-  const int qt = blockIdx.x % n_qt;
-  const int h = (blockIdx.x / n_qt) % heads;
-  const long long n = blockIdx.x / n_qt / heads;
-  const int dim = heads * DH;
-  const bf16* kb = k + n * kvs.seq + h * DH;
-  const bf16* vb = v + n * kvs.seq + h * DH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane / 4, q4 = lane % 4;
-  const int r0 = qt * bm + warp * 16;
-  const int n_kt = (Lk + kTile - 1) / kTile;
-  constexpr float sl = head_scale<DH>() * kLog2e;
-
-  load_tile<DH>(ksm[0], kb, kvs.row, 0, Lk);
-  load_tile<DH>(vsm[0], vb, kvs.row, 0, Lk);
-  cp_async_commit();
-  unsigned qa[DH / 16][4];
-  load_a<DH>(q + n * qs.seq + h * DH, qs.row, r0, Lq, g, q4, qa);
-  float acc[DH / 8][4] = {};
-  float m0 = -inf(), m1 = -inf(), l0 = 0.f, l1 = 0.f;
-  const unsigned ro = rows_offset<DH>(lane), to = trans_offset<DH>(lane);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
-      load_tile<DH>(ksm[(kt + 1) & 1], kb, kvs.row, (kt + 1) * kTile, Lk);
-      load_tile<DH>(vsm[(kt + 1) & 1], vb, kvs.row, (kt + 1) * kTile, Lk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[8][4];
-    tile_scores<DH>(qa, smem_u32(ksm[kt & 1]) + ro, s);
-    // scores in log2 units; keys past Lk -inf (every tile has a key
-    // below Lk, so each row's max is finite)
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[nb][i] * sl;
-        if (kt * kTile + nb * 8 + 2 * q4 + (i & 1) >= Lk) x = -inf();
-        s[nb][i] = x;
-      }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);  // 0 on the first tile
-    m0 = mx0;
-    m1 = mx1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      s[nb][0] = ex2(s[nb][0] - m0);
-      s[nb][1] = ex2(s[nb][1] - m0);
-      s[nb][2] = ex2(s[nb][2] - m1);
-      s[nb][3] = ex2(s[nb][3] - m1);
-      rs0 += s[nb][0] + s[nb][1];
-      rs1 += s[nb][2] + s[nb][3];
-    }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-#pragma unroll
-    for (int nb = 0; nb < DH / 8; ++nb) {
-      acc[nb][0] *= a0;
-      acc[nb][1] *= a0;
-      acc[nb][2] *= a1;
-      acc[nb][3] *= a1;
-    }
-    tile_accumulate<DH>(s, smem_u32(vsm[kt & 1]) + to, acc);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  store_rows<DH>(o + n * Lq * dim + h * DH, dim, r0, Lq, g, q4, acc, 1.f / l0, 1.f / l1);
-  if (q4 == 0) {
-    float* lb = lse + (n * heads + h) * Lq;
-    if (r0 + g < Lq) lb[r0 + g] = (m0 + __log2f(l0)) * kLn2;
-    if (r0 + g + 8 < Lq) lb[r0 + g + 8] = (m1 + __log2f(l1)) * kLn2;
-  }
-}
-
-// One block per (sequence, head, tile of 16·warps query rows): dQ =
-// scale · Σ_keys bf16(P ∘ (dO V^T - D)) K, P recomputed from the
-// log-sum-exp. Two blocks an SM (128 registers a thread) at dh <= 32,
-// where ptxas otherwise took 80 and spilled; one at dh = 64, which needs
-// more.
-template <int DH>
-__global__ void __launch_bounds__(kRowWarps * 32, DH == 64 ? 1 : 2)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, Rows qs, Rows kvs, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, int Lq, int Lk, int heads) {
-  __shared__ __align__(16) bf16 ksm[2][kTile * pitch<DH>()];
-  __shared__ __align__(16) bf16 vsm[2][kTile * pitch<DH>()];
-  const int bm = blockDim.x / 2;
-  const int n_qt = (Lq + bm - 1) / bm;
-  const int qt = blockIdx.x % n_qt;
-  const int h = (blockIdx.x / n_qt) % heads;
-  const long long n = blockIdx.x / n_qt / heads;
-  const int dim = heads * DH;
-  const bf16* kb = k + n * kvs.seq + h * DH;
-  const bf16* vb = v + n * kvs.seq + h * DH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane / 4, q4 = lane % 4;
-  const int r0 = qt * bm + warp * 16;
-  const int n_kt = (Lk + kTile - 1) / kTile;
-  constexpr float sl = head_scale<DH>() * kLog2e;
-
-  load_tile<DH>(ksm[0], kb, kvs.row, 0, Lk);
-  load_tile<DH>(vsm[0], vb, kvs.row, 0, Lk);
-  cp_async_commit();
-  unsigned qa[DH / 16][4], da[DH / 16][4];
-  load_a<DH>(q + n * qs.seq + h * DH, qs.row, r0, Lq, g, q4, qa);
-  load_a<DH>(dout + n * Lq * dim + h * DH, dim, r0, Lq, g, q4, da);
-  const long long stat = (n * heads + h) * Lq;
-  // rows past Lq: zero q and dO, so their dS is 0 whatever these are
-  const float lse0 = r0 + g < Lq ? lse[stat + r0 + g] * kLog2e : 0.f;
-  const float lse1 = r0 + g + 8 < Lq ? lse[stat + r0 + g + 8] * kLog2e : 0.f;
-  const float d0 = r0 + g < Lq ? delta[stat + r0 + g] : 0.f;
-  const float d1 = r0 + g + 8 < Lq ? delta[stat + r0 + g + 8] : 0.f;
-  float acc[DH / 8][4] = {};
-  const unsigned ro = rows_offset<DH>(lane), to = trans_offset<DH>(lane);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
-      load_tile<DH>(ksm[(kt + 1) & 1], kb, kvs.row, (kt + 1) * kTile, Lk);
-      load_tile<DH>(vsm[(kt + 1) & 1], vb, kvs.row, (kt + 1) * kTile, Lk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    tile_scores<DH>(qa, smem_u32(ksm[kt & 1]) + ro, s);
-    tile_scores<DH>(da, smem_u32(vsm[kt & 1]) + ro, dp);
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = ex2(s[nb][i] * sl - (i < 2 ? lse0 : lse1));
-        if (kt * kTile + nb * 8 + 2 * q4 + (i & 1) >= Lk) p = 0.f;
-        s[nb][i] = p * (dp[nb][i] - (i < 2 ? d0 : d1));
-      }
-    tile_accumulate<DH>(s, smem_u32(ksm[kt & 1]) + to, acc);
-    __syncthreads();
-  }
-  constexpr float sc = head_scale<DH>();
-  store_rows<DH>(dq + n * qs.seq + h * DH, qs.row, r0, Lq, g, q4, acc, sc, sc);
-}
-
 // One block per (sequence, head, tile of 16·warps keys); each warp holds
 // its 16 keys' K and V as A fragments and streams the Q and dO tiles:
 // dV = Σ_q bf16(P)^T dO and dK = scale · Σ_q bf16(P ∘ (dO V^T - D))^T Q,
@@ -451,6 +785,8 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<DH>(dv + n * kvs.seq + h * DH, kvs.row, k0, Lk, g, q4, dva, 1.f, 1.f);
 }
 
+// ------------------------------------------------ host
+
 // blocks of `warps` warps (the most, or fewer where the rows are fewer)
 // over `n * heads` (sequence, head) pairs and their tiles of 16·warps rows
 bool grid_of(int n, int heads, int rows, int most, int& warps, unsigned& blocks) {
@@ -462,6 +798,14 @@ bool grid_of(int n, int heads, int rows, int most, int& warps, unsigned& blocks)
   return true;
 }
 
+// The work tiles of the query-major kernels: n * heads * ceil(Lq / 128).
+bool work_of(int n, int heads, int Lq, int& items) {
+  const long long total = static_cast<long long>(n) * heads * ((Lq + kQRows - 1) / kQRows);
+  if (total > 0x7fffffffLL) return false;
+  items = static_cast<int>(total);
+  return true;
+}
+
 bool valid(int n, int Lq, int Lk, int heads, int dh, Rows qs, Rows kvs) {
   const bool aligned = qs.seq % 8 == 0 && qs.row % 8 == 0 && kvs.seq % 8 == 0 &&
                        kvs.row % 8 == 0;
@@ -469,26 +813,70 @@ bool valid(int n, int Lq, int Lk, int heads, int dh, Rows qs, Rows kvs) {
          (dh == 16 || dh == 32 || dh == 64);
 }
 
+// The TMA map of one head's columns of a strided (n, len, heads * DH) bf16
+// view at m, rows r.row elements apart and sequences r.seq apart: a box is
+// DH columns (one head) x box_rows rows of one sequence, in the swizzle of
+// its DH * 2-byte rows (head_desc); rows past len arrive as zeros.
+template <int DH>
+cudaError_t head_map(CUtensorMap* map, const bf16* m, int n, int len, int heads, Rows r,
+                     int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {cuuint64_t(heads) * DH, cuuint64_t(len), cuuint64_t(n)};
+  const cuuint64_t strides[2] = {cuuint64_t(r.row) * sizeof(bf16),
+                                 cuuint64_t(r.seq) * sizeof(bf16)};
+  const cuuint32_t box[3] = {cuuint32_t(DH), cuuint32_t(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = DH == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(m),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int DH>
 cudaError_t fwd_dh(const bf16* q, const bf16* k, const bf16* v, Rows qs, Rows kvs, bf16* o,
                    float* lse, int n, int Lq, int Lk, int heads, cudaStream_t stream) {
-  int warps;
-  unsigned blocks;
-  if (!grid_of(n, heads, Lq, kRowWarps, warps, blocks)) return cudaErrorInvalidValue;
-  flash_fwd_kernel<DH><<<blocks, warps * 32, 0, stream>>>(q, k, v, qs, kvs, o, lse, Lq, Lk,
-                                                          heads);
+  using T = Tiles<DH, false>;
+  int items, grid;
+  if (!work_of(n, heads, Lq, items)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err == cudaSuccess) err = persistent_grid(items, &grid);
+  CUtensorMap qm, km, vm;
+  if (err == cudaSuccess) err = head_map<DH>(&qm, q, n, Lq, heads, qs, kQRows);
+  if (err == cudaSuccess) err = head_map<DH>(&km, k, n, Lk, heads, kvs, T::kKeys);
+  if (err == cudaSuccess) err = head_map<DH>(&vm, v, n, Lk, heads, kvs, T::kKeys);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<DH><<<grid, rt::kThreads, T::kSmem, stream>>>(qm, km, vm, o, lse, Lq, Lk,
+                                                                 heads, items);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t dq_dh(const bf16* q, const bf16* k, const bf16* v, Rows qs, Rows kvs,
-                  const bf16* dout, const float* lse, const float* delta, bf16* dq, int n,
-                  int Lq, int Lk, int heads, cudaStream_t stream) {
-  int warps;
-  unsigned blocks;
-  if (!grid_of(n, heads, Lq, kRowWarps, warps, blocks)) return cudaErrorInvalidValue;
-  flash_dq_kernel<DH><<<blocks, warps * 32, 0, stream>>>(q, k, v, qs, kvs, dout, lse, delta,
-                                                         dq, Lq, Lk, heads);
+                  const bf16* dout, const bf16* o, const float* lse, float* delta, bf16* dq,
+                  int n, int Lq, int Lk, int heads, cudaStream_t stream) {
+  using T = Tiles<DH, true>;
+  int items, grid;
+  if (!work_of(n, heads, Lq, items)) return cudaErrorInvalidValue;
+  const Rows os{static_cast<long long>(Lq) * heads * DH, static_cast<long long>(heads) * DH};
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err == cudaSuccess) err = persistent_grid(items, &grid);
+  CUtensorMap qm, km, vm, dom, om;
+  if (err == cudaSuccess) err = head_map<DH>(&qm, q, n, Lq, heads, qs, kQRows);
+  if (err == cudaSuccess) err = head_map<DH>(&km, k, n, Lk, heads, kvs, T::kKeys);
+  if (err == cudaSuccess) err = head_map<DH>(&vm, v, n, Lk, heads, kvs, T::kKeys);
+  if (err == cudaSuccess) err = head_map<DH>(&dom, dout, n, Lq, heads, os, kQRows);
+  if (err == cudaSuccess) err = head_map<DH>(&om, o, n, Lq, heads, os, kQRows);
+  if (err != cudaSuccess) return err;
+  flash_dq_kernel<DH><<<grid, rt::kThreads, T::kSmem, stream>>>(qm, km, vm, dom, om, lse, delta,
+                                                                dq, qs, Lq, Lk, heads, items);
   return cudaGetLastError();
 }
 
@@ -530,28 +918,33 @@ extern "C" cudaError_t flash_fwd_launch(const void* q, const void* k, const void
   }
 }
 
-// As flash_fwd_launch; dout: contiguous (n, Lq, heads * dh) bf16; lse and
-// delta: contiguous (n, heads, Lq) f32; dq has q's strides.
+// As flash_fwd_launch; dout and o: contiguous (n, Lq, heads * dh) bf16;
+// lse: contiguous (n, heads, Lq) f32; writes dq (q's strides) and delta =
+// rowsum(dout * o), contiguous (n, heads, Lq) f32, which
+// flash_bwd_dkv_launch then reads.
 extern "C" cudaError_t flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                                            long long q_seq, long long q_row, long long kv_seq,
-                                           long long kv_row, const void* dout, const void* lse,
-                                           const void* delta, void* dq, int n, int Lq, int Lk,
-                                           int heads, int dh, void* stream) {
+                                           long long kv_row, const void* dout, const void* o,
+                                           const void* lse, void* delta, void* dq, int n,
+                                           int Lq, int Lk, int heads, int dh, void* stream) {
   const Rows qs{q_seq, q_row}, kvs{kv_seq, kv_row};
   if (!valid(n, Lq, Lk, heads, dh, qs, kvs)) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   auto* l = static_cast<const float*>(lse);
-  auto* d = static_cast<const float*>(delta);
+  auto* d = static_cast<float*>(delta);
   auto* out = static_cast<pose3d::bf16*>(dq);
   auto s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 16: return dq_dh<16>(B(q), B(k), B(v), qs, kvs, B(dout), l, d, out, n, Lq, Lk, heads, s);
-    case 32: return dq_dh<32>(B(q), B(k), B(v), qs, kvs, B(dout), l, d, out, n, Lq, Lk, heads, s);
-    default: return dq_dh<64>(B(q), B(k), B(v), qs, kvs, B(dout), l, d, out, n, Lq, Lk, heads, s);
+    case 16:
+      return dq_dh<16>(B(q), B(k), B(v), qs, kvs, B(dout), B(o), l, d, out, n, Lq, Lk, heads, s);
+    case 32:
+      return dq_dh<32>(B(q), B(k), B(v), qs, kvs, B(dout), B(o), l, d, out, n, Lq, Lk, heads, s);
+    default:
+      return dq_dh<64>(B(q), B(k), B(v), qs, kvs, B(dout), B(o), l, d, out, n, Lq, Lk, heads, s);
   }
 }
 
-// As flash_bwd_dq_launch; dk and dv have k's strides.
+// As flash_bwd_dq_launch, whose delta it reads; dk and dv have k's strides.
 extern "C" cudaError_t flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                             long long q_seq, long long q_row, long long kv_seq,
                                             long long kv_row, const void* dout, const void* lse,

@@ -503,13 +503,21 @@ __device__ __forceinline__ void issue_wide64(float (&acc)[128], uint32_t a, uint
 // ---------------------------------------------------------------- host
 
 // cuTensorMapEncodeTiled, found through the runtime's driver entry point,
-// so the library links no libcuda.
+// so the library links no libcuda. The encoder needs a current context: on
+// a thread where no runtime call has run yet (the autograd engine's, when a
+// kernel's backward is its first work) the device's primary context is not
+// current, and it failed with CUDA_ERROR_INVALID_CONTEXT; cudaSetDevice on
+// the current device makes it current first.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 inline cudaError_t tensor_map_encoder(EncodeTiled* out) {
+  int dev = 0;
+  cudaError_t ctx = cudaGetDevice(&dev);
+  if (ctx == cudaSuccess) ctx = cudaSetDevice(dev);
+  if (ctx != cudaSuccess) return ctx;
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;

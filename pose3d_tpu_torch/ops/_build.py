@@ -109,7 +109,7 @@ def library() -> ctypes.CDLL:
                        ("conv_decode_launch", [p] * 6 + [i] * 7 + [p]),
                        ("conv_decode_bwd_launch", [p] * 10 + [i] * 8 + [p]),
                        ("flash_fwd_launch", [p] * 3 + [ll] * 4 + [p, p] + [i] * 5 + [p]),
-                       ("flash_bwd_dq_launch", [p] * 3 + [ll] * 4 + [p] * 4 + [i] * 5 + [p]),
+                       ("flash_bwd_dq_launch", [p] * 3 + [ll] * 4 + [p] * 5 + [i] * 5 + [p]),
                        ("flash_bwd_dkv_launch", [p] * 3 + [ll] * 4 + [p] * 5 + [i] * 5 + [p])):
         fn = getattr(lib, name)
         fn.argtypes = args

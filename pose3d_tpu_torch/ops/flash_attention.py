@@ -17,12 +17,14 @@ mask, bias or segment ids, without forming the (L, L) scores:
 
 It is a ``torch.autograd.Function`` over three kernels, each behind a
 wrapper that counts its launches: ``flash_forward`` (O and the f32
-log-sum-exp of each row), ``flash_backward_dkv`` and
-``flash_backward_dq``; ``D = rowsum(dO ∘ O)`` in f32 is a PyTorch op
-(``flash_delta``), as JAX computes it outside its kernels. On a CUDA
-device each wrapper launches its kernel of ``csrc/flash_attention.cu``
-(bf16, head width 16, 32 or 64, any lengths; anything else raises); on
-the CPU it runs its plain version (``*_reference``), in any float dtype.
+log-sum-exp of each row), ``flash_backward_dq`` (dQ, and ``D =
+rowsum(dO ∘ O)`` in f32, which JAX computes outside its kernels) and
+``flash_backward_dkv`` (dK and dV, on that D), launched in that order.
+On a CUDA device each wrapper launches its kernel of
+``csrc/flash_attention.cu`` (bf16, head width 16, 32 or 64, any lengths;
+anything else raises) and the backward runs no PyTorch op for D; on the
+CPU each runs its plain version (``*_reference``, ``flash_delta``), in
+any float dtype.
 
 Numerical contract, the kernels' rounding points: scores, the softmax
 and its sums in f32 (float64 for float64 inputs), P rounded to the input
@@ -155,18 +157,22 @@ def flash_forward(q, k, v, heads: int):
 flash_forward.launches = 0
 
 
-def _grad_operands(dout, lse, delta):
-    if not (dout.is_contiguous() and lse.is_contiguous() and delta.is_contiguous()):
-        raise ValueError("dout, lse and delta must be contiguous")
+def _grad_operands(dout, lse, delta, *rows):
+    """The backward kernels' operand checks; ``rows``: what else they read
+    in dout's layout (14c: O)."""
+    if not all(t.is_contiguous() for t in (dout, lse, delta, *rows)):
+        raise ValueError("dout, o, lse and delta must be contiguous")
+    if any(t.shape != dout.shape or t.dtype != dout.dtype for t in rows):
+        raise ValueError("o must have dout's shape and dtype")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError("lse and delta must be float32")
 
 
 def flash_backward_dkv(q, k, v, dout, lse, delta, heads: int, dk, dv) -> None:
-    """Writes dK and dV into ``dk`` and ``dv`` (views with k's strides).
-    Launches kernel 14b on a CUDA device (counted in
-    ``flash_backward_dkv.launches``); on the CPU writes
-    ``flash_backward_reference``'s."""
+    """Writes dK and dV into ``dk`` and ``dv`` (views with k's strides), on
+    the D that ``flash_backward_dq`` wrote into ``delta``. Launches kernel
+    14b on a CUDA device (counted in ``flash_backward_dkv.launches``); on
+    the CPU writes ``flash_backward_reference``'s."""
     if q.device.type == "cpu":
         _, gk, gv = flash_backward_reference(q, k, v, dout, lse, delta, heads)
         dk.copy_(gk)
@@ -189,23 +195,27 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, heads: int, dk, dv) -> None:
 flash_backward_dkv.launches = 0
 
 
-def flash_backward_dq(q, k, v, dout, lse, delta, heads: int, dq) -> None:
-    """Writes dQ into ``dq`` (a view with q's strides). Launches kernel 14c
-    on a CUDA device (counted in ``flash_backward_dq.launches``); on the
-    CPU writes ``flash_backward_reference``'s."""
+def flash_backward_dq(q, k, v, dout, o, lse, heads: int, dq, delta) -> None:
+    """Writes dQ into ``dq`` (a view with q's strides) and D = rowsum(dO ∘
+    O) into ``delta`` (contiguous (N, heads, Lq), the log-sum-exp's dtype),
+    which ``flash_backward_dkv`` then reads. Launches kernel 14c on a CUDA
+    device (counted in ``flash_backward_dq.launches``), which computes D
+    from the O and dO tiles it loads; on the CPU writes ``flash_delta``'s D
+    and ``flash_backward_reference``'s dQ."""
     if q.device.type == "cpu":
+        delta.copy_(flash_delta(dout, o, heads))
         dq.copy_(flash_backward_reference(q, k, v, dout, lse, delta, heads)[0])
         return
     n, lq, lk, dh = _cuda_args(q, k, v, heads)
-    _grad_operands(dout, lse, delta)
+    _grad_operands(dout, lse, delta, o)
     if dq.stride() != q.stride():
         raise ValueError("dq must have q's strides")
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      *_strides(q, k), dout.data_ptr(), lse.data_ptr(),
-                                      delta.data_ptr(), dq.data_ptr(), n, lq, lk, heads, dh,
-                                      torch.cuda.current_stream().cuda_stream)
+                                      *_strides(q, k), dout.data_ptr(), o.data_ptr(),
+                                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, lq, lk,
+                                      heads, dh, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_bwd_dq_launch")
     flash_backward_dq.launches += 1
 
@@ -225,7 +235,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         qkv, kv, o, lse = ctx.saved_tensors
         dout = g.contiguous()
-        delta = flash_delta(dout, o, ctx.heads)
+        delta = torch.empty_like(lse)
         q, k, v = _views(qkv, kv)
         dqkv = torch.empty_like(qkv)
         if kv is None:
@@ -235,8 +245,8 @@ class _FlashAttention(torch.autograd.Function):
             dqkv[..., q.shape[-1]:].zero_()
             dkv = torch.empty_like(kv)
             _, dk, dv = _views(dqkv, dkv)
+        flash_backward_dq(q, k, v, dout, o, lse, ctx.heads, dqkv[..., :q.shape[-1]], delta)
         flash_backward_dkv(q, k, v, dout, lse, delta, ctx.heads, dk, dv)
-        flash_backward_dq(q, k, v, dout, lse, delta, ctx.heads, dqkv[..., :q.shape[-1]])
         return dqkv, dkv, None
 
 

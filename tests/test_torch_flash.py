@@ -28,7 +28,12 @@ inputs, the backward kernels on the forward kernel's O and log-sum-exp (O within
 2^-7 |want|; the log-sum-exp within 2^-12 (1 + |want|); each output's
 error against a float64 run at most 1.5x the plain version's + 2^-16 of
 the largest float64 value), two calls bitwise equal, one launch a call;
-f32 raises TypeError.
+14c launched before 14b, its D = rowsum(dO ∘ O) within 2^-18 of the
+row's Σ|dO ∘ O| of ``flash_delta`` on the same O and dO (f32 sums of f32
+products in another order); the Function's backward runs no PyTorch op
+for D; f32 raises TypeError. On the CPU, ``flash_backward_dq`` writes
+``flash_delta``'s D bitwise and ``flash_backward_reference``'s dQ; and
+the redesigned 14a and 14c are ``wgmma`` on a TMA ring (their source).
 """
 
 import numpy as np
@@ -44,6 +49,7 @@ torch.set_num_threads(2)
 O_ATOL, O_RTOL = 2 ** -6, 2 ** -7
 GRAD_REL = 2 ** -7
 LSE_TOL = 2 ** -12
+DELTA_REL = 2 ** -18  # of the row's Σ|dO ∘ O|
 F64_RATIO = 1.5
 
 # (sequences, Lq, Lk, heads, dh, separate kv rows)
@@ -63,24 +69,24 @@ def _card_inputs(n, lq, lk, heads, dh, separate, dev, seed=0):
 
 
 def _run(qkv, kv, dout, heads, kernel: bool, saved=None):
-    """(O, lse, dQ, dK, dV) from the kernels, or from the plain versions on
-    the same device: the backward on ``saved``, the kernels' (O, lse),
-    where given, so that each kernel meets its plain version on the same
-    inputs, else on the plain forward's (on float64 inputs: the float64
-    yardstick)."""
+    """(O, lse, dQ, dK, dV, D) from the kernels, 14c (dQ and D) before 14b,
+    or from the plain versions on the same device: the backward on
+    ``saved``, the kernels' (O, lse), where given, so that each kernel
+    meets its plain version on the same inputs, else on the plain
+    forward's (on float64 inputs: the float64 yardstick)."""
     q, k, v = F._views(qkv, kv)
     if kernel:
         o, lse = F.flash_forward(q, k, v, heads)
-        delta = F.flash_delta(dout, o, heads)
+        delta = torch.empty_like(lse)
         dq = F._views(torch.empty_like(qkv), None)[0]  # the strides of the sources
         dk, dv = F._views(torch.empty_like(qkv), None if kv is None else torch.empty_like(kv))[1:]
+        F.flash_backward_dq(q, k, v, dout, o, lse, heads, dq, delta)
         F.flash_backward_dkv(q, k, v, dout, lse, delta, heads, dk, dv)
-        F.flash_backward_dq(q, k, v, dout, lse, delta, heads, dq)
-        return o, lse, dq, dk, dv
+        return o, lse, dq, dk, dv, delta
     o, lse = F.flash_forward_reference(q, k, v, heads)
     bo, blse = (o, lse) if saved is None else saved
     delta = F.flash_delta(dout, bo, heads)
-    return (o, lse, *F.flash_backward_reference(q, k, v, dout, blse, delta, heads))
+    return (o, lse, *F.flash_backward_reference(q, k, v, dout, blse, delta, heads), delta)
 
 
 def _hold(name, got, want, ref64, atol, rtol):
@@ -107,13 +113,17 @@ def test_kernels_match_plain_on_card(shape):
     want = _run(qkv, kv, dout, heads, kernel=False, saved=got[:2])
     ref64 = _run(qkv.double(), None if kv is None else kv.double(), dout.double(), heads,
                  kernel=False)
-    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, again):
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv", "delta"), got, again):
         assert torch.equal(a, b), f"{name} differs between two calls"
         assert torch.isfinite(a).all(), name
     _hold("o", got[0], want[0], ref64[0], O_ATOL, O_RTOL)
     torch.testing.assert_close(got[1], want[1], atol=LSE_TOL, rtol=LSE_TOL)
-    for name, g, w, r in zip(("dq", "dk", "dv"), got[2:], want[2:], ref64[2:]):
+    for name, g, w, r in zip(("dq", "dk", "dv"), got[2:5], want[2:5], ref64[2:5]):
         _hold(name, g, w, r, GRAD_REL * w.abs().max().item(), GRAD_REL)
+    # D: 14c's against flash_delta on the kernel's O and the same dO
+    scale = F.flash_delta(dout.abs(), got[0].abs(), heads)
+    assert ((got[5] - want[5]).abs() <= DELTA_REL * scale).all(), \
+        (got[5] - want[5]).abs().max().item()
 
 
 @pytest.mark.cuda
@@ -132,6 +142,35 @@ def test_autograd_function_on_card():
             assert (g.float() - w.float()).abs().max() <= 2 * GRAD_REL * w.float().abs().max()
         if separate:
             assert not grads[0][0][..., 256:].any()
+
+
+@pytest.mark.cuda
+def test_function_backward_runs_no_delta_op_on_card(monkeypatch):
+    """On the card the Function's backward launches 14c, then 14b, and
+    computes D with no PyTorch op: ``flash_delta`` is never called. Its
+    backward is the first work on the autograd engine's thread here (the
+    case where an encoder without a current context refused the maps)."""
+    dev = cuda_device()
+    qkv, _, dout = _card_inputs(2, 300, 300, 8, 32, False, dev)
+    real, order = F._build.library(), []
+
+    class Recorder:  # the library, noting the order of the flash launchers
+        def __getattr__(self, name):
+            fn = getattr(real, name)
+            if not name.startswith("flash_"):
+                return fn
+            return lambda *args: (order.append(name), fn(*args))[1]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("flash_delta ran on the card")
+
+    monkeypatch.setattr(F._build, "library", Recorder)
+    monkeypatch.setattr(F, "flash_delta", refuse)
+    x = qkv.clone().requires_grad_(True)
+    grad = torch.autograd.grad(F.flash_attention(x, 8), x, dout)[0]
+    torch.cuda.synchronize()
+    assert order == ["flash_fwd_launch", "flash_bwd_dq_launch", "flash_bwd_dkv_launch"]
+    assert torch.isfinite(grad).all()
 
 
 @pytest.mark.cuda
@@ -262,6 +301,57 @@ def test_cross_lengths_match_jax(lq, lk):
     np.testing.assert_allclose(x.grad.numpy(), dqkv, atol=F32_ATOL, rtol=F32_RTOL)
     np.testing.assert_allclose(y.grad.numpy(), dkv, atol=F32_ATOL, rtol=F32_RTOL)
     assert not x.grad[..., DIM:].any()
+
+
+@pytest.mark.parametrize("lq,lk", [(17, 17), (100, 300), (300, 65)])
+def test_backward_dq_writes_delta_on_cpu(lq, lk):
+    """On the CPU ``flash_backward_dq`` writes D bitwise ``flash_delta``'s
+    and dQ bitwise ``flash_backward_reference``'s on that D, into a dQ
+    view with q's strides, and ``flash_backward_dkv`` reads that D."""
+    rng = np.random.default_rng(lq + lk)
+    qkv = torch.from_numpy(rng.standard_normal((2, lq, 3 * DIM)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, lk, 2 * DIM)).astype(np.float32))
+    dout = torch.from_numpy(rng.standard_normal((2, lq, DIM)).astype(np.float32))
+    q, k, v = F._views(qkv, kv)
+    o, lse = F.flash_forward(q, k, v, HEADS)
+    delta = torch.full_like(lse, float("nan"))
+    dq = F._views(torch.full_like(qkv, float("nan")), None)[0]
+    F.flash_backward_dq(q, k, v, dout, o, lse, HEADS, dq, delta)
+    want_delta = F.flash_delta(dout, o, HEADS)
+    assert torch.equal(delta, want_delta)
+    want = F.flash_backward_reference(q, k, v, dout, lse, want_delta, HEADS)
+    assert torch.equal(dq, want[0]) and dq.stride() == q.stride()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    F.flash_backward_dkv(q, k, v, dout, lse, delta, HEADS, dk, dv)
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+
+
+def test_query_major_kernels_are_wgmma_on_a_tma_ring():
+    """Kernels 14a and 14c issue wgmma on K and V tiles that TMA brings
+    into an mbarrier ring: no mma.sync, ldmatrix or cp.async is left in
+    them, and the source note says what bounds them and what the design
+    does; 14b keeps its mma.sync kernel."""
+    from pathlib import Path
+
+    src = (Path(F.__file__).parent.parent / "csrc" / "flash_attention.cu").read_text()
+    rule = "// " + "-" * 48
+    engine = src[src.index(f"{rule} the query-major"):src.index(f"{rule} 14b on mma.sync")]
+    for kernel in ("flash_fwd_kernel(const __grid_constant__ CUtensorMap",
+                   "flash_dq_kernel(const __grid_constant__ CUtensorMap"):
+        assert kernel in engine, kernel
+    for old in ("mma_bf16(", "ldsm_x4", "cp_async", "__syncthreads();\n    float s"):
+        assert old not in engine, old
+    for new in ("wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16",
+                "rt::wgmma_m64n128<0, 0>(", "rt::wgmma_m64n64<0, 0>(", "rt::tma_load3(",
+                "ring.acquire()", "ring.claim(", "rt::regs_dec", "rt::regs_inc", "row_dot<DH>"):
+        assert new in engine, new
+    assert "CU_TENSOR_MAP_SWIZZLE_64B" in src and "CU_TENSOR_MAP_SWIZZLE_32B" in src
+    assert "mma_bf16(" in src[src.index(f"{rule} 14b on mma.sync"):]
+    note = " ".join(line.removeprefix("//").strip()
+                    for line in src[:src.index("#include")].splitlines())
+    for phrase in ("What bounds them on this card", "0.27 ms", "wgmma", "TMA", "mbarrier",
+                   "transpose flag", "D = rowsum(dO * O)", "14c launches first", "no atomics"):
+        assert phrase in note, phrase
 
 
 def test_wrapper_refuses_bad_shapes():
