@@ -4428,7 +4428,8 @@ def flash_timing_phase(model) -> dict:
     t["sdpa_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(sdpa(*heads), heads, g4))
     log(f"time flash attention {n} sequences x {length} frames x 8 heads x 32 (bf16): forward "
         f"{t['flash_fwd']:.4f} ms (plain {t['flash_fwd_plain']:.4f}, SDPA {t['sdpa_fwd']:.4f}); "
-        f"dK/dV {t['flash_bwd_dkv']:.4f} ms, dQ with D inside {t['flash_bwd_dq']:.4f} ms, D = "
+        f"dK/dV {t['flash_bwd_dkv']:.4f} ms, dQ with D inside {t['flash_bwd_dq']:.4f} ms "
+        f"(together {t['flash_bwd_dkv'] + t['flash_bwd_dq']:.4f}), D = "
         f"rowsum(dO O) plain {t['delta']:.4f} ms (plain backward {t['flash_bwd_plain']:.4f}, "
         f"SDPA backward {t['sdpa_bwd']:.4f}, SDPA forward + backward {t['sdpa_fwd_bwd']:.4f})")
     return t

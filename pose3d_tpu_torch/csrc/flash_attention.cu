@@ -28,7 +28,8 @@
 // score, 1.14 G, which the SFU's 16 a clock an SM take ~0.27 ms at 1.98 GHz;
 // it moves ~145 MB (0.043 ms at 3.35 TB/s). At dh = 32 the exponentials,
 // not the tensor cores, set the floor; each backward kernel recomputes them
-// beside its products (dQ: S, dP, dQ, 0.22 ms; dK/dV: S, dV, dP, dK). So
+// beside its products (dQ: S, dP, dQ, 0.22 ms; dK/dV: S, dP, dV, dK, 0.30
+// ms, just above its exponentials). So
 // the SFU has to stay busy while the tensor cores run the products, and
 // nothing else may cost as much as an exponential.
 //
@@ -75,9 +76,22 @@
 // product; f32 accumulation; O scaled by 1/l in f32 and rounded once; lse =
 // (m + log2 l) * ln 2 in f32; D an f32 sum of f32 products.
 //
-// 14b keeps its first version: a block owns 64 keys (4 warps), holds their
-// K and V as mma.sync A fragments in registers, and streams the Q and dO
-// tiles of 64 rows by cp.async, double-buffered.
+// 14b is that engine turned round, key-major: a work tile is 128 keys of
+// one (sequence, head), whose K and V tiles come by TMA into a slot, 64
+// keys a consumer warpgroup; the producer streams the Q and dO tiles of 64
+// query rows through the ring, and its warp's lanes copy those rows' lse
+// and D beside each stage by cp.async, arriving on the stage's barrier
+// when they land (the f32 (n, heads, Lq) rows are 4 Lq bytes apart, which
+// a TMA map refuses at odd Lq; plain loads made the producer wait a round
+// trip a stage). Four products a tile: S^T = K Q^T and dP^T = V dO^T from
+// shared memory, dV += bf16(P^T) dO and dK += bf16(dS^T) Q with P^T and
+// dS^T as register A operands; tile j's exponentials run under its dP^T,
+// its dV product under the forming of dS, its dK product beside tile j +
+// 1's S^T and dP^T, its stage handed back once dV and dK retire. A work
+// tile owns its keys and sums its query tiles in order. Its first version
+// (mma.sync with every B fragment through ldmatrix, 64-row cp.async tiles,
+// two block-wide barriers a tile; 1.14 ms) ran each warp's products and
+// exponentials one after the other.
 //
 // Layout: q, k and v are strided (N, L, heads * dh) views, head h at
 // columns [h * dh, (h + 1) * dh), rows `row` elements apart and sequences
@@ -223,7 +237,8 @@ __device__ __forceinline__ void issue_scores(float (&s)[N / 2], uint64_t da, uin
 #pragma unroll
   for (int k = 0; k < DH / 16; ++k) {
     if constexpr (N == 128) rt::wgmma_m64n128<0, 0>(s, da + 2 * k, db + 2 * k, k);
-    else rt::wgmma_m64n64<0, 0>(s, da + 2 * k, db + 2 * k, k);
+    else if constexpr (N == 64) rt::wgmma_m64n64<0, 0>(s, da + 2 * k, db + 2 * k, k);
+    else rt::wgmma_m64n32<0, 0>(s, da + 2 * k, db + 2 * k, k);
   }
 }
 
@@ -323,11 +338,12 @@ __device__ __forceinline__ float row_dot(const unsigned char* a, const unsigned 
 }
 
 // Work tile t of a persistent CTA's walk (blockIdx.x, + gridDim.x, ...):
-// query rows [qt * 128, qt * 128 + 128) of head h of sequence n.
+// rows [tile * 128, tile * 128 + 128) of head h of sequence n, of n_tiles a
+// head: query rows in 14a and 14c, keys in 14b.
 struct Work {
-  int n, h, qt;
-  __device__ Work(int t, int n_qt, int heads)
-      : n(t / n_qt / heads), h(t / n_qt % heads), qt(t % n_qt) {}
+  int n, h, tile;
+  __device__ Work(int t, int n_tiles, int heads)
+      : n(t / n_tiles / heads), h(t / n_tiles % heads), tile(t % n_tiles) {}
 };
 
 template <int DH, bool kDq>
@@ -346,7 +362,7 @@ __device__ void produce(KvRing<DH, kDq>& ring, SlotRing<DH, kDq>& slots, const C
   using T = Tiles<DH, kDq>;
   for (int t = blockIdx.x; t < n_items; t += gridDim.x) {
     const Work w(t, n_qt, heads);
-    const int col = w.h * DH, row = w.qt * kQRows;
+    const int col = w.h * DH, row = w.tile * kQRows;
     uint32_t bar;
     const uint32_t slot = slots.claim(&bar);
     rt::tma_load3(slot, q_map, bar, col, row, w.n);
@@ -451,7 +467,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
-    const int r = w.qt * kQRows + wg * rt::kWgRows + ra;
+    const int r = w.tile * kQRows + wg * rt::kWgRows + ra;
     bf16* ob = o + static_cast<long long>(w.n) * Lq * dim + w.h * DH;
     const float i0 = 1.f / l0, i1 = 1.f / l1;
 #pragma unroll
@@ -516,7 +532,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     const unsigned char* tile = base + (qa - ring_s);
     const float d0 = quad_sum(row_dot<DH>(tile + T::kQBytes, tile + 2 * T::kQBytes, ra, q4));
     const float d1 = quad_sum(row_dot<DH>(tile + T::kQBytes, tile + 2 * T::kQBytes, ra + 8, q4));
-    const int r = w.qt * kQRows + wg * rt::kWgRows + ra;
+    const int r = w.tile * kQRows + wg * rt::kWgRows + ra;
     const long long stat = (static_cast<long long>(w.n) * heads + w.h) * Lq;
     // rows past Lq: Q and dO arrive as zeros, so their dS is 0 whatever these are
     const float e0 = r < Lq ? lse[stat + r] * kLog2e : 0.f;
@@ -594,213 +610,257 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ------------------------------------------------ 14b on mma.sync
+// ------------------------------------------------ 14b: the key-major kernel
 
-constexpr int kKeyWarps = 4;  // the most warps of a dK/dV block: 64 keys
-constexpr int kTile = 64;     // rows of a streamed Q/dO tile
+constexpr int kFeedLanes = 32;  // the producer warp: every lane fills a stage's lse and D
 
-// shared-memory pitch of a tile row: 16 bytes of skew keep the 8 rows of
-// an ldmatrix on distinct banks
+// 14b's tiles: a work tile is 128 keys of one (sequence, head), its K and V
+// in one of two slots; each ring stage holds one tile of kQueries query
+// rows: the Q tile, the dO tile, and (beside the stages, one slice a stage)
+// their log-sum-exp and D.
 template <int DH>
-__host__ __device__ constexpr int pitch() {
-  return DH + 8;
+struct KeyTiles {
+  static constexpr int kQueries = 64;                   // query rows a stage
+  static constexpr int kStages = 4;                     // stages of the Q/dO ring
+  static constexpr int kRowBytes = DH * 2;
+  static constexpr int kTileBytes = kQueries * kRowBytes;  // one Q or dO tile
+  static constexpr int kStageBytes = 2 * kTileBytes;       // Q, then dO: what TMA brings
+  static constexpr int kStatBytes = 2 * kQueries * 4;      // lse, then D
+  static constexpr int kKvBytes = kQRows * kRowBytes;      // one K or V tile of 128 keys
+  static constexpr int kSlotBytes = 2 * kKvBytes;          // K, then V
+  static constexpr int kWgBytes = rt::kWgRows * kRowBytes;  // a warpgroup's 64 keys of one
+  static constexpr int kSmem = 1024 + kStages * (kStageBytes + kStatBytes) +
+                               kSlots * kSlotBytes + 16 * (kStages + kSlots);
+  static_assert(kTileBytes % 1024 == 0 && kWgBytes % 1024 == 0,
+                "every tile starts on a whole swizzle pattern");
+  static_assert(kQueries % kFeedLanes == 0, "the lanes split a stage's rows evenly");
+  static_assert(kSmem <= kSmemLimit, "the ring and the slots fit in shared memory");
+};
+
+template <int DH>
+using QRing = rt::Ring<KeyTiles<DH>::kStages, KeyTiles<DH>::kStageBytes>;
+template <int DH>
+using KvSlots = rt::Ring<kSlots, KeyTiles<DH>::kSlotBytes>;
+
+// 4 bytes at src into shared memory at dst by cp.async, zeros where !valid
+// (src must still be a readable address).
+__device__ __forceinline__ void copy4_async(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-// The A fragments of rows [r0, r0 + 16) x DH of a strided bf16 matrix,
-// from device memory: registers (row g, column 2q), (g + 8, 2q), (g, 2q +
-// 8), (g + 8, 2q + 8) of each k16 step; rows at or past n are zero.
+// One arrival on bar once this thread's cp.async copies so far have landed;
+// noinc: it counts toward the barrier's expected arrivals.
+__device__ __forceinline__ void copies_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arms bar for `bytes` more transaction bytes, without an arrival.
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// 14b's producer warp: for each work tile of the CTA, lane 0 issues its K
+// and V tiles into the next slot; then for each query tile, once its stage
+// is free, lane 0 arms the stage's full barrier for the Q and dO tiles and
+// issues them by TMA, and every lane copies its rows' lse and D into the
+// stage's slice by cp.async (a TMA map needs 16-byte row strides, and the
+// (n, heads, Lq) f32 rows are 4 Lq bytes apart) and arrives when they land:
+// kFeedLanes arrivals and the tiles' bytes complete the stage. Rows past Lq
+// get 0: their Q and dO rows arrive as zeros, so any finite lse and D give
+// them dS = 0 and a dV term of 0.
 template <int DH>
-__device__ __forceinline__ void load_a(const bf16* base, long long row, int r0, int n, int g,
-                                       int q4, unsigned (&a)[DH / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + g + (i & 1) * 8;
-      const int c = kk * 16 + 2 * q4 + (i >> 1) * 8;
-      a[kk][i] = r < n ? __ldg(reinterpret_cast<const unsigned*>(base + r * row + c)) : 0u;
+__device__ void feed_keys(QRing<DH>& ring, KvSlots<DH>& slots, uint32_t stats,
+                          const CUtensorMap* q_map, const CUtensorMap* do_map,
+                          const CUtensorMap* k_map, const CUtensorMap* v_map,
+                          const float* __restrict__ lse, const float* __restrict__ delta, int Lq,
+                          int n_kt, int n_qt, int heads, int n_items) {
+  using T = KeyTiles<DH>;
+  constexpr int kN = T::kQueries;
+  const int lane = threadIdx.x % 32;
+  for (int t = blockIdx.x; t < n_items; t += gridDim.x) {
+    const Work w(t, n_kt, heads);
+    const int col = w.h * DH;
+    if (lane == 0) {
+      uint32_t bar;
+      const uint32_t slot = slots.claim(&bar);
+      rt::tma_load3(slot, k_map, bar, col, w.tile * kQRows, w.n);
+      rt::tma_load3(slot + T::kKvBytes, v_map, bar, col, w.tile * kQRows, w.n);
     }
-}
-
-// Rows [r0, r0 + kTile) of a strided bf16 matrix into a shared tile by
-// cp.async (the caller commits); rows at or past n are zeroed by plain
-// stores, which the barrier after the wait publishes.
-template <int DH>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row, int r0,
-                                          int n) {
-  constexpr int chunks = kTile * DH / 8;
-  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
-    const int r = i / (DH / 8);
-    const int c = (i % (DH / 8)) * 8;
-    bf16* d = dst + r * pitch<DH>() + c;
-    if (r0 + r < n) cp_async16(d, src + (r0 + r) * row + c);
-    else *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// s (16 x 64) = a (16 x DH, registers) @ tile^T, the tile's 64 rows as the
-// columns: B fragments by ldmatrix from the rows. `lane_addr` is the
-// tile's shared address plus this lane's non-transposed offset.
-template <int DH>
-__device__ __forceinline__ void tile_scores(const unsigned (&a)[DH / 16][4], unsigned lane_addr,
-                                            float (&s)[8][4]) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb)
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      unsigned f[4];
-      ldsm_x4(f, lane_addr + (kb * 16 * pitch<DH>() + kk * 16) * 2);
-      mma_bf16(s[2 * kb], a[kk], f[0], f[1]);
-      mma_bf16(s[2 * kb + 1], a[kk], f[2], f[3]);
-    }
-}
-
-// acc (16 x DH) += bf16(p) (16 x 64, accumulator layout) @ tile (64 x DH):
-// B fragments by transposing ldmatrix. `lane_addr` is the tile's shared
-// address plus this lane's transposed offset.
-template <int DH>
-__device__ __forceinline__ void tile_accumulate(const float (&p)[8][4], unsigned lane_addr,
-                                                float (&acc)[DH / 8][4]) {
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
-    const unsigned pa[4] = {pack_bf16(p[2 * kb][0], p[2 * kb][1]),
-                            pack_bf16(p[2 * kb][2], p[2 * kb][3]),
-                            pack_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1]),
-                            pack_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3])};
-#pragma unroll
-    for (int d = 0; d < DH / 16; ++d) {
-      unsigned f[4];
-      ldsm_x4_trans(f, lane_addr + (kb * 16 * pitch<DH>() + d * 16) * 2);
-      mma_bf16(acc[2 * d], pa, f[0], f[1]);
-      mma_bf16(acc[2 * d + 1], pa, f[2], f[3]);
-    }
-  }
-}
-
-// this lane's ldmatrix offsets (bytes) into a tile: non-transposed (rows
-// as B columns) and transposed (rows as the k dimension)
-template <int DH>
-__device__ __forceinline__ unsigned rows_offset(int lane) {
-  return (((lane / 16) * 8 + lane % 8) * pitch<DH>() + ((lane / 8) % 2) * 8) * 2;
-}
-
-template <int DH>
-__device__ __forceinline__ unsigned trans_offset(int lane) {
-  return ((lane % 16) * pitch<DH>() + (lane / 16) * 8) * 2;
-}
-
-// rows g and g + 8 of a 16-row accumulator, times `scale`, to a strided
-// bf16 matrix; rows at or past n are not written
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* base, long long row, int r0, int n, int g,
-                                           int q4, const float (&acc)[DH / 8][4], float s0,
-                                           float s1) {
-#pragma unroll
-  for (int nb = 0; nb < DH / 8; ++nb) {
-    const int c = nb * 8 + 2 * q4;
-    if (r0 + g < n) store2(base + (r0 + g) * row + c, acc[nb][0] * s0, acc[nb][1] * s0);
-    if (r0 + g + 8 < n)
-      store2(base + (r0 + g + 8) * row + c, acc[nb][2] * s1, acc[nb][3] * s1);
-  }
-}
-
-// One block per (sequence, head, tile of 16·warps keys); each warp holds
-// its 16 keys' K and V as A fragments and streams the Q and dO tiles:
-// dV = Σ_q bf16(P)^T dO and dK = scale · Σ_q bf16(P ∘ (dO V^T - D))^T Q,
-// both formed as (keys x queries) products.
-template <int DH>
-__global__ void __launch_bounds__(kKeyWarps * 32)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, Rows qs, Rows kvs, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Lq, int Lk, int heads) {
-  __shared__ __align__(16) bf16 qsm[2][kTile * pitch<DH>()];
-  __shared__ __align__(16) bf16 dsm[2][kTile * pitch<DH>()];
-  __shared__ float lsm[2][kTile];
-  __shared__ float dlt[2][kTile];
-  const int bn = blockDim.x / 2;
-  const int n_kt = (Lk + bn - 1) / bn;
-  const int kt = blockIdx.x % n_kt;
-  const int h = (blockIdx.x / n_kt) % heads;
-  const long long n = blockIdx.x / n_kt / heads;
-  const int dim = heads * DH;
-  const bf16* qb = q + n * qs.seq + h * DH;
-  const bf16* db = dout + n * Lq * dim + h * DH;
-  const long long stat = (n * heads + h) * Lq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane / 4, q4 = lane % 4;
-  const int k0 = kt * bn + warp * 16;
-  const int n_qt = (Lq + kTile - 1) / kTile;
-  constexpr float sl = head_scale<DH>() * kLog2e;
-
-  // a stage: the Q and dO tiles by cp.async, the log-sum-exp (log2 units;
-  // +inf past Lq, so P is 0 there) and D by plain loads
-  auto load_stage = [&](int t, int st) {
-    load_tile<DH>(qsm[st], qb, qs.row, t * kTile, Lq);
-    load_tile<DH>(dsm[st], db, dim, t * kTile, Lq);
-    cp_async_commit();
-    for (int i = threadIdx.x; i < 2 * kTile; i += blockDim.x) {
-      const int r = t * kTile + i % kTile;
-      if (i < kTile) lsm[st][i] = r < Lq ? lse[stat + r] * kLog2e : inf();
-      else dlt[st][i - kTile] = r < Lq ? delta[stat + r] : 0.f;
-    }
-  };
-  load_stage(0, 0);
-  unsigned ka[DH / 16][4], va[DH / 16][4];
-  load_a<DH>(k + n * kvs.seq + h * DH, kvs.row, k0, Lk, g, q4, ka);
-  load_a<DH>(v + n * kvs.seq + h * DH, kvs.row, k0, Lk, g, q4, va);
-  float dka[DH / 8][4] = {}, dva[DH / 8][4] = {};
-  const unsigned ro = rows_offset<DH>(lane), to = trans_offset<DH>(lane);
-
-  for (int t = 0; t < n_qt; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_qt) {
-      load_stage(t + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    tile_scores<DH>(ka, smem_u32(qsm[st]) + ro, s);   // S^T: keys x queries
-    tile_scores<DH>(va, smem_u32(dsm[st]) + ro, dp);  // (dO V^T)^T
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = nb * 8 + 2 * q4 + (i & 1);
-        const float p = ex2(s[nb][i] * sl - lsm[st][c]);
-        s[nb][i] = p;
-        dp[nb][i] = p * (dp[nb][i] - dlt[st][c]);
+    const long long stat = (static_cast<long long>(w.n) * heads + w.h) * Lq;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int s = ring.next % T::kStages;
+      rt::mbar_wait(ring.empty(s), ((ring.next / T::kStages) & 1) ^ 1);
+      ++ring.next;
+      const uint32_t full = ring.full(s), st = stats + s * T::kStatBytes;
+      if (lane == 0) {  // armed before lane 0's own arrival, so before the stage can complete
+        const uint32_t dst = ring.ring + s * T::kStageBytes;
+        expect_bytes(full, T::kStageBytes);
+        rt::tma_load3(dst, q_map, full, col, qt * kN, w.n);
+        rt::tma_load3(dst + T::kTileBytes, do_map, full, col, qt * kN, w.n);
       }
-    tile_accumulate<DH>(s, smem_u32(dsm[st]) + to, dva);   // P^T dO
-    tile_accumulate<DH>(dp, smem_u32(qsm[st]) + to, dka);  // dS^T Q
-    __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kN / kFeedLanes; ++u) {
+        const int i = lane + u * kFeedLanes, r = qt * kN + i;
+        const long long at = stat + (r < Lq ? r : 0);
+        copy4_async(st + 4 * i, lse + at, r < Lq);
+        copy4_async(st + 4 * (kN + i), delta + at, r < Lq);
+      }
+      copies_arrive(full);
+    }
   }
-  constexpr float sc = head_scale<DH>();
-  store_rows<DH>(dk + n * kvs.seq + h * DH, kvs.row, k0, Lk, g, q4, dka, sc, sc);
-  store_rows<DH>(dv + n * kvs.seq + h * DH, kvs.row, k0, Lk, g, q4, dva, 1.f, 1.f);
+}
+
+// 14b: dV = Σ_q bf16(P)^T dO and dK = scale · Σ_q bf16(P ∘ (dO V^T - D))^T
+// Q of the work tiles of a persistent CTA, P recomputed from 14a's
+// log-sum-exp, on 14c's D. Each consumer warpgroup owns 64 keys and forms
+// the (keys x queries) products S^T = K Q^T and dP^T = V dO^T, both
+// operands from shared memory; P^T and dS^T go to bf16 A fragments in
+// registers against the dO and Q tiles, taken N-major with the transpose
+// flag. The lse and D of a column (a query) come from the stage's slice.
+template <int DH>
+__global__ void __launch_bounds__(rt::kThreads, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 Rows kvs, int Lq, int Lk, int heads, int n_items) {
+  using T = KeyTiles<DH>;
+  constexpr int kN = T::kQueries;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const uint32_t ring_s = smem_u32(base);
+  const uint32_t slot_s = ring_s + T::kStages * T::kStageBytes;
+  unsigned char* stat_base = base + T::kStages * T::kStageBytes + kSlots * T::kSlotBytes;
+  const float* stats = reinterpret_cast<const float*>(stat_base);
+  const uint32_t bars = slot_s + kSlots * T::kSlotBytes + T::kStages * T::kStatBytes;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      rt::mbar_init(bars + 8 * s, kFeedLanes);
+      rt::mbar_init(bars + 8 * (T::kStages + s), rt::kConsumers);
+    }
+    rt::ring_init<kSlots>(bars + 16 * T::kStages);
+  }
+  __syncthreads();
+  QRing<DH> ring{ring_s, bars, 0};
+  KvSlots<DH> slots{slot_s, bars + 16 * T::kStages, 0};
+  const int n_kt = (Lk + kQRows - 1) / kQRows, n_qt = (Lq + kN - 1) / kN;
+  const int wg = threadIdx.x / 128;
+  if (wg == rt::kConsumers) {
+    rt::regs_dec<rt::kProducerRegs>();
+    if (threadIdx.x < rt::kConsumers * 128 + kFeedLanes)
+      feed_keys<DH>(ring, slots, smem_u32(stat_base), &q_map, &do_map, &k_map, &v_map, lse,
+                    delta, Lq, n_kt, n_qt, heads, n_items);
+    return;
+  }
+  rt::regs_inc<rt::kConsumerRegs>();
+  const int lane = threadIdx.x % 32, q4 = lane % 4;
+  const int ra = 16 * (threadIdx.x / 32 % 4) + lane / 4;  // keys ra, ra + 8 of the warpgroup's
+  constexpr float sl = head_scale<DH>() * kLog2e;
+  for (int t = blockIdx.x; t < n_items; t += gridDim.x) {
+    const Work w(t, n_kt, heads);
+    const uint32_t ka = slots.acquire() + wg * T::kWgBytes;
+    const uint64_t k_a = head_desc<DH>(ka), v_a = head_desc<DH>(ka + T::kKvBytes);
+    float dka[DH / 2], dva[DH / 2], s[kN / 2], dp[kN / 2];
+    unsigned p[kN / 16][4], ds[kN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+    // Query tile qt: its S^T and dP^T went out with the last tile's dK
+    // product; the exponentials of S^T run under dP^T. The last tile is
+    // peeled: with a branch on the tile in the loop ptxas serialised the
+    // products (14c, C7514, C7515).
+    auto slice = [&] {  // the lse and D of the stage acquired last, as column pairs
+      return reinterpret_cast<const float2*>(stats + (ring.next - 1) % T::kStages * 2 * kN);
+    };
+    uint32_t qd = ring.acquire();
+    const float2* st = slice();
+    rt::wgmma_fence();
+    issue_scores<DH, kN>(s, k_a, qd);  // S^T = K Q^T
+    rt::wgmma_commit();
+    issue_scores<DH, kN>(dp, v_a, qd + T::kTileBytes);  // dP^T = V dO^T
+    rt::wgmma_commit();
+    auto step = [&](auto more) {
+      rt::wgmma_wait<1>();  // S^T has landed
+      rt::fence_acc(s);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {  // columns 8j + 2 q4 and + 1: two queries
+        const float2 e = st[4 * j + q4];
+        const float e0 = e.x * kLog2e, e1 = e.y * kLog2e;
+        s[4 * j] = ex2(fmaf(s[4 * j], sl, -e0));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl, -e1));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl, -e0));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl, -e1));
+      }
+      rt::wgmma_wait<0>();
+      rt::fence_acc(dp);
+      to_frags<kN>(s, p);
+      rt::wgmma_fence();
+      issue_rows<DH, kN>(dva, p, qd + T::kTileBytes);  // dV += P^T dO, under dS's forming
+      rt::wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const float2 d = st[kN / 2 + 4 * j + q4];
+        s[4 * j] *= dp[4 * j] - d.x;
+        s[4 * j + 1] *= dp[4 * j + 1] - d.y;
+        s[4 * j + 2] *= dp[4 * j + 2] - d.x;
+        s[4 * j + 3] *= dp[4 * j + 3] - d.y;
+      }
+      to_frags<kN>(s, ds);
+      rt::wgmma_fence();
+      issue_rows<DH, kN>(dka, ds, qd);  // dK += dS^T Q
+      rt::wgmma_commit();
+      if constexpr (decltype(more)::value) {
+        qd = ring.acquire();
+        st = slice();
+        issue_scores<DH, kN>(s, k_a, qd);
+        rt::wgmma_commit();
+        issue_scores<DH, kN>(dp, v_a, qd + T::kTileBytes);
+        rt::wgmma_commit();
+        rt::wgmma_wait<2>();  // dV and dK have retired: their Q and dO stage is free
+        rt::fence_acc(dka);
+        rt::fence_acc(dva);
+        ring.release(ring.next - 2);
+      } else {
+        rt::wgmma_wait<0>();
+        rt::fence_acc(dka);
+        rt::fence_acc(dva);
+        ring.release(ring.next - 1);
+      }
+    };
+#pragma unroll 1
+    for (int qt = 0; qt + 1 < n_qt; ++qt) step(std::true_type{});
+    step(std::false_type{});
+    slots.release(slots.next - 1);
+
+    constexpr float sc = head_scale<DH>();
+    const int r = w.tile * kQRows + wg * rt::kWgRows + ra;
+    bf16* kb = dk + w.n * kvs.seq + w.h * DH;
+    bf16* vb = dv + w.n * kvs.seq + w.h * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int c = 8 * j + 2 * q4;
+      if (r < Lk) {
+        store2(kb + r * kvs.row + c, dka[4 * j] * sc, dka[4 * j + 1] * sc);
+        store2(vb + r * kvs.row + c, dva[4 * j], dva[4 * j + 1]);
+      }
+      if (r + 8 < Lk) {
+        store2(kb + (r + 8) * kvs.row + c, dka[4 * j + 2] * sc, dka[4 * j + 3] * sc);
+        store2(vb + (r + 8) * kvs.row + c, dva[4 * j + 2], dva[4 * j + 3]);
+      }
+    }
+  }
 }
 
 // ------------------------------------------------ host
 
-// blocks of `warps` warps (the most, or fewer where the rows are fewer)
-// over `n * heads` (sequence, head) pairs and their tiles of 16·warps rows
-bool grid_of(int n, int heads, int rows, int most, int& warps, unsigned& blocks) {
-  warps = min(most, (rows + 15) / 16);
-  const long long tiles = (rows + 16LL * warps - 1) / (16LL * warps);
-  const long long total = static_cast<long long>(n) * heads * tiles;
-  if (total > 0x7fffffffLL) return false;
-  blocks = static_cast<unsigned>(total);
-  return true;
-}
-
-// The work tiles of the query-major kernels: n * heads * ceil(Lq / 128).
-bool work_of(int n, int heads, int Lq, int& items) {
-  const long long total = static_cast<long long>(n) * heads * ((Lq + kQRows - 1) / kQRows);
+// The work tiles of the persistent kernels: n * heads * ceil(rows / 128),
+// rows being Lq (14a, 14c) or Lk (14b).
+bool work_of(int n, int heads, int rows, int& items) {
+  const long long total = static_cast<long long>(n) * heads * ((rows + kQRows - 1) / kQRows);
   if (total > 0x7fffffffLL) return false;
   items = static_cast<int>(total);
   return true;
@@ -884,11 +944,21 @@ template <int DH>
 cudaError_t dkv_dh(const bf16* q, const bf16* k, const bf16* v, Rows qs, Rows kvs,
                    const bf16* dout, const float* lse, const float* delta, bf16* dk, bf16* dv,
                    int n, int Lq, int Lk, int heads, cudaStream_t stream) {
-  int warps;
-  unsigned blocks;
-  if (!grid_of(n, heads, Lk, kKeyWarps, warps, blocks)) return cudaErrorInvalidValue;
-  flash_dkv_kernel<DH><<<blocks, warps * 32, 0, stream>>>(q, k, v, qs, kvs, dout, lse, delta,
-                                                          dk, dv, Lq, Lk, heads);
+  using T = KeyTiles<DH>;
+  int items, grid;
+  if (!work_of(n, heads, Lk, items)) return cudaErrorInvalidValue;
+  const Rows os{static_cast<long long>(Lq) * heads * DH, static_cast<long long>(heads) * DH};
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err == cudaSuccess) err = persistent_grid(items, &grid);
+  CUtensorMap qm, km, vm, dom;
+  if (err == cudaSuccess) err = head_map<DH>(&qm, q, n, Lq, heads, qs, T::kQueries);
+  if (err == cudaSuccess) err = head_map<DH>(&km, k, n, Lk, heads, kvs, kQRows);
+  if (err == cudaSuccess) err = head_map<DH>(&vm, v, n, Lk, heads, kvs, kQRows);
+  if (err == cudaSuccess) err = head_map<DH>(&dom, dout, n, Lq, heads, os, T::kQueries);
+  if (err != cudaSuccess) return err;
+  flash_dkv_kernel<DH><<<grid, rt::kThreads, T::kSmem, stream>>>(qm, km, vm, dom, lse, delta, dk,
+                                                                 dv, kvs, Lq, Lk, heads, items);
   return cudaGetLastError();
 }
 

@@ -33,7 +33,7 @@ row's Σ|dO ∘ O| of ``flash_delta`` on the same O and dO (f32 sums of f32
 products in another order); the Function's backward runs no PyTorch op
 for D; f32 raises TypeError. On the CPU, ``flash_backward_dq`` writes
 ``flash_delta``'s D bitwise and ``flash_backward_reference``'s dQ; and
-the redesigned 14a and 14c are ``wgmma`` on a TMA ring (their source).
+the three kernels are ``wgmma`` on a TMA ring (their source).
 """
 
 import numpy as np
@@ -56,7 +56,10 @@ F64_RATIO = 1.5
 CARD_SHAPES = [(4, 17, 17, 8, 32, False), (16 * 17, 243, 243, 8, 32, False),
                (2, 256, 256, 4, 64, False), (3, 300, 300, 16, 16, False),
                (3, 100, 300, 8, 32, True), (3, 300, 65, 4, 64, True),
-               (8, 2048, 2048, 8, 32, False)]
+               (8, 2048, 2048, 8, 32, False),
+               (2, 129, 129, 8, 32, False),  # 14b: a partial 128-key work tile
+               (2, 1, 300, 4, 64, True),     # one query row: one partial query tile
+               (3, 64, 17, 16, 16, True)]    # 14b's second warpgroup holds no valid key
 
 
 def _card_inputs(n, lq, lk, heads, dh, separate, dev, seed=0):
@@ -278,11 +281,14 @@ def _jax_cross_attention(qkv, kv, heads):
     return jnp.einsum("nhlm,nhmd->nhld", a, v).transpose(0, 2, 1, 3).reshape(n, lq, dim)
 
 
-@pytest.mark.parametrize("lq,lk", [(17, 243), (300, 65), (128, 256)])
+@pytest.mark.parametrize("lq,lk", [(17, 243), (300, 65), (128, 256), (1, 129), (65, 17)])
 def test_cross_lengths_match_jax(lq, lk):
     """Lq != Lk (the sequence-parallel form: local queries over gathered
     keys and values): the output and both gradients against ``jax.vjp``;
-    the k and v columns of qkv get a zero gradient."""
+    the k and v columns of qkv get a zero gradient. (1, 129) and (65, 17)
+    are the lengths at 14b's edges: one query row against a partial
+    128-key work tile, and a second query tile against keys that fill
+    less than one warpgroup's 64."""
     import jax
     import jax.numpy as jnp
 
@@ -326,31 +332,42 @@ def test_backward_dq_writes_delta_on_cpu(lq, lk):
     assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
 
 
-def test_query_major_kernels_are_wgmma_on_a_tma_ring():
+def test_flash_kernels_are_wgmma_on_a_tma_ring():
     """Kernels 14a and 14c issue wgmma on K and V tiles that TMA brings
-    into an mbarrier ring: no mma.sync, ldmatrix or cp.async is left in
-    them, and the source note says what bounds them and what the design
-    does; 14b keeps its mma.sync kernel."""
+    into an mbarrier ring, and 14b on Q and dO tiles: no mma.sync,
+    ldmatrix or cp.async is left in any of them, 14b owns its keys (no
+    atomics), and the source note says what bounds them and what the
+    design does."""
     from pathlib import Path
 
     src = (Path(F.__file__).parent.parent / "csrc" / "flash_attention.cu").read_text()
     rule = "// " + "-" * 48
-    engine = src[src.index(f"{rule} the query-major"):src.index(f"{rule} 14b on mma.sync")]
+    engine = src[src.index(f"{rule} the query-major"):src.index(f"{rule} 14b: the key-major")]
+    dkv = src[src.index(f"{rule} 14b: the key-major"):src.index(f"{rule} host")]
     for kernel in ("flash_fwd_kernel(const __grid_constant__ CUtensorMap",
                    "flash_dq_kernel(const __grid_constant__ CUtensorMap"):
         assert kernel in engine, kernel
-    for old in ("mma_bf16(", "ldsm_x4", "cp_async", "__syncthreads();\n    float s"):
-        assert old not in engine, old
+    assert "flash_dkv_kernel(const __grid_constant__ CUtensorMap" in dkv
+    for section in (engine, dkv):  # 14b's lse and D slices come by copy4_async, not tiles
+        for old in ("mma_bf16(", "ldsm_x4", "cp_async", "__syncthreads();\n    float s", "atomic"):
+            assert old not in section, old
     for new in ("wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16",
                 "rt::wgmma_m64n128<0, 0>(", "rt::wgmma_m64n64<0, 0>(", "rt::tma_load3(",
                 "ring.acquire()", "ring.claim(", "rt::regs_dec", "rt::regs_inc", "row_dot<DH>"):
         assert new in engine, new
+    for new in ("issue_scores<DH, kN>(s, k_a, qd)", "issue_scores<DH, kN>(dp, v_a,",
+                "issue_rows<DH, kN>(dva, p,", "issue_rows<DH, kN>(dka, ds, qd)",
+                "rt::tma_load3(", "ring.acquire()", "slots.claim(", "expect_bytes(full,",
+                "copies_arrive(full)",
+                "ring.release(ring.next - 2)", "rt::regs_dec", "rt::regs_inc"):
+        assert new in dkv, new
     assert "CU_TENSOR_MAP_SWIZZLE_64B" in src and "CU_TENSOR_MAP_SWIZZLE_32B" in src
-    assert "mma_bf16(" in src[src.index(f"{rule} 14b on mma.sync"):]
+    assert "mma_bf16(" not in src and "ldsm_x4" not in src
     note = " ".join(line.removeprefix("//").strip()
                     for line in src[:src.index("#include")].splitlines())
     for phrase in ("What bounds them on this card", "0.27 ms", "wgmma", "TMA", "mbarrier",
-                   "transpose flag", "D = rowsum(dO * O)", "14c launches first", "no atomics"):
+                   "transpose flag", "D = rowsum(dO * O)", "14c launches first", "no atomics",
+                   "key-major", "4 Lq bytes apart"):
         assert phrase in note, phrase
 
 
