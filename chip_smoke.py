@@ -105,8 +105,11 @@ weights (bf16 compute in the kernels), 16 clips x 243 frames a step
     (a yardstick only; the port never calls it), of each training wrapper
     and its plain version, and a torch.profiler device-time split of one
     step by kernel; each launch of one ``spatial_bwd`` and one ``slab_bwd``
-    call with its device ms (torch.profiler) and the bytes it reads and
-    writes (reckoned from the shapes, each operand once); each launch of
+    call with its device ms (torch.profiler), the bytes it reads and
+    writes (reckoned from the shapes, each operand once) and its bound (its
+    products' flops, exponentials and bytes at the card's peaks); ``python3
+    chip_smoke.py --train`` runs phases 12-14 and this backward split alone,
+    after phases 1-2; each launch of
     the four sub-block forwards (spatial and slab, serving and training:
     LN_1 + qkv, the attention, projection + MLP) by device ms, and a
     sub-block's four products alone as bf16 ``torch.matmul`` at the same
@@ -1482,108 +1485,118 @@ def device_launches(fn, expected: int | None = None) -> list[tuple[str, float]]:
                          + (f", not {expected}" if expected else ""))
 
 
-def _split_k_slices(m: int, n: int, rows: int) -> int:
-    """The row slices of csrc/stblock_train.cu's weight_grad for an m x n
-    gradient."""
-    tiles = (m // 128) * (n // 128)
-    want = min(-(-264 // tiles), -(-rows // 256))
-    chunk = -(-(-(-rows // want)) // 32) * 32
-    return -(-rows // chunk)
+WGRAD_ITEMS = 132  # csrc/stblock_train.cu's kWgradItems: split-K work items of a weight gradient
 
 
-def bwd_launch_bytes(rows: int, n_seq: int, design: str) -> list[tuple[str, float]]:
-    """(kernel name key, bytes it reads and writes) of each launch of one
-    sub-block backward on `rows` rows in n_seq sequences, in launch order,
-    each operand counted once: "first" the sub-block backward's first design
-    (26 launches, f32 h, dy and dqkv through device memory; kept so that
-    this script reckons that design's split on a commit that has it),
-    "fused" this one (21 launches: those kept in registers and shared
-    memory)."""
+def _wgrad_slices(m: int, n: int, rows: int) -> int:
+    """The K slices (of 64-row chunks) of csrc/stblock_train.cu's
+    weight_grad for an m x n gradient over `rows` rows."""
+    tiles = (m // 128) * (n // 256)
+    chunks = -(-rows // 64)
+    per = -(-chunks // max(1, min(chunks, WGRAD_ITEMS // tiles)))
+    return -(-chunks // per)
+
+
+def bwd_launches(rows: int, n_seq: int, length: int) -> list[tuple[str, float, float, float]]:
+    """(kernel name key, bytes it reads and writes, matrix-product flops,
+    exponentials) of each launch of one sub-block backward on `rows` rows
+    in n_seq sequences of `length`, in launch order. Bytes count each
+    operand once; flops and exponentials count the work itself, not a
+    kernel's recomputation (the attention backward: five L x L x 32
+    products a head, one exponential a score)."""
     e, f = 2, 4  # bytes of bf16, f32
     d, q, hid = 256, 768, 1024
     rd, rq, rh = rows * d, rows * q, rows * hid
-
-    def wgrad(m, n):
-        s = _split_k_slices(m, n, rows)
-        return [("gemm_kernel<true, false", rows * (m + n) * e + s * m * n * f),
-                ("sum_slices", s * m * n * f + m * n * f)]
+    tiles = -(-rows // 128)  # 128-row tiles: the LayerNorm products' partial a tile
+    parts = tiles * 8  # db1's partials: one a warp of a tile
 
     def fold(slices, count):
-        return ("sum_slices", slices * count * f + count * f)
+        return ("sum_slices", slices * count * f + count * f, 0, 0)
 
-    head = [("ln_rows", 2 * rd * e), ("ln_rows", 2 * rd * e),
-            ("gemm_kernel<false, false, 1", rd * e + d * q * e + q * e + rq * e)]
-    if design == "first":
-        p = -(-rows // -(-rows // 256))  # the 256 row slices of every column sum
-        return head + [
-            ("gemm_kernel<false, false, 2", rd * e + d * hid * e + hid * e + rh * (f + e)),
-            ("gemm_kernel<false, true, 3", rd * e + hid * d * e + rh * (f + e)),
-            ("gemm_kernel<false, true, 0", rh * e + d * hid * e + rd * f),
-            ("ln_bwd_kernel<true", rd * (3 * e + 2 * f) + p * 4 * d * f),
-            fold(p, 3 * d), fold(p, d),
-            ("colsum_kernel", rh * e + p * hid * f), fold(p, hid),
-            *wgrad(hid, d), *wgrad(d, hid), *wgrad(d, d),
-            ("gemm_kernel<false, true, 0", rd * e + d * d * e + rd * f),
-            ("attention_bwd", rq * (2 * e + f) + rd * f),
-            ("colsum_kernel", rq * f + p * q * f), fold(p, q),
-            *wgrad(d, q),
-            ("gemm_kernel<false, true, 0", rq * e + d * q * e + rd * f),
-            ("ln_bwd_kernel<false", rd * (2 * e + 2 * f) + p * 2 * d * f), fold(p, 2 * d)]
-    t128 = -(-rows // 128)  # the row tiles of the MLP and LayerNorm products
-    return head + [
-        ("mlp_bwd", 2 * rd * e + 2 * d * hid * e + hid * e + 2 * rh * e + t128 * hid * f),
-        fold(t128, hid),
+    def wgrad(m, n):
+        s = _wgrad_slices(m, n, rows)
+        return [("gemm_kernel<true, true", rows * (m + n) * e + s * m * n * f, 2 * rows * m * n,
+                 0), fold(s, m * n)]
+
+    scores = n_seq * 8 * length * length
+    return [
+        ("ln_rows", 2 * rd * e, 0, 0), ("ln_rows", 2 * rd * e, 0, 0),
+        ("qkv_kernel<", rd * e + d * q * e + q * e + rq * e, 2 * rows * d * q, 0),
+        ("mlp_bwd", 2 * rd * e + 2 * d * hid * e + hid * e + 2 * rh * e + parts * hid * f,
+         4 * rows * d * hid, 0),
+        fold(parts, hid),
         ("ln_gemm_kernel<true", rh * e + d * hid * e + rd * (3 * e + f) + d * e
-         + t128 * 4 * d * f),
-        fold(t128, 3 * d), fold(t128, d),
+         + tiles * 4 * d * f, 2 * rows * hid * d, 0),
+        fold(tiles, 3 * d), fold(tiles, d),
         *wgrad(hid, d), *wgrad(d, hid), *wgrad(d, d),
-        ("gemm_kernel<false, true, 0", rd * e + d * d * e + rd * f),
-        ("attention_bwd", 2 * rq * e + rd * f + n_seq * q * f), fold(n_seq, q),
+        ("gemm_kernel<false, false", rd * e + d * d * e + rd * f, 2 * rows * d * d, 0),
+        ("attention_bwd", 2 * rq * e + rd * f + n_seq * q * f, 5 * 2 * scores * 32, scores),
+        fold(n_seq, q),
         *wgrad(d, q),
         ("ln_gemm_kernel<false", rq * e + d * q * e + rd * (2 * e + f) + d * e
-         + t128 * 2 * d * f),
-        fold(t128, 2 * d)]
+         + tiles * 2 * d * f, 2 * rows * q * d, 0),
+        fold(tiles, 2 * d)]
+
+
+def max_sm_clock() -> float:
+    """The card's maximum SM clock in Hz (nvidia-smi)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()) * 1e6
+
+
+def launch_bound(flops: float, nbytes: float, exps: float, clock: float) -> tuple[float, str]:
+    """A launch's least ms: the larger of its products' flops over the bf16
+    peak, its bytes over the HBM rate and its exponentials over the SFUs
+    (SFU_EXP_PER_CLOCK a clock at ``clock`` Hz)."""
+    ms, by = bound(flops, nbytes)
+    t_exp = exps / (SFU_EXP_PER_CLOCK * clock) * 1e3
+    return (t_exp, "exponentials") if t_exp > ms else (ms, by)
 
 
 def backward_split_phase(model) -> dict:
     """Each launch of one spatial_bwd and one slab_bwd call at TRAIN_CLIPS
-    x 243 frames: its name, device ms (torch.profiler) and reckoned bytes,
-    by the launch sequence it finds (this design's or the first). Returns the
-    bytes a call moves, by wrapper."""
+    x 243 frames: its name, device ms (torch.profiler), reckoned bytes and
+    bound (``bwd_launches``, ``launch_bound``). Returns the bytes a call
+    moves, by wrapper."""
     blk = model.blocks[0]
     y1, _ = synthetic_batch(TRAIN_CLIPS, model.clip_len, SEED + 25)
+    clock = max_sm_clock()
     moved = {}
     with torch.no_grad():
         tokens = ST.embed_clips(model, y1, torch.bfloat16)
         dout = (torch.randn(tokens.shape, generator=torch.Generator().manual_seed(SEED + 26))
                 * 2 ** -6).to("cuda", torch.bfloat16)
         rows = tokens.shape[0]
-        for half, fwd, bwd, shape, n_seq in (
-                ("spatial", ST.spatial_fwd, ST.spatial_bwd, tokens.shape, rows // 17),
+        for half, fwd, bwd, shape, n_seq, length in (
+                ("spatial", ST.spatial_fwd, ST.spatial_bwd, tokens.shape, rows // 17, 17),
                 ("temporal", ST.slab_fwd, ST.slab_bwd,
-                 (TRAIN_CLIPS, model.clip_len, 17 * 256), TRAIN_CLIPS * 17)):
+                 (TRAIN_CLIPS, model.clip_len, 17 * 256), TRAIN_CLIPS * 17, model.clip_len)):
             w = ST.pack_train(blk, half, torch.bfloat16)
             x, g = tokens.view(shape), dout.view(shape)
             _, x1, att = fwd(x, w)
+            table = bwd_launches(rows, n_seq, length)
             for attempt in range(3):  # the profiler can drop a window's first kernels
-                launches = device_launches(lambda: bwd(x, x1, att, g, w))
-                design = "first" if len(launches) == 26 else "fused"
-                table = bwd_launch_bytes(rows, n_seq, design)
-                if len(table) == len(launches) and all(
-                        key in name for (key, _), (name, _) in zip(table, launches)):
+                launches = device_launches(lambda: bwd(x, x1, att, g, w), expected=len(table))
+                if all(key in name for (key, *_), (name, _) in zip(table, launches)):
                     break
                 log(f"launch split {bwd.__name__}: the profiler recorded "
-                    f"{len(launches)} launches, not the {design} design's; recording again")
+                    f"{[n for n, _ in launches]}, not this design's launches; recording again")
             else:
                 raise AssertionError(f"{bwd.__name__}: launches {[n for n, _ in launches]} "
-                                     f"are not the {design} design's")
-            for i, ((name, ms), (_, nbytes)) in enumerate(zip(launches, table)):
-                log(f"launch split {bwd.__name__} ({design}) {i + 1:2d} "
-                    f"{name.split('(')[0][:70]}: {ms:.4f} ms, {nbytes / 1e6:.1f} MB")
-            moved[bwd.__name__] = sum(b for _, b in table)
-            log(f"launch split {bwd.__name__} ({design}): {len(launches)} launches, "
+                                     f"are not this design's")
+            total_bound = 0.0
+            for i, ((name, ms), (_, nbytes, flops, exps)) in enumerate(zip(launches, table)):
+                b_ms, by = launch_bound(flops, nbytes, exps, clock)
+                total_bound += b_ms
+                log(f"launch split {bwd.__name__} {i + 1:2d} {name.split('(')[0][:60]}: "
+                    f"{ms:.4f} ms, {nbytes / 1e6:.1f} MB, bound {b_ms:.4f} ms ({by}), "
+                    f"{b_ms / ms:.0%} of it")
+            moved[bwd.__name__] = sum(b for _, b, _, _ in table)
+            log(f"launch split {bwd.__name__}: {len(launches)} launches, "
                 f"{sum(ms for _, ms in launches):.4f} ms of device time, "
-                f"{moved[bwd.__name__] / 1e9:.3f} GB reckoned")
+                f"{moved[bwd.__name__] / 1e9:.3f} GB reckoned, launches' bounds "
+                f"{total_bound:.4f} ms (SM clock {clock / 1e6:.0f} MHz)")
     return moved
 
 
@@ -4552,9 +4565,7 @@ def long_phase() -> tuple[dict, dict, dict, float]:
     """Phase 30: the long-clip path. Returns (each flash kernel's max abs
     error, the times, the main path's launches, the SM clock in Hz)."""
     t0 = time.perf_counter()
-    clock = float(subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()) * 1e6
+    clock = max_sm_clock()
     model = long_model(True)
     errs = flash_kernel_phase(model)
     times = flash_timing_phase(model)
@@ -4837,6 +4848,14 @@ if __name__ == "__main__":
         forward_split_phase(seeded_train_model())
         with torch.inference_mode():
             trunk_split_phase(seeded_model("cuda", torch.bfloat16))
+    elif sys.argv[1:] == ["--train"]:  # the temporal training phases alone
+        device_phase()
+        build_phase()
+        train_model = seeded_train_model()
+        train_kernel_phase(train_model)
+        train_step_phase(train_model)
+        train_loop_phase(train_model)
+        backward_split_phase(train_model)
     elif sys.argv[1:] == ["--decode-backward-split"]:  # kernel 13b's launch split alone
         device_phase()
         build_phase()

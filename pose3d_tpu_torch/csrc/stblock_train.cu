@@ -25,62 +25,96 @@
 // there because the TPU's grid runs in order. Here blocks run in no order,
 // and an SM holds neither the weights nor a cell's backward live set, so
 // the backward is a sequence of 21 launches through a global workspace
-// that the wrapper allocates:
-// - LayerNorm rows (one warp a row) for the recomputed y and y2, and a
-//   tiled mma.sync GEMM (128 x 128 tiles of 4 warps, a 4-slice cp.async
-//   ring; martinez.cu's tile) whose operands may each be stored
-//   transposed, so that the W^T products read the weights as they are and
-//   the weight gradients read the row operands as they are (ldmatrix.trans
-//   where needed): the recomputed qkv, datt = bf16(dx1) Wp^T and the
-//   weight gradients;
-// - mlp_bwd_kernel: the fc1 recompute and dout W2^T side by side, a block
-//   per 128-row tile (held in shared memory) over all 1024 hidden columns,
-//   h = y2 W1 + b1 kept in registers, hg and dh stored bf16, db1's column
-//   partials of the tile;
-// - ln_gemm_kernel: dy2 = dh W1^T and dy = bf16(dqkv) W_qkv^T per 128-row
-//   tile of all 256 columns, the f32 product staged in shared memory and
-//   the LayerNorm backward (LN_2's: dx1; LN_1's: dx) run on it with its
-//   column partials (dbp, dg2, db2, db2f; dg1, db1);
-// - the attention backward: one block per (sequence, head), Q, K, V and
-//   dO of that head in shared memory, on the tensor cores: a pass over
-//   16-query tiles (r, c, dq), then one over 16-key tiles (dk, dv), each
-//   recomputing the scores, so nothing of size L x L is stored; it stores
-//   dqkv as bf16 and its own column partials of the f32 dq, dk, dv;
-// - the weight gradients contract over ALL rows (66,096 at 16 clips x 243
-//   frames): a split-K GEMM writes a fixed number of row slices as f32
-//   partials, and a second pass sums them in a fixed order; the bias and
-//   LayerNorm gradients are summed in order from the partials their
-//   producers wrote (per row tile, per sequence). No atomics: two calls on
-//   the same inputs give bitwise equal gradients.
-// Rounding points are the JAX backward's: gelu' of the f32 h, dh rounded
-// to bf16 before db1 sums it, dx1 kept f32 (rounded only for dWp and datt),
-// dqkv f32 for db_qkv (rounded for dWqkv and dy), and in the attention
-// backward e = exp(min(s, 80)) with no row max, r = 1/sum(e), dv = bf16(e)^T
-// bf16(r do), ds = bf16(t - c e) with t = da e and c = r sum(t), dq = (ds
-// k)(r scale), dk = ds^T bf16(bf16(r) q) scale.
+// that the wrapper allocates.
 //
 // What bounds it on this card. ~4 x 1.57 MFLOP per row of matrix products
 // (recomputed qkv and fc1, then six products of the forward's size), 0.313
 // ms at 16 clips x 243 frames on the tensor cores; its bytes, each operand
 // once (174 MB), take 0.052 ms. What a launch sequence really costs is the
-// workspace traffic between launches: this file's first design moved
-// 3.57 GB a call at that shape, 1.07 ms at 3.35 TB/s before any stall,
-// of which ~1.4 GB were four f32 intermediates (h, dqkv and the two dy)
-// that each came back only for an epilogue or a column sum. This design
-// keeps those in registers or shared memory and moves 2.22 GB (slab) or
-// 2.24 GB (spatial, one db_qkv partial per frame), in 21 launches where
-// the first design took 26. PERF.md has its times and its per-launch split.
+// workspace traffic between launches: the first design moved 3.57 GB a
+// call at that shape, of which ~1.4 GB were four f32 intermediates (h,
+// dqkv and the two dy) that each came back only for an epilogue or a
+// column sum. This sequence keeps those in registers or shared memory and
+// moves 2.25 GB (slab) or 2.27 GB (spatial, one db_qkv partial per frame),
+// 0.67 ms at 3.35 TB/s, in 21 launches. Its products run on wgmma fed by
+// TMA (rowtile_sm90.cuh's primitives: one thread streams 128-byte-swizzled
+// boxes through an mbarrier ring to two consumer warpgroups of 64 rows
+// each, one CTA an SM, persistent grids):
+// - the recomputed qkv: subblock_sm90.cuh's qkv_kernel, the forward's own
+//   launch (LN_1 + y W_qkv + b_qkv), so the recomputed qkv is the
+//   forward's bitwise; LayerNorm row passes (one warp a row) store y and
+//   y2, which the weight gradients read;
+// - gemm_kernel: 128 x 256 output tiles, K in 64-wide chunks of 48 KB
+//   stages (both warpgroups' 64 x 64 A boxes and a 64 x 256 or 256 x 64 B
+//   chunk), four stages, f32 out from the accumulators. datt = bf16(dx1)
+//   Wp^T reads Wp K-major as it is stored. The weight gradients contract
+//   over the rows and read both row operands as stored: A = X^T M-major and
+//   B = G N-major, both taken with the transpose flag, so no transposed
+//   copy exists. A weight has only 2-8 such tiles, so the rows (1033
+//   chunks at 66,096 rows) are cut into a fixed number of K slices, tiles
+//   x slices <= kWgradItems work items, whose f32 partials a second pass
+//   sums in a fixed order;
+// - mlp_bwd_kernel: per 128-row tile, y2 and dout (64 KB each) by TMA into
+//   shared memory, then per 64 hidden columns a W1 chunk (256 x 64,
+//   N-major) and a W2 chunk (64 x 256 rows, read K-major as W2^T) through
+//   a 3-stage ring that thread 0 feeds (no producer warpgroup: 255
+//   registers a thread): h = y2 W1 + b1 and dout W2^T (m64n64, 16 k-steps
+//   each); the epilogue of chunk c (two accumulator pairs in registers)
+//   forms hg = bf16(gelu(bf16(h))) and dh = bf16(dout W2^T gelu'(h)) while
+//   chunk c + 1's products run, stores both and each warp's column sums of
+//   the bf16 dh (db1's partials; h never reaches device memory). Its two
+//   polynomials an element, not its products, set its pace;
+// - ln_gemm_kernel: dy2 = dh W1^T (K = 1024) and dy = bf16(dqkv) W_qkv^T
+//   (K = 768) per 128-row tile of all 256 columns (m64n256, W read K-major
+//   as stored, a 3-stage ring of 48 KB), the f32 tile staged from the two
+//   warpgroups' accumulators in shared memory (each warp its own 16 rows,
+//   8 at a time, XOR-swizzled), the LayerNorm backward run on it one warp a
+//   row (LN_2's: dx1 f32 and bf16; LN_1's: dx), the rows' operands
+//   loaded four rows ahead, and the tile's column sums (dbp, dg2, db2,
+//   db2f; dg1, db1) added over its 8 warps in order;
+// - the attention backward, one CTA per (sequence, head), its rounding
+//   points unchanged (e now on the SFU's ex2, as the forward's attention
+//   kernel takes it, where expf took ten instructions): at L > 64 (the
+//   slab, the joint-major sequences) attention_bwd_wg_kernel, two
+//   warpgroups on wgmma (64-query tiles
+//   against 64-key blocks, then 64-key tiles against 64-query blocks; ds
+//   and e from the accumulators into register A fragments), ~101 KB of
+//   shared memory at L = 256, so two CTAs share an SM where the mma.sync
+//   kernel (127 KB) sat alone; at L <= 64 (the spatial half's 17 joints)
+//   attention_bwd_kernel on mma.sync in 16-row tiles, its head tiles now
+//   64 bytes a row with an XOR swizzle of the 16-byte chunks (ldmatrix
+//   without bank conflicts, no padding);
+// - the column partials of the bias and LayerNorm gradients (db1's per
+//   warp of a row tile, the LayerNorms' per row tile, db_qkv's per
+//   sequence) are summed in order, as are the split-K partials. No
+//   atomics: two calls on the same inputs give bitwise equal gradients.
+// The first design moved the workspace in 26 launches; the second (21
+// launches, this sequence's traffic) ran every product on mma.sync through
+// ldmatrix from cp.async rings (128 x 128 GEMM tiles of 4 warps) and the
+// attention backward alone on its SM: 2.99 ms (slab) and 2.25 ms (spatial)
+// on an H100 80GB HBM3 at 700 W; PERF.md has the new times and the
+// per-launch split.
+// Rounding points are the JAX backward's: gelu' of the f32 h, dh rounded
+// to bf16 before db1 sums it, dx1 kept f32 (rounded only for dWp and datt),
+// dqkv f32 for db_qkv (rounded for dWqkv and dy), and in the attention
+// backward e = exp(min(s, 80)) with no row max (on the SFU's ex2, as the
+// forward's attention kernel), r = 1/sum(e), dv = bf16(e)^T
+// bf16(r do), ds = bf16(t - c e) with t = da e and c = r sum(t), dq = (ds
+// k)(r scale), dk = ds^T bf16(bf16(r) q) scale.
 //
-// The launcher runs on the caller's stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError().
+// The launcher encodes its TMA maps on the host per call, runs on the
+// caller's stream, does not synchronise, allocates nothing, and returns
+// cudaGetLastError() (or the first error of a map or a launch).
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "subblock_sm90.cuh"
 
 namespace {
 
 using namespace pose3d;
+namespace rt = pose3d::rowtile;
+namespace sb = pose3d::subblock;
 
 constexpr int kJoints = 17;
 constexpr int kHeads = 8;
@@ -102,215 +136,195 @@ constexpr int kOffW2 = kOffB1 + kMlp;
 constexpr int kOffB2 = kOffW2 + kMlp * kDim;
 constexpr int kBlockElems = kOffB2 + kDim;
 
+// The sub-block's traits for subblock_sm90.cuh (stblock.cu's Layout): one
+// LN before qkv, biases on qkv and the projection.
+struct Traits {
+  static constexpr bool kDoubleLn = false, kQkvBias = true, kProjBias = true;
+  static constexpr int kLn1G = kOffLn1G, kLn1B = kOffLn1B, kLnbG = 0, kLnbB = 0;
+  static constexpr int kWQkv = kOffWQkv, kBQkv = kOffBQkv, kWProj = kOffWProj,
+                       kBProj = kOffBProj;
+  static constexpr int kLn2G = kOffLn2G, kLn2B = kOffLn2B, kW1 = kOffW1, kB1 = kOffB1,
+                       kW2 = kOffW2, kB2 = kOffB2, kElems = kBlockElems;
+};
+
 constexpr float kInvSqrt2 = 0.7071067690849304f;
 
-// d/dx of erf_poly: 0 where |x| >= 3 (pallas_lifter._erf_grad's strict <)
-__device__ __forceinline__ float erf_grad_poly(float x) {
-  if (!(fabsf(x) < 3.f)) return 0.f;
-  const float s = x * x;
-  float p = 4.7283642828e-08f;
-  p = p * s + -2.1986137083e-06f;
-  p = p * s + 4.5123548106e-05f;
-  p = p * s + -5.4564336601e-04f;
-  p = p * s + 4.4038703607e-03f;
-  p = p * s + -2.5570011680e-02f;
-  p = p * s + 1.1177045202e-01f;
-  p = p * s + -3.7577772172e-01f;
-  p = p * s + 1.1283599228e+00f;
-  float d = 3.7826913512617466e-07f;
-  d = d * s + -1.5390296539408155e-05f;
-  d = d * s + 2.7074129320681095e-04f;
-  d = d * s + -2.72821681573987e-03f;
-  d = d * s + 1.7615482211112976e-02f;
-  d = d * s + -7.67100378870964e-02f;
-  d = d * s + 2.2354090213775635e-01f;
-  d = d * s + -3.757777214050293e-01f;
-  return p + 2.f * s * d;
+// For N elements x: hg = gelu(bf16(x)), subblock_sm90.cuh's gelu (erf_poly
+// at the FMA form of x / sqrt2), and gp = gelu'(x), the exact derivative of
+// gelu_poly (pallas_stblock_train._gelu_grad): 0.5 (1 + erf(u)) + 0.5 x
+// erf'(u) / sqrt2 at u = x / sqrt2, erf(u) = uc P(uc^2) with uc the
+// clamped u, erf'(u) = P(s) + 2 s P'(s), 0 where |u| >= 3 (_erf_grad's
+// strict <). Inside the clamp uc = u, so one P(s) serves erf and erf'. Each
+// Horner step is taken for all N elements in turn: 3N independent chains,
+// where element by element the scheduler kept 2 in flight, and this is the
+// MLP backward's ALU work.
+template <int N>
+__device__ __forceinline__ void gelu_and_grad(const float (&x)[N], float (&hg)[N],
+                                              float (&gp)[N]) {
+  // erf_poly's P(s) and the P'(s) of its derivative (pallas_lifter._ERF_C,
+  // _ERF_D), highest power first
+  constexpr float kP[9] = {4.7283642828e-08f,  -2.1986137083e-06f, 4.5123548106e-05f,
+                           -5.4564336601e-04f, 4.4038703607e-03f,  -2.5570011680e-02f,
+                           1.1177045202e-01f,  -3.7577772172e-01f, 1.1283599228e+00f};
+  constexpr float kD[8] = {3.7826913512617466e-07f, -1.5390296539408155e-05f,
+                           2.7074129320681095e-04f, -2.72821681573987e-03f,
+                           1.7615482211112976e-02f, -7.67100378870964e-02f,
+                           2.2354090213775635e-01f, -3.757777214050293e-01f};
+  float xb[N], tc[N], st[N], pt[N], u[N], uc[N], su[N], pu[N], du[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    xb[i] = round_bf16(x[i]);
+    const float qv = xb[i] * kInvSqrt2;
+    tc[i] = fminf(fmaxf(fmaf(fmaf(-qv, kSqrt2, xb[i]), kInvSqrt2, qv), -3.f), 3.f);
+    st[i] = tc[i] * tc[i];
+    u[i] = x[i] * kInvSqrt2;
+    uc[i] = fminf(fmaxf(u[i], -3.f), 3.f);
+    su[i] = uc[i] * uc[i];
+    pt[i] = pu[i] = kP[0];
+    du[i] = kD[0];
+  }
+#pragma unroll
+  for (int k = 1; k < 9; ++k)
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      pt[i] = pt[i] * st[i] + kP[k];
+      pu[i] = pu[i] * su[i] + kP[k];
+      if (k < 8) du[i] = du[i] * su[i] + kD[k];
+    }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hg[i] = xb[i] * 0.5f * (1.f + tc[i] * pt[i]);
+    const float derf = fabsf(u[i]) < 3.f ? pu[i] + 2.f * su[i] * du[i] : 0.f;
+    gp[i] = 0.5f * (1.f + uc[i] * pu[i]) + 0.5f * x[i] * kInvSqrt2 * derf;
+  }
 }
 
-// the exact derivative of gelu_poly (pallas_stblock_train._gelu_grad)
-__device__ __forceinline__ float gelu_grad_poly(float x) {
-  const float u = x * kInvSqrt2;
-  return 0.5f * (1.f + erf_poly(u)) + 0.5f * x * kInvSqrt2 * erf_grad_poly(u);
+// The regions of a persistent kernel's shared memory: 1 KB aligned (the
+// 128-byte swizzle repeats every 8 rows of 128 bytes).
+__device__ __forceinline__ unsigned char* align1k(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
 // ------------------------------------------------------------------ GEMM
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kStages = 4;
-constexpr int kGemmThreads = 128;  // 2 x 2 warps of 64 x 64 outputs
-constexpr int kLdRow = kBK + 8;    // a slice stored [128][32]: A (m, k) or B^T (n, k)
-constexpr int kLdCol = kBM + 8;    // a slice stored [32][128]: A^T (k, m) or B (k, n)
-constexpr int kSliceMax = kBM * kLdRow;
-constexpr int kStageElems = 2 * kSliceMax;
-constexpr size_t kGemmSmem = size_t(kStages) * kStageElems * sizeof(bf16);
-static_assert(kBK * kLdCol <= kSliceMax, "a column slice fits the slot");
-static_assert(kGemmSmem <= kSmemLimit, "exceeds the per-block shared memory");
-constexpr int kTargetCtas = 264;  // split-K: about two CTAs per SM in all
+constexpr int kTileN = 256;                               // output columns of a tile
+constexpr int kABytes = rt::kConsumers * rt::kBoxBytes;   // both warpgroups' A boxes: 16 KB
+constexpr int kGemmStageBytes = kABytes + rt::kStageBytes;  // + the B chunk: 48 KB
+constexpr int kGemmStages = 4;
+constexpr size_t kGemmSmem = 1024 + size_t(kGemmStages) * kGemmStageBytes + 16 * kGemmStages;
+static_assert(kGemmSmem <= size_t(kSmemLimit), "the GEMM's ring");
+constexpr int kWgradItems = 132;  // split-K: work items of a weight gradient
 
-enum Epi {
-  kEpiF32,       // c32 = acc (per K slice at c32 + z * c_slice)
-  kEpiBiasBf16,  // c16 = bf16(acc + bias)
-};
-
-// C (M x N) = A (M x K) @ B (K x N), bf16 in, f32 accumulate. kAT: A is
-// stored K x M (lda its row pitch), else M x K; kBT: B is stored N x K,
-// else K x N. N is a multiple of kBN; K slice z covers rows [z k_chunk,
-// (z + 1) k_chunk) of the contraction.
+// C (M x N, f32) = A (M x K) @ B (K x N) over K chunks of 64, in 128 x 256
+// tiles; work item t of a persistent CTA's walk is K slice t / tiles of
+// tile t % tiles (row tile (t % tiles) / n_tiles), slice z covering chunks
+// [z per, min((z + 1) per, chunks)) and writing c + z c_slice. kTransA: A
+// is stored K x M (a map of boxes 64 K-rows x 64 M-columns), taken
+// M-major; else M x K (boxes 64 rows x 64 K-columns), K-major. kTransB: B
+// is stored K x N (boxes 64 x 64), taken N-major; else N x K (one box of
+// 256 N-rows x 64 K-columns), K-major. Rows past M (and K past the maps'
+// end) arrive as zeros; rows past M are not stored.
 struct GemmArgs {
-  const bf16* a;
-  const bf16* b;
-  int M, N, K, lda, ldb, k_chunk;
-  float* c32;
-  bf16* c16;
+  int n_tiles, tiles, slices, chunks, per;
+  int M;
+  float* c;
   int ldc;
   size_t c_slice;
-  const bf16* bias;
 };
 
-// Starts the copies of contraction rows [k0, k0 + kBK) (clipped at kend,
-// and rows past M, zero-filled) of both operands into one ring slot.
-template <bool kAT, bool kBT>
-__device__ __forceinline__ void load_stage(bf16* slot, const GemmArgs& p, int m0, int n0,
-                                           int k0, int kend) {
-  const uint4 zero16 = make_uint4(0, 0, 0, 0);
-  bf16* as = slot;
-  bf16* bs = slot + kSliceMax;
-  for (int i = threadIdx.x; i < kBM * kBK / 8; i += kGemmThreads) {
-    bf16* d;
-    const bf16* s = nullptr;
-    if (!kAT) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      d = as + r * kLdRow + c;
-      if (m0 + r < p.M && k0 + c < kend) s = p.a + size_t(m0 + r) * p.lda + k0 + c;
-    } else {
-      const int r = i / (kBM / 8), c = (i % (kBM / 8)) * 8;
-      d = as + r * kLdCol + c;
-      if (k0 + r < kend && m0 + c < p.M) s = p.a + size_t(k0 + r) * p.lda + m0 + c;
-    }
-    if (s) cp_async16(d, s);
-    else *reinterpret_cast<uint4*>(d) = zero16;
-  }
-  for (int i = threadIdx.x; i < kBN * kBK / 8; i += kGemmThreads) {
-    bf16* d;
-    const bf16* s = nullptr;
-    if (!kBT) {
-      const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
-      d = bs + r * kLdCol + c;
-      if (k0 + r < kend) s = p.b + size_t(k0 + r) * p.ldb + n0 + c;
-    } else {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      d = bs + r * kLdRow + c;
-      if (k0 + c < kend) s = p.b + size_t(n0 + r) * p.ldb + k0 + c;
-    }
-    if (s) cp_async16(d, s);
-    else *reinterpret_cast<uint4*>(d) = zero16;
-  }
-}
-
-template <bool kAT, bool kBT, int kEpi>
-__global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(GemmArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / 2;
-  const int wn = warp % 2;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int kbeg = blockIdx.z * p.k_chunk;
-  const int kend = min(kbeg + p.k_chunk, p.K);
-  const int n_slices = (kend - kbeg + kBK - 1) / kBK;
-
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_slices) load_stage<kAT, kBT>(ring + s * kStageElems, p, m0, n0, kbeg + s * kBK, kend);
-    cp_async_commit();
-  }
-  float acc[4][8][4];
+template <bool kTransA, bool kTransB>
+__global__ void __launch_bounds__(rt::kThreads, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
+            GemmArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring_p = align1k(smem_raw);
+  const uint32_t bars = smem_u32(ring_p + kGemmStages * kGemmStageBytes);
+  if (threadIdx.x == 0) rt::ring_init<kGemmStages>(bars);
+  __syncthreads();
+  const int items = p.tiles * p.slices;
+  const int wg = threadIdx.x / 128;
+  rt::Ring<kGemmStages, kGemmStageBytes> ring{smem_u32(ring_p), bars, 0};
+  if (wg == rt::kConsumers) {
+    rt::regs_dec<rt::kProducerRegs>();
+    if (threadIdx.x == rt::kConsumers * 128) {
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        const int z = t / p.tiles, tile = t % p.tiles;
+        const int m0 = tile / p.n_tiles * rt::kTileRows, n0 = tile % p.n_tiles * kTileN;
+        const int c1 = min((z + 1) * p.per, p.chunks);
+        for (int kc = z * p.per; kc < c1; ++kc) {
+          uint32_t bar;
+          const uint32_t dst = ring.claim(&bar);
+          const int k0 = kc * rt::kBox;
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+          for (int w = 0; w < rt::kConsumers; ++w) {
+            if (kTransA) rt::tma_load(dst + w * rt::kBoxBytes, &a_map, bar, m0 + w * rt::kWgRows, k0);
+            else rt::tma_load(dst + w * rt::kBoxBytes, &a_map, bar, k0, m0 + w * rt::kWgRows);
+          }
+          if (kTransB) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-
-  // ldmatrix row addresses of this lane, in bytes from a slot's A and B
-  // parts. Fragments: A (m16 x k16) is matrices (m 0-7, k 0-7), (m 8-15,
-  // k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15); B (k16 x n16) is (k 0-7, n
-  // 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15). A slice stored
-  // the other way round is read with .trans.
-  const unsigned a_lane =
-      kAT ? (((lane / 16) * 8 + lane % 8) * kLdCol + wm * 64 + ((lane / 8) % 2) * 8) * 2
-          : ((wm * 64 + lane % 16) * kLdRow + (lane / 16) * 8) * 2;
-  const unsigned b_lane =
-      kBT ? ((wn * 64 + (lane / 16) * 8 + lane % 8) * kLdRow + ((lane / 8) % 2) * 8) * 2
-          : ((lane % 16) * kLdCol + wn * 64 + (lane / 16) * 8) * 2;
-  for (int ks = 0; ks < n_slices; ++ks) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = ks + kStages - 1;
-    if (next < n_slices)
-      load_stage<kAT, kBT>(ring + (next % kStages) * kStageElems, p, m0, n0, kbeg + next * kBK,
-                           kend);
-    cp_async_commit();
-
-    const unsigned as = smem_u32(ring + (ks % kStages) * kStageElems);
-    const unsigned bs = as + kSliceMax * 2;
-#pragma unroll
-    for (int u = 0; u < kBK / 16; ++u) {
-      unsigned b[4][4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        if (kBT) ldsm_x4(b[h], bs + b_lane + (h * 16 * kLdRow + u * 16) * 2);
-        else ldsm_x4_trans(b[h], bs + b_lane + (u * 16 * kLdCol + h * 16) * 2);
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        unsigned af[4];
-        if (kAT) ldsm_x4_trans(af, as + a_lane + (u * 16 * kLdCol + m * 16) * 2);
-        else ldsm_x4(af, as + a_lane + (m * 16 * kLdRow + u * 16) * 2);
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          mma_bf16(acc[m][n], af, b[n / 2][(n % 2) * 2], b[n / 2][(n % 2) * 2 + 1]);
+            for (int b = 0; b < kTileN / rt::kBox; ++b)
+              rt::tma_load(dst + kABytes + b * rt::kBoxBytes, &b_map, bar, n0 + b * rt::kBox, k0);
+          } else {
+            rt::tma_load(dst + kABytes, &b_map, bar, k0, n0);
+          }
+        }
       }
     }
-  }
-  cp_async_wait<0>();
-
-  const int g = lane / 4;
-  const int q = lane % 4;
+  } else {
+    rt::regs_inc<rt::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int ra = 16 * warp + lane / 4, q = lane % 4;
+    float acc[128];
+    for (int t = blockIdx.x; t < items; t += gridDim.x) {
+      const int z = t / p.tiles, tile = t % p.tiles;
+      const int m0 = tile / p.n_tiles * rt::kTileRows, n0 = tile % p.n_tiles * kTileN;
+      const int n = min((z + 1) * p.per, p.chunks) - z * p.per;
+#pragma unroll 1
+      for (int i = 0; i < n; ++i) {
+        const uint32_t s = ring.acquire();
+        const uint32_t a = s + wg * rt::kBoxBytes, b = s + kABytes;
+        rt::wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n0 + wn * 64 + n * 8 + 2 * q;
-    const float2 bv = kEpi == kEpiBiasBf16 ? load2(p.bias + c) : make_float2(0.f, 0.f);
+        for (int j = 0; j < 4; ++j) {
+          // 16 K-rows of an M- or N-major box are 2 KB on; 16 K-columns of
+          // a K-major one, 32 bytes
+          const uint64_t da = kTransA ? rt::desc_b(a + j * 2048) : rt::desc_a(a + j * 32);
+          const uint64_t db = kTransB ? rt::desc_b(b + j * 2048) : rt::desc_a(b + j * 32);
+          rt::wgmma_m64n256<kTransA, kTransB>(acc, da, db, i | j);
+        }
+        rt::wgmma_commit();
+        if (i > 0) {
+          rt::wgmma_wait<1>();
+          ring.release(ring.next - 2);
+        }
+      }
+      rt::wgmma_wait<0>();
+      ring.release(ring.next - 1);
+      rt::fence_acc(acc);
+      // acc[4j + 2h + i]: row ra + 8h, column 8j + 2q + i of the warpgroup's 64 x 256
+      float* c = p.c + size_t(z) * p.c_slice;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm * 64 + m * 16 + g + half * 8;
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + wg * rt::kWgRows + ra + 8 * h;
         if (r >= p.M) continue;
-        const float v0 = acc[m][n][2 * half];
-        const float v1 = acc[m][n][2 * half + 1];
-        const size_t o = size_t(r) * p.ldc + c;
-        if (kEpi == kEpiF32)
-          *reinterpret_cast<float2*>(p.c32 + blockIdx.z * p.c_slice + o) = make_float2(v0, v1);
-        else
-          store2(p.c16 + o, v0 + bv.x, v1 + bv.y);
+        float* row = c + size_t(r) * p.ldc + n0 + 2 * q;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
-template <bool kAT, bool kBT, int kEpi>
-cudaError_t gemm(const GemmArgs& p, int slices, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kAT, kBT, kEpi>,
+template <bool kTransA, bool kTransB>
+cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& b, const GemmArgs& p, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kTransA, kTransB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kGemmSmem));
+  int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(p.tiles * p.slices, &grid);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.N / kBN, (p.M + kBM - 1) / kBM, slices);
-  gemm_kernel<kAT, kBT, kEpi><<<grid, kGemmThreads, kGemmSmem, stream>>>(p);
+  gemm_kernel<kTransA, kTransB><<<grid, rt::kThreads, kGemmSmem, s>>>(a, b, p);
   return cudaGetLastError();
 }
 
@@ -338,23 +352,22 @@ __device__ __forceinline__ void store8f(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-// The LayerNorm backward of one row, one warp, 8 columns a lane: xhat and
-// r recomputed from src (the LayerNorm's input, row r), dya = dy g, res =
-// resid + r (dya - mean(dya) - xhat mean(dya xhat)). kLn2: resid is dout
-// (bf16), res goes out as f32 (dx1) and bf16; else resid is dx1 (f32) and
-// res goes out as bf16 (dx). The row's terms of the column sums are added
-// to acc: kLn2 dx1, dy xhat, dy (dbp, dg2, db2, adjacent in the weights'
-// layout) and dout (db2f); else dy xhat, dy (dg1, db1).
+// The LayerNorm backward of one row, one warp, 8 columns a lane, from the
+// lane's src values v (the LayerNorm's input, row r; xhat and r recomputed
+// from it), its dy values at dy8 and its resid values res: dya = dy g,
+// res += r (dya - mean(dya) - xhat mean(dya xhat)). kLn2: resid is dout,
+// res goes out as f32 (dx1) and bf16; else resid is dx1 and res goes out
+// as bf16 (dx). The row's terms of the column sums are added to acc: kLn2
+// dx1, dy xhat, dy (dbp, dg2, db2, adjacent in the weights' layout) and
+// dout (db2f); else dy xhat, dy (dg1, db1).
 template <bool kLn2>
-__device__ __forceinline__ void ln_bwd_row(const bf16* __restrict__ src, const float* dy,
-                                           const float (&gg)[8], const void* __restrict__ resid,
-                                           float* __restrict__ out32, bf16* __restrict__ out16,
-                                           size_t r, int lane, float (&acc)[kLn2 ? 4 : 2][8]) {
+__device__ __forceinline__ void ln_bwd_row(float (&v)[8], const float* dy8, const float (&gg)[8],
+                                           float (&res)[8], float* __restrict__ out32,
+                                           bf16* __restrict__ out16, size_t o,
+                                           float (&acc)[kLn2 ? 4 : 2][8]) {
   constexpr int kSums = kLn2 ? 4 : 2;
   constexpr int kG = kLn2 ? 1 : 0;  // where dy xhat and dy go
-  const size_t o = r * kDim + lane * 8;
-  float v[8], d[8], res[8];
-  load8(src + o, v);
+  float d[8];
   float sum = 0.f;
 #pragma unroll
   for (int j = 0; j < 8; ++j) sum += v[j];
@@ -366,7 +379,7 @@ __device__ __forceinline__ void ln_bwd_row(const bf16* __restrict__ src, const f
     sq += t * t;
   }
   const float rstd = rsqrtf(warp_sum(sq) * (1.f / kDim) + kLnEps);
-  load8f(dy + lane * 8, d);
+  load8f(dy8, d);
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -379,8 +392,6 @@ __device__ __forceinline__ void ln_bwd_row(const bf16* __restrict__ src, const f
   }
   const float m1 = warp_sum(s1) * (1.f / kDim);
   const float m2 = warp_sum(s2) * (1.f / kDim);
-  if (kLn2) load8(static_cast<const bf16*>(resid) + o, res);
-  else load8f(static_cast<const float*>(resid) + o, res);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     if (kLn2) acc[kSums - 1][j] += res[j];
@@ -393,353 +404,483 @@ __device__ __forceinline__ void ln_bwd_row(const bf16* __restrict__ src, const f
 
 // ------------------------------------------- the MLP recompute and dh
 
-// One block per 128-row tile computes two products of K = 256 for all 1024
-// hidden columns, 128 at a time, in the K order of a plain 16-deep mma
-// chain: acc1 = y2 @ W1[:, tile] and acc2 = dout @ W2[tile, :]^T. Its
-// epilogue forms h = acc1 + b1 in registers and stores hg =
-// bf16(gelu(bf16(h))) and dh = bf16(acc2 gelu'(h)); h never reaches device
-// memory. db1's partial of the row tile (the column sums of the bf16 dh
-// over its rows, each warp's 32 rows by shuffles, then the 4 row warps in
-// order) goes to part[tile][1024]. The row tile's y2 and dout stay in
-// shared memory while W1 and W2 stream through a cp.async ring, so each
-// operand crosses from L2 once a block (0.58 GB a call at 16 clips x 243
-// frames, where blocks of 128 hidden columns that reload their row tile
-// move 1.3 GB). 16 warps, 4 (rows) x 4 (columns) of 32 x 32 outputs per
-// product, one block an SM.
-constexpr int kMlpBM = 128;
-constexpr int kMlpBN = 128;
-constexpr int kMlpStages = 4;
-constexpr int kMlpThreads = 512;
-constexpr int kMlpSteps = (kMlp / kMlpBN) * (kDim / kBK);  // ring slices of a block
-constexpr int kLdMlpA = kDim + 8;   // y2 and dout rows: [128][256]
-constexpr int kLdB1 = kMlpBN + 8;   // W1 slice [32][128]: (k, n)
-constexpr int kMlpA = kMlpBM * kLdMlpA;
-constexpr int kMlpB1 = kBK * kLdB1;
-constexpr int kMlpB2 = kMlpBN * kLdRow;  // W2 slice [128][32]: (n, k)
-constexpr int kMlpStageElems = kMlpB1 + kMlpB2;
-constexpr size_t kMlpRed = size_t(4) * kMlp * sizeof(float);  // db1 sums of the 4 row warps
+// A persistent CTA an SM walks 128-row tiles; each consumer warpgroup's
+// first thread loads its 64 rows of y2 and dout (four 64 x 64 boxes each,
+// K-major: the A operands) by TMA onto its own barrier, at the start and
+// as soon as the last chunk's products of the tile have completed, so the
+// load runs under the last chunk's epilogue. Thread 0 streams, per tile
+// and 64 hidden columns c, W1[:, c] (a tall 256 x 64 chunk, N-major) then
+// W2[c, :] (a wide 64 x 256 chunk: rows of W2 are the columns of W2^T,
+// K-major) through a 3-stage ring. Each warpgroup keeps two chunks'
+// accumulator pairs (4 x 32 f32 a thread) and runs chunk c's epilogue, the
+// ALU's work (two polynomials an element), while chunk c + 1's W1 product
+// is on the tensor cores; a chunk's stages go back before its epilogue, so
+// the next chunk's W2 chunk lands during it. db1's partials: each warp's
+// 16 rows' column sums of the bf16 dh (shuffles over the lanes of one
+// column) at part[(tile x 8 + warp) x 1024 + column].
+constexpr int kMlpStages = 3;
+constexpr int kMlpChunks = kMlp / rt::kBox;  // 16
 constexpr size_t kMlpSmem =
-    (size_t(2) * kMlpA + size_t(kMlpStages) * kMlpStageElems) * sizeof(bf16) + kMlpRed;
-static_assert(kMlpSmem <= kSmemLimit, "the row tiles, the weight ring and the db1 sums");
+    1024 + 2 * size_t(rt::kActBytes) + size_t(kMlpStages) * rt::kStageBytes + 16 * kMlpStages +
+    8 * rt::kConsumers;
+static_assert(kMlpSmem <= size_t(kSmemLimit), "y2, dout and the weight ring");
+constexpr int kMlpPartRows = rt::kConsumers * 4;  // db1 partials of a tile: one a warp
+constexpr int kMlpThreads = rt::kConsumers * 128;  // two warpgroups; thread 0 feeds the ring
 
-// W1[:, n0 + 128) and W2[n0 + 128, :] at contraction rows [k0, k0 + 32)
-__device__ __forceinline__ void mlp_load_weights(bf16* slot, const bf16* __restrict__ w1,
-                                                 const bf16* __restrict__ w2, int n0, int k0) {
-  for (int i = threadIdx.x; i < kBK * (kMlpBN / 8); i += kMlpThreads) {
-    const int r = i / (kMlpBN / 8), c = (i % (kMlpBN / 8)) * 8;
-    cp_async16(slot + r * kLdB1 + c, w1 + size_t(k0 + r) * kMlp + n0 + c);
+// Chunk c's two products, one commit group each: acc = y2 @ W1[:, 64c,
+// +64) (issue_h: the next stage, a tall W1 chunk, N-major) and acc = dout @
+// (W2[64c, +64), :])^T (issue_g: the next stage, a wide W2 chunk, read
+// K-major). A phantom product (the tile's 17th chunk: see mlp_bwd_kernel)
+// takes its stage as its A operand too, so that it reads neither y2 nor
+// dout. The first k-step overwrites acc; zeroing it first tells the
+// compiler so, which frees its registers from its last read to here.
+template <int S>
+__device__ __forceinline__ void issue_h(float (&acc)[32], uint32_t y2a, bool phantom,
+                                        rt::Ring<S>& ring) {
+  const uint32_t b = ring.acquire();
+  const uint32_t a = phantom ? b : y2a;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  rt::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    rt::wgmma_m64n64(acc, rt::desc_a(a + (j / 4) * rt::kKBlockBytes + (j % 4) * 32),
+                     rt::desc_b(b + j * 2048), j);
+  rt::wgmma_commit();
+}
+
+template <int S>
+__device__ __forceinline__ void issue_g(float (&acc)[32], uint32_t douta, bool phantom,
+                                        rt::Ring<S>& ring) {
+  const uint32_t b = ring.acquire();
+  const uint32_t a = phantom ? b : douta;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  rt::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t k = (j / 4) * rt::kKBlockBytes + (j % 4) * 32;
+    rt::wgmma_m64n64<0, 0>(acc, rt::desc_a(a + k), rt::desc_a(b + k), j);
   }
-  bf16* b2 = slot + kMlpB1;
-  for (int i = threadIdx.x; i < kMlpBN * (kBK / 8); i += kMlpThreads) {
-    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-    cp_async16(b2 + r * kLdRow + c, w2 + size_t(n0 + r) * kDim + k0 + c);
+  rt::wgmma_commit();
+}
+
+constexpr int kGeluBlocks = 1;  // 8-column blocks whose GELUs are computed together
+
+// The epilogue of hidden columns [64c, 64c + 64) of the warpgroup's rows
+// r0 + ra, + 8: hg, dh and the warp's db1 partial.
+__device__ __forceinline__ void mlp_epilogue(const float (&acc1)[32], const float (&acc2)[32],
+                                             int c, const bf16* __restrict__ b1,
+                                             bf16* __restrict__ hg, bf16* __restrict__ dh,
+                                             float* __restrict__ part, int r0, int n_rows, int ra,
+                                             int q) {
+  float cs[8][2] = {};
+#pragma unroll
+  for (int jb = 0; jb < 8; jb += kGeluBlocks) {
+    // the 4 elements of each column block j: rows ra, ra + 8, columns col, + 1
+    float x[4 * kGeluBlocks], g[4 * kGeluBlocks], gp[4 * kGeluBlocks];
+#pragma unroll
+    for (int u = 0; u < kGeluBlocks; ++u) {
+      const float2 bv = load2(b1 + c * rt::kBox + 8 * (jb + u) + 2 * q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[4 * u + e] = acc1[4 * (jb + u) + e] + (e % 2 ? bv.y : bv.x);
+    }
+    gelu_and_grad(x, g, gp);
+#pragma unroll
+    for (int u = 0; u < kGeluBlocks; ++u) {
+      const int j = jb + u, col = c * rt::kBox + 8 * j + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool live = r0 + ra + 8 * h < n_rows;
+        const float d0 = round_bf16(acc2[4 * j + 2 * h] * gp[4 * u + 2 * h]);
+        const float d1 = round_bf16(acc2[4 * j + 2 * h + 1] * gp[4 * u + 2 * h + 1]);
+        cs[j][0] += live ? d0 : 0.f;
+        cs[j][1] += live ? d1 : 0.f;
+        if (live) {
+          const size_t o = size_t(r0 + ra + 8 * h) * kMlp + col;
+          store2(hg + o, g[4 * u + 2 * h], g[4 * u + 2 * h + 1]);
+          store2(dh + o, d0, d1);
+        }
+      }
+    }
+  }
+  // the lanes of one q hold the same columns: sum the warp's 16 rows
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        cs[j][i] += __shfl_xor_sync(0xffffffffu, cs[j][i], off);
+    }
+  if (ra % 16 == 0) {  // lanes 0-3 (g == 0) hold the sums
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(part + c * rt::kBox + 8 * j + 2 * q) =
+          make_float2(cs[j][0], cs[j][1]);
   }
 }
 
 __global__ void __launch_bounds__(kMlpThreads, 1)
-mlp_bwd_kernel(const bf16* __restrict__ y2, const bf16* __restrict__ dout,
-               const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-               const bf16* __restrict__ w2, bf16* __restrict__ hg, bf16* __restrict__ dh,
-               float* __restrict__ part, int rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);  // [y2, dout][128][kLdMlpA]
-  bf16* ring = as + 2 * kMlpA;
-  float* red = reinterpret_cast<float*>(ring + kMlpStages * kMlpStageElems);  // [4][1024]
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  const int m0 = blockIdx.x * kMlpBM;
-
-  // the row tiles (one commit group, rows past the end zero), then the
-  // first slices of the weights
-  const uint4 zero16 = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < 2 * kMlpBM * (kDim / 8); i += kMlpThreads) {
-    const int a = i / (kMlpBM * (kDim / 8));  // 0: y2, 1: dout
-    const int t = i % (kMlpBM * (kDim / 8));
-    const int r = t / (kDim / 8), c = (t % (kDim / 8)) * 8;
-    bf16* d = as + a * kMlpA + r * kLdMlpA + c;
-    if (m0 + r < rows) cp_async16(d, (a ? dout : y2) + size_t(m0 + r) * kDim + c);
-    else *reinterpret_cast<uint4*>(d) = zero16;
+mlp_bwd_kernel(const __grid_constant__ CUtensorMap y2_map,
+               const __grid_constant__ CUtensorMap dout_map,
+               const __grid_constant__ CUtensorMap w1_map,
+               const __grid_constant__ CUtensorMap w2_map, const bf16* __restrict__ b1,
+               bf16* __restrict__ hg, bf16* __restrict__ dh, float* __restrict__ part,
+               int n_rows) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = align1k(smem_raw);
+  unsigned char* y2s = base;                        // [warpgroup][4 K blocks][64 rows][128 B]
+  unsigned char* douts = base + rt::kActBytes;
+  unsigned char* ring_p = base + 2 * rt::kActBytes;
+  const uint32_t bars = smem_u32(ring_p + kMlpStages * rt::kStageBytes);
+  const uint32_t act_bars = bars + 16 * kMlpStages;  // one a warpgroup: its y2 and dout rows
+  if (threadIdx.x == 0) {
+    rt::ring_init<kMlpStages>(bars);
+    for (int w = 0; w < rt::kConsumers; ++w) rt::mbar_init(act_bars + 8 * w, 1);
+    rt::mbar_fence_init();
   }
-  cp_async_commit();
-  constexpr int kSlices = kDim / kBK;
-  for (int s = 0; s < kMlpStages - 1; ++s) {
-    mlp_load_weights(ring + s * kMlpStageElems, w1, w2, (s / kSlices) * kMlpBN,
-                     (s % kSlices) * kBK);
-    cp_async_commit();
-  }
-
-  // ldmatrix row addresses of this lane, in bytes (as in gemm_kernel): A
-  // rows at (lane % 16, (lane / 16) * 8); W1 (k, n) read with .trans; W2
-  // (n, k) read as the B^T operand
-  const unsigned a_lane =
-      smem_u32(as) + ((wm * 32 + lane % 16) * kLdMlpA + (lane / 16) * 8) * 2;
-  const unsigned b1_lane = ((lane % 16) * kLdB1 + wn * 32 + (lane / 16) * 8) * 2;
-  const unsigned b2_lane =
-      (kMlpB1 + (wn * 32 + (lane / 16) * 8 + lane % 8) * kLdRow + ((lane / 8) % 2) * 8) * 2;
-  const int g = lane / 4;
-  const int q = lane % 4;
-  float acc1[2][4][4] = {}, acc2[2][4][4] = {};
-  for (int step = 0; step < kMlpSteps; ++step) {
-    cp_async_wait<kMlpStages - 2>();
-    __syncthreads();
-    const int next = step + kMlpStages - 1;
-    if (next < kMlpSteps)
-      mlp_load_weights(ring + (next % kMlpStages) * kMlpStageElems, w1, w2,
-                       (next / kSlices) * kMlpBN, (next % kSlices) * kBK);
-    cp_async_commit();
-    const int k0 = (step % kSlices) * kBK;
-    const unsigned base = smem_u32(ring + (step % kMlpStages) * kMlpStageElems);
-#pragma unroll
-    for (int u = 0; u < kBK / 16; ++u) {
-      unsigned f1[2][4], f2[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        ldsm_x4_trans(f1[h], base + b1_lane + (u * 16 * kLdB1 + h * 16) * 2);
-        ldsm_x4(f2[h], base + b2_lane + (h * 16 * kLdRow + u * 16) * 2);
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        unsigned a1[4], a2[4];
-        ldsm_x4(a1, a_lane + (m * 16 * kLdMlpA + k0 + u * 16) * 2);
-        ldsm_x4(a2, a_lane + (kMlpA + m * 16 * kLdMlpA + k0 + u * 16) * 2);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          mma_bf16(acc1[m][n], a1, f1[n / 2][(n % 2) * 2], f1[n / 2][(n % 2) * 2 + 1]);
-          mma_bf16(acc2[m][n], a2, f2[n / 2][(n % 2) * 2], f2[n / 2][(n % 2) * 2 + 1]);
-        }
-      }
-    }
-    if (step % kSlices != kSlices - 1) continue;
-
-    // the epilogue of hidden columns [n0, n0 + 128)
-    const int n0 = (step / kSlices) * kMlpBN;
-    float csum[4][2] = {};
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int c = n0 + wn * 32 + n * 8 + 2 * q;
-      const float2 bv = load2(b1 + c);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = m0 + wm * 32 + m * 16 + g + half * 8;
-          const float h0 = acc1[m][n][2 * half] + bv.x;
-          const float h1 = acc1[m][n][2 * half + 1] + bv.y;
-          acc1[m][n][2 * half] = acc1[m][n][2 * half + 1] = 0.f;
-          const float d0 = round_bf16(acc2[m][n][2 * half] * gelu_grad_poly(h0));
-          const float d1 = round_bf16(acc2[m][n][2 * half + 1] * gelu_grad_poly(h1));
-          acc2[m][n][2 * half] = acc2[m][n][2 * half + 1] = 0.f;
-          if (r >= rows) continue;
-          const size_t o = size_t(r) * kMlp + c;
-          store2(hg + o, gelu_poly(round_bf16(h0)), gelu_poly(round_bf16(h1)));
-          store2(dh + o, d0, d1);
-          csum[n][0] += d0;
-          csum[n][1] += d1;
-        }
-      }
-    }
-    // the lanes of one q hold the same columns: sum the warp's rows
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1)
-          csum[n][i] += __shfl_xor_sync(0xffffffffu, csum[n][i], off);
-        if (g == 0) red[wm * kMlp + n0 + wn * 32 + n * 8 + 2 * q + i] = csum[n][i];
-      }
-  }
-  cp_async_wait<0>();
   __syncthreads();
-  for (int c = threadIdx.x; c < kMlp; c += kMlpThreads) {
-    float t = 0.f;
-    for (int w = 0; w < 4; ++w) t += red[w * kMlp + c];
-    part[size_t(blockIdx.x) * kMlp + c] = t;
+  const int n_tiles = (n_rows + rt::kTileRows - 1) / rt::kTileRows;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int ra = 16 * warp + lane / 4, q = lane % 4;
+  const bool issuer = threadIdx.x % 128 == 0;
+  const uint32_t y2a = smem_u32(y2s + wg * rt::kWgActBytes);
+  const uint32_t douta = smem_u32(douts + wg * rt::kWgActBytes);
+  const uint32_t act_bar = act_bars + 8 * wg;
+  rt::Ring<kMlpStages> ring{smem_u32(ring_p), bars, 0};
+  // Thread 0 also feeds the ring, in consumption order: per tile, for
+  // chunks 0 ... 15 and the phantom 16 (chunk 0 again), W1's tall chunk,
+  // then W2's wide one; a stage as soon as both warpgroups have handed it
+  // back (the claim waits for that), right after this warpgroup's own
+  // release. No producer warpgroup: its 168-register cap (three warpgroups
+  // in 64K registers) left the epilogue too few registers to interleave
+  // its elements.
+  rt::Ring<kMlpStages> feed{smem_u32(ring_p), bars, 0};
+  constexpr int kTileStages = 2 * (kMlpChunks + 1);
+  auto feed_next = [&]() {
+    const int i = feed.next;
+    if (blockIdx.x + (i / kTileStages) * gridDim.x >= n_tiles) return;  // past the last tile
+    const int k = i % kTileStages, c = (k / 2) % kMlpChunks;
+    if (k % 2 == 0) rt::load_tall(feed, &w1_map, c * rt::kBox);
+    else rt::load_wide(feed, &w2_map, 0, c * rt::kBox);
+  };
+  auto release2 = [&](int i) {  // ring entries i, i + 1, then their refills
+    ring.release(i);
+    ring.release(i + 1);
+    if (threadIdx.x == 0) {
+      feed_next();
+      feed_next();
+    }
+  };
+  auto load_rows = [&](int tile) {
+    const int row = tile * rt::kTileRows + wg * rt::kWgRows;
+    rt::mbar_expect_tx(act_bar, 2 * rt::kWgActBytes);
+#pragma unroll
+    for (int kb = 0; kb < kDim / rt::kBox; ++kb) {
+      rt::tma_load(y2a + kb * rt::kKBlockBytes, &y2_map, act_bar, kb * rt::kBox, row);
+      rt::tma_load(douta + kb * rt::kKBlockBytes, &dout_map, act_bar, kb * rt::kBox, row);
+    }
+  };
+  if (issuer && blockIdx.x < n_tiles) load_rows(blockIdx.x);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kMlpStages; ++i) feed_next();
+  float h0[32], d0[32], h1[32], d1[32];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int r0 = tile * rt::kTileRows + wg * rt::kWgRows;
+    float* pw = part + (size_t(tile) * kMlpPartRows + wg * 4 + warp) * kMlp;
+    rt::mbar_wait(act_bar, it & 1);
+    // chunk c's stages are ring entries base + 2c (W1) and + 1 (W2). The
+    // warpgroup issues chunk c + 1's W1 product, waits for chunk c's two,
+    // hands their stages back and runs chunk c's epilogue beside the W1
+    // product; then chunk c + 1's W2 product, whose stage was refilled
+    // during that epilogue (three stages: chunk c's two and the next W1
+    // chunk). The last pair's next products are a phantom chunk 16 (W1's
+    // and W2's first chunks again; its products read their stages as A and
+    // are dropped), so that the loop needs no peeled copy of its two
+    // epilogues: with one, the kernel's code (four inlined epilogues) ran
+    // twice as slow per element as half of it did. A wgmma under a branch
+    // would serialise them all.
+    const int base = ring.next;
+    issue_h(h0, y2a, false, ring);
+    issue_g(d0, douta, false, ring);
+#pragma unroll 1
+    for (int c = 0; c < kMlpChunks; c += 2) {
+      const bool last = c + 2 == kMlpChunks;
+      issue_h(h1, y2a, false, ring);
+      rt::wgmma_wait<1>();  // chunk c's products are done
+      release2(base + 2 * c);
+      rt::fence_acc(h0);
+      rt::fence_acc(d0);
+      mlp_epilogue(h0, d0, c, b1, hg, dh, pw, r0, n_rows, ra, q);
+      issue_g(d1, douta, false, ring);
+      issue_h(h0, y2a, last, ring);
+      rt::wgmma_wait<1>();  // chunk c + 1's
+      release2(base + 2 * c + 2);
+      rt::fence_acc(h1);
+      rt::fence_acc(d1);
+      // the tile's last products have read y2 and dout
+      if (last && issuer && tile + gridDim.x < n_tiles) load_rows(tile + gridDim.x);
+      mlp_epilogue(h1, d1, c + 1, b1, hg, dh, pw, r0, n_rows, ra, q);
+      issue_g(d0, douta, last, ring);
+    }
+    rt::wgmma_wait<0>();  // the phantom chunk's
+    release2(base + 2 * kMlpChunks);
   }
 }
 
 // ------------------------------------- W^T products with a LayerNorm backward
 
-// dy (128 rows x all 256 columns) = A (rows x K) @ W^T, W stored (256, K)
-// row-major (W1 for dy2 = dh W1^T, W_qkv for dy = dqkv W_qkv^T), in the K
-// order of a plain 16-deep mma chain; then, on the f32 tile staged in
-// shared memory, the LayerNorm backward of each row (ln_bwd_row: one warp
-// a row, as a row pass would) and the tile's partial of its column sums
-// (each warp's rows in order, then the 8 warps in order) at
-// part[tile][kSums][256]. The f32 dy never reaches device memory. 16
-// warps, 4 (rows) x 4 (columns) of 32 x 64 outputs, one block an SM: each
-// block streams all of W from L2, so the taller the tile the fewer times.
-constexpr int kLnBM = 128;
-constexpr int kLnStages = 4;
-constexpr int kLnWarps = 16;
-constexpr int kLnThreads = kLnWarps * 32;
-constexpr int kLnA = kLnBM * kLdRow;          // A slice [128][32]
-constexpr int kLnStageElems = kLnA + kDim * kLdRow;  // + W slice [256][32]: (n, k)
-constexpr int kLdDy = kDim + 8;  // f32 pitch: a half-warp's float2 stores of rows g hit distinct banks
-constexpr size_t kLnSmem = size_t(kLnStages) * kLnStageElems * sizeof(bf16);
-constexpr size_t kLnSmemEpi = size_t(kLnBM) * kLdDy * 4 + size_t(kLnWarps) * 4 * kDim * 4;
-constexpr size_t kLnSmemAll = kLnSmem > kLnSmemEpi ? kLnSmem : kLnSmemEpi;
-static_assert(kLnSmemAll <= kSmemLimit, "the ring, or the staged dy tile and the column sums");
-
-__device__ __forceinline__ void ln_load_stage(bf16* slot, const bf16* __restrict__ a,
-                                              const bf16* __restrict__ w, int rows, int K,
-                                              int m0, int k0) {
-  const uint4 zero16 = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < (kLnBM + kDim) * (kBK / 8); i += kLnThreads) {
-    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-    bf16* d = slot + r * kLdRow + c;
-    if (r >= kLnBM) cp_async16(d, w + size_t(r - kLnBM) * K + k0 + c);
-    else if (m0 + r < rows) cp_async16(d, a + size_t(m0 + r) * K + k0 + c);
-    else *reinterpret_cast<uint4*>(d) = zero16;
-  }
-}
+// dy (128 rows x all 256 columns, f32) = A (rows x K) @ W^T, W stored (256,
+// K) row-major (W1 for dy2 = dh W1^T, W_qkv for dy = dqkv W_qkv^T), then the
+// LayerNorm backward of each row. A persistent CTA an SM walks the row
+// tiles; the producer streams each tile's K in chunks of 64: both
+// warpgroups' A boxes (64 x 64, K-major) and W's 256 x 64 box (K-major,
+// read as W^T's B) in 48 KB stages of a 3-stage ring, which the next tile's
+// first chunks fill during this tile's epilogue. Each warp stages its 16
+// rows of the accumulators 8 at a time in its own 8 KB of shared memory
+// (row i at i KB, float j of a row at j ^ (8 i): a conflict-free float2
+// store from the accumulator layout, a 32-byte read a lane along a row),
+// runs ln_bwd_row on them, four rows' src and resid loads issued together
+// (a prefetch of the tile's rows into L2 by the producer, under the
+// products, made both launches slower: experiments/stblock_bwd_ab.py
+// ln_pf), and stages its column sums over its rows, which the tile's 8
+// warps add in order into part[tile][kSums][256] (held in registers over
+// all of a CTA's tiles, they took 32 registers that the products need, and
+// spilled). All 16 rows staged at once (128 KB) left room for two stages
+// only, and the ring, not the tensor cores, set the pace.
+constexpr int kLnStages = 3;
+constexpr int kLnStageBytes = kABytes + rt::kStageBytes;  // 48 KB
+constexpr int kLnWarps = rt::kConsumers * 4;
+constexpr int kStgRows = 8;  // rows a warp stages at once: its 16 in two halves
+constexpr size_t kStgBytes = size_t(kLnWarps) * kStgRows * kDim * 4;
+constexpr size_t kLnSmem = 1024 + size_t(kLnStages) * kLnStageBytes + kStgBytes + 16 * kLnStages;
+static_assert(kLnSmem <= size_t(kSmemLimit), "the ring and the staged dy rows");
+constexpr int kLnAhead = 4;  // rows whose operands are loaded together
 
 template <bool kLn2>
-__global__ void __launch_bounds__(kLnThreads, 1)
-ln_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, int K,
-               const bf16* __restrict__ src, const bf16* __restrict__ ln_g,
+__global__ void __launch_bounds__(rt::kThreads, 1)
+ln_gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap w_map,
+               int K, const bf16* __restrict__ src, const bf16* __restrict__ ln_g,
                const void* __restrict__ resid, float* __restrict__ out32,
-               bf16* __restrict__ out16, float* __restrict__ part, int rows) {
+               bf16* __restrict__ out16, float* __restrict__ part, int n_rows) {
   constexpr int kSums = kLn2 ? 4 : 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  const int m0 = blockIdx.x * kLnBM;
-  const int n_slices = K / kBK;
-
-  for (int s = 0; s < kLnStages - 1; ++s) {
-    ln_load_stage(ring + s * kLnStageElems, a, w, rows, K, m0, s * kBK);
-    cp_async_commit();
-  }
-  float acc[2][8][4] = {};
-  const unsigned a_lane = ((wm * 32 + lane % 16) * kLdRow + (lane / 16) * 8) * 2;
-  const unsigned b_lane =
-      (kLnA + (wn * 64 + (lane / 16) * 8 + lane % 8) * kLdRow + ((lane / 8) % 2) * 8) * 2;
-  for (int ks = 0; ks < n_slices; ++ks) {
-    cp_async_wait<kLnStages - 2>();
-    __syncthreads();
-    const int next = ks + kLnStages - 1;
-    if (next < n_slices)
-      ln_load_stage(ring + (next % kLnStages) * kLnStageElems, a, w, rows, K, m0, next * kBK);
-    cp_async_commit();
-    const unsigned base = smem_u32(ring + (ks % kLnStages) * kLnStageElems);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring_p = align1k(smem_raw);
+  float* stg = reinterpret_cast<float*>(ring_p + kLnStages * kLnStageBytes);
+  const uint32_t bars = smem_u32(stg + kLnWarps * kStgRows * kDim);
+  if (threadIdx.x == 0) rt::ring_init<kLnStages>(bars);
+  __syncthreads();
+  const int n_tiles = (n_rows + rt::kTileRows - 1) / rt::kTileRows;
+  const int chunks = K / rt::kBox;
+  const int wg = threadIdx.x / 128;
+  rt::Ring<kLnStages, kLnStageBytes> ring{smem_u32(ring_p), bars, 0};
+  if (wg == rt::kConsumers) {
+    rt::regs_dec<rt::kProducerRegs>();
+    if (threadIdx.x == rt::kConsumers * 128) {
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = tile * rt::kTileRows;
+        for (int kc = 0; kc < chunks; ++kc) {
+          uint32_t bar;
+          const uint32_t dst = ring.claim(&bar);
 #pragma unroll
-    for (int u = 0; u < kBK / 16; ++u) {
-      unsigned b[4][4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) ldsm_x4(b[h], base + b_lane + (h * 16 * kLdRow + u * 16) * 2);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        unsigned af[4];
-        ldsm_x4(af, base + a_lane + (m * 16 * kLdRow + u * 16) * 2);
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          mma_bf16(acc[m][n], af, b[n / 2][(n % 2) * 2], b[n / 2][(n % 2) * 2 + 1]);
+          for (int w = 0; w < rt::kConsumers; ++w)
+            rt::tma_load(dst + w * rt::kBoxBytes, &a_map, bar, kc * rt::kBox,
+                         m0 + w * rt::kWgRows);
+          rt::tma_load(dst + kABytes, &w_map, bar, kc * rt::kBox, 0);
+        }
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring
+  } else {
+    rt::regs_inc<rt::kConsumerRegs>();
+    const int cw = threadIdx.x / 32;  // the consumer warp: rows 16 cw ... of a tile
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4, q = lane % 4;
+    float* my = stg + cw * kStgRows * kDim;
+    float acc[128];
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      // the first k-step overwrites acc; zeroing it tells the compiler so,
+      // which frees its registers for the epilogue
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < chunks; ++kc) {
+        const uint32_t s = ring.acquire();
+        rt::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          rt::wgmma_m64n256<0, 0>(acc, rt::desc_a(s + wg * rt::kBoxBytes + j * 32),
+                                  rt::desc_a(s + kABytes + j * 32), kc | j);
+        rt::wgmma_commit();
+        if (kc > 0) {
+          rt::wgmma_wait<1>();
+          ring.release(ring.next - 2);
+        }
+      }
+      rt::wgmma_wait<0>();
+      ring.release(ring.next - 1);
+      rt::fence_acc(acc);
 
-  float* dy = reinterpret_cast<float*>(smem);  // [64][kLdDy]
-  float* red = dy + kLnBM * kLdDy;             // [16 warps][kSums][256]
-  const int g = lane / 4;
-  const int q = lane % 4;
+      // acc[4j + 2h + i] is the warp's row g + 8h, column 8j + 2q + i: row
+      // g + 8h goes to staging row g of the warp's half h
+      const int row0 = tile * rt::kTileRows + cw * 16;
+      float sums[kSums][8] = {};
+      float gg[8];
+      load8(ln_g + lane * 8, gg);
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+        for (int j = 0; j < 32; ++j)
+          *reinterpret_cast<float2*>(my + g * kDim + 8 * (j ^ g) + 2 * q) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        __syncwarp();
+#pragma unroll 1
+        for (int i0 = 0; i0 < kStgRows; i0 += kLnAhead) {
+          // the rows' operands, packed until used (bf16: 4 registers a row)
+          uint4 xv[kLnAhead], rv[kLnAhead][kLn2 ? 1 : 2];
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<float2*>(dy + (wm * 32 + m * 16 + g + half * 8) * kLdDy + wn * 64 +
-                                   n * 8 + 2 * q) =
-            make_float2(acc[m][n][2 * half], acc[m][n][2 * half + 1]);
-  __syncthreads();
-
-  float sums[kSums][8] = {};
-  float gg[8];
-  load8(ln_g + lane * 8, gg);
-  const int n_rows = min(kLnBM, rows - m0);
-#pragma unroll 2
-  for (int r = warp; r < n_rows; r += kLnWarps)
-    ln_bwd_row<kLn2>(src, dy + r * kLdDy, gg, resid, out32, out16, size_t(m0 + r), lane, sums);
+          for (int u = 0; u < kLnAhead; ++u) {
+            const int r = row0 + 8 * h + i0 + u;
+            const size_t o = size_t(r) * kDim + lane * 8;
+            if (r < n_rows) {
+              xv[u] = *reinterpret_cast<const uint4*>(src + o);
+              if (kLn2) {
+                rv[u][0] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(resid) + o);
+              } else {
 #pragma unroll
-  for (int k = 0; k < kSums; ++k)
+                for (int k = 0; k < (kLn2 ? 1 : 2); ++k)
+                  rv[u][k] = reinterpret_cast<const uint4*>(static_cast<const float*>(resid) + o)[k];
+              }
+            }
+          }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) red[(warp * kSums + k) * kDim + lane * 8 + j] = sums[k][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kSums * kDim; i += kLnThreads) {
-    float t = 0.f;
-    for (int w = 0; w < kLnWarps; ++w) t += red[w * kSums * kDim + i];
-    part[size_t(blockIdx.x) * kSums * kDim + i] = t;
+          for (int u = 0; u < kLnAhead; ++u) {
+            const int i = i0 + u, r = row0 + 8 * h + i;
+            if (r < n_rows) {  // the same for the whole warp
+              float v[8], res[8];
+              sb::unpack8(xv[u], v);
+              if (kLn2) {
+                sb::unpack8(rv[u][0], res);
+              } else {
+#pragma unroll
+                for (int k = 0; k < (kLn2 ? 1 : 2); ++k) {
+                  res[4 * k] = __uint_as_float(rv[u][k].x);
+                  res[4 * k + 1] = __uint_as_float(rv[u][k].y);
+                  res[4 * k + 2] = __uint_as_float(rv[u][k].z);
+                  res[4 * k + 3] = __uint_as_float(rv[u][k].w);
+                }
+              }
+              ln_bwd_row<kLn2>(v, my + i * kDim + 8 * (lane ^ i), gg, res, out32, out16,
+                               size_t(r) * kDim + lane * 8, sums);
+            }
+          }
+        }
+        __syncwarp();  // every lane has read the rows before the next stores
+      }
+      // the warp's column sums over its 16 rows into its staging rows, then
+      // the tile's 8 warps added in order: part[tile][kSums][256]
+#pragma unroll
+      for (int k = 0; k < kSums; ++k) store8f(my + k * kDim + lane * 8, sums[k]);
+      rt::consumers_sync();
+      for (int i = threadIdx.x; i < kSums * kDim; i += kLnWarps * 32) {
+        float t = 0.f;
+        for (int w = 0; w < kLnWarps; ++w) t += stg[w * kStgRows * kDim + i];
+        part[size_t(tile) * kSums * kDim + i] = t;
+      }
+      rt::consumers_sync();  // every warp has read the sums before the next tile's stores
+    }
   }
 }
 
 // ---------------------------------------------------- column sums
 
-// out[i] = sum over z < slices of part[z * stride + i]. Thread (c, j) of a
-// (256 / ways) x ways block sums slices [j per, (j + 1) per) in order, and
-// the ways' sums are added in order j = 0, 1, ...; ways depends on the
-// shape only, so two calls sum in the same order. Few slices (the split-K
-// weight gradients) take one way; many (a partial per row tile or per
-// sequence) take 32, so that a column's loads are spread over 32 threads.
+// out[i] = sum over z < slices of part[z * stride + i], four columns a
+// thread (16-byte loads; count, stride and both pointers multiples of four
+// floats). Thread (c, j) of a (256 / ways) x ways block sums slices [j per,
+// (j + 1) per) in order, and the ways' sums are added in order j = 0, 1,
+// ...; ways depends on the shape only, so two calls sum in the same order.
+// Few slices (the split-K weight gradients) take one way; many (a partial
+// per sequence, per row tile or per warp of one) 32, and thousands 128, so
+// that a column's loads are spread over as many threads.
 __global__ void __launch_bounds__(256)
 sum_slices_kernel(const float* __restrict__ part, int slices, int stride, int count,
                   float* __restrict__ out) {
-  __shared__ float red[256];
+  __shared__ float4 red[256];
   const int ways = blockDim.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
   const int per = (slices + ways - 1) / ways;
   const int z1 = min(slices, (threadIdx.y + 1) * per);
-  float s = 0.f;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   if (i < count) {
 #pragma unroll 4
-    for (int z = threadIdx.y * per; z < z1; ++z) s += part[size_t(z) * stride + i];
+    for (int z = threadIdx.y * per; z < z1; ++z) {
+      const float4 v = *reinterpret_cast<const float4*>(part + size_t(z) * stride + i);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
   }
   if (ways == 1) {
-    if (i < count) out[i] = s;
+    if (i < count) *reinterpret_cast<float4*>(out + i) = s;
     return;
   }
   red[threadIdx.y * blockDim.x + threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && i < count) {
-    float t = 0.f;
-    for (int w = 0; w < ways; ++w) t += red[w * blockDim.x + threadIdx.x];
-    out[i] = t;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < ways; ++w) {
+      const float4 v = red[w * blockDim.x + threadIdx.x];
+      t.x += v.x;
+      t.y += v.y;
+      t.z += v.z;
+      t.w += v.w;
+    }
+    *reinterpret_cast<float4*>(out + i) = t;
   }
 }
 
 cudaError_t sum_slices(const float* part, int slices, int stride, int count, float* out,
                        cudaStream_t s) {
-  const int ways = slices >= 64 ? 32 : 1;
+  const int ways = slices >= 2048 ? 128 : slices >= 64 ? 32 : 1;
   const dim3 block(256 / ways, ways);
-  sum_slices_kernel<<<(count + block.x - 1) / block.x, block, 0, s>>>(part, slices, stride,
-                                                                      count, out);
+  const int threads = count / 4;
+  sum_slices_kernel<<<(threads + block.x - 1) / block.x, block, 0, s>>>(part, slices, stride,
+                                                                        count, out);
   return cudaGetLastError();
 }
 
-// out (M x N, f32) = a^T @ b over all `rows` rows: a stored rows x M, b
-// stored rows x N (bf16), split over a fixed number of row slices given
-// the shapes, partials in `part`, summed in order.
-cudaError_t weight_grad(const bf16* a, int M, const bf16* b, int N, int rows, float* part,
-                        float* out, cudaStream_t s) {
-  const int tiles = (M / kBM) * (N / kBN);
-  const int want = min((kTargetCtas + tiles - 1) / tiles, (rows + 255) / 256);
-  const int chunk = ((rows + want - 1) / want + kBK - 1) / kBK * kBK;
-  const int slices = (rows + chunk - 1) / chunk;
-  GemmArgs p{a, b, M, N, rows, M, N, chunk, part, nullptr, N, size_t(M) * N, nullptr};
-  cudaError_t err = gemm<true, false, kEpiF32>(p, slices, s);
-  if (err != cudaSuccess) return err;
-  return sum_slices(part, slices, M * N, M * N, out, s);
+// The K slices of an m x n weight gradient over `rows` rows: the most that
+// keep tiles x slices <= kWgradItems, each a whole number of chunks, none
+// empty; writes the chunks a slice takes to *per.
+int wgrad_slices(int m, int n, int rows, int* per) {
+  const int tiles = (m / rt::kTileRows) * (n / kTileN);
+  const int chunks = (rows + rt::kBox - 1) / rt::kBox;
+  const int want = std::max(1, std::min(chunks, kWgradItems / tiles));
+  *per = (chunks + want - 1) / want;
+  return (chunks + *per - 1) / *per;
 }
 
-// Floats of the split-K partials: slices x tiles <= kTargetCtas + tiles.
-constexpr size_t kPartFloats = size_t(kTargetCtas + 16) * kBM * kBN;
+// out (m x n, f32) = X^T @ G over all `rows` rows: x_map over X (rows x m)
+// and g_map over G (rows x n), bf16, boxes of 64 x 64; partials in part,
+// summed in order.
+cudaError_t weight_grad(const CUtensorMap& x_map, int m, const CUtensorMap& g_map, int n, int rows,
+                        float* part, float* out, cudaStream_t s) {
+  int per = 0;
+  const int slices = wgrad_slices(m, n, rows, &per);
+  const int n_tiles = n / kTileN;
+  const GemmArgs p{n_tiles, (m / rt::kTileRows) * n_tiles, slices,
+                   (rows + rt::kBox - 1) / rt::kBox, per, m, part, n, size_t(m) * n};
+  cudaError_t err = gemm<true, true>(x_map, g_map, p, s);
+  if (err != cudaSuccess) return err;
+  return sum_slices(part, slices, m * n, m * n, out, s);
+}
+
+// Floats of the split-K partials: tiles x slices <= max(kWgradItems, tiles)
+// work items of 128 x 256, tiles <= 8.
+constexpr size_t kPartFloats = size_t(std::max(kWgradItems, 8)) * rt::kTileRows * kTileN;
 
 // ------------------------------------------------- attention backward
 
@@ -749,17 +890,39 @@ struct SeqRows {  // row of token t of sequence s: (s / inner_n) outer + (s % in
 };
 
 constexpr float kAttnScale = 0.17677669529663687f;  // 32^-0.5
-constexpr int kBwdMaxLen = 256;  // the longest sequence attention_bwd_kernel takes
-constexpr int kLdA = kDimHead + 8;  // shared row pitch: 16 bytes of skew
+constexpr int kBwdMaxLen = 256;  // the longest sequence the attention backward takes
 
 constexpr int kBwdWarps = 8;  // the most warps of one (sequence, head) block
 
+// Element (r, c) of a head tile in shared memory: rows of 32 bf16 (64
+// bytes, no padding), the row's 16-byte chunk c / 8 stored at chunk (c / 8)
+// ^ ((r / 2) % 4), so the 8 rows an ldmatrix reads at one chunk hit 8
+// distinct 16-byte bank groups.
+__device__ __forceinline__ int hidx(int r, int c) {
+  return r * kDimHead + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
+}
+
 // Shared memory of one (sequence, head): Q, K, V, bf16(do), bf16(bf16(r) q)
-// and bf16(r do), each L rows padded to whole 16-row tiles at pitch kLdA,
-// then c per query (f32), then each warp's column sums of dq, dk and dv.
+// and bf16(r do), each L rows padded to whole 16-row tiles, then c per
+// query (f32), then each warp's column sums of dq, dk and dv.
 size_t attn_bwd_smem(int L) {
   const int rows = (L + 15) / 16 * 16;
-  return size_t(rows) * (6 * kLdA * 2 + 4) + size_t(kBwdWarps) * 3 * kDimHead * 4;
+  return size_t(rows) * (6 * kDimHead * 2 + 4) + size_t(kBwdWarps) * 3 * kDimHead * 4;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kScaleLog2 = kAttnScale * kLog2e;
+constexpr float kClampLog2 = kScoreClamp * kLog2e;
+
+// e = exp(min(s scale, 80)) where live, else 0, as the forward's attention
+// kernel (attention.cu) takes it: 2^(min(s scale log2 e, 80 log2 e)) on
+// the SFU's ex2, one multiply, a min and the ex2 (expf took ten
+// instructions). It is taken in every case and multiplied by 1 or 0 (e is
+// finite: at most exp(80)), so no branch splits a tile's scores: one around
+// each exponential left a single one in flight at a time.
+__device__ __forceinline__ float score_exp(float s, bool live) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(fminf(s * kScaleLog2, kClampLog2)));
+  return __fmul_rn(e, live ? 1.f : 0.f);
 }
 
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
@@ -768,12 +931,13 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
 }
 
 // Scores and dA of one 16-row tile (A fragments a_s, a_d: two k16 steps of
-// dh = 32) against the 16 rows at `rows_b` of the B operands (b_s, b_d,
-// stored [row][dim], read as the n side): s = a_s . b_s, da = a_d . b_d.
+// dh = 32) against the 16 rows at b_s, b_d of the B operands (stored
+// [row][dim], read as the n side; n_off: this lane's element offsets of
+// its row at the two k steps): s = a_s . b_s, da = a_d . b_d.
 __device__ __forceinline__ void tile_products(const unsigned (&a_s)[2][4],
                                               const unsigned (&a_d)[2][4], const bf16* b_s,
-                                              const bf16* b_d, int n_off, float (&s)[2][4],
-                                              float (&da)[2][4]) {
+                                              const bf16* b_d, const int (&n_off)[2],
+                                              float (&s)[2][4], float (&da)[2][4]) {
 #pragma unroll
   for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
@@ -781,32 +945,33 @@ __device__ __forceinline__ void tile_products(const unsigned (&a_s)[2][4],
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
     unsigned f[4];
-    ldsm_x4(f, smem_u32(b_s + n_off + kk * 16));
+    ldsm_x4(f, smem_u32(b_s + n_off[kk]));
     mma_bf16(s[0], a_s[kk], f[0], f[1]);
     mma_bf16(s[1], a_s[kk], f[2], f[3]);
-    ldsm_x4(f, smem_u32(b_d + n_off + kk * 16));
+    ldsm_x4(f, smem_u32(b_d + n_off[kk]));
     mma_bf16(da[0], a_d[kk], f[0], f[1]);
     mma_bf16(da[1], a_d[kk], f[2], f[3]);
   }
 }
 
-// acc (16 x 32, four n8 blocks) += P (16 x 16, A fragment) @ B rows
-// [row0, row0 + 16) x 32 (stored [row][dim], read with .trans)
-__device__ __forceinline__ void pv_product(const unsigned (&p)[4], const bf16* b, int a_off,
-                                           float (&acc)[4][4]) {
+// acc (16 x 32, four n8 blocks) += P (16 x 16, A fragment) @ the 16 rows
+// at b x 32 (stored [row][dim], read with .trans; a_off: this lane's
+// element offsets at the two 16-column halves)
+__device__ __forceinline__ void pv_product(const unsigned (&p)[4], const bf16* b,
+                                           const int (&a_off)[2], float (&acc)[4][4]) {
 #pragma unroll
   for (int d = 0; d < 2; ++d) {
     unsigned f[4];
-    ldsm_x4_trans(f, smem_u32(b + a_off + d * 16));
+    ldsm_x4_trans(f, smem_u32(b + a_off[d]));
     mma_bf16(acc[2 * d], p, f[0], f[1]);
     mma_bf16(acc[2 * d + 1], p, f[2], f[3]);
   }
 }
 
-// One block per (sequence, head), L <= 256, dh = 32, on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate), up to 8 warps: the block
-// needs ~127 KB of shared memory at L = 243, so it is alone on its SM, and
-// its warps are all the SM has to hide latency with.
+// One block per (sequence, head), dh = 32, on the tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 accumulate), one warp a 16-row tile, up to 8; the
+// launcher takes it for L <= 64 (the spatial half's 17 joints), where the
+// wgmma kernel's 64-row tiles would be mostly padding.
 // Pass 1, warp by warp over 16-query tiles: sweep the keys once for
 // sum(e) and sum(da e) (r and c), then again for ds = bf16(t - c e) and
 // dq = (ds k)(r scale); ds goes from the accumulators straight into the A
@@ -818,18 +983,18 @@ __device__ __forceinline__ void pv_product(const unsigned (&p)[4], const bf16* b
 // partial of the block, the column sums of the f32 dq, dk and dv over the
 // sequence's rows (each warp's tiles in order, its lanes by shuffles, then
 // the warps in order), goes to part[sequence][768] at the head's columns.
-__global__ void __launch_bounds__(kBwdWarps * 32)
+__global__ void __launch_bounds__(kBwdWarps * 32, 2)
 attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ datt,
                      bf16* __restrict__ dqkv16, float* __restrict__ part, int L, SeqRows sr) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = (L + 15) / 16 * 16;
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + rows * kLdA;
-  bf16* vs = ks + rows * kLdA;
-  bf16* dos = vs + rows * kLdA;
-  bf16* rqs = dos + rows * kLdA;
-  bf16* rdos = rqs + rows * kLdA;
-  float* cs = reinterpret_cast<float*>(rdos + rows * kLdA);
+  bf16* ks = qs + rows * kDimHead;
+  bf16* vs = ks + rows * kDimHead;
+  bf16* dos = vs + rows * kDimHead;
+  bf16* rqs = dos + rows * kDimHead;
+  bf16* rdos = rqs + rows * kDimHead;
+  float* cs = reinterpret_cast<float*>(rdos + rows * kDimHead);
   float* red = cs + rows;  // [warp][dq, dk, dv][32]
   const int seq = blockIdx.x;
   const int hq = blockIdx.y * kDimHead;
@@ -842,27 +1007,39 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
   for (int i = threadIdx.x; i < rows * (kDimHead / 8); i += blockDim.x) {
     const int r = i / (kDimHead / 8);
     const int c = (i % (kDimHead / 8)) * 8;
+    const int e = hidx(r, c);
     if (r < L) {
       const long long row = base + r * sr.step;
       const bf16* src = qkv + row * kQkv + hq + c;
-      copy16(qs + r * kLdA + c, src);
-      copy16(ks + r * kLdA + c, src + kDim);
-      copy16(vs + r * kLdA + c, src + 2 * kDim);
+      copy16(qs + e, src);
+      copy16(ks + e, src + kDim);
+      copy16(vs + e, src + 2 * kDim);
       float t[8];
       load8f(datt + row * kDim + hq + c, t);
-      store8(dos + r * kLdA + c, t);
+      store8(dos + e, t);
     } else {
       bf16* const bufs[6] = {qs, ks, vs, dos, rqs, rdos};
 #pragma unroll
-      for (int b = 0; b < 6; ++b) *reinterpret_cast<uint4*>(bufs[b] + r * kLdA + c) = zero16;
+      for (int b = 0; b < 6; ++b) *reinterpret_cast<uint4*>(bufs[b] + e) = zero16;
     }
   }
+  for (int i = L + threadIdx.x; i < rows; i += blockDim.x) cs[i] = 0.f;
   __syncthreads();
 
   const int g = lane / 4;
   const int q4 = lane % 4;
-  const int a_off = (lane % 16) * kLdA + (lane / 16) * 8;
-  const int n_off = ((lane / 16) * 8 + lane % 8) * kLdA + ((lane / 8) % 2) * 8;
+  // this lane's ldmatrix rows within a 16-row tile (a multiple of 16 rows
+  // from the buffer's start, so the swizzle depends on the lane only): A
+  // fragments (and the .trans B of pv_product) at row lane % 16, chunk
+  // lane / 16 (+ 2 for the second k step); n-side B at row (lane / 16) 8 +
+  // lane % 8, chunk (lane / 8) % 2 (+ 2)
+  int a_off[2], n_off[2];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    a_off[kk] = hidx(lane % 16, (lane / 16) * 8 + kk * 16);
+    n_off[kk] = hidx((lane / 16) * 8 + lane % 8, ((lane / 8) % 2) * 8 + kk * 16);
+  }
+  const int tile = 16 * kDimHead;  // elements of a 16-row tile
   // this lane's column sums: columns nb * 8 + 2 q4 (+ 1) over its rows
   float cq[4][2] = {}, ck[4][2] = {}, cv[4][2] = {};
 
@@ -870,19 +1047,19 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
     unsigned qa[2][4], da_a[2][4];
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
-      ldsm_x4(qa[kk], smem_u32(qs + qt * 16 * kLdA + a_off + kk * 16));
-      ldsm_x4(da_a[kk], smem_u32(dos + qt * 16 * kLdA + a_off + kk * 16));
+      ldsm_x4(qa[kk], smem_u32(qs + qt * tile + a_off[kk]));
+      ldsm_x4(da_a[kk], smem_u32(dos + qt * tile + a_off[kk]));
     }
     float sum_e[2] = {0.f, 0.f}, sum_t[2] = {0.f, 0.f};
     for (int kb = 0; kb < rows / 16; ++kb) {
       float s[2][4], da[2][4];
-      tile_products(qa, da_a, ks + kb * 16 * kLdA, vs + kb * 16 * kLdA, n_off, s, da);
+      tile_products(qa, da_a, ks + kb * tile, vs + kb * tile, n_off, s, da);
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int key = kb * 16 + nb * 8 + 2 * q4 + (i & 1);
-          const float e = key < L ? expf(fminf(s[nb][i] * kAttnScale, kScoreClamp)) : 0.f;
+          const float e = score_exp(s[nb][i], key < L);
           sum_e[i / 2] += e;
           sum_t[i / 2] += __fmul_rn(da[nb][i], e);
         }
@@ -900,7 +1077,7 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
     float dq[4][4] = {};
     for (int kb = 0; kb < rows / 16; ++kb) {
       float s[2][4], da[2][4];
-      tile_products(qa, da_a, ks + kb * 16 * kLdA, vs + kb * 16 * kLdA, n_off, s, da);
+      tile_products(qa, da_a, ks + kb * tile, vs + kb * tile, n_off, s, da);
       unsigned p[4];
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
@@ -908,13 +1085,13 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int key = kb * 16 + nb * 8 + 2 * q4 + (i & 1);
-          const float e = key < L ? expf(fminf(s[nb][i] * kAttnScale, kScoreClamp)) : 0.f;
+          const float e = score_exp(s[nb][i], key < L);
           ds[i] = __fsub_rn(__fmul_rn(da[nb][i], e), __fmul_rn(c[i / 2], e));
         }
         p[2 * nb] = pack_bf16x2(ds[0], ds[1]);
         p[2 * nb + 1] = pack_bf16x2(ds[2], ds[3]);
       }
-      pv_product(p, ks + kb * 16 * kLdA, a_off, dq);
+      pv_product(p, ks + kb * tile, a_off, dq);
     }
     // dq rows qt*16 + g (+ 8): scale, store; r, c and the pass-2 operands
 #pragma unroll
@@ -931,10 +1108,11 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
         cq[nb][0] += v0;
         cq[nb][1] += v1;
         store2(dqkv16 + row * kQkv + hq + col, v0, v1);
-        const float2 qv = load2(qs + row_i * kLdA + col);
-        store2(rqs + row_i * kLdA + col, rb * qv.x, rb * qv.y);
+        const int e = hidx(row_i, col);
+        const float2 qv = load2(qs + e);
+        store2(rqs + e, rb * qv.x, rb * qv.y);
         const float2 dv = *reinterpret_cast<const float2*>(datt + row * kDim + hq + col);
-        store2(rdos + row_i * kLdA + col, r[h] * dv.x, r[h] * dv.y);
+        store2(rdos + e, r[h] * dv.x, r[h] * dv.y);
       }
       if (q4 == 0) cs[row_i] = c[h];
     }
@@ -945,13 +1123,13 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
     unsigned ka[2][4], va[2][4];
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
-      ldsm_x4(ka[kk], smem_u32(ks + kt * 16 * kLdA + a_off + kk * 16));
-      ldsm_x4(va[kk], smem_u32(vs + kt * 16 * kLdA + a_off + kk * 16));
+      ldsm_x4(ka[kk], smem_u32(ks + kt * tile + a_off[kk]));
+      ldsm_x4(va[kk], smem_u32(vs + kt * tile + a_off[kk]));
     }
     float dk[4][4] = {}, dv[4][4] = {};
     for (int qb = 0; qb < rows / 16; ++qb) {
       float s[2][4], da[2][4];  // rows: keys of this tile; columns: queries
-      tile_products(ka, va, qs + qb * 16 * kLdA, dos + qb * 16 * kLdA, n_off, s, da);
+      tile_products(ka, va, qs + qb * tile, dos + qb * tile, n_off, s, da);
       unsigned pe[4], pds[4];
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
@@ -959,17 +1137,17 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int query = qb * 16 + nb * 8 + 2 * q4 + (i & 1);
-          e[i] = query < L ? expf(fminf(s[nb][i] * kAttnScale, kScoreClamp)) : 0.f;
-          ds[i] = query < L ? __fsub_rn(__fmul_rn(da[nb][i], e[i]), __fmul_rn(cs[query], e[i]))
-                            : 0.f;
+          // past L: e = 0 and c = 0, so ds = 0
+          e[i] = score_exp(s[nb][i], query < L);
+          ds[i] = __fsub_rn(__fmul_rn(da[nb][i], e[i]), __fmul_rn(cs[query], e[i]));
         }
         pe[2 * nb] = pack_bf16x2(e[0], e[1]);
         pe[2 * nb + 1] = pack_bf16x2(e[2], e[3]);
         pds[2 * nb] = pack_bf16x2(ds[0], ds[1]);
         pds[2 * nb + 1] = pack_bf16x2(ds[2], ds[3]);
       }
-      pv_product(pe, rdos + qb * 16 * kLdA, a_off, dv);
-      pv_product(pds, rqs + qb * 16 * kLdA, a_off, dk);
+      pv_product(pe, rdos + qb * tile, a_off, dv);
+      pv_product(pds, rqs + qb * tile, a_off, dk);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1022,9 +1200,320 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
   }
 }
 
-// The workspace, carved in this order, each region 256-byte aligned. The
-// column partials hold, in turn, db1's, LN_2's, db_qkv's (per sequence) and
-// LN_1's (per 128-row tile).
+// ------------------------------- attention backward on wgmma (L > 64)
+
+// Sequences longer than one 64-row tile (the temporal slab and the
+// joint-major sequences) take this kernel; shorter ones (the spatial
+// half's 17 joints) attention_bwd_kernel, whose 16-row tiles waste less on
+// them. One CTA per (sequence, head), two warpgroups, ~101 KB of shared
+// memory at L = 256, at most 128 registers a thread: two CTAs share an SM.
+// Q, K, V and bf16(do) of the head are stored in 64-byte rows in the
+// 64-byte swizzle that the wgmma descriptors name (head_desc), each buffer
+// padded with zero rows to whole 64-row tiles. The arithmetic and its
+// rounding points are attention_bwd_kernel's:
+// - phase 1, query-major, a warpgroup's 64-query tile at a time: S = Q K^T
+//   and dA = dO V^T against each 64-key block (m64n64k16, both operands
+//   K-major from shared memory), e = exp(min(s scale, 80)) (0 past L), the
+//   row sums of e and of da e (r, c); then again for ds = bf16(t - c e),
+//   which goes from the accumulators into the A fragments of dq += ds K
+//   (m64n32k16, K taken N-major with the transpose flag); dq (r scale) is
+//   stored, and bf16(bf16(r) q), bf16(r do) and c go to shared memory;
+// - phase 2, key-major, a 64-key tile at a time: S^T = K Q^T and dA^T = V
+//   dO^T against each 64-query block, e and ds as above with each query's
+//   c, then dv += bf16(e)^T bf16(r do) and dk += ds^T bf16(bf16(r) q) from
+//   register fragments; dk scale and dv are stored.
+// Each warp adds its tiles' column sums of the f32 dq, dk and dv (its rows
+// by shuffles) into its own shared slot; the 8 slots are added in order
+// into part[sequence][768] at the head's columns.
+constexpr int kAwTile = 64;                       // query or key rows of a warpgroup's tile
+constexpr int kHeadRow = kDimHead * 2;            // 64 bytes: a head row, the swizzle span
+constexpr int kAwTileBytes = kAwTile * kHeadRow;  // 4 KB
+constexpr int kAwThreads = rt::kConsumers * 128;
+constexpr int kAwWarps = kAwThreads / 32;
+constexpr int kAwMinLen = kAwTile + 1;  // the shortest sequence this kernel takes
+
+size_t attn_bwd_wg_smem(int L) {
+  const int rows = (L + kAwTile - 1) / kAwTile * kAwTile;
+  return 1024 + size_t(rows) * (6 * kHeadRow + 4) + size_t(kAwWarps) * 3 * kDimHead * 4;
+}
+static_assert(2 * (1024 + kBwdMaxLen * (6 * kHeadRow + 4) + kAwWarps * 3 * kDimHead * 4 + 1024) <=
+                  228 * 1024,
+              "two CTAs of the longest sequence share an SM");
+
+// A wgmma descriptor of a tile of 64-byte head rows at addr in the 64-byte
+// swizzle (layout type 2): 8-row groups 512 bytes apart (SBO), LBO unused.
+// K-major (rows are M or N), a k-step of 16 columns is 32 bytes on (+2 in
+// the descriptor's 16-byte units); N-major (rows are K), 16 rows on (+64).
+__device__ __forceinline__ uint64_t head_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
+// Byte offset of element (r, c) of such a tile: the 16-byte chunk bits
+// XOR the row-pair bits above them, as TMA's 64-byte swizzle lays them.
+__device__ __forceinline__ uint32_t head_off(int r, int c) {
+  const uint32_t o = uint32_t(r) * kHeadRow + uint32_t(c) * 2;
+  return o ^ ((o >> 3) & 0x30u);
+}
+
+// d += A (64 x 16: this thread's bf16 fragment a, in registers) @ B (16 x
+// 32, shared, N-major: the transpose flag); bf16 in, f32 accumulate.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// s = A (64 rows x 32 at a, K-major) @ B^T (64 rows x 32 at b), and da = C
+// (at c) @ D^T (at d): two k-steps each, then waits for them.
+__device__ __forceinline__ void head_scores(float (&s)[32], float (&da)[32], uint32_t a,
+                                            uint32_t b, uint32_t c, uint32_t d) {
+  const uint64_t da_ = head_desc(a), db_ = head_desc(b), dc_ = head_desc(c), dd_ = head_desc(d);
+  rt::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    rt::wgmma_m64n64<0, 0>(s, da_ + 2 * k, db_ + 2 * k, k);
+    rt::wgmma_m64n64<0, 0>(da, dc_ + 2 * k, dd_ + 2 * k, k);
+  }
+  rt::wgmma_commit();
+  rt::wgmma_wait<0>();
+  rt::fence_acc(s);
+  rt::fence_acc(da);
+}
+
+// acc += P (64 x 64: fragments p) @ the 64 rows x 32 at b (N-major); issues
+// only.
+__device__ __forceinline__ void head_rows(float (&acc)[16], const unsigned (&p)[4][4],
+                                          uint32_t b) {
+  const uint64_t db = head_desc(b);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wgmma_rs_n32(acc, p[k], db + 64 * k);
+}
+
+// This warp's column sums of one tile (columns 8j + 2q + i; rows by
+// shuffles over the lanes of one q) added into its shared slot.
+__device__ __forceinline__ void add_col_sums(float (&cs)[4][2], float* slot, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) cs[j][i] += __shfl_xor_sync(0xffffffffu, cs[j][i], off);
+      if (lane < 4) slot[8 * j + 2 * lane + i] += cs[j][i];
+    }
+}
+
+__global__ void __launch_bounds__(kAwThreads, 2)
+attention_bwd_wg_kernel(const bf16* __restrict__ qkv, const float* __restrict__ datt,
+                        bf16* __restrict__ dqkv16, float* __restrict__ part, int L, SeqRows sr) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = align1k(smem_raw);
+  const int rows = (L + kAwTile - 1) / kAwTile * kAwTile;
+  const int tiles = rows / kAwTile;
+  const uint32_t tb = uint32_t(rows) * kHeadRow;  // bytes of one buffer
+  unsigned char* qs = base;
+  unsigned char* ks = base + tb;
+  unsigned char* vs = base + 2 * tb;
+  unsigned char* dos = base + 3 * tb;
+  unsigned char* rqs = base + 4 * tb;
+  unsigned char* rdos = base + 5 * tb;
+  float* cs = reinterpret_cast<float*>(base + 6 * tb);
+  float* red = cs + rows;  // [warp][dq, dk, dv][32]
+  const uint32_t qs_s = smem_u32(qs), ks_s = smem_u32(ks), vs_s = smem_u32(vs),
+                 dos_s = smem_u32(dos), rqs_s = smem_u32(rqs), rdos_s = smem_u32(rdos);
+  const int seq = blockIdx.x;
+  const int hq = blockIdx.y * kDimHead;
+  const long long row_base = (seq / sr.inner_n) * sr.outer + (seq % sr.inner_n) * sr.inner;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const int ra = 16 * (warp % 4) + lane / 4, q = lane % 4;
+
+  const uint4 zero16 = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < rows * (kDimHead / 8); i += kAwThreads) {
+    const int r = i / (kDimHead / 8), c = (i % (kDimHead / 8)) * 8;
+    const uint32_t o = head_off(r, c);
+    if (r < L) {
+      const long long row = row_base + r * sr.step;
+      const bf16* src = qkv + row * kQkv + hq + c;
+      *reinterpret_cast<uint4*>(qs + o) = *reinterpret_cast<const uint4*>(src);
+      *reinterpret_cast<uint4*>(ks + o) = *reinterpret_cast<const uint4*>(src + kDim);
+      *reinterpret_cast<uint4*>(vs + o) = *reinterpret_cast<const uint4*>(src + 2 * kDim);
+      float t[8];
+      load8f(datt + row * kDim + hq + c, t);
+      store8(reinterpret_cast<bf16*>(dos + o), t);
+    } else {
+      unsigned char* const bufs[6] = {qs, ks, vs, dos, rqs, rdos};
+#pragma unroll
+      for (int b = 0; b < 6; ++b) *reinterpret_cast<uint4*>(bufs[b] + o) = zero16;
+    }
+  }
+  for (int i = threadIdx.x; i < rows; i += kAwThreads)
+    if (i >= L) cs[i] = 0.f;
+  for (int i = threadIdx.x; i < kAwWarps * 3 * kDimHead; i += kAwThreads) red[i] = 0.f;
+  rt::fence_proxy_async();  // generic stores, read by wgmma
+  __syncthreads();
+
+  float s[32], da[32];
+  // phase 1: a warpgroup's 64-query tiles
+  for (int qt = wg; qt < tiles; qt += rt::kConsumers) {
+    const uint32_t qa = qs_s + qt * kAwTileBytes, doa = dos_s + qt * kAwTileBytes;
+    float se[2] = {0.f, 0.f}, st[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int kb = 0; kb < tiles; ++kb) {
+      head_scores(s, da, qa, ks_s + kb * kAwTileBytes, doa, vs_s + kb * kAwTileBytes);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = kb * kAwTile + 8 * j + 2 * q + (i & 1);
+          const float e = score_exp(s[4 * j + i], key < L);
+          se[i / 2] += e;
+          st[i / 2] += __fmul_rn(da[4 * j + i], e);
+        }
+    }
+    float r[2], c[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      se[h] += __shfl_xor_sync(0xffffffffu, se[h], 1);
+      se[h] += __shfl_xor_sync(0xffffffffu, se[h], 2);
+      st[h] += __shfl_xor_sync(0xffffffffu, st[h], 1);
+      st[h] += __shfl_xor_sync(0xffffffffu, st[h], 2);
+      r[h] = 1.f / se[h];
+      c[h] = r[h] * st[h];
+    }
+    float dq[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < tiles; ++kb) {
+      head_scores(s, da, qa, ks_s + kb * kAwTileBytes, doa, vs_s + kb * kAwTileBytes);
+      unsigned p[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          // fragment register u of k-step k: columns 16k + 8(u / 2) + 2q, + 1 of row ra + 8(u % 2)
+          const int j = 2 * k + u / 2, h = u % 2;
+          float ds[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int key = kb * kAwTile + 8 * j + 2 * q + i;
+            const float e = score_exp(s[4 * j + 2 * h + i], key < L);
+            ds[i] = __fsub_rn(__fmul_rn(da[4 * j + 2 * h + i], e), __fmul_rn(c[h], e));
+          }
+          p[k][u] = pack_bf16x2(ds[0], ds[1]);
+        }
+      rt::wgmma_fence();
+      head_rows(dq, p, ks_s + kb * kAwTileBytes);
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+    }
+    rt::fence_acc(dq);
+    // dq rows ra (+ 8) of the tile: scale, store; r, c and phase 2's operands
+    float csum[4][2] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row_i = qt * kAwTile + ra + 8 * h;
+      if (row_i >= L) continue;
+      const long long row = row_base + row_i * sr.step;
+      const float rs = r[h] * kAttnScale;
+      const float rb = round_bf16(r[h]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 8 * j + 2 * q;
+        const float v0 = dq[4 * j + 2 * h] * rs, v1 = dq[4 * j + 2 * h + 1] * rs;
+        csum[j][0] += v0;
+        csum[j][1] += v1;
+        store2(dqkv16 + row * kQkv + hq + col, v0, v1);
+        const uint32_t o = head_off(row_i, col);
+        const float2 qv = load2(reinterpret_cast<const bf16*>(qs + o));
+        store2(reinterpret_cast<bf16*>(rqs + o), rb * qv.x, rb * qv.y);
+        const float2 dv = *reinterpret_cast<const float2*>(datt + row * kDim + hq + col);
+        store2(reinterpret_cast<bf16*>(rdos + o), r[h] * dv.x, r[h] * dv.y);
+      }
+      if (q == 0) cs[row_i] = c[h];
+    }
+    add_col_sums(csum, red + (warp * 3 + 0) * kDimHead, lane);
+  }
+  rt::fence_proxy_async();  // bf16(bf16(r) q) and bf16(r do), read by wgmma
+  __syncthreads();
+
+  // phase 2: a warpgroup's 64-key tiles
+  for (int kt = wg; kt < tiles; kt += rt::kConsumers) {
+    const uint32_t ka = ks_s + kt * kAwTileBytes, va = vs_s + kt * kAwTileBytes;
+    float dk[16], dv[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll 1
+    for (int qb = 0; qb < tiles; ++qb) {
+      // rows: keys of this tile; columns: queries
+      head_scores(s, da, ka, qs_s + qb * kAwTileBytes, va, dos_s + qb * kAwTileBytes);
+      unsigned pe[4][4], pd[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = 2 * k + u / 2, h = u % 2;
+          float e[2], ds[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int query = qb * kAwTile + 8 * j + 2 * q + i;
+            // past L: e = 0 and c = 0, so ds = 0
+            e[i] = score_exp(s[4 * j + 2 * h + i], query < L);
+            ds[i] = __fsub_rn(__fmul_rn(da[4 * j + 2 * h + i], e[i]), __fmul_rn(cs[query], e[i]));
+          }
+          pe[k][u] = pack_bf16x2(e[0], e[1]);
+          pd[k][u] = pack_bf16x2(ds[0], ds[1]);
+        }
+      rt::wgmma_fence();
+      head_rows(dv, pe, rdos_s + qb * kAwTileBytes);
+      head_rows(dk, pd, rqs_s + qb * kAwTileBytes);
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+    }
+    rt::fence_acc(dk);
+    rt::fence_acc(dv);
+    float sk[4][2] = {}, sv[4][2] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row_j = kt * kAwTile + ra + 8 * h;
+      if (row_j >= L) continue;
+      const long long row = row_base + row_j * sr.step;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 8 * j + 2 * q;
+        const float k0 = dk[4 * j + 2 * h] * kAttnScale, k1 = dk[4 * j + 2 * h + 1] * kAttnScale;
+        const float v0 = dv[4 * j + 2 * h], v1 = dv[4 * j + 2 * h + 1];
+        sk[j][0] += k0;
+        sk[j][1] += k1;
+        sv[j][0] += v0;
+        sv[j][1] += v1;
+        store2(dqkv16 + row * kQkv + kDim + hq + col, k0, k1);
+        store2(dqkv16 + row * kQkv + 2 * kDim + hq + col, v0, v1);
+      }
+    }
+    add_col_sums(sk, red + (warp * 3 + 1) * kDimHead, lane);
+    add_col_sums(sv, red + (warp * 3 + 2) * kDimHead, lane);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * kDimHead; i += kAwThreads) {
+    float t = 0.f;
+    for (int w = 0; w < kAwWarps; ++w) t += red[w * 3 * kDimHead + i];
+    const int which = i / kDimHead;  // 0: q, 1: k, 2: v
+    part[size_t(seq) * kQkv + which * kDim + hq + i % kDimHead] = t;
+  }
+}
+
+// The workspace, carved in this order, each region 256-byte aligned (TMA
+// maps take 16). The column partials hold, in turn, db1's (per warp of a
+// row tile), LN_2's (per row tile), db_qkv's (per sequence) and LN_1's (per
+// row tile).
 struct Workspace {
   bf16 *y, *y2, *qkv, *hg, *dh, *dx1b, *dqkvb;
   float *dx1, *datt, *part, *colpart;
@@ -1033,8 +1522,9 @@ struct Workspace {
 size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
 size_t col_part_floats(size_t rows, size_t n_seq) {
-  const size_t mlp = (rows + kMlpBM - 1) / kMlpBM * kMlp;
-  const size_t ln = (rows + kLnBM - 1) / kLnBM * 4 * kDim;
+  const size_t tiles = (rows + rt::kTileRows - 1) / rt::kTileRows;
+  const size_t mlp = tiles * kMlpPartRows * kMlp;
+  const size_t ln = tiles * 4 * kDim;
   return std::max(std::max(mlp, ln), n_seq * kQkv);
 }
 
@@ -1068,6 +1558,30 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The TMA maps of one call: the row operands in boxes of 64 rows x 64
+// columns (read K-major as A, or M- and N-major by the weight gradients),
+// and W_qkv and W_proj in 256 x 64 boxes (read K-major as W^T); W1's tall
+// and W2's boxes are the forward's (sb::Maps).
+struct RowMaps {
+  CUtensorMap y, y2, att, dout, hg, dh, dx1b, dqkvb, w_qkv_t, w_proj_t;
+};
+
+cudaError_t make_row_maps(RowMaps* m, const Workspace& ws, const bf16* att, const bf16* dout,
+                          const bf16* w, int rows) {
+  const int box = rt::kBox;
+  cudaError_t err = tile_map(&m->y, ws.y, rows, kDim, box);
+  if (err == cudaSuccess) err = tile_map(&m->y2, ws.y2, rows, kDim, box);
+  if (err == cudaSuccess) err = tile_map(&m->att, att, rows, kDim, box);
+  if (err == cudaSuccess) err = tile_map(&m->dout, dout, rows, kDim, box);
+  if (err == cudaSuccess) err = tile_map(&m->hg, ws.hg, rows, kMlp, box);
+  if (err == cudaSuccess) err = tile_map(&m->dh, ws.dh, rows, kMlp, box);
+  if (err == cudaSuccess) err = tile_map(&m->dx1b, ws.dx1b, rows, kDim, box);
+  if (err == cudaSuccess) err = tile_map(&m->dqkvb, ws.dqkvb, rows, kQkv, box);
+  if (err == cudaSuccess) err = tile_map(&m->w_qkv_t, w + kOffWQkv, kDim, kQkv, kDim);
+  if (err == cudaSuccess) err = tile_map(&m->w_proj_t, w + kOffWProj, kDim, kDim, kDim);
+  return err;
+}
+
 }  // namespace
 
 #define POSE3D_TRY(call)                  \
@@ -1086,7 +1600,8 @@ extern "C" long long stblock_train_bwd_workspace(int n_rows, int L) {
 // x, x1, att, dout, dx: (rows, 256) bf16, the same bytes as the spatial
 // rows or the (n_clips, T, 17 * 256) slab; weights: block_elems bf16 in the
 // layout above; dw: block_elems f32, every gradient in the weights' layout;
-// workspace: stblock_train_bwd_workspace(rows, L) bytes, 256-byte aligned.
+// workspace: stblock_train_bwd_workspace(rows, L) bytes, 256-byte aligned;
+// every pointer on a 16-byte boundary (TMA's rule).
 // layout = 0 (kSpatial): the spatial half, n_outer frames of L = 17
 // joints; 1 (kSlab): the slab, n_outer clips of L frames; 2 (kSequences):
 // n_outer joint-major sequences of L rows, (n_outer, L, 256). block_elems
@@ -1104,8 +1619,7 @@ extern "C" cudaError_t stblock_train_bwd_launch(const void* x, const void* x1, c
   const int per_outer = layout == kSlab ? kJoints : 1;  // sequences per n_outer
   if (n_outer < 0 || L < 1 || block_elems != kBlockElems || layout < kSpatial ||
       layout > kSequences || (layout == kSpatial && L != kJoints) ||
-      static_cast<long long>(n_outer) * L * per_outer > (1 << 26) ||
-      attn_bwd_smem(L) > size_t(kSmemLimit) || L > kBwdMaxLen)
+      static_cast<long long>(n_outer) * L * per_outer > (1 << 26) || L > kBwdMaxLen)
     return cudaErrorInvalidValue;
   const int rows = n_outer * L * per_outer;
   if (rows == 0) return cudaSuccess;
@@ -1113,64 +1627,74 @@ extern "C" cudaError_t stblock_train_bwd_launch(const void* x, const void* x1, c
   const auto s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* x1b = static_cast<const bf16*>(x1);
-  const bf16* attb = static_cast<const bf16*>(att);
   const bf16* doutb = static_cast<const bf16*>(dout);
   const bf16* w = static_cast<const bf16*>(weights);
   float* g = static_cast<float*>(dw);
   Workspace ws;
   carve(&ws, static_cast<unsigned char*>(workspace), rows, n_seq);
+  sb::Maps fm;  // the forward's: W_qkv, the qkv scratch, W1 (tall), W2
+  RowMaps m;
+  POSE3D_TRY(sb::make_maps<Traits>(&fm, w, ws.qkv, rows));
+  POSE3D_TRY(make_row_maps(&m, ws, static_cast<const bf16*>(att), doutb, w, rows));
   const int row_blocks = (rows + kRowWarps - 1) / kRowWarps;
-  const int ln_tiles = (rows + kLnBM - 1) / kLnBM;
+  const int tiles = sb::n_tiles(rows);
+  int grid = 0;
+  POSE3D_TRY(persistent_grid(tiles, &grid));
 
-  // recompute: y, y2, qkv
+  // recompute: y and y2 (the weight gradients read them), qkv (the
+  // forward's launch: LN_1 again, the product and the bias)
   ln_rows_kernel<<<row_blocks, kRowWarps * 32, 0, s>>>(xb, w + kOffLn1G, w + kOffLn1B, ws.y, rows);
   POSE3D_TRY(cudaGetLastError());
   ln_rows_kernel<<<row_blocks, kRowWarps * 32, 0, s>>>(x1b, w + kOffLn2G, w + kOffLn2B, ws.y2,
                                                        rows);
   POSE3D_TRY(cudaGetLastError());
-  POSE3D_TRY((gemm<false, false, kEpiBiasBf16>(
-      {ws.y, w + kOffWQkv, rows, kQkv, kDim, kDim, kQkv, kDim, nullptr, ws.qkv, kQkv, 0,
-       w + kOffBQkv}, 1, s)));
+  POSE3D_TRY((sb::launch_qkv<Traits, false>(fm, xb, w, nullptr, nullptr, rows, s)));
 
   // MLP half: hg and dh with db1's partials, then dy2 = dh W1^T with LN_2's
   // backward: dx1 (f32 and bf16); dbp, dg2, db2, db2f
   POSE3D_TRY(set_smem(mlp_bwd_kernel, kMlpSmem));
-  const int mlp_tiles = (rows + kMlpBM - 1) / kMlpBM;
-  mlp_bwd_kernel<<<mlp_tiles, kMlpThreads, kMlpSmem, s>>>(
-      ws.y2, doutb, w + kOffW1, w + kOffB1, w + kOffW2, ws.hg, ws.dh, ws.colpart, rows);
+  mlp_bwd_kernel<<<grid, kMlpThreads, kMlpSmem, s>>>(m.y2, m.dout, fm.w1, fm.w2, w + kOffB1,
+                                                      ws.hg, ws.dh, ws.colpart, rows);
   POSE3D_TRY(cudaGetLastError());
-  POSE3D_TRY(sum_slices(ws.colpart, mlp_tiles, kMlp, kMlp, g + kOffB1, s));
-  POSE3D_TRY(set_smem(ln_gemm_kernel<true>, kLnSmemAll));
-  ln_gemm_kernel<true><<<ln_tiles, kLnThreads, kLnSmemAll, s>>>(
-      ws.dh, w + kOffW1, kMlp, x1b, w + kOffLn2G, doutb, ws.dx1, ws.dx1b, ws.colpart, rows);
+  POSE3D_TRY(sum_slices(ws.colpart, tiles * kMlpPartRows, kMlp, kMlp, g + kOffB1, s));
+  POSE3D_TRY(set_smem(ln_gemm_kernel<true>, kLnSmem));
+  ln_gemm_kernel<true><<<grid, rt::kThreads, kLnSmem, s>>>(
+      m.dh, fm.w1, kMlp, x1b, w + kOffLn2G, doutb, ws.dx1, ws.dx1b, ws.colpart, rows);
   POSE3D_TRY(cudaGetLastError());
-  POSE3D_TRY(sum_slices(ws.colpart, ln_tiles, 4 * kDim, 3 * kDim, g + kOffBProj, s));
-  POSE3D_TRY(sum_slices(ws.colpart + 3 * kDim, ln_tiles, 4 * kDim, kDim, g + kOffB2, s));
-  POSE3D_TRY(weight_grad(ws.hg, kMlp, doutb, kDim, rows, ws.part, g + kOffW2, s));
-  POSE3D_TRY(weight_grad(ws.y2, kDim, ws.dh, kMlp, rows, ws.part, g + kOffW1, s));
-  POSE3D_TRY(weight_grad(attb, kDim, ws.dx1b, kDim, rows, ws.part, g + kOffWProj, s));
+  POSE3D_TRY(sum_slices(ws.colpart, tiles, 4 * kDim, 3 * kDim, g + kOffBProj, s));
+  POSE3D_TRY(sum_slices(ws.colpart + 3 * kDim, tiles, 4 * kDim, kDim, g + kOffB2, s));
+  POSE3D_TRY(weight_grad(m.hg, kMlp, m.dout, kDim, rows, ws.part, g + kOffW2, s));
+  POSE3D_TRY(weight_grad(m.y2, kDim, m.dh, kMlp, rows, ws.part, g + kOffW1, s));
+  POSE3D_TRY(weight_grad(m.att, kDim, m.dx1b, kDim, rows, ws.part, g + kOffWProj, s));
 
-  // attention half
-  POSE3D_TRY((gemm<false, true, kEpiF32>(  // datt = bf16(dx1) Wp^T
-      {ws.dx1b, w + kOffWProj, rows, kDim, kDim, kDim, kDim, kDim, ws.datt, nullptr, kDim, 0,
-       nullptr}, 1, s)));
+  // attention half: datt = bf16(dx1) Wp^T
+  POSE3D_TRY((gemm<false, false>(
+      m.dx1b, m.w_proj_t, GemmArgs{1, tiles, 1, kDim / rt::kBox, kDim / rt::kBox, rows, ws.datt,
+                                   kDim, 0}, s)));
   // sequence s, token t: row (s / inner_n) outer + (s % inner_n) inner + t step
   const SeqRows sr = layout == kSlab
                          ? SeqRows{static_cast<long long>(L) * kJoints, 1, kJoints, kJoints}
                          : SeqRows{L, 0, 1, 1};
-  const size_t smem = attn_bwd_smem(L);
-  POSE3D_TRY(set_smem(attention_bwd_kernel, smem));
-  const int warps = min(kBwdWarps, (L + 15) / 16);  // one 16-row tile per warp and pass
-  attention_bwd_kernel<<<dim3(n_seq, kHeads), warps * 32, smem, s>>>(
-      ws.qkv, ws.datt, ws.dqkvb, ws.colpart, L, sr);
+  if (L >= kAwMinLen) {
+    const size_t smem = attn_bwd_wg_smem(L);
+    POSE3D_TRY(set_smem(attention_bwd_wg_kernel, smem));
+    attention_bwd_wg_kernel<<<dim3(n_seq, kHeads), kAwThreads, smem, s>>>(
+        ws.qkv, ws.datt, ws.dqkvb, ws.colpart, L, sr);
+  } else {
+    const size_t smem = attn_bwd_smem(L);
+    POSE3D_TRY(set_smem(attention_bwd_kernel, smem));
+    const int warps = min(kBwdWarps, (L + 15) / 16);  // one 16-row tile per warp and pass
+    attention_bwd_kernel<<<dim3(n_seq, kHeads), warps * 32, smem, s>>>(
+        ws.qkv, ws.datt, ws.dqkvb, ws.colpart, L, sr);
+  }
   POSE3D_TRY(cudaGetLastError());
   POSE3D_TRY(sum_slices(ws.colpart, n_seq, kQkv, kQkv, g + kOffBQkv, s));
-  POSE3D_TRY(weight_grad(ws.y, kDim, ws.dqkvb, kQkv, rows, ws.part, g + kOffWQkv, s));
+  POSE3D_TRY(weight_grad(m.y, kDim, m.dqkvb, kQkv, rows, ws.part, g + kOffWQkv, s));
   // dy = bf16(dqkv) W_qkv^T with LN_1's backward: dx; dg1, db1
-  POSE3D_TRY(set_smem(ln_gemm_kernel<false>, kLnSmemAll));
-  ln_gemm_kernel<false><<<ln_tiles, kLnThreads, kLnSmemAll, s>>>(
-      ws.dqkvb, w + kOffWQkv, kQkv, xb, w + kOffLn1G, ws.dx1, nullptr, static_cast<bf16*>(dx),
+  POSE3D_TRY(set_smem(ln_gemm_kernel<false>, kLnSmem));
+  ln_gemm_kernel<false><<<grid, rt::kThreads, kLnSmem, s>>>(
+      m.dqkvb, m.w_qkv_t, kQkv, xb, w + kOffLn1G, ws.dx1, nullptr, static_cast<bf16*>(dx),
       ws.colpart, rows);
   POSE3D_TRY(cudaGetLastError());
-  return sum_slices(ws.colpart, ln_tiles, 2 * kDim, 2 * kDim, g + kOffLn1G, s);
+  return sum_slices(ws.colpart, tiles, 2 * kDim, 2 * kDim, g + kOffLn1G, s);
 }

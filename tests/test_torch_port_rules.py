@@ -206,8 +206,10 @@ REDESIGNED = {
                      "Q never enters shared memory", "cp.async"),
     "stblock_train.cu": ("pallas_stblock_train.py", "_spatial_bwd_kernel",
                          "_temporal_bwd_kernel", "_temporal_slab_bwd_kernel",
-                         "What bounds it on this card", "0.313", "2.22 GB", "3.57 GB",
-                         "registers or shared memory"),
+                         "What bounds it on this card", "0.313", "2.25 GB", "2.27 GB",
+                         "3.57 GB", "registers or shared memory", "wgmma", "TMA",
+                         "mbarrier ring", "transpose flag", "persistent", "kWgradItems",
+                         "mma.sync", "two CTAs share an SM", "No atomics"),
     "lifter_trunk.cu": ("pallas_lifter.py", "_trunk_kernel", "What bounds it on this card",
                         "438 GFLOP", "0.443 ms", "6.44 GB", "1.9 GB", "double LN",
                         "subblock_sm90.cuh", "rowtile_sm90.cuh", "persistent grid"),
@@ -241,6 +243,22 @@ def test_redesigned_kernel_keeps_its_header_note(name):
     assert "Replaces" in header
     for phrase in REDESIGNED[name]:
         assert phrase in header, phrase
+
+
+def test_sub_block_backward_products_run_on_wgmma():
+    """csrc/stblock_train.cu: every product but the attention backward's
+    runs on rowtile_sm90.cuh's wgmma fed by TMA (the recomputed qkv on the
+    forward's qkv_kernel); no cp.async ring or ldmatrix GEMM is left."""
+    src = (PKG / "csrc" / "stblock_train.cu").read_text()
+    assert '#include "subblock_sm90.cuh"' in src
+    for used in ("rt::wgmma_m64n256<", "rt::wgmma_m64n64<0, 0>", "rt::tma_load(",
+                 "rt::Ring<", "sb::launch_qkv<", "kWgradItems"):
+        assert used in src, used
+    for gone in ("cp_async", "load_stage", "kTargetCtas"):
+        assert gone not in src, gone
+    # mma.sync stays in the attention backward only
+    body = src[src.index("-- attention backward"):]
+    assert src.count("mma_bf16(") == body.count("mma_bf16(")
 
 
 def test_rowtile_engine_header():

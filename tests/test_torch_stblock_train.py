@@ -386,9 +386,9 @@ class TestTrainKernels:
     5e-2, checked by chip_smoke.py) cover that."""
 
     @staticmethod
-    def _setup(clips, half, seed=0):
+    def _setup(clips, half, seed=0, clip_len=243):
         dev = cuda_device()
-        model = TemporalLifter(n_blocks=1, device="cpu").init_weights(
+        model = TemporalLifter(clip_len=clip_len, n_blocks=1, device="cpu").init_weights(
             torch.Generator().manual_seed(seed)).to(dev)
         gen = torch.Generator().manual_seed(seed + 1)
         kp = torch.rand(clips, model.clip_len, 17, 2, generator=gen).to(dev)
@@ -427,23 +427,29 @@ class TestTrainKernels:
             a, b = a.float().cpu(), b.float().cpu()
             assert ((a - b).abs() - (5e-2 + 2 ** -5 * b.abs())).max() <= 0
 
-    @pytest.mark.parametrize("clips", [1, 2])
+    # 243 frames as served; 3 x 81: 4,131 rows, a ragged last 128-row tile and
+    # a ragged last 64-row chunk of the weight gradients' K slices; sequences
+    # of L = 17 and of the longest, 256
+    @pytest.mark.parametrize("clips,clip_len", [(1, 243), (2, 243), (3, 81), (2, 17), (1, 256)])
     @pytest.mark.parametrize("half", ["spatial", "temporal", "sequences"])
-    def test_backward_matches_plain_and_is_deterministic(self, half, clips):
-        x, g, w = self._setup(clips, half)
+    def test_backward_matches_plain_and_is_deterministic(self, half, clips, clip_len):
+        x, g, w = self._setup(clips, half, clip_len=clip_len)
         _, bwd, fref, bref = self._fns(half)
+        before = bwd.launches
         with torch.no_grad():
             _, x1, att = fref(x, w)
             dx, dw = bwd(x, x1, att, g, w)
             dx2, dw2 = bwd(x, x1, att, g, w)
             want = bref(x, x1, att, g, w)
         torch.cuda.synchronize()
+        assert bwd.launches == before + 2
         assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
         parts = [("dx", dx, want[0])] + [
             (k, _split(dw.cpu().numpy())[k], _split(want[1].cpu().numpy())[k])
             for k in GRADS[1:]]
         for name, a, b in parts:
             a, b = torch.as_tensor(a).float().cpu(), torch.as_tensor(b).float().cpu()
+            assert torch.isfinite(a).all(), name
             tol = 2 ** -7 * b.abs().max() + 2 ** -7 * b.abs()
             assert ((a - b).abs() - tol).max() <= 0, name
 
