@@ -45,10 +45,14 @@ heads x 32, MLP 1024, 5 blocks, clips of 243 frames, bf16):
    ``spatial_block_reference`` / ``temporal_slab_reference`` at C = 2 and
    C = 16 clips, on the embedded tokens of seeded clips (rows: 5e-2 +
    2^-5 |want| and the f32-yardstick ratio 1.5, as for the trunk);
-   clip and frame isolation; the attention kernel through both wrappers
-   (``packed_flat_attention`` at seq 17 and 40, ``seq_attention`` at L =
-   100 and 243, 8 heads x 32 and the other head widths) within 2^-6 +
-   2^-7 |want| and the f32-yardstick ratio 1.5;
+   clip and frame isolation; the attention kernels through both wrappers
+   (``packed_flat_attention`` at seq 17, 40 and 64 on ``attention_kernel``,
+   ``seq_attention`` on ``attention_wg_kernel`` at L = 100 and 243 and at
+   its tile edges 65, 128, 129, 256 and 257, 8 heads x 32 and the other
+   head widths, and at the longest L of each head width) within 2^-6 +
+   2^-7 |want| and the f32-yardstick ratio 1.5; two calls bitwise equal at
+   L = 243 in the contiguous, the slab and the joint-major layouts (the
+   training forwards' att), the last two bitwise equal on the same tokens;
 7. ``lift_sequence`` on videos of 600 frames (the fused route: one
    spatial and one temporal sub-block launch per block), 100 frames (the
    module route: packed attention for the joints, per-sequence attention
@@ -922,8 +926,16 @@ def sub_block_phase(model) -> dict:
     return errs
 
 
-def attention_phase() -> dict:
-    """The attention kernel through both wrappers vs the plain versions."""
+# the wgmma attention's edges (L > A.SPLIT_LEN): one row past the split,
+# whole and ragged 128-row query and key tiles; and, at 2 sequences, the
+# longest L check_length lets each head width have
+WG_LENGTHS = (65, 128, 129, 256, 257)
+LONGEST = ((4, 16, 2416), (8, 32, 1440), (4, 64, 800))
+
+
+def attention_phase(model) -> dict:
+    """The attention kernels through both wrappers vs the plain versions,
+    and bitwise repeats at L = 243 in the contiguous and the slab layout."""
     gen = torch.Generator().manual_seed(SEED + 6)
     frames = CLIPS * 243
     cases = [  # (wrapper, sequences, length, heads, dh): the main path's shapes
@@ -932,11 +944,15 @@ def attention_phase() -> dict:
         ("packed_flat_attention", frames, 17, 4, 64),
         ("packed_flat_attention", CLIPS * 17, 40, 4, 16),
         ("packed_flat_attention", CLIPS * 17, 5, 2, 32),
+        ("packed_flat_attention", CLIPS * 17, A.SPLIT_LEN, 8, 32),
         ("seq_attention", CLIPS * 17, 100, 8, 32),        # temporal halves, 100 frames
         ("seq_attention", CLIPS * 17, 243, 8, 32),
         ("seq_attention", CLIPS * 17, 243, 4, 64),
         ("seq_attention", CLIPS * 17, 100, 4, 16),
     ]
+    cases += [("seq_attention", CLIPS * 17, length, heads, dh) for length in WG_LENGTHS
+              for heads, dh in ((8, 32), (4, 16), (4, 64))]
+    cases += [("seq_attention", 2, length, heads, dh) for heads, dh, length in LONGEST]
     errs = {"packed_flat_attention": 0.0, "seq_attention": 0.0}
     for name, n, length, heads, dh in cases:
         qkv = torch.randn(n, length, 3 * heads * dh, generator=gen).to("cuda", torch.bfloat16)
@@ -951,6 +967,21 @@ def attention_phase() -> dict:
             ref32 = A.seq_attention_reference(qkv.float(), heads)
         err = _attn_check(f"{name} {n} x {length}, {heads} x {dh}", got, want, ref32)
         errs[name] = max(errs[name], err)
+    qkv = torch.randn(CLIPS * 17, 243, 768, generator=gen).to("cuda", torch.bfloat16)
+    w = S.pack_temporal_weights(model.blocks[0])
+    slab = S.embed_clips(model, seeded_clips(CLIPS, model, SEED + 120)).view(CLIPS, 243, -1)
+    seqs = S.joint_major(slab.reshape(-1, 256), CLIPS)
+    first = (A.seq_attention(qkv, 8), ST.slab_fwd(slab, w)[2], ST.sequences_fwd(seqs, w)[2])
+    again = (A.seq_attention(qkv, 8), ST.slab_fwd(slab, w)[2], ST.sequences_fwd(seqs, w)[2])
+    torch.cuda.synchronize()
+    for what, a, b in zip(("seq_attention", "the slab's attention", "the joint-major "
+                           "attention"), first, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} at L = 243: two calls differ")
+    if not torch.equal(S.joint_major(first[1].reshape(-1, 256), CLIPS), first[2]):
+        raise AssertionError("the slab's and the joint-major attention differ on the same tokens")
+    log("attention at L = 243: two calls bitwise equal in the contiguous, slab and joint-major "
+        "layouts; slab and joint-major bitwise equal on the same tokens")
     return errs
 
 
@@ -4611,8 +4642,8 @@ def flash_bounds(n_seq: int, length: int, dh: int, clock: float) -> dict:
 def kernel_bounds(model_vit, model_t, model_m, model_d, long_clock: float) -> dict:
     """Each kernel's bound at the shapes it is timed at: its matrix-product
     flops, and its bytes with each input read once and each output written
-    once (weights included); the flash kernels' at the long-clip path's
-    shape with their exponentials too (``flash_bounds``)."""
+    once (weights included); rows 3 and 4 and the flash kernels (at the
+    long-clip path's shape, ``flash_bounds``) with their exponentials too."""
     b2 = 2  # bytes of a bf16 element
     d = 256
     dense = 2 * d * (3 * d + d + 4 * d + 4 * d)  # qkv, proj, W1, W2 flops per row
@@ -4626,8 +4657,14 @@ def kernel_bounds(model_vit, model_t, model_m, model_d, long_clock: float) -> di
     att_temporal = CLIPS * 17 * 8 * t * t * 32 * 4
     spatial = bound(rows * dense + att_spatial, 2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
     temporal = bound(rows * dense + att_temporal, 2 * rows * d * b2 + S.BLOCK_ELEMS * b2)
-    packed = bound(att_spatial, rows * 4 * d * b2)
-    seq = bound(att_temporal, rows * 4 * d * b2)
+    # rows 3 and 4 also take one exponential a score (L^2 a head) on the
+    # SFUs, SFU_EXP_PER_CLOCK a clock at ``long_clock`` Hz (flash_bounds)
+    def with_exps(b, scores):
+        t_exp = scores / (SFU_EXP_PER_CLOCK * long_clock) * 1e3
+        return (t_exp, "operations") if t_exp > b[0] else b
+
+    packed = with_exps(bound(att_spatial, rows * 4 * d * b2), CLIPS * t * 8 * 17 * 17)
+    seq = with_exps(bound(att_temporal, rows * 4 * d * b2), CLIPS * 17 * 8 * t * t)
     f = model_m.hidden
     martinez = bound(4 * TOP * f * f,  # two (TOP, f) x (f, f) products
                      2 * TOP * f * b2 + 2 * f * f * b2 + 4 * f * 4)  # x, out; W1, W2; s, b
@@ -4669,7 +4706,8 @@ def kernel_bounds(model_vit, model_t, model_m, model_d, long_clock: float) -> di
                                    bwd_bytes),
             "soft_argmax_nhwc_bwd": soft_bwd, "conv_decode_bwd": decode_bwd,
             "lifter_trunk": trunk, "spatial_block": spatial, "temporal_slab": temporal,
-            "packed_flat_attention": packed, "seq_attention": seq, "martinez_block": martinez,
+            "packed_flat_attention": packed, "attention_wg_kernel": seq,
+            "martinez_block": martinez,
             "spatial_fwd": bound(rows * dense + att_spatial, fwd_bytes),
             "slab_fwd": bound(rows * dense + att_temporal, fwd_bytes),
             "spatial_bwd": bound(rows * (recompute + 2 * dense) + 2.5 * att_spatial, bwd_bytes),
@@ -4690,7 +4728,7 @@ def main() -> None:
         t["trunk_matmuls"] = trunk_split_phase(model)
 
         tmodel = seeded_temporal("cuda", torch.bfloat16)
-        errs = {**sub_block_phase(tmodel), **attention_phase()}
+        errs = {**sub_block_phase(tmodel), **attention_phase(tmodel)}
         tlaunches = lift_phase(tmodel, seeded_temporal("cuda", torch.float32))
         tt = temporal_timing_phase(tmodel)
 
@@ -4770,7 +4808,8 @@ def main() -> None:
                "pose3d_tpu/ops/pallas_attention.py:393", tlaunches["packed_flat_attention"],
                errs["packed_flat_attention"], tt["packed_flat_attention"],
                tt["packed_flat_attention_plain"], tt["packed_flat_attention_sdpa"]),
-        record("seq_attention", f"{csrc}/attention.cu",
+        # seq_attention's L = 243 launches, all on the kernel for L > A.SPLIT_LEN
+        record("attention_wg_kernel", f"{csrc}/attention.cu",
                "pose3d_tpu/ops/pallas_attention.py:447", tlaunches["seq_attention"],
                errs["seq_attention"], tt["seq_attention"], tt["seq_attention_plain"],
                tt["seq_attention_sdpa"]),

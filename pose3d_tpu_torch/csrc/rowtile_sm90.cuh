@@ -178,6 +178,17 @@ __device__ __forceinline__ void tma_store3(const CUtensorMap* map, uint32_t src,
       : "memory");
 }
 
+// Box (col, row, p, q) of a rank-4 map into shared memory at dst; rows
+// past the map's end arrive as zeros (and count their bytes).
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int col, int row, int p, int q) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(p), "r"(q)
+      : "memory");
+}
+
 // Shared memory at src (128-byte-swizzled rows, as the map's box) to box
 // (col, row) of `map`; rows past the map's end are not written. One
 // thread issues it; cp.async.bulk groups track it.

@@ -108,6 +108,7 @@
 
 #include <algorithm>
 
+#include "attention_sm90.cuh"
 #include "subblock_sm90.cuh"
 
 namespace {
@@ -1208,9 +1209,9 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dat
 // them. One CTA per (sequence, head), two warpgroups, ~101 KB of shared
 // memory at L = 256, at most 128 registers a thread: two CTAs share an SM.
 // Q, K, V and bf16(do) of the head are stored in 64-byte rows in the
-// 64-byte swizzle that the wgmma descriptors name (head_desc), each buffer
-// padded with zero rows to whole 64-row tiles. The arithmetic and its
-// rounding points are attention_bwd_kernel's:
+// 64-byte swizzle that the wgmma descriptors name (attention_sm90.cuh's
+// head_desc), each buffer padded with zero rows to whole 64-row tiles.
+// The arithmetic and its rounding points are attention_bwd_kernel's:
 // - phase 1, query-major, a warpgroup's 64-query tile at a time: S = Q K^T
 //   and dA = dO V^T against each 64-key block (m64n64k16, both operands
 //   K-major from shared memory), e = exp(min(s scale, 80)) (0 past L), the
@@ -1240,41 +1241,13 @@ static_assert(2 * (1024 + kBwdMaxLen * (6 * kHeadRow + 4) + kAwWarps * 3 * kDimH
                   228 * 1024,
               "two CTAs of the longest sequence share an SM");
 
-// A wgmma descriptor of a tile of 64-byte head rows at addr in the 64-byte
-// swizzle (layout type 2): 8-row groups 512 bytes apart (SBO), LBO unused.
-// K-major (rows are M or N), a k-step of 16 columns is 32 bytes on (+2 in
-// the descriptor's 16-byte units); N-major (rows are K), 16 rows on (+64).
-__device__ __forceinline__ uint64_t head_desc(uint32_t addr) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(512 >> 4) << 32) |
-         (2ull << 62);
-}
-
-// Byte offset of element (r, c) of such a tile: the 16-byte chunk bits
-// XOR the row-pair bits above them, as TMA's 64-byte swizzle lays them.
-__device__ __forceinline__ uint32_t head_off(int r, int c) {
-  const uint32_t o = uint32_t(r) * kHeadRow + uint32_t(c) * 2;
-  return o ^ ((o >> 3) & 0x30u);
-}
-
-// d += A (64 x 16: this thread's bf16 fragment a, in registers) @ B (16 x
-// 32, shared, N-major: the transpose flag); bf16 in, f32 accumulate.
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const unsigned (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // s = A (64 rows x 32 at a, K-major) @ B^T (64 rows x 32 at b), and da = C
 // (at c) @ D^T (at d): two k-steps each, then waits for them.
 __device__ __forceinline__ void head_scores(float (&s)[32], float (&da)[32], uint32_t a,
                                             uint32_t b, uint32_t c, uint32_t d) {
-  const uint64_t da_ = head_desc(a), db_ = head_desc(b), dc_ = head_desc(c), dd_ = head_desc(d);
+  using attn::head_desc;
+  const uint64_t da_ = head_desc<kDimHead>(a), db_ = head_desc<kDimHead>(b),
+                 dc_ = head_desc<kDimHead>(c), dd_ = head_desc<kDimHead>(d);
   rt::wgmma_fence();
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
@@ -1285,15 +1258,6 @@ __device__ __forceinline__ void head_scores(float (&s)[32], float (&da)[32], uin
   rt::wgmma_wait<0>();
   rt::fence_acc(s);
   rt::fence_acc(da);
-}
-
-// acc += P (64 x 64: fragments p) @ the 64 rows x 32 at b (N-major); issues
-// only.
-__device__ __forceinline__ void head_rows(float (&acc)[16], const unsigned (&p)[4][4],
-                                          uint32_t b) {
-  const uint64_t db = head_desc(b);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) wgmma_rs_n32(acc, p[k], db + 64 * k);
 }
 
 // This warp's column sums of one tile (columns 8j + 2q + i; rows by
@@ -1337,7 +1301,7 @@ attention_bwd_wg_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
   const uint4 zero16 = make_uint4(0, 0, 0, 0);
   for (int i = threadIdx.x; i < rows * (kDimHead / 8); i += kAwThreads) {
     const int r = i / (kDimHead / 8), c = (i % (kDimHead / 8)) * 8;
-    const uint32_t o = head_off(r, c);
+    const uint32_t o = attn::head_offset<kDimHead>(r, c);
     if (r < L) {
       const long long row = row_base + r * sr.step;
       const bf16* src = qkv + row * kQkv + hq + c;
@@ -1410,7 +1374,7 @@ attention_bwd_wg_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
           p[k][u] = pack_bf16x2(ds[0], ds[1]);
         }
       rt::wgmma_fence();
-      head_rows(dq, p, ks_s + kb * kAwTileBytes);
+      attn::issue_rows<kDimHead, kAwTile>(dq, p, ks_s + kb * kAwTileBytes);
       rt::wgmma_commit();
       rt::wgmma_wait<0>();
     }
@@ -1431,7 +1395,7 @@ attention_bwd_wg_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
         csum[j][0] += v0;
         csum[j][1] += v1;
         store2(dqkv16 + row * kQkv + hq + col, v0, v1);
-        const uint32_t o = head_off(row_i, col);
+        const uint32_t o = attn::head_offset<kDimHead>(row_i, col);
         const float2 qv = load2(reinterpret_cast<const bf16*>(qs + o));
         store2(reinterpret_cast<bf16*>(rqs + o), rb * qv.x, rb * qv.y);
         const float2 dv = *reinterpret_cast<const float2*>(datt + row * kDim + hq + col);
@@ -1472,8 +1436,8 @@ attention_bwd_wg_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
           pd[k][u] = pack_bf16x2(ds[0], ds[1]);
         }
       rt::wgmma_fence();
-      head_rows(dv, pe, rdos_s + qb * kAwTileBytes);
-      head_rows(dk, pd, rqs_s + qb * kAwTileBytes);
+      attn::issue_rows<kDimHead, kAwTile>(dv, pe, rdos_s + qb * kAwTileBytes);
+      attn::issue_rows<kDimHead, kAwTile>(dk, pd, rqs_s + qb * kAwTileBytes);
       rt::wgmma_commit();
       rt::wgmma_wait<0>();
     }

@@ -7,9 +7,10 @@
 - ``seq_attention(qkv, heads)``: (N, L, 3·dim) -> (N, L, dim), one
   sequence per row of the first axis (the TPU kernel ``_seq_kernel``).
 
-Both launch the CUDA kernel of ``csrc/attention.cu`` when ``qkv`` lies on
-a CUDA device and run their plain versions (``*_reference``) when it lies
-on the CPU. Both are ``torch.autograd.Function``s on either device, as the
+Both launch the CUDA kernels of ``csrc/attention.cu`` when ``qkv`` lies on
+a CUDA device (sequences of at most ``SPLIT_LEN`` rows on
+``attention_kernel``, longer ones on ``attention_wg_kernel``) and run their
+plain versions (``*_reference``) when it lies on the CPU. Both are ``torch.autograd.Function``s on either device, as the
 JAX wrappers are ``custom_vjp``s: the backward recomputes and
 differentiates the standard-softmax formulation (``standard_attention``,
 JAX's ``_xla_attention_flat``), for which JAX has no TPU kernel either.
@@ -29,6 +30,9 @@ from pose3d_tpu_torch.ops import _build
 SCORE_CLAMP = 80.0  # overflow guard in place of the softmax row max
 HEAD_DIMS = (16, 32, 64)  # the head widths the CUDA kernel is built for
 SMEM_LIMIT = 232448  # shared memory one CUDA block may use on Hopper
+# the longest sequence of the mma.sync kernel; longer ones take the wgmma
+# kernel (csrc/attention.cuh kAttnSplitLen)
+SPLIT_LEN = 64
 
 
 def score_exp(s: torch.Tensor) -> torch.Tensor:
@@ -79,9 +83,11 @@ def seq_attention_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def smem_bytes(seq: int, dh: int) -> int:
-    """Shared memory of one CUDA block at sequence length ``seq``: K and V
-    of one head (Q stays in registers), padded to whole 16-row tiles, at a
-    pitch of dh + 8 bf16. ``csrc/attention.cuh`` computes the same."""
+    """Shared memory of one block of the mma.sync kernel at sequence length
+    ``seq``: K and V of one head (Q stays in registers), padded to whole
+    16-row tiles, at a pitch of dh + 8 bf16. ``csrc/attention.cuh``
+    computes the same. The wgmma kernel streams K and V through a ring and
+    needs no more for longer sequences, but takes the same lengths."""
     return 2 * (-(-seq // 16) * 16) * (dh + 8) * 2
 
 

@@ -1,6 +1,7 @@
 """The port's attention wrappers (``pose3d_tpu_torch/ops/attention.py``:
 ``packed_flat_attention``, ``seq_attention``) against the JAX package's
-Pallas kernels in interpret mode, and the CUDA kernel against its plain
+Pallas kernels in interpret mode, and the CUDA kernels (``attention_kernel``
+at L <= SPLIT_LEN, ``attention_wg_kernel`` above it) against their plain
 version on the card.
 
 Tolerances. f32 inputs: 1e-5, the same expression with f32 sums in
@@ -71,7 +72,9 @@ class TestPackedAgainstJax:
 
 
 class TestSeqAgainstJax:
-    @pytest.mark.parametrize("length", [100, 243, 70])
+    # 65 and 257: one row past a 64-row and a 256-row tile of the CUDA
+    # kernel for L > 64
+    @pytest.mark.parametrize("length", [100, 243, 70, 65, 257])
     @pytest.mark.parametrize("heads,dh", HEAD_SHAPES)
     def test_f32_matches_jax_kernel(self, length, heads, dh):
         import jax.numpy as jnp
@@ -171,15 +174,19 @@ class TestAttentionKernel:
                     A.packed_flat_attention_reference(qkv, seq, heads).float().cpu().numpy(),
                     atol=2 ** -6)
 
-    @pytest.mark.parametrize("length", [100, 243])
+    # the wgmma kernel's edges (L > SPLIT_LEN): one row past the split,
+    # whole and ragged 128-row query and key tiles, and the main path's 243
+    @pytest.mark.parametrize("length", [65, 100, 128, 129, 243, 256, 257])
     @pytest.mark.parametrize("heads,dh", [(8, 32), (4, 16), (4, 64)])
     def test_seq_kernel_matches_plain(self, length, heads, dh):
         dev = cuda_device()
         qkv = torch.from_numpy(_qkv((5, length), heads, dh, seed=length)).to(dev, torch.bfloat16)
         before = A.seq_attention.launches
         got = A.seq_attention(qkv, heads)
+        again = A.seq_attention(qkv, heads)
         torch.cuda.synchronize()
-        assert A.seq_attention.launches == before + 1
+        assert A.seq_attention.launches == before + 2
+        assert torch.equal(got, again)
         _bf16_close(got.float().cpu().numpy(),
                     A.seq_attention_reference(qkv, heads).float().cpu().numpy(),
                     atol=2 ** -6)
@@ -194,14 +201,35 @@ class TestAttentionKernel:
         assert torch.equal(base[17:], out[17:])
         assert not torch.equal(base[:17], out[:17])
 
-    def test_seq_kernel_takes_the_longest_sequence(self):
+    # the longest L check_length lets each head width have
+    @pytest.mark.parametrize("heads,dh,limit", [(8, 32, 1440), (4, 16, 2416), (4, 64, 800)])
+    def test_seq_kernel_takes_the_longest_sequence(self, heads, dh, limit):
         dev = cuda_device()
-        qkv = torch.from_numpy(_qkv((2, 1440), 8, 32, seed=3)).to(dev, torch.bfloat16)
-        got = A.seq_attention(qkv, 8)
+        qkv = torch.from_numpy(_qkv((2, limit), heads, dh, seed=3)).to(dev, torch.bfloat16)
+        got = A.seq_attention(qkv, heads)
+        assert torch.equal(got, A.seq_attention(qkv, heads))
         _bf16_close(got.float().cpu().numpy(),
-                    A.seq_attention_reference(qkv, 8).float().cpu().numpy(), atol=2 ** -6)
+                    A.seq_attention_reference(qkv, heads).float().cpu().numpy(), atol=2 ** -6)
         with pytest.raises(ValueError, match="do not fit in shared memory"):
-            A.seq_attention(torch.zeros(1, 1441, 768, device=dev, dtype=torch.bfloat16), 8)
+            A.seq_attention(torch.zeros(1, limit + 1, 3 * heads * dh, device=dev,
+                                        dtype=torch.bfloat16), heads)
+
+    def test_split_between_the_two_kernels(self):
+        """L = SPLIT_LEN and SPLIT_LEN + 1 through both wrappers: the
+        packed form of the same bytes gives the same bits either side of
+        the split, one launch a call."""
+        dev = cuda_device()
+        for length in (A.SPLIT_LEN, A.SPLIT_LEN + 1):
+            qkv = torch.from_numpy(_qkv((7, length), 8, 32, seed=length)).to(dev, torch.bfloat16)
+            before = (A.packed_flat_attention.launches, A.seq_attention.launches)
+            got = A.seq_attention(qkv, 8)
+            flat = A.packed_flat_attention(qkv.view(7 * length, -1), length, 8)
+            torch.cuda.synchronize()
+            assert (A.packed_flat_attention.launches, A.seq_attention.launches) == (
+                before[0] + 1, before[1] + 1)
+            assert torch.equal(flat.view_as(got), got)
+            _bf16_close(got.float().cpu().numpy(),
+                        A.seq_attention_reference(qkv, 8).float().cpu().numpy(), atol=2 ** -6)
 
     def test_kernel_rejects_other_head_widths(self):
         dev = cuda_device()

@@ -337,10 +337,14 @@ def test_flash_kernels_are_wgmma_on_a_tma_ring():
     into an mbarrier ring, and 14b on Q and dO tiles: no mma.sync,
     ldmatrix or cp.async is left in any of them, 14b owns its keys (no
     atomics), and the source note says what bounds them and what the
-    design does."""
+    design does. The head-tile products, descriptors and maps come from
+    attention_sm90.cuh, which the source includes."""
     from pathlib import Path
 
-    src = (Path(F.__file__).parent.parent / "csrc" / "flash_attention.cu").read_text()
+    csrc = Path(F.__file__).parent.parent / "csrc"
+    src = (csrc / "flash_attention.cu").read_text()
+    head = (csrc / "attention_sm90.cuh").read_text()
+    assert '#include "attention_sm90.cuh"' in src
     rule = "// " + "-" * 48
     engine = src[src.index(f"{rule} the query-major"):src.index(f"{rule} 14b: the key-major")]
     dkv = src[src.index(f"{rule} 14b: the key-major"):src.index(f"{rule} host")]
@@ -352,7 +356,9 @@ def test_flash_kernels_are_wgmma_on_a_tma_ring():
         for old in ("mma_bf16(", "ldsm_x4", "cp_async", "__syncthreads();\n    float s", "atomic"):
             assert old not in section, old
     for new in ("wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16",
-                "rt::wgmma_m64n128<0, 0>(", "rt::wgmma_m64n64<0, 0>(", "rt::tma_load3(",
+                "rowtile::wgmma_m64n128<0, 0>(", "rowtile::wgmma_m64n64<0, 0>("):
+        assert new in head, new
+    for new in ("issue_scores<DH, kN>(", "issue_rows<DH, kN>(", "rt::tma_load3(",
                 "ring.acquire()", "ring.claim(", "rt::regs_dec", "rt::regs_inc", "row_dot<DH>"):
         assert new in engine, new
     for new in ("issue_scores<DH, kN>(s, k_a, qd)", "issue_scores<DH, kN>(dp, v_a,",
@@ -361,8 +367,9 @@ def test_flash_kernels_are_wgmma_on_a_tma_ring():
                 "copies_arrive(full)",
                 "ring.release(ring.next - 2)", "rt::regs_dec", "rt::regs_inc"):
         assert new in dkv, new
-    assert "CU_TENSOR_MAP_SWIZZLE_64B" in src and "CU_TENSOR_MAP_SWIZZLE_32B" in src
-    assert "mma_bf16(" not in src and "ldsm_x4" not in src
+    assert "CU_TENSOR_MAP_SWIZZLE_64B" in head and "CU_TENSOR_MAP_SWIZZLE_32B" in head
+    assert "head_box_map<DH>(" in src
+    assert "mma_bf16(" not in src + head and "ldsm_x4" not in src + head
     note = " ".join(line.removeprefix("//").strip()
                     for line in src[:src.index("#include")].splitlines())
     for phrase in ("What bounds them on this card", "0.27 ms", "wgmma", "TMA", "mbarrier",

@@ -203,7 +203,10 @@ REDESIGNED = {
                    "230,448 bytes", "230,464 bytes", "does not fit", "rowtile_sm90.cuh"),
     "attention.cu": ("pallas_attention.py", "_packed_kernel", "_seq_kernel",
                      "What bounds it on this card", "0.040 ms", "101.5 MB",
-                     "Q never enters shared memory", "cp.async"),
+                     "Q never enters shared memory", "cp.async", "kAttnSplitLen",
+                     "64-query wgmma tiles fed by TMA", "persistent CTA", "mbarrier ring",
+                     "3-D map", "4-D map", "Rows past L arrive as zeros", "transpose flag",
+                     "nothing is rescaled", "No atomics", "bitwise equal"),
     "stblock_train.cu": ("pallas_stblock_train.py", "_spatial_bwd_kernel",
                          "_temporal_bwd_kernel", "_temporal_slab_bwd_kernel",
                          "What bounds it on this card", "0.313", "2.25 GB", "2.27 GB",
@@ -244,6 +247,44 @@ def test_redesigned_kernel_keeps_its_header_note(name):
     for phrase in REDESIGNED[name]:
         assert phrase in header, phrase
 
+
+
+def test_long_sequences_take_the_wgmma_attention():
+    """csrc/attention.cu: a sequence longer than the split length takes
+    attention_wg_kernel, wgmma on attention_sm90.cuh's head tiles fed by
+    TMA (3-D and 4-D maps) through rowtile_sm90.cuh's ring, an item's first
+    S issued beside the last item's last P V; mma.sync, ldmatrix and
+    cp.async stay in attention_kernel (L <= the split) alone; the split is
+    one constant, the same in attention.cuh and ops/attention.py; no source
+    keeps a copy of the head-tile descriptors or the ring of its own."""
+    from pose3d_tpu_torch.ops import attention as A
+
+    csrc = PKG / "csrc"
+    src = (csrc / "attention.cu").read_text()
+    assert f"constexpr int kAttnSplitLen = {A.SPLIT_LEN};" in (csrc / "attention.cuh").read_text()
+    assert "if (L > kAttnSplitLen) {" in src and '#include "attention_sm90.cuh"' in src
+    split = src.index("// " + "-" * 48 + " L > kAttnSplitLen")
+    short = src[src.index("#include"):split]
+    wide = src[split:src.index("namespace pose3d {\n\ncudaError_t launch_attention(")]
+    for old in ("mma_bf16(", "ldsm_x4", "cp_async", "ldmatrix", "mma.sync", "__ldg"):
+        assert old not in wide, old
+    for used in ("mma_bf16(", "ldsm_x4_trans(", "cp_async16("):
+        assert used in short, used
+    for used in ("attn::issue_scores<DH, kN>(", "attn::issue_rows<DH, kN>(", "attn::to_frags<kN>(",
+                 "attn::issue_scores<DH, kN>(s, dn, kn);  // the next item's first S",
+                 "rt::tma_load3(", "rt::tma_load4(", "ring.acquire()", "ring.claim(",
+                 "slots.claim(", "rt::regs_dec", "rt::regs_inc", "attn::head_box_map<DH>(",
+                 "t += gridDim.x", "__grid_constant__ CUtensorMap"):
+        assert used in wide, used
+    with_headers = _with_local_headers(csrc / "attention.cu")
+    for instr in ("wgmma.mma_async", "cp.async.bulk.tensor.3d", "cp.async.bulk.tensor.4d",
+                  "mbarrier.try_wait"):
+        assert instr in with_headers, instr
+    assert "atomicAdd" not in src and "atom." not in src and "red.global" not in src
+    for name in ("attention.cu", "flash_attention.cu", "stblock_train.cu"):
+        text = (csrc / name).read_text()
+        for copy in ("uint64_t head_desc(", "void wgmma_rs_n", "struct Ring", "void mbar_init("):
+            assert copy not in text, (name, copy)
 
 def test_sub_block_backward_products_run_on_wgmma():
     """csrc/stblock_train.cu: every product but the attention backward's
