@@ -31,6 +31,7 @@ from pose3d_tpu_torch.models.lifters import JointTransformerLifter
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops.attention import packed_flat_attention_reference
 from pose3d_tpu_torch.ops.numerics import dot, gelu, ln
+from pose3d_tpu_torch.train.debug import span
 
 N_JOINTS = 17
 DIM = 256
@@ -203,7 +204,7 @@ def trunk_scratch(tokens: torch.Tensor, pe: torch.Tensor, weights: TrunkWeights)
     if n_frames == 0:
         return out, resid, qkv, attn
     lib = _build.library()
-    with torch.cuda.device(tokens.device):  # the launch's current device
+    with span("pose3d.trunk"), torch.cuda.device(tokens.device):  # the launch's current device
         err = lib.lifter_trunk_launch(
             tokens.data_ptr(), pe.data_ptr(), weights.flat.data_ptr(),
             resid.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),

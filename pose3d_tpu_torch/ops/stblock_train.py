@@ -66,6 +66,7 @@ from pose3d_tpu_torch.ops.stblock import (
     temporal_head,
     temporal_slab_reference,
 )
+from pose3d_tpu_torch.train.debug import span
 
 # the backward launcher's row layouts (csrc/stblock_train.cu enum Layout)
 LAYOUT_SPATIAL, LAYOUT_SLAB, LAYOUT_SEQUENCES = 0, 1, 2
@@ -400,8 +401,11 @@ def temporal_train_forward_fused(module, clips: torch.Tensor) -> torch.Tensor:
     b, t = clips.shape[:2]
     tokens = embed_clips(module, clips, dt)
     for block in module.blocks:
-        tokens = SpatialBlockTrain.apply(tokens, pack_train(block, "spatial", dt).flat)
-        xt = TemporalSlabTrain.apply(tokens.view(b, t, N_JOINTS * DIM),
-                                     pack_train(block, "temporal", dt).flat)
+        with span("pose3d.train.pack"):
+            spatial = pack_train(block, "spatial", dt).flat
+        tokens = SpatialBlockTrain.apply(tokens, spatial)
+        with span("pose3d.train.pack"):
+            temporal = pack_train(block, "temporal", dt).flat
+        xt = TemporalSlabTrain.apply(tokens.view(b, t, N_JOINTS * DIM), temporal)
         tokens = xt.view(-1, DIM)
     return temporal_head(module, tokens, b)

@@ -14,6 +14,7 @@ import torch
 from pose3d_tpu_torch.models.temporal import clip_starts, make_clips
 from pose3d_tpu_torch.ops import stblock
 from pose3d_tpu_torch.pipeline.keypoints import load_video_json, save_mb_npy
+from pose3d_tpu_torch.train.debug import span
 
 
 def lift_sequence(model, kp2d_px: np.ndarray, image_size: float = 1000.0,
@@ -38,27 +39,29 @@ def lift_sequence(model, kp2d_px: np.ndarray, image_size: float = 1000.0,
         return np.zeros((0, 17, 3), np.float32)
     clip_len = min(model.clip_len, t_total)
     stride = stride or max(clip_len // 2, 1)
-    kp = (kp2d_px / image_size).astype(np.float32)
-    clips = make_clips(kp, clip_len, stride)
+    with span("pose3d.lift_sequence.clips"):
+        kp = (kp2d_px / image_size).astype(np.float32)
+        clips = make_clips(kp, clip_len, stride)
 
-    if use_kernels is None:
-        use_kernels = model.dtype == torch.bfloat16
-    x = torch.from_numpy(clips).to(model.embed.weight.device)
-    with torch.inference_mode():
+        if use_kernels is None:
+            use_kernels = model.dtype == torch.bfloat16
+        x = torch.from_numpy(clips).to(model.embed.weight.device)
+    with span("pose3d.lift_sequence.forward"), torch.inference_mode():
         if use_kernels and clip_len == model.clip_len and stblock.supports(model):
             out = stblock.temporal_forward_fused(model, x)
         else:
             out = model(x, use_kernels=use_kernels)
-    out = out.float().cpu().numpy()  # (C, L, 17, 3)
+    with span("pose3d.lift_sequence.average"):
+        out = out.float().cpu().numpy()  # (C, L, 17, 3)
 
-    acc = np.zeros((t_total, 17, 3), np.float32)
-    cnt = np.zeros((t_total, 1, 1), np.float32)
-    for c, s in zip(out, clip_starts(t_total, clip_len, stride)):
-        end = min(s + clip_len, t_total)
-        acc[s:end] += c[: end - s]
-        cnt[s:end] += 1.0
-    assert cnt.min() >= 1.0, "internal: some frame covered by no clip"
-    return acc / cnt
+        acc = np.zeros((t_total, 17, 3), np.float32)
+        cnt = np.zeros((t_total, 1, 1), np.float32)
+        for c, s in zip(out, clip_starts(t_total, clip_len, stride)):
+            end = min(s + clip_len, t_total)
+            acc[s:end] += c[: end - s]
+            cnt[s:end] += 1.0
+        assert cnt.min() >= 1.0, "internal: some frame covered by no clip"
+        return acc / cnt
 
 
 def lift_video_json(model, json_path, out_npy_path, image_size: float = 1000.0):

@@ -41,6 +41,7 @@ from pose3d_tpu_torch.ops import lifter as _lifter
 from pose3d_tpu_torch.ops import martinez as _martinez
 from pose3d_tpu_torch.parallel.mesh import (data_group, data_rank, data_size, pad_to_multiple,
                                             shard_batch)
+from pose3d_tpu_torch.train.debug import span
 
 N_JOINTS = 17
 
@@ -74,7 +75,14 @@ class LifterService:
     under a mesh); a CUDA device that is not available raises. ``fused``
     says whether a fused route (ViT trunk or Martinez blocks) serves the
     model. ``mesh``: each bucket split over the mesh's data axis.
+
+    ``frames_served`` and ``frames_padded`` count, over every service of
+    the process, the frames ``lift`` was asked for and the zero frames it
+    added to fill their buckets.
     """
+
+    frames_served = 0
+    frames_padded = 0
 
     def __init__(self, model: torch.nn.Module, state_dict=None, *, device,
                  max_batch: int = 8192, min_bucket: int = 64,
@@ -140,23 +148,31 @@ class LifterService:
 
     def lift(self, kp2d: np.ndarray) -> np.ndarray:
         """(N, J, in) -> (N, J, out) f32 (J = 17, (2, 3) for the served
-        lifters); N arbitrary (chunked over the top bucket)."""
-        kp2d = np.asarray(kp2d, np.float32)
-        if kp2d.ndim != 3 or kp2d.shape[1:] != self.in_shape:
-            raise ValueError(f"kp2d must be (N, {self.in_shape[0]}, "
-                             f"{self.in_shape[1]}), got {kp2d.shape}")
-        n = len(kp2d)
-        out = np.empty((n, *self.out_shape), np.float32)
-        top = self.buckets[-1]
-        pos = 0
-        while pos < n:
-            chunk = torch.from_numpy(kp2d[pos: pos + top])
-            take = len(chunk)
-            b = self._bucket(take)
-            x = torch.zeros((b, *chunk.shape[1:]), device=self.device)
-            x[:take] = chunk.to(self.device)
-            pred = self._run(x)
-            out[pos: pos + take] = pred[:take].float().cpu().numpy().reshape(
-                take, *self.out_shape)
-            pos += take
-        return out
+        lifters); N arbitrary (chunked over the top bucket). Each chunk
+        adds its frames to ``frames_served`` and its bucket's padding to
+        ``frames_padded``."""
+        with span("pose3d.serve.lift"):
+            kp2d = np.asarray(kp2d, np.float32)
+            if kp2d.ndim != 3 or kp2d.shape[1:] != self.in_shape:
+                raise ValueError(f"kp2d must be (N, {self.in_shape[0]}, "
+                                 f"{self.in_shape[1]}), got {kp2d.shape}")
+            n = len(kp2d)
+            out = np.empty((n, *self.out_shape), np.float32)
+            top = self.buckets[-1]
+            pos = 0
+            while pos < n:
+                with span("pose3d.serve.stage"):
+                    chunk = torch.from_numpy(kp2d[pos: pos + top])
+                    take = len(chunk)
+                    b = self._bucket(take)
+                    x = torch.zeros((b, *chunk.shape[1:]), device=self.device)
+                    x[:take] = chunk.to(self.device)
+                with span("pose3d.serve.forward"):
+                    pred = self._run(x)
+                with span("pose3d.serve.fetch"):
+                    out[pos: pos + take] = pred[:take].float().cpu().numpy().reshape(
+                        take, *self.out_shape)
+                LifterService.frames_served += take
+                LifterService.frames_padded += b - take
+                pos += take
+            return out

@@ -3,6 +3,18 @@
 
 - ``profile``: a ``torch.profiler`` trace of the enclosed block, written
   to ``log_dir`` or to ``$POSE3D_PROFILE`` (off when neither is set).
+- ``span``: a named range in that trace (``record_function``, a
+  ``user_annotation`` event) while a profiler runs, nothing otherwise.
+  The program's spans, each ``pose3d.``-prefixed, and their sites:
+  ``serve.lift`` (all of ``LifterService.lift``), ``serve.stage`` (a
+  chunk's bucket, zero-filled and copied in), ``serve.forward`` (its
+  forward), ``serve.fetch`` (its copy out); ``trunk`` (the trunk kernels'
+  launch, ``ops/lifter.trunk_scratch``); ``lift_sequence.clips``,
+  ``.forward``, ``.average`` (``pipeline/lift.lift_sequence``);
+  ``train.step`` (``steps.make_lifter_train_step``'s step),
+  ``train.forward`` (its apply and loss), ``train.backward`` and
+  ``train.optimizer`` (``steps.apply_gradients``), ``train.pack`` (each
+  half's weight pack in ``ops/stblock_train.temporal_train_forward_fused``).
 - ``nan_check_mode``: the first NaN or infinity raises, in the forward
   (a hook on every module's output) and in the backward (autograd's
   anomaly mode).
@@ -20,6 +32,9 @@ import time
 import warnings
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -37,6 +52,17 @@ def profile(log_dir=None):
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir))):
         yield
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler is on,
+    else one shared null context: no allocation and no dispatcher call
+    when nothing records. torch offers no check of whether the profiler
+    records host events, so under a device-only profile the range is
+    entered and records nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _raise_on_non_finite(module, inputs, output):

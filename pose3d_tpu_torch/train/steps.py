@@ -42,6 +42,7 @@ from pose3d_tpu_torch.models.norm import require_batch_norm
 from pose3d_tpu_torch.parallel.mesh import pmean_, psum_, psum_model_, require_group
 from pose3d_tpu_torch.parallel.sharding import (require_sequence_mesh, require_tp_mesh,
                                                 sequence_mesh, tp_layout, tp_shards)
+from pose3d_tpu_torch.train.debug import span
 from pose3d_tpu_torch.train.state import TrainState, clip_by_global_norm
 
 
@@ -59,20 +60,22 @@ def apply_gradients(loss_val: torch.Tensor, *states: TrainState, mesh=None) -> N
     each rank's over its own frames, summed over the model group first."""
     for state in states:
         state.optimizer.zero_grad(set_to_none=True)
-    loss_val.backward()
-    if mesh is not None:
+    with span("pose3d.train.backward"):
+        loss_val.backward()
+        if mesh is not None:
+            for state in states:
+                if sequence_mesh(state.model) is not None:
+                    psum_model_([p.grad for p in state.model.parameters()
+                                 if p.grad is not None], mesh)
+            pmean_([p.grad for state in states for p in state.model.parameters()
+                    if p.grad is not None], mesh)
+    with span("pose3d.train.optimizer"):
         for state in states:
-            if sequence_mesh(state.model) is not None:
-                psum_model_([p.grad for p in state.model.parameters() if p.grad is not None],
-                            mesh)
-        pmean_([p.grad for state in states for p in state.model.parameters()
-                if p.grad is not None], mesh)
-    for state in states:
-        if state.grad_clip:
-            clip_by_global_norm(list(state.model.parameters()), state.grad_clip,
-                                *tp_shards(state.model))
-        state.optimizer.step()
-        state.step += 1
+            if state.grad_clip:
+                clip_by_global_norm(list(state.model.parameters()), state.grad_clip,
+                                    *tp_shards(state.model))
+            state.optimizer.step()
+            state.step += 1
 
 
 def make_lifter_train_step(loss: str = "mse", mesh=None):
@@ -94,24 +97,26 @@ def make_lifter_train_step(loss: str = "mse", mesh=None):
     loss_fn = losses.LOSS_FNS[loss]
 
     def step(state: TrainState, y1: torch.Tensor, y2: torch.Tensor) -> dict:
-        if mesh is not None:
-            require_group(mesh)
-            if has_batch_stats(state.model):
-                require_batch_norm(state.model, mesh)
-        require_tp_mesh(state.model, mesh)
-        require_sequence_mesh(state.model, mesh)
-        state.model.train()
-        pred = state.apply(state.model, y1).reshape(y2.shape)
-        loss_val = loss_fn(pred, y2)
-        apply_gradients(loss_val, state, mesh=mesh)
-        with torch.no_grad():
-            out = loss_val.detach()
-            sums = losses.loss_mpjpe(pred, y2)
-        if mesh is not None:
-            out = out.clone()
-            pmean_([out], mesh)
-            psum_([sums], mesh)
-        return {"loss": out, "mpjpe_sums": sums}
+        with span("pose3d.train.step"):
+            if mesh is not None:
+                require_group(mesh)
+                if has_batch_stats(state.model):
+                    require_batch_norm(state.model, mesh)
+            require_tp_mesh(state.model, mesh)
+            require_sequence_mesh(state.model, mesh)
+            state.model.train()
+            with span("pose3d.train.forward"):
+                pred = state.apply(state.model, y1).reshape(y2.shape)
+                loss_val = loss_fn(pred, y2)
+            apply_gradients(loss_val, state, mesh=mesh)
+            with torch.no_grad():
+                out = loss_val.detach()
+                sums = losses.loss_mpjpe(pred, y2)
+            if mesh is not None:
+                out = out.clone()
+                pmean_([out], mesh)
+                psum_([sums], mesh)
+            return {"loss": out, "mpjpe_sums": sums}
 
     return step
 
