@@ -7,8 +7,9 @@ the gitignored ``logs/``. For each tree, in the order given (give them as
 parent, change, change, parent), a fresh process with that tree first on
 ``sys.path`` builds its kernels and, at 16 clips x 243 frames (66,096 token
 rows, the first sub-block of the seeded default TemporalLifter, the
-forward's own residuals): times one ``spatial_bwd`` and one ``slab_bwd``
-call (CUDA events, the median of 3 runs of 20 back-to-back calls), lists
+forward's own residuals): times one ``spatial_bwd``, one ``slab_bwd`` and
+one ``sequences_bwd`` call (the joint-major layout of the same tokens; CUDA
+events, the median of 3 runs of 20 back-to-back calls), lists
 each launch of one call with its device ms (torch.profiler) and, with
 ``--step``, times the whole training step and sums its device time by
 kernel. The helpers are the tree's own ``chip_smoke.py``'s.
@@ -24,14 +25,24 @@ between its products and its epilogue:
 - ln_noprod: ``ln_gemm_kernel`` streams its ring but issues no product;
 - ln_pf: ``ln_gemm_kernel``'s producer also prefetches each tile's src and
   resid rows into L2 while the tile's products run (a design variant, right);
-- mlp_noepi: ``mlp_bwd_kernel``'s epilogue returns at once;
+- mlp_noepi: ``mlp_bwd_kernel``'s epilogue (``mlp_gelu`` and ``mlp_dh``)
+  returns at once;
 - mlp_halfj: ``mlp_bwd_kernel``'s epilogue takes half its columns (half
   the work and half the code);
-- mlp_gelu2: ``mlp_bwd_kernel``'s epilogue takes the GELUs of two 8-column
-  blocks together, not one (a design variant, right);
-- mlp_nostore: ``mlp_bwd_kernel``'s epilogue stores neither hg nor dh (hg
-  still computed, folded into the column sums);
-- mlp_noprod: ``mlp_bwd_kernel`` streams its ring but issues no product.
+- mlp_nostore: ``mlp_bwd_kernel``'s epilogue stores neither hg nor dh (both
+  still computed, packed and moved across the quad);
+- mlp_noprod: ``mlp_bwd_kernel`` streams its ring but issues no product;
+- mlp_serial: ``mlp_bwd_kernel`` issues g's product after ``mlp_gelu``, not
+  before it, so a warpgroup's GELUs run beside no product of its own and
+  hold 32 fewer accumulator registers (a design variant, right).
+
+The two-warpgroup kernel's ``mlp_gelu2`` (the GELUs of two 8-column blocks
+at once) is gone with it: at 128 registers a thread the four-warpgroup
+kernel has no room for a second block's chains; its warps interleave
+instead.
+
+Each call's dx and dw are printed as SHA-256 digests of their bytes, so
+that trees whose gradients are bitwise equal show equal digests.
 
 Run on the card from the repository root:
 ``python3 experiments/stblock_bwd_ab.py --trees logs/parent,.,.,logs/parent --step``
@@ -51,11 +62,11 @@ REPO = Path(__file__).resolve().parent.parent
 OUT = REPO / "logs" / "stblock_bwd_ab"
 
 CHILD = r'''
-import json, sys, time
+import hashlib, json, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as C
-from pose3d_tpu_torch.ops import _build, stblock_train as ST
+from pose3d_tpu_torch.ops import _build, stblock as S, stblock_train as ST
 from pose3d_tpu_torch.train.state import create_train_state
 from pose3d_tpu_torch.train.steps import make_lifter_train_step
 
@@ -68,14 +79,20 @@ with torch.no_grad():
     tokens = ST.embed_clips(model, y1, torch.bfloat16)
     dout = (torch.randn(tokens.shape, generator=torch.Generator().manual_seed(C.SEED + 26))
             * 2 ** -6).to("cuda", torch.bfloat16)
-    for half, fwd, bwd, shape in (
-            ("spatial", ST.spatial_fwd, ST.spatial_bwd, tokens.shape),
-            ("temporal", ST.slab_fwd, ST.slab_bwd, (C.TRAIN_CLIPS, model.clip_len, 17 * 256))):
+    jm = lambda t: S.joint_major(t, C.TRAIN_CLIPS)  # noqa: E731
+    for half, fwd, bwd, lay in (
+            ("spatial", ST.spatial_fwd, ST.spatial_bwd, lambda t: t),
+            ("temporal", ST.slab_fwd, ST.slab_bwd,
+             lambda t: t.view(C.TRAIN_CLIPS, model.clip_len, 17 * 256)),
+            ("temporal", ST.sequences_fwd, ST.sequences_bwd, jm)):
         w = ST.pack_train(model.blocks[0], half, torch.bfloat16)
-        x, g = tokens.view(shape), dout.view(shape)
+        x, g = lay(tokens), lay(dout)
         _, x1, att = fwd(x, w)
         call = lambda: bwd(x, x1, att, g, w)  # noqa: E731
         out[bwd.__name__] = C.cuda_ms(call)
+        out[bwd.__name__ + " sha256"] = [
+            hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            for t in call()]
         out[bwd.__name__ + " launches"] = [(n.split("(")[0][:60], round(ms, 4))
                                           for n, ms in C.device_launches(call)]
 if "--step" in sys.argv:
@@ -99,11 +116,14 @@ def run(tree: Path, label: str, step: bool) -> None:
         raise SystemExit(f"{label}: exit {res.returncode}")
     got = json.loads(lines[-1][3:])
     print(f"== {label}: build {got['build_s']} s; spatial_bwd {got['spatial_bwd']:.4f} ms, "
-          f"slab_bwd {got['slab_bwd']:.4f} ms"
+          f"slab_bwd {got['slab_bwd']:.4f} ms, sequences_bwd {got['sequences_bwd']:.4f} ms"
           + (f"; step {got['train_step']:.4f} ms, device {got['train_step device']:.4f} ms"
              if step else ""), flush=True)
-    for k in ("spatial_bwd launches", "slab_bwd launches"):
-        print(f"   {k}: " + ", ".join(f"{n} {ms}" for n, ms in got[k]), flush=True)
+    for k in ("spatial_bwd", "slab_bwd", "sequences_bwd"):
+        print(f"   {k} sha256: dx {got[k + ' sha256'][0]}, dw {got[k + ' sha256'][1]}",
+              flush=True)
+        print(f"   {k} launches: " + ", ".join(f"{n} {ms}" for n, ms in got[k + " launches"]),
+              flush=True)
     if step:
         print("   step top: " + ", ".join(f"{n} {ms}" for n, ms in got["train_step top"]),
               flush=True)
@@ -123,20 +143,29 @@ VARIANTS = {
                "        asm volatile(\"cp.async.bulk.prefetch.L2.global [%0], %1;\" ::\"l\"("
                "static_cast<const unsigned char*>(resid) + size_t(m0) * kDim * eb), "
                "\"r\"(uint32_t(n * kDim * eb)) : \"memory\");\n")],
-    "mlp_noepi": [("                                             int q) {\n  float cs[8][2] = {};",
-                   "                                             int q) {\n  if (c >= 0) return;\n"
-                   "  float cs[8][2] = {};")],
-    "mlp_halfj": [("  for (int jb = 0; jb < 8; jb += kGeluBlocks) {",
-                   "  for (int jb = 0; jb < 4; jb += kGeluBlocks) {")],
-    "mlp_gelu2": [("constexpr int kGeluBlocks = 1;", "constexpr int kGeluBlocks = 2;")],
-    "mlp_nostore": [("        if (live) {\n          const size_t o = size_t(r0 + ra + 8 * h) * kMlp + col;\n"
-                     "          store2(hg + o, g[4 * u + 2 * h], g[4 * u + 2 * h + 1]);\n"
-                     "          store2(dh + o, d0, d1);\n        }",
-                     "        cs[j][0] += 1e-30f * (g[4 * u + 2 * h] + g[4 * u + 2 * h + 1]);")],
-    "mlp_noprod": [("    rt::wgmma_m64n64(acc, rt::desc_a(a + (j / 4) * rt::kKBlockBytes + (j % 4) * 32),\n"
-                    "                     rt::desc_b(b + j * 2048), j);", "    ;"),
-                   ("    rt::wgmma_m64n64<0, 0>(acc, rt::desc_a(a + k), rt::desc_a(b + k), j);",
+    "mlp_noepi": [("bf16* __restrict__ hg, const bool (&live)[2], int q) {\n",
+                   "bf16* __restrict__ hg, const bool (&live)[2], int q) {\n"
+                   "  if (b1 != nullptr) return;\n"),
+                  ("const bool (&live)[2]) {\n  float cs[8][2];\n",
+                   "const bool (&live)[2]) {\n  if (dh != nullptr) return;\n  float cs[8][2];\n")],
+    "mlp_halfj": [("  for (int j = 0; j < 8; ++j) {\n    const float2 bv",
+                   "  for (int j = 0; j < 4; ++j) {\n    const float2 bv"),
+                  ("    cs[j][0] = cs[j][1] = 0.f;\n",
+                   "    cs[j][0] = cs[j][1] = 0.f;\n    if (j >= 4) continue;\n")],
+    "mlp_nostore": [("  if (live) *reinterpret_cast<uint4*>(p + 8 * q) = make_uint4(w[0], w[1], w[2], w[3]);",
+                     "  (void)p, (void)live;\n"
+                     "  asm volatile(\"\" ::\"r\"(w[0]), \"r\"(w[1]), \"r\"(w[2]), \"r\"(w[3]));")],
+    "mlp_noprod": [("    rt::wgmma_m64n64(acc, rt::desc_off(da, (j / 4) * rt::kKBlockBytes + (j % 4) * 32),\n"
+                    "                     rt::desc_off(db, j * 2048), j);", "    (void)da, (void)db;"),
+                   ("    rt::wgmma_m64n64<0, 0>(acc, rt::desc_off(da, k), rt::desc_off(db, k), j);",
                     "    (void)k;")],
+    "mlp_serial": [("      issue_g(g, douta, acquire(e + 1));\n"
+                    "      rt::wgmma_wait<1>();  // h is done; g's product runs on\n",
+                    "      rt::wgmma_wait<0>();\n"),
+                   ("      mlp_gelu(h, b1 + c * rt::kBox + 2 * q, hg + o + c * rt::kBox, live, q);\n"
+                    "      rt::wgmma_wait<0>();\n",
+                    "      mlp_gelu(h, b1 + c * rt::kBox + 2 * q, hg + o + c * rt::kBox, live, q);\n"
+                    "      issue_g(g, douta, acquire(e + 1));\n      rt::wgmma_wait<0>();\n")],
 }
 
 

@@ -57,13 +57,17 @@
 // - mlp_bwd_kernel: per 128-row tile, y2 and dout (64 KB each) by TMA into
 //   shared memory, then per 64 hidden columns a W1 chunk (256 x 64,
 //   N-major) and a W2 chunk (64 x 256 rows, read K-major as W2^T) through
-//   a 3-stage ring that thread 0 feeds (no producer warpgroup: 255
-//   registers a thread): h = y2 W1 + b1 and dout W2^T (m64n64, 16 k-steps
-//   each); the epilogue of chunk c (two accumulator pairs in registers)
-//   forms hg = bf16(gelu(bf16(h))) and dh = bf16(dout W2^T gelu'(h)) while
-//   chunk c + 1's products run, stores both and each warp's column sums of
+//   a 3-stage ring that the consumers' first threads feed (no producer
+//   warpgroup): h = y2 W1 + b1 and dout W2^T (m64n64, 16 k-steps each),
+//   then the epilogue: hg = bf16(gelu(bf16(h))) and dh = bf16(dout W2^T
+//   gelu'(h)), both stored 16 bytes a lane, and each warp's column sums of
 //   the bf16 dh (db1's partials; h never reaches device memory). Its two
-//   polynomials an element, not its products, set its pace;
+//   polynomials an element (~60 instructions), not its products, set its
+//   pace. Four consumer warpgroups in two pairs take alternate chunks, one
+//   accumulator pair each (512 threads at 128 registers), so four warps a
+//   scheduler run the epilogue where two warpgroups holding two chunks'
+//   pairs each (255 registers) issued it at ~0.4 instructions a clock a
+//   scheduler; the section's note says what else that took;
 // - ln_gemm_kernel: dy2 = dh W1^T (K = 1024) and dy = bf16(dqkv) W_qkv^T
 //   (K = 768) per 128-row tile of all 256 columns (m64n256, W read K-major
 //   as stored, a 3-stage ring of 48 KB), the f32 tile staged from the two
@@ -405,121 +409,206 @@ __device__ __forceinline__ void ln_bwd_row(float (&v)[8], const float* dy8, cons
 
 // ------------------------------------------- the MLP recompute and dh
 
-// A persistent CTA an SM walks 128-row tiles; each consumer warpgroup's
-// first thread loads its 64 rows of y2 and dout (four 64 x 64 boxes each,
-// K-major: the A operands) by TMA onto its own barrier, at the start and
-// as soon as the last chunk's products of the tile have completed, so the
-// load runs under the last chunk's epilogue. Thread 0 streams, per tile
-// and 64 hidden columns c, W1[:, c] (a tall 256 x 64 chunk, N-major) then
-// W2[c, :] (a wide 64 x 256 chunk: rows of W2 are the columns of W2^T,
-// K-major) through a 3-stage ring. Each warpgroup keeps two chunks'
-// accumulator pairs (4 x 32 f32 a thread) and runs chunk c's epilogue, the
-// ALU's work (two polynomials an element), while chunk c + 1's W1 product
-// is on the tensor cores; a chunk's stages go back before its epilogue, so
-// the next chunk's W2 chunk lands during it. db1's partials: each warp's
-// 16 rows' column sums of the bf16 dh (shuffles over the lanes of one
-// column) at part[(tile x 8 + warp) x 1024 + column].
+// A persistent CTA an SM walks 128-row tiles with four consumer warpgroups
+// in two pairs: pair p (warpgroups 2p and 2p + 1, rows 0-63 and 64-127 of
+// the tile) takes hidden chunks p, p + 2, ..., 14 + p of 64 columns. A
+// warpgroup holds one chunk's accumulator pair (2 x 32 f32 a thread), so
+// four fit in the register file (512 threads, 128 registers a thread), and
+// four warps a scheduler run the epilogue, the ALU's work (two polynomials
+// an element), while the other pair's products run on the tensor cores.
+// Per chunk c a warpgroup issues h = y2 W1[:, 64c, +64) (issue_h: a tall W1
+// chunk, N-major) and g = dout (W2[64c, +64), :])^T (issue_g: a wide W2
+// chunk, read K-major), one commit group each; once h is done it hands
+// W1's stage back and forms hg = bf16(gelu(bf16(h + b1))), stores it and
+// leaves gelu'(h + b1) in h's registers (mlp_gelu) while g's product runs;
+// once g is done it hands W2's stage back, stores dh = bf16(g gelu') and
+// each warp's column sums of it (mlp_dh: db1's partials, one a warp of a
+// row tile at part[(tile x 8 + warp) x 1024 + column]; h never reaches
+// device memory).
+//
+// y2 and dout (the A operands, 64 KB each) stay for the whole tile; each
+// row half's arrive by TMA on a barrier that both pairs' warpgroups of
+// those rows wait on. Pair 1's warpgroup loads the half's next rows once
+// both have passed their last products of the tile (a barrier of two
+// arrivals a row half), so the load runs under the last epilogues.
+//
+// The weights go through a 3-stage ring in the order the chunks are read:
+// entry i (32 a tile: chunk c's W1 at 2c, its W2 at 2c + 1) in stage i % 3.
+// Thread 0 loads entries 0-2; entry i + 3 is loaded by the first thread of
+// the warpgroup of rows half i % 2 of the pair that read entry i, once both
+// of that pair have handed its stage back (the stage's empty barrier counts
+// two) and met at a named barrier of the pair's 256 threads. Without that
+// barrier the loading thread spun on its partner's hand-back, the two
+// warpgroups drifted apart and each waited on the other: 0.52 ms a call
+// at 16 clips, against 0.37 with it (H100). As the pairs read alternate
+// pairs of entries, one full barrier a stage could run two phases ahead of
+// a pair waiting on it, and the parity wait would pass early: each stage
+// has a full barrier for each pair, whose phases count that pair's entries
+// alone, their parities kept by a warpgroup in three bits.
+//
+// The warpgroup index comes from a shuffle of lane 0's, warp-uniform as
+// the compiler sees it; a k-step's operand descriptors are the chunk's
+// plus a constant (rt::desc_off); db1's column sums are a reduce-scatter
+// (mlp_dh). Each cut instructions that compete with the epilogue's for
+// issue: 0.37 -> 0.35 -> 0.33 ms (H100). The stores of hg and dh then
+// took a quarter of the call: a lane held two adjacent columns of each
+// 8-column block, so a warp's 4-byte stores wrote 16 bytes of 8 rows each.
+// The 4 lanes of a quad now trade their column pairs (quad_transpose) so
+// that each stores a block's 8 columns, 16 bytes: 0.33 -> 0.29 ms. Four
+// warpgroups that split each chunk's columns instead (m64n32, all four on
+// every chunk in one ring order, the next chunk's products beside the
+// epilogue) gave the same bits in 0.35 ms: twice the wgmma an element.
 constexpr int kMlpStages = 3;
-constexpr int kMlpChunks = kMlp / rt::kBox;  // 16
-constexpr size_t kMlpSmem =
-    1024 + 2 * size_t(rt::kActBytes) + size_t(kMlpStages) * rt::kStageBytes + 16 * kMlpStages +
-    8 * rt::kConsumers;
+constexpr int kMlpChunks = kMlp / rt::kBox;      // 16
+constexpr int kMlpPairs = 2;                     // pairs of consumer warpgroups
+constexpr int kMlpTileEntries = 2 * kMlpChunks;  // ring entries a tile
+// barriers: a full one a (pair, stage), an empty one a stage, and a full
+// and a free one a row half
+constexpr int kMlpBars = kMlpPairs * kMlpStages + kMlpStages + 2 * rt::kConsumers;
+constexpr size_t kMlpSmem = 1024 + 2 * size_t(rt::kActBytes) +
+                            size_t(kMlpStages) * rt::kStageBytes + 8 * kMlpBars;
 static_assert(kMlpSmem <= size_t(kSmemLimit), "y2, dout and the weight ring");
-constexpr int kMlpPartRows = rt::kConsumers * 4;  // db1 partials of a tile: one a warp
-constexpr int kMlpThreads = rt::kConsumers * 128;  // two warpgroups; thread 0 feeds the ring
+constexpr int kMlpPartRows = rt::kConsumers * 4;  // db1 partials of a tile: one a warp of rows
+constexpr int kMlpThreads = kMlpPairs * rt::kConsumers * 128;  // 512: 128 registers a thread
 
-// Chunk c's two products, one commit group each: acc = y2 @ W1[:, 64c,
-// +64) (issue_h: the next stage, a tall W1 chunk, N-major) and acc = dout @
-// (W2[64c, +64), :])^T (issue_g: the next stage, a wide W2 chunk, read
-// K-major). A phantom product (the tile's 17th chunk: see mlp_bwd_kernel)
-// takes its stage as its A operand too, so that it reads neither y2 nor
-// dout. The first k-step overwrites acc; zeroing it first tells the
-// compiler so, which frees its registers from its last read to here.
-template <int S>
-__device__ __forceinline__ void issue_h(float (&acc)[32], uint32_t y2a, bool phantom,
-                                        rt::Ring<S>& ring) {
-  const uint32_t b = ring.acquire();
-  const uint32_t a = phantom ? b : y2a;
+// acc = y2 (the warpgroup's rows at a) @ the tall W1 chunk at b, one commit
+// group. The first k-step overwrites acc; zeroing it first tells the
+// compiler so, which frees its registers from its last read to here. A
+// k-step's descriptors are the chunk's plus an offset (rt::desc_off), ~4
+// instructions a wgmma where each built its own took ~12.
+__device__ __forceinline__ void issue_h(float (&acc)[32], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const uint64_t da = rt::desc_a(a), db = rt::desc_b(b);
   rt::wgmma_fence();
 #pragma unroll
   for (int j = 0; j < 16; ++j)
-    rt::wgmma_m64n64(acc, rt::desc_a(a + (j / 4) * rt::kKBlockBytes + (j % 4) * 32),
-                     rt::desc_b(b + j * 2048), j);
+    rt::wgmma_m64n64(acc, rt::desc_off(da, (j / 4) * rt::kKBlockBytes + (j % 4) * 32),
+                     rt::desc_off(db, j * 2048), j);
   rt::wgmma_commit();
 }
 
-template <int S>
-__device__ __forceinline__ void issue_g(float (&acc)[32], uint32_t douta, bool phantom,
-                                        rt::Ring<S>& ring) {
-  const uint32_t b = ring.acquire();
-  const uint32_t a = phantom ? b : douta;
+// acc = dout (the warpgroup's rows at a) @ (the wide W2 chunk at b)^T, one
+// commit group.
+__device__ __forceinline__ void issue_g(float (&acc)[32], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const uint64_t da = rt::desc_a(a), db = rt::desc_a(b);
   rt::wgmma_fence();
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const uint32_t k = (j / 4) * rt::kKBlockBytes + (j % 4) * 32;
-    rt::wgmma_m64n64<0, 0>(acc, rt::desc_a(a + k), rt::desc_a(b + k), j);
+    rt::wgmma_m64n64<0, 0>(acc, rt::desc_off(da, k), rt::desc_off(db, k), j);
   }
   rt::wgmma_commit();
 }
 
-constexpr int kGeluBlocks = 1;  // 8-column blocks whose GELUs are computed together
+// The 4 x 4 transpose of 32-bit words across the lanes of a quad (q = lane
+// % 4): lane q ends with word q of each lane k in w[k].
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int q) {
+  const bool hi = q & 2, odd = q & 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t s = hi ? w[i] : w[2 + i];
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, s, 2);
+    if (hi) w[i] = r;
+    else w[2 + i] = r;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t s = odd ? w[2 * i] : w[2 * i + 1];
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, s, 1);
+    if (odd) w[2 * i] = r;
+    else w[2 * i + 1] = r;
+  }
+}
 
-// The epilogue of hidden columns [64c, 64c + 64) of the warpgroup's rows
-// r0 + ra, + 8: hg, dh and the warp's db1 partial.
-__device__ __forceinline__ void mlp_epilogue(const float (&acc1)[32], const float (&acc2)[32],
-                                             int c, const bf16* __restrict__ b1,
-                                             bf16* __restrict__ hg, bf16* __restrict__ dh,
-                                             float* __restrict__ part, int r0, int n_rows, int ra,
-                                             int q) {
-  float cs[8][2] = {};
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Words w[k] of 4 blocks' packed columns (lane k's) transposed across the
+// quad and stored 16 bytes a lane: lane q the 8 columns of block q at p + 8q.
+__device__ __forceinline__ void store_quad(bf16* p, uint32_t (&w)[4], int q, bool live) {
+  quad_transpose(w, q);
+  if (live) *reinterpret_cast<uint4*>(p + 8 * q) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Hidden columns [64c, 64c + 64) of the warpgroup's rows ra and ra + 8
+// (h[4j + 2k + i]: row ra + 8k, column 8j + 2q + i), one 8-column block at
+// a time: hg = bf16(gelu(bf16(h + b1))) stored, 4 blocks at a time by
+// store_quad, gelu'(h + b1) left in h. b1 points at the chunk's column 2q,
+// hg at its column 0 in row ra; live: whether rows ra and ra + 8 exist.
+__device__ __forceinline__ void mlp_gelu(float (&h)[32], const bf16* __restrict__ b1,
+                                         bf16* __restrict__ hg, const bool (&live)[2], int q) {
+  uint32_t w[2][4];
 #pragma unroll
-  for (int jb = 0; jb < 8; jb += kGeluBlocks) {
-    // the 4 elements of each column block j: rows ra, ra + 8, columns col, + 1
-    float x[4 * kGeluBlocks], g[4 * kGeluBlocks], gp[4 * kGeluBlocks];
+  for (int j = 0; j < 8; ++j) {
+    const float2 bv = load2(b1 + 8 * j);
+    float x[4], g[4], gp[4];
 #pragma unroll
-    for (int u = 0; u < kGeluBlocks; ++u) {
-      const float2 bv = load2(b1 + c * rt::kBox + 8 * (jb + u) + 2 * q);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[4 * u + e] = acc1[4 * (jb + u) + e] + (e % 2 ? bv.y : bv.x);
-    }
+    for (int e = 0; e < 4; ++e) x[e] = h[4 * j + e] + (e % 2 ? bv.y : bv.x);
     gelu_and_grad(x, g, gp);
 #pragma unroll
-    for (int u = 0; u < kGeluBlocks; ++u) {
-      const int j = jb + u, col = c * rt::kBox + 8 * j + 2 * q;
+    for (int k = 0; k < 2; ++k) w[k][j % 4] = pack2(g[2 * k], g[2 * k + 1]);
+    if (j % 4 == 3)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const bool live = r0 + ra + 8 * h < n_rows;
-        const float d0 = round_bf16(acc2[4 * j + 2 * h] * gp[4 * u + 2 * h]);
-        const float d1 = round_bf16(acc2[4 * j + 2 * h + 1] * gp[4 * u + 2 * h + 1]);
-        cs[j][0] += live ? d0 : 0.f;
-        cs[j][1] += live ? d1 : 0.f;
-        if (live) {
-          const size_t o = size_t(r0 + ra + 8 * h) * kMlp + col;
-          store2(hg + o, g[4 * u + 2 * h], g[4 * u + 2 * h + 1]);
-          store2(dh + o, d0, d1);
-        }
-      }
-    }
+      for (int k = 0; k < 2; ++k) store_quad(hg + 8 * k * kMlp + 32 * (j / 4), w[k], q, live[k]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[4 * j + e] = gp[e];
   }
-  // the lanes of one q hold the same columns: sum the warp's 16 rows
+}
+
+// A step of mlp_dh's reduce-scatter over the kN blocks a lane holds: it
+// keeps the upper half where `up`, else the lower, sends the other half to
+// lane ^ off and adds to each kept block what that lane sends of it.
+template <int kN>
+__device__ __forceinline__ void scatter_step(float (&cs)[8][2], bool up, int off) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kN / 2; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-        cs[j][i] += __shfl_xor_sync(0xffffffffu, cs[j][i], off);
+      const float keep = up ? cs[j + kN / 2][i] : cs[j][i];
+      const float send = up ? cs[j][i] : cs[j + kN / 2][i];
+      cs[j][i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
     }
-  if (ra % 16 == 0) {  // lanes 0-3 (g == 0) hold the sums
+}
+
+// The same columns' dh = bf16(g gelu') stored (dh as hg), and the warp's
+// column sums of it over its 16 rows at part, the chunk's column 2q of the
+// warp's partial. A column's sum is the shuffle tree over the lanes of its
+// q (xor 4, 8, 16) of the lanes' two rows, taken as a reduce-scatter: each
+// step sends half the columns still held and adds the partner's half, so
+// lane l ends with block 4 (l / 4 % 2) + 2 (l / 8 % 2) + l / 16 and stores
+// it: 14 shuffles where a tree per column took 48, the same sums in the
+// same order.
+__device__ __forceinline__ void mlp_dh(const float (&gp)[32], const float (&g)[32],
+                                       bf16* __restrict__ dh, float* __restrict__ part, int lane,
+                                       const bool (&live)[2]) {
+  float cs[8][2];
+  uint32_t w[2][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float2*>(part + c * rt::kBox + 8 * j + 2 * q) =
-          make_float2(cs[j][0], cs[j][1]);
+  for (int j = 0; j < 8; ++j) {
+    cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float d0 = round_bf16(g[4 * j + 2 * k] * gp[4 * j + 2 * k]);
+      const float d1 = round_bf16(g[4 * j + 2 * k + 1] * gp[4 * j + 2 * k + 1]);
+      cs[j][0] += live[k] ? d0 : 0.f;
+      cs[j][1] += live[k] ? d1 : 0.f;
+      w[k][j % 4] = pack2(d0, d1);
+    }
+    if (j % 4 == 3)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        store_quad(dh + 8 * k * kMlp + 32 * (j / 4), w[k], lane % 4, live[k]);
   }
+  scatter_step<8>(cs, lane & 4, 4);
+  scatter_step<4>(cs, lane & 8, 8);
+  scatter_step<2>(cs, lane & 16, 16);
+  const int jb = 4 * ((lane >> 2) & 1) + 2 * ((lane >> 3) & 1) + (lane >> 4);
+  *reinterpret_cast<float2*>(part + 8 * jb) = make_float2(cs[0][0], cs[0][1]);
 }
 
 __global__ void __launch_bounds__(kMlpThreads, 1)
@@ -531,104 +620,111 @@ mlp_bwd_kernel(const __grid_constant__ CUtensorMap y2_map,
                int n_rows) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = align1k(smem_raw);
-  unsigned char* y2s = base;                        // [warpgroup][4 K blocks][64 rows][128 B]
+  unsigned char* y2s = base;  // [row half][4 K blocks][64 rows][128 B]
   unsigned char* douts = base + rt::kActBytes;
-  unsigned char* ring_p = base + 2 * rt::kActBytes;
-  const uint32_t bars = smem_u32(ring_p + kMlpStages * rt::kStageBytes);
-  const uint32_t act_bars = bars + 16 * kMlpStages;  // one a warpgroup: its y2 and dout rows
+  const uint32_t ring = smem_u32(base + 2 * rt::kActBytes);
+  const uint32_t full_bars = ring + kMlpStages * rt::kStageBytes;  // (pair p, stage s): 3p + s
+  const uint32_t empty_bars = full_bars + 8 * kMlpPairs * kMlpStages;
+  const uint32_t row_bars = empty_bars + 8 * kMlpStages;  // the halves' full, then free ones
   if (threadIdx.x == 0) {
-    rt::ring_init<kMlpStages>(bars);
-    for (int w = 0; w < rt::kConsumers; ++w) rt::mbar_init(act_bars + 8 * w, 1);
+    for (int i = 0; i < kMlpPairs * kMlpStages; ++i) rt::mbar_init(full_bars + 8 * i, 1);
+    for (int s = 0; s < kMlpStages; ++s) rt::mbar_init(empty_bars + 8 * s, rt::kConsumers);
+    for (int w = 0; w < rt::kConsumers; ++w) {
+      rt::mbar_init(row_bars + 8 * w, 1);
+      rt::mbar_init(row_bars + 8 * (rt::kConsumers + w), kMlpPairs);
+    }
     rt::mbar_fence_init();
   }
   __syncthreads();
   const int n_tiles = (n_rows + rt::kTileRows - 1) / rt::kTileRows;
-  const int wg = threadIdx.x / 128;
+  // warp-uniform as the compiler sees it (a shuffle from lane 0), so the
+  // operand descriptors and ring addresses that follow from it live in
+  // uniform registers: as threadIdx.x / 128 each wgmma's descriptors went
+  // through per-thread registers, ~15 instructions a wgmma
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int pair = wg / rt::kConsumers, half = wg % rt::kConsumers;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int ra = 16 * warp + lane / 4, q = lane % 4;
   const bool issuer = threadIdx.x % 128 == 0;
-  const uint32_t y2a = smem_u32(y2s + wg * rt::kWgActBytes);
-  const uint32_t douta = smem_u32(douts + wg * rt::kWgActBytes);
-  const uint32_t act_bar = act_bars + 8 * wg;
-  rt::Ring<kMlpStages> ring{smem_u32(ring_p), bars, 0};
-  // Thread 0 also feeds the ring, in consumption order: per tile, for
-  // chunks 0 ... 15 and the phantom 16 (chunk 0 again), W1's tall chunk,
-  // then W2's wide one; a stage as soon as both warpgroups have handed it
-  // back (the claim waits for that), right after this warpgroup's own
-  // release. No producer warpgroup: its 168-register cap (three warpgroups
-  // in 64K registers) left the epilogue too few registers to interleave
-  // its elements.
-  rt::Ring<kMlpStages> feed{smem_u32(ring_p), bars, 0};
-  constexpr int kTileStages = 2 * (kMlpChunks + 1);
-  auto feed_next = [&]() {
-    const int i = feed.next;
-    if (blockIdx.x + (i / kTileStages) * gridDim.x >= n_tiles) return;  // past the last tile
-    const int k = i % kTileStages, c = (k / 2) % kMlpChunks;
-    if (k % 2 == 0) rt::load_tall(feed, &w1_map, c * rt::kBox);
-    else rt::load_wide(feed, &w2_map, 0, c * rt::kBox);
-  };
-  auto release2 = [&](int i) {  // ring entries i, i + 1, then their refills
-    ring.release(i);
-    ring.release(i + 1);
-    if (threadIdx.x == 0) {
-      feed_next();
-      feed_next();
+  const uint32_t y2a = smem_u32(y2s + half * rt::kWgActBytes);
+  const uint32_t douta = smem_u32(douts + half * rt::kWgActBytes);
+  const uint32_t rows_full = row_bars + 8 * half;
+  const uint32_t rows_free = row_bars + 8 * (rt::kConsumers + half);
+  // entry i into its stage, on the full barrier of the pair that reads it,
+  // once the stage's last entry has been handed back
+  auto feed = [&](int i) {
+    if (blockIdx.x + (i / kMlpTileEntries) * gridDim.x >= n_tiles) return;  // past the last tile
+    const int s = i % kMlpStages, c = (i % kMlpTileEntries) / 2;
+    rt::mbar_wait(empty_bars + 8 * s, ((i / kMlpStages) & 1) ^ 1);
+    const uint32_t bar = full_bars + 8 * (c % kMlpPairs * kMlpStages + s);
+    const uint32_t dst = ring + s * rt::kStageBytes;
+    rt::mbar_expect_tx(bar, rt::kStageBytes);
+    if (i % 2 == 0) {
+      rt::tma_load(dst, &w1_map, bar, c * rt::kBox, 0);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        rt::tma_load(dst + b * rt::kBoxBytes, &w2_map, bar, b * rt::kBox, c * rt::kBox);
     }
   };
+  uint32_t phases = 0;  // bit s: the parity of the pair's next entry in stage s
+  auto acquire = [&](int i) {
+    const int s = i % kMlpStages;
+    rt::mbar_wait(full_bars + 8 * (pair * kMlpStages + s), (phases >> s) & 1);
+    phases ^= 1u << s;
+    return ring + s * rt::kStageBytes;
+  };
+  auto release = [&](int i) {
+    if (issuer) rt::mbar_arrive(empty_bars + 8 * (i % kMlpStages));
+  };
+  // the pair's 256 threads (named barriers 1 and 2): both have handed a
+  // stage back, so its refill waits for no one
+  auto pair_sync = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + pair) : "memory"); };
   auto load_rows = [&](int tile) {
-    const int row = tile * rt::kTileRows + wg * rt::kWgRows;
-    rt::mbar_expect_tx(act_bar, 2 * rt::kWgActBytes);
+    const int row = tile * rt::kTileRows + half * rt::kWgRows;
+    rt::mbar_expect_tx(rows_full, 2 * rt::kWgActBytes);
 #pragma unroll
     for (int kb = 0; kb < kDim / rt::kBox; ++kb) {
-      rt::tma_load(y2a + kb * rt::kKBlockBytes, &y2_map, act_bar, kb * rt::kBox, row);
-      rt::tma_load(douta + kb * rt::kKBlockBytes, &dout_map, act_bar, kb * rt::kBox, row);
+      rt::tma_load(y2a + kb * rt::kKBlockBytes, &y2_map, rows_full, kb * rt::kBox, row);
+      rt::tma_load(douta + kb * rt::kKBlockBytes, &dout_map, rows_full, kb * rt::kBox, row);
     }
   };
-  if (issuer && blockIdx.x < n_tiles) load_rows(blockIdx.x);
   if (threadIdx.x == 0)
-    for (int i = 0; i < kMlpStages; ++i) feed_next();
-  float h0[32], d0[32], h1[32], d1[32];
+    for (int i = 0; i < kMlpStages; ++i) feed(i);
+  if (pair == kMlpPairs - 1 && issuer) load_rows(blockIdx.x);
+  float h[32], g[32];
   int it = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
-    const int r0 = tile * rt::kTileRows + wg * rt::kWgRows;
-    float* pw = part + (size_t(tile) * kMlpPartRows + wg * 4 + warp) * kMlp;
-    rt::mbar_wait(act_bar, it & 1);
-    // chunk c's stages are ring entries base + 2c (W1) and + 1 (W2). The
-    // warpgroup issues chunk c + 1's W1 product, waits for chunk c's two,
-    // hands their stages back and runs chunk c's epilogue beside the W1
-    // product; then chunk c + 1's W2 product, whose stage was refilled
-    // during that epilogue (three stages: chunk c's two and the next W1
-    // chunk). The last pair's next products are a phantom chunk 16 (W1's
-    // and W2's first chunks again; its products read their stages as A and
-    // are dropped), so that the loop needs no peeled copy of its two
-    // epilogues: with one, the kernel's code (four inlined epilogues) ran
-    // twice as slow per element as half of it did. A wgmma under a branch
-    // would serialise them all.
-    const int base = ring.next;
-    issue_h(h0, y2a, false, ring);
-    issue_g(d0, douta, false, ring);
+    const int r0 = tile * rt::kTileRows + half * rt::kWgRows;
+    const bool live[2] = {r0 + ra < n_rows, r0 + ra + 8 < n_rows};
+    const size_t o = size_t(r0 + ra) * kMlp;  // row ra
+    float* pw = part + (size_t(tile) * kMlpPartRows + half * 4 + warp) * kMlp + 2 * q;
+    rt::mbar_wait(rows_full, it & 1);
 #pragma unroll 1
-    for (int c = 0; c < kMlpChunks; c += 2) {
-      const bool last = c + 2 == kMlpChunks;
-      issue_h(h1, y2a, false, ring);
-      rt::wgmma_wait<1>();  // chunk c's products are done
-      release2(base + 2 * c);
-      rt::fence_acc(h0);
-      rt::fence_acc(d0);
-      mlp_epilogue(h0, d0, c, b1, hg, dh, pw, r0, n_rows, ra, q);
-      issue_g(d1, douta, false, ring);
-      issue_h(h0, y2a, last, ring);
-      rt::wgmma_wait<1>();  // chunk c + 1's
-      release2(base + 2 * c + 2);
-      rt::fence_acc(h1);
-      rt::fence_acc(d1);
-      // the tile's last products have read y2 and dout
-      if (last && issuer && tile + gridDim.x < n_tiles) load_rows(tile + gridDim.x);
-      mlp_epilogue(h1, d1, c + 1, b1, hg, dh, pw, r0, n_rows, ra, q);
-      issue_g(d0, douta, last, ring);
+    for (int c = pair; c < kMlpChunks; c += kMlpPairs) {
+      const int e = it * kMlpTileEntries + 2 * c;  // W1's entry; W2's is e + 1
+      issue_h(h, y2a, acquire(e));
+      issue_g(g, douta, acquire(e + 1));
+      rt::wgmma_wait<1>();  // h is done; g's product runs on
+      release(e);
+      pair_sync();
+      if (issuer && half == 0) feed(e + 3);
+      rt::fence_acc(h);
+      mlp_gelu(h, b1 + c * rt::kBox + 2 * q, hg + o + c * rt::kBox, live, q);
+      rt::wgmma_wait<0>();
+      release(e + 1);
+      pair_sync();
+      if (issuer && half == 1) feed(e + 4);
+      rt::fence_acc(g);
+      if (issuer && c + kMlpPairs >= kMlpChunks) {  // the tile's last products have read the rows
+        rt::mbar_arrive(rows_free);
+        if (pair == kMlpPairs - 1 && tile + gridDim.x < n_tiles) {
+          rt::mbar_wait(rows_free, it & 1);
+          load_rows(tile + gridDim.x);
+        }
+      }
+      mlp_dh(h, g, dh + o + c * rt::kBox, pw + c * rt::kBox, lane, live);
     }
-    rt::wgmma_wait<0>();  // the phantom chunk's
-    release2(base + 2 * kMlpChunks);
   }
 }
 

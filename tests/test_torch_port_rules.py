@@ -212,7 +212,9 @@ REDESIGNED = {
                          "What bounds it on this card", "0.313", "2.25 GB", "2.27 GB",
                          "3.57 GB", "registers or shared memory", "wgmma", "TMA",
                          "mbarrier ring", "transpose flag", "persistent", "kWgradItems",
-                         "mma.sync", "two CTAs share an SM", "No atomics"),
+                         "mma.sync", "two CTAs share an SM", "No atomics",
+                         "Four consumer warpgroups in two pairs", "one accumulator pair each",
+                         "four warps a", "16 bytes a lane"),
     "lifter_trunk.cu": ("pallas_lifter.py", "_trunk_kernel", "What bounds it on this card",
                         "438 GFLOP", "0.443 ms", "6.44 GB", "1.9 GB", "double LN",
                         "subblock_sm90.cuh", "rowtile_sm90.cuh", "persistent grid"),
@@ -293,7 +295,8 @@ def test_sub_block_backward_products_run_on_wgmma():
     src = (PKG / "csrc" / "stblock_train.cu").read_text()
     assert '#include "subblock_sm90.cuh"' in src
     for used in ("rt::wgmma_m64n256<", "rt::wgmma_m64n64<0, 0>", "rt::tma_load(",
-                 "rt::Ring<", "sb::launch_qkv<", "kWgradItems"):
+                 "rt::Ring<", "sb::launch_qkv<", "kWgradItems",
+                 "constexpr int kMlpThreads = kMlpPairs * rt::kConsumers * 128;"):
         assert used in src, used
     for gone in ("cp_async", "load_stage", "kTargetCtas"):
         assert gone not in src, gone

@@ -429,8 +429,11 @@ class TestTrainKernels:
 
     # 243 frames as served; 3 x 81: 4,131 rows, a ragged last 128-row tile and
     # a ragged last 64-row chunk of the weight gradients' K slices; sequences
-    # of L = 17 and of the longest, 256
-    @pytest.mark.parametrize("clips,clip_len", [(1, 243), (2, 243), (3, 81), (2, 17), (1, 256)])
+    # of L = 17 and of the longest, 256; 16 x 243, the benchmark's half step:
+    # 66,096 rows, ~4 row tiles a persistent CTA, so every barrier of the
+    # MLP backward's tile walk turns over several times
+    @pytest.mark.parametrize("clips,clip_len", [(1, 243), (2, 243), (3, 81), (2, 17), (1, 256),
+                                                (16, 243)])
     @pytest.mark.parametrize("half", ["spatial", "temporal", "sequences"])
     def test_backward_matches_plain_and_is_deterministic(self, half, clips, clip_len):
         x, g, w = self._setup(clips, half, clip_len=clip_len)
