@@ -471,6 +471,7 @@ from pose3d_tpu_torch.models.lifters import JointTransformerLifter, MartinezLift
 from pose3d_tpu_torch.models.norm import F32BatchNorm1d, F32BatchNorm2d, sync_batch_norm
 from pose3d_tpu_torch.models.smpl import synthetic_model
 from pose3d_tpu_torch.models.smpl_pose import HybrIKPose, PoseSMPLNet
+from pose3d_tpu_torch.models.dstformer import DSTformer
 from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops import attention as A
@@ -949,9 +950,11 @@ def attention_phase(model) -> dict:
         ("seq_attention", CLIPS * 17, 243, 8, 32),
         ("seq_attention", CLIPS * 17, 243, 4, 64),
         ("seq_attention", CLIPS * 17, 100, 4, 16),
+        ("packed_flat_attention", frames, 17, 8, 64),      # DSTformer's spatial halves
+        ("seq_attention", CLIPS * 17, 243, 8, 64),         # DSTformer's temporal halves
     ]
     cases += [("seq_attention", CLIPS * 17, length, heads, dh) for length in WG_LENGTHS
-              for heads, dh in ((8, 32), (4, 16), (4, 64))]
+              for heads, dh in ((8, 32), (4, 16), (4, 64), (8, 64))]
     cases += [("seq_attention", 2, length, heads, dh) for heads, dh, length in LONGEST]
     errs = {"packed_flat_attention": 0.0, "seq_attention": 0.0}
     for name, n, length, heads, dh in cases:
@@ -987,6 +990,42 @@ def attention_phase(model) -> dict:
 
 TEMPORAL_KERNELS = (S.spatial_block, S.temporal_slab, A.packed_flat_attention,
                     A.seq_attention)
+DST_VIDEO = 600  # frames: 5 clips of 243 at the half-clip stride, one forward
+
+
+def seeded_dstformer(device, dtype):
+    model = DSTformer(device="cpu")
+    model.init_weights(torch.Generator().manual_seed(SEED + 9))
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def dstformer_phase() -> dict:
+    """MotionBERT's DSTformer at its published widths (dim 512, 8 heads x
+    64) through lift_sequence's module route: every attention of its 20
+    sub-blocks on rows 3-4. As for the trunk, the kernels' rms error
+    against the f32 module is at most F32_ERR_RATIO times the plain bf16
+    route's. Returns each attention kernel's launches."""
+    rng = np.random.default_rng(SEED + 9)
+    kp = np.concatenate([rng.random((DST_VIDEO, 17, 2)) * 1000,
+                         rng.uniform(0.3, 1.0, (DST_VIDEO, 17, 1))], -1).astype(np.float32)
+    model = seeded_dstformer("cuda", torch.bfloat16)
+    kernels = (A.packed_flat_attention, A.seq_attention)
+    before = [f.launches for f in kernels]
+    got = lift_sequence(model, kp)
+    made = {f.__name__: f.launches - b for f, b in zip(kernels, before)}
+    log(f"DSTformer lift_sequence {DST_VIDEO} frames: launches {made} (expected 10 each)")
+    if made != {"packed_flat_attention": 10, "seq_attention": 10}:
+        raise AssertionError("the DSTformer's attention did not take the kernels")
+    plain = lift_sequence(model, kp, use_kernels=False)
+    want = lift_sequence(seeded_dstformer("cuda", torch.float32), kp)
+    gaps = {k: v - want for k, v in (("kernels", got), ("plain", plain))}
+    err = {k: (float(np.abs(g).max()), float(np.sqrt((g ** 2).mean()))) for k, g in gaps.items()}
+    log(f"DSTformer lift_sequence {DST_VIDEO} frames vs the f32 module (max abs, rms): kernels "
+        f"{err['kernels'][0]:.6g}, {err['kernels'][1]:.6g}; plain bf16 {err['plain'][0]:.6g}, "
+        f"{err['plain'][1]:.6g}; |want| max {np.abs(want).max():.4g}")
+    if got.shape != (DST_VIDEO, 17, 3) or err["kernels"][1] > F32_ERR_RATIO * err["plain"][1]:
+        raise AssertionError("the DSTformer's answer out of tolerance")
+    return made
 
 
 def lift_phase(model, model_f32) -> dict:
@@ -4730,6 +4769,8 @@ def main() -> None:
         tmodel = seeded_temporal("cuda", torch.bfloat16)
         errs = {**sub_block_phase(tmodel), **attention_phase(tmodel)}
         tlaunches = lift_phase(tmodel, seeded_temporal("cuda", torch.float32))
+        for k, n in dstformer_phase().items():
+            tlaunches[k] += n
         tt = temporal_timing_phase(tmodel)
 
         mmodel = seeded_martinez("cuda", torch.bfloat16)

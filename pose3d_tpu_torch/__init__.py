@@ -13,7 +13,8 @@ the SMPL-IK family with the renders, and data and tensor parallelism.
 
 - ``models/lifters.py``  ``MartinezLifter``, ``AELifter``,
   ``JointTransformerLifter`` (the reference LinearModel, AE, MyViT).
-- ``models/temporal.py`` ``TemporalLifter``, ``clip_starts``, ``make_clips``.
+- ``models/temporal.py`` ``TemporalLifter``, ``clip_starts``, ``make_clips``;
+  ``models/dstformer.py`` ``DSTformer`` (MotionBERT's dual-stream lifter).
 - ``models/resnet.py``, ``models/heads.py``  ``ResNet``, ``PoseNet3D`` (the
   reference Model_3D); ``models/norm.py`` the f32 BatchNorms.
 - ``interop/weights.py`` flax param trees -> the port's state dicts.

@@ -36,6 +36,7 @@ import torch
 from pose3d_tpu_torch.models.temporal import TemporalLifter
 from pose3d_tpu_torch.ops import _build, attention
 from pose3d_tpu_torch.ops.numerics import dot, gelu, ln
+from pose3d_tpu_torch.train.debug import span
 
 N_JOINTS = 17
 DIM = 256
@@ -407,7 +408,7 @@ def temporal_forward_fused(module, clips: torch.Tensor, *,
     embed_clips(...)))``, whose plain version, the yardstick on the card,
     puts ``temporal_trunk_reference`` in the middle. ``weights`` defaults
     to ``pack_temporal_lifter(module)``; pass them packed once to skip the
-    repacking.
+    repacking. The trunk's launches lie in the span ``pose3d.temporal.trunk``.
     """
     if not supports(module):
         raise ValueError("temporal_forward_fused takes a TemporalLifter with 17 "
@@ -415,4 +416,6 @@ def temporal_forward_fused(module, clips: torch.Tensor, *,
     if weights is None:
         weights = pack_temporal_lifter(module)
     tokens = embed_clips(module, clips)
-    return temporal_head(module, temporal_trunk(tokens, len(clips), weights), len(clips))
+    with span("pose3d.temporal.trunk"):
+        tokens = temporal_trunk(tokens, len(clips), weights)
+    return temporal_head(module, tokens, len(clips))

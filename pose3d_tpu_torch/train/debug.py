@@ -11,6 +11,10 @@
   forward), ``serve.fetch`` (its copy out); ``trunk`` (the trunk kernels'
   launch, ``ops/lifter.trunk_scratch``); ``lift_sequence.clips``,
   ``.forward``, ``.average`` (``pipeline/lift.lift_sequence``);
+  ``temporal.trunk`` (the blocks of a served temporal forward: the
+  sub-block launches of ``ops/stblock.temporal_forward_fused``, the block
+  loop of ``models/dstformer.DSTformer``), ``temporal.fuse`` (each of the
+  DSTformer's stream fusions, inside ``temporal.trunk``);
   ``train.step`` (``steps.make_lifter_train_step``'s step),
   ``train.forward`` (its apply and loss), ``train.backward`` and
   ``train.optimizer`` (``steps.apply_gradients``), ``train.pack`` (each
