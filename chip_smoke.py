@@ -476,6 +476,7 @@ from pose3d_tpu_torch.models.temporal import TemporalLifter, make_clips
 from pose3d_tpu_torch.ops import _build
 from pose3d_tpu_torch.ops import attention as A
 from pose3d_tpu_torch.ops import conv_decode as CD
+from pose3d_tpu_torch.ops import dstformer as DST
 from pose3d_tpu_torch.ops import flash_attention as FA
 from pose3d_tpu_torch.ops import heatmap as H
 from pose3d_tpu_torch.ops import lifter as L
@@ -523,6 +524,7 @@ F32_ATOL = 0.1       # bf16 path vs the f32 module (test_close_to_f32_flax_apply
 # against an f32 attention at most 1.5x the plain version's
 ATTN_ATOL, ATTN_RTOL = 2 ** -6, 2 ** -7
 CLIPS = 16           # the JAX bench's temporal_infer batch (TI_B)
+DST_CLIPS = 16       # the DSTformer sub-blocks' timed shape: 66,096 rows
 VIDEOS = (600, 100, 40)  # frames: the fused route, the module route at L > 64, at L <= 64
 TRAIN_CLIPS = 16     # TemporalConfig.batch_size: 16 x 243 x 17 = 66,096 token rows
 TRAIN_STEPS = 10     # steps of the training run whose loss must fall
@@ -991,6 +993,13 @@ def attention_phase(model) -> dict:
 TEMPORAL_KERNELS = (S.spatial_block, S.temporal_slab, A.packed_flat_attention,
                     A.seq_attention)
 DST_VIDEO = 600  # frames: 5 clips of 243 at the half-clip stride, one forward
+# (clips, frames) of the fused sub-blocks' checks: rows that are no multiple
+# of either tile (4,131, 12,393 and 66,096: the timed shape, ~4 row tiles a
+# CTA of the persistent products, so A is reloaded behind a_empty from the
+# second tile on), and a short clip whose temporal attention takes
+# attention_kernel (L <= 64) in the strided layout
+DST_CASES = ((1, 243), (3, 243), (16, 243), (2, 40))
+DST_LAUNCHES = ("ln_qkv", "attend", "proj_residual", "ln_fc1_gelu", "fc2_residual")
 
 
 def seeded_dstformer(device, dtype):
@@ -999,23 +1008,94 @@ def seeded_dstformer(device, dtype):
     return model.to(device=device, dtype=dtype).eval()
 
 
+def dstformer_tokens(model, clips: int, frames: int, seed: int) -> torch.Tensor:
+    """The first block's input rows of seeded keypoint clips: (clips ·
+    frames · 17, 512) frame-major, as DSTformer.forward embeds them."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(clips, frames, 17, 3, generator=gen).to("cuda", model.dtype)
+    h = model.joints_embed(x) + model.pos_embed + model.temp_embed[:, :frames]
+    return h.reshape(-1, model.hidden).contiguous()
+
+
+def dstformer_steps(x, w, axis: str, frames: int, kernels: bool) -> dict:
+    """Each launch of one sub-block on the plain version's inputs: its
+    kernel (``kernels``) or its plain version, by name."""
+    D = DST
+    ref = {"ln_qkv": D.ln_qkv_reference(x, w)}
+    ref["attend"] = D.attend_reference(ref["ln_qkv"], axis, frames)
+    ref["proj_residual"] = D.proj_residual_reference(ref["attend"], w, x)
+    ref["ln_fc1_gelu"] = D.ln_fc1_gelu_reference(ref["proj_residual"], w)
+    ref["fc2_residual"] = D.fc2_residual_reference(ref["ln_fc1_gelu"], w, ref["proj_residual"])
+    if not kernels:
+        return ref
+    return {"ln_qkv": D.ln_qkv(x, w), "attend": D.attend(ref["ln_qkv"], axis, frames),
+            "proj_residual": D.proj_residual(ref["attend"], w, x),
+            "ln_fc1_gelu": D.ln_fc1_gelu(ref["proj_residual"], w),
+            "fc2_residual": D.fc2_residual(ref["ln_fc1_gelu"], w, ref["proj_residual"])}
+
+
+def dstformer_kernel_phase(model) -> dict:
+    """DSTformer's fused sub-block launches (csrc/dstformer.cu) against
+    their plain versions, each on the plain version's inputs, for a
+    spatial and a temporal sub-block of each stream order, at the rows of
+    DST_CASES: rows within 5e-2 + 2^-5 |want| (the attention 2^-6 + 2^-7
+    |want|) and the f32-yardstick ratio 1.5; the whole sub-block the same;
+    two calls bitwise equal. Returns the largest gap of each launch."""
+    m32 = seeded_dstformer("cuda", torch.float32)
+    errs = {k: 0.0 for k in (*DST_LAUNCHES, "sub_block")}
+    for clips, frames in DST_CASES:
+        x = dstformer_tokens(model, clips, frames, SEED + 30 + clips)
+        for i, axis in ((0, "s"), (0, "t"), (1, "t"), (1, "s")):
+            block = (model.blocks_st, model.blocks_ts)[i][0]
+            block32 = (m32.blocks_st, m32.blocks_ts)[i][0]
+            w, w32 = DST.weights(block, axis), DST.weights(block32, axis)
+            what = f"{clips} x {frames}, {block.order} {axis}"
+            got = dstformer_steps(x, w, axis, frames, True)
+            want = dstformer_steps(x, w, axis, frames, False)
+            ins = {"ln_qkv": x, "attend": want["ln_qkv"], "proj_residual": want["attend"],
+                   "ln_fc1_gelu": want["proj_residual"], "fc2_residual": want["ln_fc1_gelu"]}
+            ref32 = {"ln_qkv": DST.ln_qkv_reference(x.float(), w32),
+                     "attend": DST.attend_reference(ins["attend"].float(), axis, frames),
+                     "proj_residual": DST.proj_residual_reference(ins["proj_residual"].float(),
+                                                                  w32, x.float()),
+                     "ln_fc1_gelu": DST.ln_fc1_gelu_reference(ins["ln_fc1_gelu"].float(), w32),
+                     "fc2_residual": DST.fc2_residual_reference(
+                         ins["fc2_residual"].float(), w32, want["proj_residual"].float())}
+            for name in DST_LAUNCHES:
+                check = _attn_check if name == "attend" else _rows_check
+                errs[name] = max(errs[name], check(f"dstformer {name} {what}", got[name],
+                                                   want[name], ref32[name]))
+            out = DST.sub_block(x, w, axis, frames)
+            again = DST.sub_block(x, w, axis, frames)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"dstformer sub_block {what}: two calls differ")
+            errs["sub_block"] = max(errs["sub_block"], _rows_check(
+                f"dstformer sub_block {what}", out, DST.sub_block_reference(x, w, axis, frames),
+                DST.sub_block_reference(x.float(), w32, axis, frames)))
+    log(f"dstformer launches vs plain, largest gaps: {errs}; two calls bitwise equal")
+    return errs
+
+
 def dstformer_phase() -> dict:
     """MotionBERT's DSTformer at its published widths (dim 512, 8 heads x
-    64) through lift_sequence's module route: every attention of its 20
-    sub-blocks on rows 3-4. As for the trunk, the kernels' rms error
+    64) through lift_sequence: every one of its 20 sub-blocks on the fused
+    launches of csrc/dstformer.cu (5 launches each), nothing on the module
+    route's attention wrappers. As for the trunk, the answer's rms error
     against the f32 module is at most F32_ERR_RATIO times the plain bf16
-    route's. Returns each attention kernel's launches."""
+    route's. Returns the launches made."""
     rng = np.random.default_rng(SEED + 9)
     kp = np.concatenate([rng.random((DST_VIDEO, 17, 2)) * 1000,
                          rng.uniform(0.3, 1.0, (DST_VIDEO, 17, 1))], -1).astype(np.float32)
     model = seeded_dstformer("cuda", torch.bfloat16)
-    kernels = (A.packed_flat_attention, A.seq_attention)
-    before = [f.launches for f in kernels]
+    counters = ((A.packed_flat_attention, "launches"), (A.seq_attention, "launches"),
+                (DST.sub_block, "launches"), (DST.sub_block, "fused"))
+    before = [getattr(f, k) for f, k in counters]
     got = lift_sequence(model, kp)
-    made = {f.__name__: f.launches - b for f, b in zip(kernels, before)}
-    log(f"DSTformer lift_sequence {DST_VIDEO} frames: launches {made} (expected 10 each)")
-    if made != {"packed_flat_attention": 10, "seq_attention": 10}:
-        raise AssertionError("the DSTformer's attention did not take the kernels")
+    made = {f"{f.__name__}.{k}": getattr(f, k) - b for (f, k), b in zip(counters, before)}
+    log(f"DSTformer lift_sequence {DST_VIDEO} frames: {made} (expected 0, 0, 100, 20)")
+    if list(made.values()) != [0, 0, 100, 20]:
+        raise AssertionError("the DSTformer's sub-blocks did not take the fused launches")
     plain = lift_sequence(model, kp, use_kernels=False)
     want = lift_sequence(seeded_dstformer("cuda", torch.float32), kp)
     gaps = {k: v - want for k, v in (("kernels", got), ("plain", plain))}
@@ -1026,6 +1106,95 @@ def dstformer_phase() -> dict:
     if got.shape != (DST_VIDEO, 17, 3) or err["kernels"][1] > F32_ERR_RATIO * err["plain"][1]:
         raise AssertionError("the DSTformer's answer out of tolerance")
     return made
+
+
+def dstformer_bounds(rows: int, frames: int) -> dict:
+    """(least ms, what bounds it) of each fused launch and of each sub-block
+    on ``rows`` frame-major rows of clips of ``frames`` frames: products
+    over the bf16 peak, bytes (each operand read once, each output written
+    once, the weights once) over the HBM rate, exponentials over the SFUs.
+    The sub-blocks' as perfbench's bounds_video counts them (input and
+    output rows only)."""
+    c, h, dh, f = 512, 8, 64, 1024
+    clock = max_sm_clock()
+    att = {"s": (17, rows // 17), "t": (frames, rows // frames)}  # (L, sequences)
+    out = {"ln_qkv": launch_bound(2 * rows * c * 3 * c, rows * 8 * c + 6 * c * c, 0, clock),
+           "proj_residual": launch_bound(2 * rows * c * c, rows * 6 * c + 2 * c * c, 0, clock),
+           "ln_fc1_gelu": launch_bound(2 * rows * c * f, rows * 6 * c + 2 * c * f, 0, clock),
+           "fc2_residual": launch_bound(2 * rows * f * c, rows * 8 * c + 2 * c * f, 0, clock)}
+    dense = 2 * rows * c * (3 * c + c + 2 * f)
+    for axis, (length, n) in att.items():
+        flops, exps = 4 * n * length * length * c, n * h * length * length
+        out[f"attend_{axis}"] = launch_bound(flops, rows * 8 * c, exps, clock)
+        out[f"sub_block_{axis}"] = launch_bound(dense + flops, rows * 4 * c + 2 * 6 * c * c,
+                                                exps, clock)
+    return out
+
+
+def dstformer_timing_phase(model) -> dict:
+    """At DST_CLIPS x 243 frames: each fused launch (ms a call, CUDA events),
+    each sub-block on them, their plain versions, and the module route's
+    sub-block (``DSTBlock._sub_block`` with the attention kernels, the
+    temporal one between its transposes, as DSTBlock.forward ran it: the
+    yardstick, which the fused route no longer calls); beside each bound;
+    then a device-time split of the fused sub-blocks by kernel."""
+    frames = 243
+    x = dstformer_tokens(model, DST_CLIPS, frames, SEED + 40)
+    rows = x.shape[0]
+    b = dict(dstformer_bounds(rows, frames))
+    t = {}
+    for i, axis in ((0, "s"), (0, "t")):
+        block = model.blocks_st[0]
+        w = DST.weights(block, axis)
+        ins = dstformer_steps(x, w, axis, frames, False)
+        calls = {"ln_qkv": lambda: DST.ln_qkv(x, w),
+                 f"attend_{axis}": lambda: DST.attend(ins["ln_qkv"], axis, frames),
+                 "proj_residual": lambda: DST.proj_residual(ins["attend"], w, x),
+                 "ln_fc1_gelu": lambda: DST.ln_fc1_gelu(ins["proj_residual"], w),
+                 "fc2_residual": lambda: DST.fc2_residual(ins["ln_fc1_gelu"], w,
+                                                          ins["proj_residual"])}
+        for name, fn in calls.items():
+            if name not in t:
+                t[name] = cuda_ms(fn)
+        t[f"sub_block_{axis}"] = cuda_ms(lambda: DST.sub_block(x, w, axis, frames))
+        t[f"plain_sub_block_{axis}"] = cuda_ms(
+            lambda: DST.sub_block_reference(x, w, axis, frames), n=3)
+        x4 = x.view(DST_CLIPS, frames, 17, -1)
+        if axis == "s":
+            module = lambda: block._sub_block("s", x4.reshape(-1, 17, 512), True)
+        else:
+            module = lambda: block._sub_block(
+                "t", x4.transpose(1, 2).reshape(-1, frames, 512), True).view(
+                DST_CLIPS, 17, frames, 512).transpose(1, 2).contiguous()
+        t[f"module_sub_block_{axis}"] = cuda_ms(module)
+        split, launches = device_profile(lambda: DST.sub_block(x, w, axis, frames))
+        log(f"dstformer sub_block_{axis} device split ({launches:.0f} launches a call): "
+            f"{top_kernels(split, 6)}")
+    for name, ms in t.items():
+        key = name.removeprefix("plain_").removeprefix("module_")
+        bms, by = b[key]
+        log(f"time dstformer C={DST_CLIPS} {name}: {ms:.4f} ms (bound {bms:.4f}, {by}; "
+            f"{bms / ms:.1%} of it)")
+    return t
+
+
+def dstformer_record(errs: dict, made: dict, t: dict) -> dict:
+    """The kernels line's record of DSTformer's fused sub-blocks (PERF.md
+    §6 row 15, no TPU kernel replaced: the JAX package has no DSTformer)
+    from dstformer_kernel_phase's gaps, dstformer_phase's launches and
+    dstformer_timing_phase's times: one spatial plus one temporal
+    sub-block at DST_CLIPS x 243 frames (ms, plain ms, bound), the module
+    route's pair as the yardstick in ``library_ms`` (its cuBLAS products
+    and PyTorch passes, which the fused route no longer calls)."""
+    b = dstformer_bounds(DST_CLIPS * 243 * 17, 243)
+    pair = lambda d, prefix="": d[f"{prefix}sub_block_s"] + d[f"{prefix}sub_block_t"]
+    by = sorted({b["sub_block_s"][1], b["sub_block_t"][1]})
+    return {"name": "dstformer_sub_block", "route": "cuda",
+            "source": "pose3d_tpu_torch/csrc/dstformer.cu", "replaces": None,
+            "launches": made["sub_block.launches"], "max_abs_err": max(errs.values()),
+            "ms": pair(t), "plain_ms": pair(t, "plain_"),
+            "bound_ms": b["sub_block_s"][0] + b["sub_block_t"][0], "bound_by": "+".join(by),
+            "library_ms": pair(t, "module_")}
 
 
 def lift_phase(model, model_f32) -> dict:
@@ -4769,8 +4938,10 @@ def main() -> None:
         tmodel = seeded_temporal("cuda", torch.bfloat16)
         errs = {**sub_block_phase(tmodel), **attention_phase(tmodel)}
         tlaunches = lift_phase(tmodel, seeded_temporal("cuda", torch.float32))
-        for k, n in dstformer_phase().items():
-            tlaunches[k] += n
+        dst = seeded_dstformer("cuda", torch.bfloat16)
+        dst_record = dstformer_record(dstformer_kernel_phase(dst), dstformer_phase(),
+                                      dstformer_timing_phase(dst))
+        del dst
         tt = temporal_timing_phase(tmodel)
 
         mmodel = seeded_martinez("cuda", torch.bfloat16)
@@ -4912,6 +5083,7 @@ def main() -> None:
                     ("flash_fwd", 758, "flash_fwd_plain", "sdpa_fwd"),
                     ("flash_bwd_dkv", 1121, "flash_bwd_plain", "sdpa_bwd"),
                     ("flash_bwd_dq", 1456, "flash_bwd_plain", "sdpa_bwd"))]
+    kernels.append(dst_record)
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
@@ -4972,6 +5144,13 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         long_phase()
+    elif sys.argv[1:] == ["--dstformer"]:  # DSTformer's fused sub-blocks alone
+        device_phase()
+        build_phase()
+        with torch.inference_mode():
+            dst = seeded_dstformer("cuda", torch.bfloat16)
+            log(json.dumps({"kernels": [dstformer_record(
+                dstformer_kernel_phase(dst), dstformer_phase(), dstformer_timing_phase(dst))]}))
     elif sys.argv[1:] == ["--martinez-split"]:  # the block kernel's two launches alone
         device_phase()
         build_phase()

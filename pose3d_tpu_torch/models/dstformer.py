@@ -16,7 +16,12 @@ joints of each frame, the temporal one over the T frames of each joint.
 Each of the 2 x depth blocks holds its own spatial and temporal weights.
 Built from ``models/temporal.py``'s ``_MHSA`` and ``_MLP``; ``use_kernels``
 sends every attention through ``ops.attention`` as there (the packed
-kernel at 17 joints, the sequence kernel at more than 64 frames).
+kernel at 17 joints, the sequence kernel at more than 64 frames). Where
+``ops.dstformer.takes_fused`` holds (``use_kernels``, bf16 tokens on a
+CUDA device, no gradient recorded, the published widths: hidden 512, 8
+heads, MLP ratio 2, 17 joints, eps 1e-6), each sub-block runs on that
+module's fused launches instead, on frame-major rows, neither axis
+transposed; the embed, the fusions and the head stay as they are.
 
 Parameter names are MotionBERT's (``joints_embed``, ``pos_embed``,
 ``temp_embed``, ``blocks_st.<i>`` / ``blocks_ts.<i>`` with ``norm1_s``,
@@ -35,6 +40,7 @@ import torch
 from torch import nn
 
 from pose3d_tpu_torch.models.temporal import TemporalLifter, _MHSA, _MLP
+from pose3d_tpu_torch.ops import dstformer as fused
 from pose3d_tpu_torch.train.debug import span
 
 
@@ -70,6 +76,16 @@ class DSTBlock(nn.Module):
                 x = x.transpose(1, 2).reshape(b * j, t, c)
                 x = self._sub_block("t", x, use_kernels).view(b, j, t, c).transpose(1, 2)
         return x
+
+    def forward_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The same block on the fused sub-blocks (``ops.dstformer``, its
+        ``HEADS`` heads): (B, T, J, C) tokens as frame-major rows throughout,
+        neither axis transposed."""
+        b, t, j, c = x.shape
+        rows = x.reshape(b * t * j, c)
+        for axis in self.order:
+            rows = fused.sub_block(rows, fused.weights(self, axis), axis, t)
+        return rows.view(b, t, j, c)
 
 
 def fuse(att: nn.Linear, s: torch.Tensor, t: torch.Tensor):
@@ -140,9 +156,13 @@ class DSTformer(nn.Module):
             raise ValueError(f"{t} frames exceed clip_len {self.clip_len}")
         h = self.joints_embed(x.to(self.dtype)) + self.pos_embed
         h = h + self.temp_embed[:, :t]
+        on_fused = fused.takes_fused(self, h, use_kernels)
         with span("pose3d.temporal.trunk"):
             for st, ts, att in zip(self.blocks_st, self.blocks_ts, self.ts_attn):
-                s, u = st(h, use_kernels), ts(h, use_kernels)
+                if on_fused:
+                    s, u = st.forward_fused(h), ts.forward_fused(h)
+                else:
+                    s, u = st(h, use_kernels), ts(h, use_kernels)
                 with span("pose3d.temporal.fuse"):
                     h, _ = fuse(att, s, u)
         y = self.head(self.pre_logits(self.norm(h)))

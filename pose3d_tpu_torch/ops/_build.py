@@ -110,7 +110,12 @@ def library() -> ctypes.CDLL:
                        ("conv_decode_bwd_launch", [p] * 10 + [i] * 8 + [p]),
                        ("flash_fwd_launch", [p] * 3 + [ll] * 4 + [p, p] + [i] * 5 + [p]),
                        ("flash_bwd_dq_launch", [p] * 3 + [ll] * 4 + [p] * 5 + [i] * 5 + [p]),
-                       ("flash_bwd_dkv_launch", [p] * 3 + [ll] * 4 + [p] * 5 + [i] * 5 + [p])):
+                       ("flash_bwd_dkv_launch", [p] * 3 + [ll] * 4 + [p] * 5 + [i] * 5 + [p]),
+                       ("dstformer_ln_qkv_launch", [p] * 6 + [i, i, p]),
+                       ("dstformer_proj_residual_launch", [p] * 5 + [i, i, p]),
+                       ("dstformer_ln_fc1_gelu_launch", [p] * 6 + [i, i, p]),
+                       ("dstformer_fc2_residual_launch", [p] * 5 + [i, i, p]),
+                       ("dstformer_attention_launch", [p, p] + [i] * 5 + [p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i

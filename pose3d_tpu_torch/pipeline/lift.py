@@ -35,8 +35,11 @@ def lift_sequence(model, kp2d_px: np.ndarray, image_size: float = 1000.0,
     only, so that an f32 model keeps f32 numerics. With kernels, full-length
     clips of a ``TemporalLifter`` of the kernels' widths run the fused
     forward (``ops.stblock.temporal_forward_fused``: one spatial and one
-    temporal sub-block kernel per block), and anything else the module with
-    its attention kernels. On the CPU every kernel runs its plain version.
+    temporal sub-block kernel per block), a bf16 ``DSTformer`` of the
+    published widths on a CUDA device its fused sub-blocks
+    (``ops.dstformer``: five launches each), and anything else the module
+    with its attention kernels. On the CPU every kernel runs its plain
+    version.
 
     Counts, process-wide: each call in ``lift_sequence.videos``, its T in
     ``.frames`` and the frames its clips run (overlaps counted each time)

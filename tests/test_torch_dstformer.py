@@ -34,6 +34,7 @@ from perfbench.tests.conftest import copy_benchmark
 from pose3d_tpu_torch.models.dstformer import DSTformer, fuse
 from pose3d_tpu_torch.models.temporal import TemporalLifter
 from pose3d_tpu_torch.ops import attention, stblock
+from pose3d_tpu_torch.ops import dstformer as fused
 from pose3d_tpu_torch.pipeline.lift import lift_sequence, lift_video_json
 
 REPO = Path(__file__).resolve().parent.parent
@@ -330,19 +331,22 @@ def test_the_temporal_references_clipping_is_lift_sequences():
 
 @pytest.mark.cuda
 def test_the_published_model_lifts_a_video_on_the_card():
-    """At the published widths in bf16: the attention on the kernels, the
-    answer within bf16's reach of the f32 reference, its rms gap at most
-    1.5x the plain bf16 route's (chip_smoke's F32_ERR_RATIO)."""
+    """At the published widths in bf16: every sub-block on the fused
+    launches of ops.dstformer (5 each, the module route's attention
+    wrappers unused), the answer within bf16's reach of the f32 reference,
+    its rms gap at most 1.5x the plain bf16 route's (chip_smoke's
+    F32_ERR_RATIO)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card")
     dev = torch.device("cuda", 0)
     cfg = Registry(REPO).config("motionbert")
     m = DSTformer(device=dev, dtype=torch.bfloat16).init_weights(torch.Generator().manual_seed(9))
     kp = keypoints(600, 9)
-    launches = attention.packed_flat_attention.launches, attention.seq_attention.launches
+    counters = ((attention.packed_flat_attention, "launches"), (attention.seq_attention, "launches"),
+                (fused.sub_block, "launches"), (fused.sub_block, "fused"))
+    before = [getattr(f, k) for f, k in counters]
     got = lift_sequence(m, kp)
-    assert attention.packed_flat_attention.launches - launches[0] == 10
-    assert attention.seq_attention.launches - launches[1] == 10
+    assert [getattr(f, k) - b for (f, k), b in zip(counters, before)] == [0, 0, 100, 20]
     with torch.no_grad():
         want = ref.lift_video(ref.forward, {k: v.to(dev) for k, v in params(m).items()},
                               torch.from_numpy(kp).to(dev), cfg).cpu().numpy()

@@ -147,6 +147,9 @@ LAUNCHERS = {
     "conv_decode.cu": ["conv_decode_launch"],
     "conv_decode_bwd.cu": ["conv_decode_bwd_launch"],
     "flash_attention.cu": ["flash_fwd_launch", "flash_bwd_dq_launch", "flash_bwd_dkv_launch"],
+    "dstformer.cu": ["dstformer_ln_qkv_launch", "dstformer_proj_residual_launch",
+                     "dstformer_ln_fc1_gelu_launch", "dstformer_fc2_residual_launch",
+                     "dstformer_attention_launch"],
 }
 
 
@@ -487,3 +490,40 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_dstformer_sub_blocks_are_their_own_gemm_plan():
+    """csrc/dstformer.cu: its note says it replaces no TPU kernel, what
+    bounds it and what the design does about it; its products are wgmma
+    fed by TMA on rowtile_sm90.cuh's primitives with the weights taken
+    K-major as they lie, LayerNorm in the prologue, bias, GELU and residual
+    in the epilogue; the attention is attention.cu's launch_attention; it
+    takes nothing of the 256-wide engine (subblock_sm90.cuh) and bakes in
+    the wrapper's widths and eps; no atomics."""
+    from pose3d_tpu_torch.ops import dstformer as D
+
+    csrc = PKG / "csrc"
+    src = (csrc / "dstformer.cu").read_text()
+    header = " ".join(line.removeprefix("//").strip()
+                      for line in src[:src.index("#include")].splitlines())
+    for phrase in ("Replaces no TPU kernel", "What bounds it on this card", "277 GFLOP",
+                   "0.280 ms", "1.12 GB", "0.335 ms", "no HBM pass of its own",
+                   "subblock_sm90.cuh", "rowtile_sm90.cuh", "persistent", "resident A tile",
+                   "named barriers", "epilogue runs under the other's products", "exact erf",
+                   "4-D TMA map", "neither layout is ever transposed", "No atomics",
+                   "bitwise equal"):
+        assert phrase in header, phrase
+    code = src[src.index("#include"):]
+    assert '#include "rowtile_sm90.cuh"' in code and '#include "attention.cuh"' in code
+    assert "subblock_sm90.cuh" not in code
+    for used in ("rt::wgmma_m64n128<0, 0>(", "rt::tma_load(", "rt::Ring<", "rt::regs_dec<",
+                 "rt::regs_inc<", "__grid_constant__ CUtensorMap", "pose3d::tile_map(",
+                 "pose3d::launch_attention(", "t += gridDim.x", "erff(", "layer_norm_tile("):
+        assert used in code, used
+    for instr in ("wgmma.mma_async", "cp.async.bulk.tensor.2d", "mbarrier.try_wait",
+                  "setmaxnreg.dec"):
+        assert instr in _with_local_headers(csrc / "dstformer.cu"), instr
+    assert "atomicAdd" not in src and "atom." not in src and "red.global" not in src
+    assert f"constexpr int kWidth = {D.WIDTH};" in code
+    assert f"constexpr int kHeads = {D.HEADS};" in code
+    assert f"constexpr float kEps = {D.LN_EPS:.0e}f;".replace("e-06", "e-6") in code
